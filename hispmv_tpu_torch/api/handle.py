@@ -1,0 +1,487 @@
+"""Prepare-once / run-many execution handles on PyTorch.
+
+Port of ``hispmv_tpu/api/handle.py`` for the formats ``auto``, ``dense``,
+``block``, ``window``, ``ellx`` and ``stream``:
+
+- :class:`SpmvHandle` holds one prepared matrix as device tensors in
+  ``_d`` (same key names as the JAX package) and runs
+  ``y = alpha * A @ x + beta * y_in``;
+- :func:`choose_format` is the same structural dispatch;
+- :class:`Accelerator` keeps many handles resident and runs the selected
+  one.
+
+The runner is eager Python on explicit tensors: no jit, no interpret mode,
+and no VMEM-budget dispatch (a GPU kernel reads x from device memory, so
+the block format always uses the chunked layout and the B1 kernel).  Every
+handle lives on one ``device`` (default ``"cuda"``); it never moves to the
+CPU on its own.  On a CPU device the kernel wrappers run their plain
+PyTorch versions.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Dict, Optional, Union
+
+import numpy as np
+import torch
+
+from hispmv_tpu_torch.config import SpmvConfig
+from hispmv_tpu_torch.formats.matrix import COOMatrix
+from hispmv_tpu_torch.ops.gemv import gemv
+from hispmv_tpu_torch.ops.spmv_chunked import (
+    chunk_for,
+    pack_chunks,
+    spmv_chunked,
+)
+from hispmv_tpu_torch.ops.spmv_ellx import (
+    EllxPlan,
+    build_ellx_plan,
+    ellx_matvec,
+)
+from hispmv_tpu_torch.ops.spmv_ref import spmv_ref
+from hispmv_tpu_torch.ops.spmv_windowed import (
+    chunk_for_windowed,
+    pack_window_chunks,
+    spmv_windowed,
+)
+from hispmv_tpu_torch.plan.blocks import (
+    LANES,
+    BlockPlan,
+    build_block_plan,
+    degree_column_perm,
+)
+from hispmv_tpu_torch.plan.partition import StreamPlan, build_plan
+from hispmv_tpu_torch.plan.windows import SEGS, WindowPlan, build_window_plan
+from hispmv_tpu_torch.utils.errors import error_stats
+
+
+def _resolve_device(device) -> torch.device:
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {str(dev)!r} requested but torch.cuda.is_available() "
+            "is False; pass device='cpu' to run the plain PyTorch versions"
+        )
+    return dev
+
+
+def _extend_perm(col_perm: np.ndarray, num_cols: int, target: int) -> np.ndarray:
+    """Identity-extend a column permutation to ``target`` padded entries so
+    the runner can gather padded x in one index_select."""
+    return np.concatenate(
+        [np.asarray(col_perm, np.int32),
+         np.arange(num_cols, target, dtype=np.int32)]
+    )
+
+
+@dataclasses.dataclass
+class PrepareStats:
+    format: str
+    prep_time_s: float
+    device_bytes: int
+    fill: float  # block fill or 1 - padding (stream); 1.0 for dense
+
+
+class SpmvHandle:
+    """One prepared matrix, resident on ``device``."""
+
+    def __init__(
+        self,
+        matrix: Union[COOMatrix, np.ndarray],
+        config: Optional[SpmvConfig] = None,
+        format: str = "auto",  # noqa: A002 — mirrors the reference naming
+        device="cuda",
+    ):
+        t0 = time.perf_counter()
+        self.config = config or SpmvConfig()
+        self.device = _resolve_device(device)
+        if isinstance(matrix, np.ndarray):
+            self._from_dense_array(matrix)
+            fmt = "dense"
+        else:
+            self.coo = matrix
+            self.shape = matrix.shape
+            self.nnz = matrix.nnz
+            fmt = format
+            if fmt == "auto":
+                fmt = choose_format(matrix, self.config)
+            if fmt == "dense":
+                self._from_dense_array(matrix.to_dense())
+            elif fmt == "block":
+                self._prepare_block(matrix)
+            elif fmt == "ellx":
+                self._prepare_ellx(matrix)
+            elif fmt == "window":
+                self._prepare_window(matrix)
+            elif fmt == "stream":
+                self._prepare_stream(matrix)
+            elif fmt in ("split", "routed"):
+                raise NotImplementedError(
+                    f"format {fmt!r} is not ported yet (see ROADMAP.md)"
+                )
+            else:
+                raise ValueError(f"unknown format: {fmt}")
+        self.format = fmt
+        self.stats = PrepareStats(
+            format=fmt,
+            prep_time_s=time.perf_counter() - t0,
+            device_bytes=self.device_bytes,
+            fill=self._fill,
+        )
+
+    @classmethod
+    def from_plan(cls, plan, device="cuda"):
+        """Build a handle directly from a prepared plan of the port
+        (``plan/convert.py`` carries one over from the JAX package),
+        skipping preprocessing."""
+        self = cls.__new__(cls)
+        self.config = getattr(plan, "config", None) or SpmvConfig()
+        self.device = _resolve_device(device)
+        self.coo = None
+        self.shape = tuple(plan.shape)
+        self.nnz = plan.nnz
+        if isinstance(plan, EllxPlan):
+            self.config = dataclasses.replace(
+                self.config, block_h=plan.block_h
+            )
+            self._build_ellx_arrays(plan, self.shape[1])
+            fmt = "ellx"
+        elif isinstance(plan, BlockPlan):
+            self.config = dataclasses.replace(
+                self.config, block_h=plan.block_h
+            )
+            self._build_block_arrays(plan, self.shape[1])
+            fmt = "block"
+        elif isinstance(plan, WindowPlan):
+            self.config = dataclasses.replace(
+                self.config, block_h=plan.block_h
+            )
+            self._build_window_arrays(plan)
+            fmt = "window"
+        elif isinstance(plan, StreamPlan):
+            self._build_stream_arrays(plan)
+            fmt = "stream"
+        else:
+            raise TypeError(f"unsupported plan type {type(plan)}")
+        self.format = fmt
+        self.stats = PrepareStats(
+            format=fmt,
+            prep_time_s=0.0,
+            device_bytes=self.device_bytes,
+            fill=self._fill,
+        )
+        return self
+
+    # -- preparation ------------------------------------------------------
+
+    def _upload(self, arr: np.ndarray, dtype=None) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(arr)).to(
+            device=self.device, dtype=dtype
+        )
+
+    def _value_dtype(self) -> torch.dtype:
+        if self.config.value_dtype == "bfloat16":
+            return torch.bfloat16
+        return torch.float32
+
+    def _set_device_dict(self, d: Dict[str, torch.Tensor], fill: float):
+        self._d = d
+        self._fill = fill
+        self.device_bytes = sum(int(v.nbytes) for v in d.values())
+
+    def _from_dense_array(self, arr: np.ndarray):
+        arr = np.asarray(arr, np.float32)
+        self.shape = arr.shape
+        if not hasattr(self, "coo"):
+            self.coo = None
+        self.nnz = getattr(self.coo, "nnz", arr.size)
+        r, c = arr.shape
+        rp = -(-r // 8) * 8
+        cp = -(-c // LANES) * LANES
+        padded = np.zeros((rp, cp), np.float32)
+        padded[:r, :c] = arr
+        self._dense = self._upload(padded)
+        self._fill = 1.0
+        self.device_bytes = int(self._dense.nbytes)
+
+    def _prepare_block(self, coo: COOMatrix):
+        perm = None
+        if self.config.col_reorder:
+            perm = degree_column_perm(coo)
+        plan = build_block_plan(coo, block_h=self.config.block_h,
+                                col_perm=perm)
+        self._build_block_arrays(plan, coo.num_cols)
+
+    def _build_block_arrays(self, plan: BlockPlan, num_cols: int):
+        """Chunked layout at every size (B1), plus the identity-extended x
+        permutation when the plan is column-reordered."""
+        self._block_plan_meta = plan
+        self._chunk = chunk_for(plan.block_h)
+        data3d, meta, _ = pack_chunks(plan, self._chunk)
+        d = {
+            "data": self._upload(data3d, self._value_dtype()),
+            "meta": self._upload(meta),
+        }
+        if plan.col_perm is not None:
+            d["perm"] = self._upload(_extend_perm(
+                plan.col_perm, num_cols, plan.num_col_blocks * LANES
+            ))
+        self._set_device_dict(d, plan.fill)
+
+    def _prepare_ellx(self, coo: COOMatrix):
+        """Base-K ELL (plain torch product) + B1 overflow for heavy rows;
+        block_h=1 gives row-granular units."""
+        perm = None
+        if self.config.col_reorder:
+            perm = degree_column_perm(coo)
+        plan = build_block_plan(coo, block_h=self.config.block_h,
+                                col_perm=perm)
+        self._build_ellx_arrays(build_ellx_plan(plan), coo.num_cols)
+
+    def _build_ellx_arrays(self, eplan: EllxPlan, num_cols: int):
+        self._ellx_plan_meta = eplan
+        d = {
+            "base_data": self._upload(eplan.base_data, self._value_dtype()),
+            "base_cols": self._upload(eplan.base_cols),
+        }
+        self._chunk = None
+        if eplan.overflow is not None:
+            self._chunk = chunk_for(eplan.block_h)
+            odata, ometa, _ = pack_chunks(eplan.overflow, self._chunk)
+            d["odata"] = self._upload(odata, self._value_dtype())
+            d["ometa"] = self._upload(ometa)
+            d["ov_expand"] = self._upload(eplan.ov_expand)
+        if eplan.col_perm is not None:
+            d["perm"] = self._upload(_extend_perm(
+                eplan.col_perm, num_cols, eplan.num_col_blocks * LANES
+            ))
+        self._set_device_dict(d, eplan.fill)
+
+    def _prepare_window(self, coo: COOMatrix):
+        self._build_window_arrays(
+            build_window_plan(coo, block_h=self.config.block_h)
+        )
+
+    def _build_window_arrays(self, plan: WindowPlan):
+        self._window_plan_meta = plan
+        self._wchunk = chunk_for_windowed(plan.block_h)
+        data3d, subidx3d, meta, _ = pack_window_chunks(plan, self._wchunk)
+        self._set_device_dict({
+            "data": self._upload(data3d, self._value_dtype()),
+            "subidx": self._upload(subidx3d),
+            "meta": self._upload(meta),
+        }, plan.fill)
+
+    def _prepare_stream(self, coo: COOMatrix):
+        self._build_stream_arrays(build_plan(coo, self.config))
+
+    def _build_stream_arrays(self, plan: StreamPlan):
+        self._stream_plan_meta = plan
+        self._set_device_dict({
+            "vals": self._upload(plan.vals),
+            "cols": self._upload(plan.cols),
+            "round_ids": self._upload(plan.round_ids()),
+            "seg_rows": self._upload(plan.seg_rows),
+        }, 1.0 - plan.padding_ratio)
+
+    # -- execution --------------------------------------------------------
+
+    @property
+    def plan(self):
+        """The prepared plan object for this handle's format (reloadable
+        with :meth:`from_plan`); ``None`` for the dense overlay."""
+        for attr in (
+            "_window_plan_meta", "_stream_plan_meta", "_ellx_plan_meta",
+            "_block_plan_meta",
+        ):
+            p = getattr(self, attr, None)
+            if p is not None:
+                return p
+        return None
+
+    @property
+    def padded_cols(self) -> int:
+        if self.format == "dense":
+            return int(self._dense.shape[1])
+        if self.format == "block":
+            return self._block_plan_meta.num_col_blocks * LANES
+        if self.format == "ellx":
+            return self._ellx_plan_meta.num_col_blocks * LANES
+        if self.format == "window":
+            return self._window_plan_meta.num_windows * SEGS * LANES
+        return self.shape[1]
+
+    def _pad_x(self, x: torch.Tensor) -> torch.Tensor:
+        if x.shape[-1] != self.shape[1]:
+            raise ValueError(
+                f"x has {x.shape[-1]} entries, matrix has {self.shape[1]} "
+                "columns"
+            )
+        pad = self.padded_cols - x.shape[-1]
+        if pad > 0:
+            x = torch.nn.functional.pad(x, (0, pad))
+        return x
+
+    def _matvec(self, x: torch.Tensor) -> torch.Tensor:
+        """Unscaled A @ x [R] from the padded x."""
+        R = self.shape[0]
+        if self.format == "dense":
+            return gemv(self._dense, x)[:R]
+        d = self._d
+        if self.format == "stream":
+            plan = self._stream_plan_meta
+            return spmv_ref(d["vals"], d["cols"], d["round_ids"],
+                            d["seg_rows"], plan.num_rounds, R, x)
+        if "perm" in d:
+            x = x.index_select(0, d["perm"])
+        x2d = x.reshape(-1, LANES)
+        if self.format == "block":
+            plan = self._block_plan_meta
+            y = spmv_chunked(d["data"], d["meta"], x2d,
+                             plan.num_row_blocks, plan.block_h, self._chunk)
+        elif self.format == "ellx":
+            eplan = self._ellx_plan_meta
+            ov_nrb = (eplan.overflow.num_row_blocks
+                      if eplan.overflow is not None else 0)
+            y = ellx_matvec(d, x2d, eplan.num_row_blocks, eplan.block_h,
+                            self._chunk, ov_nrb)
+        else:  # window
+            plan = self._window_plan_meta
+            y = spmv_windowed(d["data"], d["subidx"], d["meta"], x2d,
+                              plan.num_row_blocks, plan.block_h,
+                              self._wchunk)
+        return y.reshape(-1)[:R]
+
+    def run(self, x, y_in=None, alpha=1.0, beta=0.0) -> torch.Tensor:
+        """``y = alpha * A @ x + beta * y_in`` (single vector), as a float32
+        tensor on the handle's device."""
+        x = self._pad_x(
+            torch.as_tensor(x, dtype=torch.float32, device=self.device)
+        )
+        y = alpha * self._matvec(x)
+        if y_in is None:
+            return y
+        y_in = torch.as_tensor(y_in, dtype=torch.float32, device=self.device)
+        return y + beta * y_in
+
+    def verify(self, x=None, rtol=1e-3, atol=1e-5):
+        """Golden check vs the host matrix (float64 accumulation)."""
+        if x is None:
+            i = np.arange(self.shape[1], dtype=np.float32)
+            x = (i + 2.0) / (i + 1.0)  # spmv-host.cpp:17-23 test vector
+        got = self.run(x).cpu().numpy()
+        if self.coo is not None:
+            want = self.coo.matvec(np.asarray(x, np.float64))
+        elif self.format == "dense":
+            dense = self._dense.cpu().numpy()[: self.shape[0], : self.shape[1]]
+            want = dense.astype(np.float64) @ np.asarray(x, np.float64)
+        else:
+            raise ValueError("verify needs the host matrix; this handle was "
+                             "built from a plan")
+        return error_stats(got, want, rtol=rtol, atol=atol)
+
+
+def choose_format(coo: COOMatrix, config: SpmvConfig) -> str:
+    """Cheap structural dispatch, identical to the JAX package's: dense
+    above 25% density, else block / window / ellx by an estimated (block_h,
+    128) block fill; stream only for an empty matrix."""
+    if config.dense_overlay:
+        return "dense"
+    density = coo.nnz / max(coo.num_rows * coo.num_cols, 1)
+    if density > 0.25:
+        return "dense"
+    # Estimate block fill from a sample of coordinates.
+    n = coo.nnz
+    if n == 0:
+        return "stream"
+    take = min(n, 250_000)
+    idx = np.linspace(0, n - 1, take).astype(np.int64)
+    rb = coo.rows[idx] // config.block_h
+    cb = coo.cols[idx] // LANES
+    ncb = max(-(-coo.num_cols // LANES), 1)
+    uniq = len(np.unique(rb.astype(np.int64) * ncb + cb))
+    est_blocks = uniq * (n / take)
+    est_fill = n / (est_blocks * config.block_h * LANES)
+    if est_fill >= config.min_block_fill:
+        return "block"
+    return "window" if est_fill >= 0.01 else "ellx"
+
+
+def prepare(
+    matrix: Union[COOMatrix, np.ndarray],
+    config: Optional[SpmvConfig] = None,
+    format: str = "auto",  # noqa: A002
+    device="cuda",
+) -> SpmvHandle:
+    """Prepare a matrix for repeated execution on ``device``."""
+    return SpmvHandle(matrix, config=config, format=format, device=device)
+
+
+class Accelerator:
+    """Multi-matrix residency + selection.
+
+    Create handles for many matrices up front, keep them resident on one
+    device, then run any of them back to back.  ``budget_bytes`` imitates
+    the reference's fixed per-channel arena by refusing new matrices past
+    the budget (``create_*`` then returns -1)."""
+
+    def __init__(self, budget_bytes: Optional[int] = None, device="cuda"):
+        self.budget_bytes = budget_bytes
+        self.device = _resolve_device(device)
+        self._handles: Dict[int, SpmvHandle] = {}
+        self._next_id = 0
+        self._selected: Optional[int] = None
+        self.loaded = False
+
+    @property
+    def resident_bytes(self) -> int:
+        return sum(h.device_bytes for h in self._handles.values())
+
+    def create_sparse_handle(
+        self,
+        coo: COOMatrix,
+        config: Optional[SpmvConfig] = None,
+        format: str = "auto",  # noqa: A002
+    ) -> int:
+        """Returns a matrix id, or -1 if the memory budget is exhausted."""
+        return self._register(
+            SpmvHandle(coo, config=config, format=format, device=self.device)
+        )
+
+    def create_dense_handle(self, arr: np.ndarray) -> int:
+        return self._register(SpmvHandle(np.asarray(arr), device=self.device))
+
+    def _register(self, h: SpmvHandle) -> int:
+        if (
+            self.budget_bytes is not None
+            and self.resident_bytes + h.device_bytes > self.budget_bytes
+        ):
+            return -1
+        mid = self._next_id
+        self._next_id += 1
+        self._handles[mid] = h
+        if self._selected is None:
+            self._selected = mid
+        return mid
+
+    def load_matrices(self) -> None:
+        """Block until every upload has completed."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.loaded = True
+
+    def select_matrix(self, mid: int) -> None:
+        if mid not in self._handles:
+            raise KeyError(f"unknown matrix id {mid}")
+        self._selected = mid
+
+    def handle(self, mid: Optional[int] = None) -> SpmvHandle:
+        mid = self._selected if mid is None else mid
+        if mid is None:
+            raise RuntimeError("no matrix loaded")
+        return self._handles[mid]
+
+    def run_kernel(self, x, y_in=None, alpha=1.0, beta=0.0) -> torch.Tensor:
+        return self.handle().run(x, y_in=y_in, alpha=alpha, beta=beta)

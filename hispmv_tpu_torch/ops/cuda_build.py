@@ -1,0 +1,115 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+The sources under ``hispmv_tpu_torch/csrc/`` are compiled with ``nvcc`` for
+``sm_90a`` into one shared library with a plain C interface, loaded with
+``ctypes``.  The build happens at first use (never at import), into
+``hispmv_tpu_torch/_build/`` (listed in ``.gitignore``), and again whenever
+a source is newer than the library.  No PyTorch header is compiled, so a
+build takes seconds.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import glob
+import os
+import shutil
+import subprocess
+import threading
+import time
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC_DIR = os.path.join(_PKG, "csrc")
+LIB_PATH = os.path.join(_PKG, "_build", "libhispmv_kernels.so")
+
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+]
+
+_lock = threading.Lock()
+_lib = None
+
+
+def sources() -> list:
+    return sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
+
+
+def _inputs() -> list:
+    return sources() + sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh")))
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    candidates = [os.path.join(cuda_home, "bin", "nvcc")] if cuda_home else []
+    candidates += [shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"]
+    for c in candidates:
+        if c and os.path.exists(c):
+            return c
+    raise RuntimeError(
+        "nvcc not found (set CUDA_HOME or put nvcc on PATH); the CUDA "
+        "kernels of hispmv_tpu_torch are built from source at first use"
+    )
+
+
+def _stale() -> bool:
+    """True when the library is missing or older than any source."""
+    try:
+        built = os.path.getmtime(LIB_PATH)
+    except OSError:
+        return True
+    return any(os.path.getmtime(s) > built for s in _inputs())
+
+
+def build(verbose: bool = False) -> float:
+    """Compile the kernels if the library is stale; returns the seconds
+    spent compiling (0.0 when the library was current).  Raises with the
+    compiler's output when nvcc fails."""
+    if not _stale():
+        return 0.0
+    cmd = [_nvcc(), *NVCC_FLAGS]
+    os.makedirs(os.path.dirname(LIB_PATH), exist_ok=True)
+    tmp = f"{LIB_PATH}.{os.getpid()}.tmp"
+    if verbose:
+        cmd += ["-Xptxas", "-v"]
+    cmd += ["-o", tmp, *sources()]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+            f"{proc.stdout}\n{proc.stderr}"
+        )
+    if verbose:
+        print(proc.stdout + proc.stderr)
+    os.replace(tmp, LIB_PATH)  # atomic: concurrent loaders see a whole file
+    return time.perf_counter() - t0
+
+
+def get_lib() -> ctypes.CDLL:
+    """The loaded kernel library, built first if needed."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            build()
+            lib = ctypes.CDLL(LIB_PATH)
+            ptr, i32 = ctypes.c_void_p, ctypes.c_int
+            lib.hispmv_spmv_chunked.restype = i32
+            lib.hispmv_spmv_chunked.argtypes = [
+                ptr, i32, ptr, ptr, ptr, i32, i32, i32, ptr,
+            ]
+            lib.hispmv_spmv_windowed.restype = i32
+            lib.hispmv_spmv_windowed.argtypes = [
+                ptr, i32, ptr, ptr, ptr, ptr, i32, i32, i32, ptr,
+            ]
+            lib.hispmv_error_string.restype = ctypes.c_char_p
+            lib.hispmv_error_string.argtypes = [i32]
+            _lib = lib
+        return _lib
+
+
+def check(rc: int, name: str) -> None:
+    """Raise when a launch returned a nonzero cudaError_t."""
+    if rc != 0:
+        msg = get_lib().hispmv_error_string(rc).decode()
+        raise RuntimeError(f"{name}: CUDA launch failed ({rc}: {msg})")

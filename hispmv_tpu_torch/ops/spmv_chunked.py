@@ -1,0 +1,144 @@
+"""B1, the chunked block-ELL SpMV stream: packer, CUDA kernel wrapper and
+plain PyTorch version.
+
+Port of ``hispmv_tpu/ops/spmv_chunked.py`` (``chunk_for``, ``pack_chunks``,
+``_chunked_kernel`` / ``spmv_chunked_pallas``).  The kernel itself is
+``csrc/spmv_chunked.cu``; it consumes the same packed arrays as the TPU
+kernel, so both packages can be fed identical inputs.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from hispmv_tpu_torch.ops import cuda_build
+from hispmv_tpu_torch.plan.blocks import LANES, BlockPlan
+
+# Block heights the CUDA kernels are instantiated for (csrc/block_stream.cuh).
+SUPPORTED_BLOCK_H = (1, 2, 4, 8, 16, 32, 64)
+
+_VALUE_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def chunk_for(block_h: int, target_bytes: int = 1 << 20) -> int:
+    """Blocks per chunk targeting ~1 MiB chunk payloads; a multiple of 8
+    (same sizing as the JAX package, so packed arrays are identical)."""
+    c = max(target_bytes // (block_h * LANES * 4), 16)
+    return int(min(512, (c // 8) * 8))
+
+
+def pack_chunks(plan: BlockPlan, chunk: int):
+    """Pad the plan's block stream to a whole number of chunks and build the
+    int32 metadata sideband.
+
+    Returns (data3d, meta, nchunks):
+      data3d f32 [nchunks, chunk*block_h, LANES]; a bfloat16 payload is made
+      from it on upload with ``.to(torch.bfloat16)`` (numpy has no bf16)
+      meta   i32 [nchunks, 2, chunk] with meta[:,0] = row_block*2 + last and
+      meta[:,1] = col_block.
+    Padding blocks: zero payload, last=0, row = last real row (they add only
+    zeros and never flush)."""
+    nb = plan.num_blocks
+    nchunks = max(-(-nb // chunk), 1)
+    nb_pad = nchunks * chunk
+    bh = plan.block_h
+
+    data = np.zeros((nb_pad, bh, LANES), np.float32)
+    data[:nb] = plan.data
+    meta = np.zeros((2, nb_pad), np.int32)
+    meta[0, :nb] = plan.block_rows * 2 + plan.block_lasts
+    meta[1, :nb] = plan.block_cols
+    if nb_pad > nb:
+        meta[0, nb:] = (plan.block_rows[-1] if nb else 0) * 2
+
+    data3d = data.reshape(nchunks, chunk * bh, LANES)
+    meta = np.ascontiguousarray(
+        meta.reshape(2, nchunks, chunk).transpose(1, 0, 2)
+    )
+    return data3d, meta, nchunks
+
+
+def check_stream_args(name, data3d, meta, x2d, block_h, chunk):
+    """Validate the arrays shared by B1 and B7 before any launch."""
+    if data3d.dtype not in _VALUE_DTYPES:
+        raise TypeError(f"{name}: data must be float32 or bfloat16, got "
+                        f"{data3d.dtype}")
+    if meta.dtype != torch.int32 or x2d.dtype != torch.float32:
+        raise TypeError(f"{name}: meta must be int32 and x float32")
+    nch = data3d.shape[0]
+    if data3d.shape != (nch, chunk * block_h, LANES):
+        raise ValueError(f"{name}: data shape {tuple(data3d.shape)} is not "
+                         f"[nchunks, {chunk}*{block_h}, {LANES}]")
+    if meta.shape != (nch, 2, chunk):
+        raise ValueError(f"{name}: meta shape {tuple(meta.shape)} is not "
+                         f"[{nch}, 2, {chunk}]")
+    if x2d.ndim != 2 or x2d.shape[1] != LANES:
+        raise ValueError(f"{name}: x must be [n, {LANES}], got "
+                         f"{tuple(x2d.shape)}")
+
+
+def check_cuda_args(name, block_h, *tensors):
+    """On the card: every tensor on one CUDA device and contiguous, and a
+    block height the kernel is instantiated for."""
+    dev = tensors[0].device
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {dev}")
+    for t in tensors:
+        if t.device != dev:
+            raise ValueError(f"{name}: tensors on {t.device} and {dev}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: tensors must be contiguous")
+    if block_h not in SUPPORTED_BLOCK_H:
+        raise ValueError(f"{name}: block_h={block_h} is not supported by the "
+                         f"CUDA kernel (one of {SUPPORTED_BLOCK_H})")
+
+
+def spmv_chunked_plain(data3d, meta, x2d, num_row_blocks, block_h, chunk):
+    """Plain PyTorch version of B1 on the same arrays.
+
+    Each block's row sums go to its own row-block, which is what B1's
+    carried accumulator computes for any stream the planner emits (blocks
+    sorted by row-block, each row-block ending with a last-flagged block).
+    Multiply and sum are elementwise fp32 (no TF32 path)."""
+    nb = data3d.shape[0] * chunk
+    a = data3d.reshape(nb, block_h, LANES).float()
+    rb = meta[:, 0, :].reshape(-1) >> 1
+    cb = meta[:, 1, :].reshape(-1)
+    contrib = (a * x2d.index_select(0, cb)[:, None, :]).sum(-1)
+    y = torch.zeros(
+        (num_row_blocks, block_h), dtype=torch.float32, device=x2d.device
+    )
+    return y.index_add_(0, rb, contrib)
+
+
+def spmv_chunked(data3d, meta, x2d, num_row_blocks, block_h, chunk):
+    """Run the chunked stream; returns y tiles f32 [num_row_blocks, block_h].
+
+    ``data3d`` f32/bf16 [nchunks, chunk*block_h, 128], ``meta`` i32
+    [nchunks, 2, chunk] (from :func:`pack_chunks`), ``x2d`` f32 [ncb, 128].
+    CPU tensors take the plain PyTorch version; CUDA tensors launch the
+    CUDA kernel (csrc/spmv_chunked.cu) or raise."""
+    check_stream_args("spmv_chunked", data3d, meta, x2d, block_h, chunk)
+    if data3d.device.type == "cpu":
+        return spmv_chunked_plain(
+            data3d, meta, x2d, num_row_blocks, block_h, chunk
+        )
+    check_cuda_args("spmv_chunked", block_h, data3d, meta, x2d)
+    lib = cuda_build.get_lib()
+    y = torch.zeros(
+        (num_row_blocks, block_h), dtype=torch.float32, device=x2d.device
+    )
+    with torch.cuda.device(x2d.device):
+        rc = lib.hispmv_spmv_chunked(
+            data3d.data_ptr(), int(data3d.dtype == torch.bfloat16),
+            meta.data_ptr(), x2d.data_ptr(), y.data_ptr(),
+            data3d.shape[0], chunk, block_h,
+            torch.cuda.current_stream().cuda_stream,
+        )
+    cuda_build.check(rc, "spmv_chunked")
+    spmv_chunked.launches += 1
+    return y
+
+
+spmv_chunked.launches = 0  # kernel launches, for the smoke run's check
