@@ -5,14 +5,17 @@ Run from the root of a checkout, with no arguments:
 
     python3 chip_smoke.py
 
-It builds the hand-written CUDA kernels from ``hispmv_tpu_torch/csrc/``,
-drives the port's main path (``prepare`` -> ``SpmvHandle.run`` and
-``Accelerator``) on full-scale suite stand-ins, holds every result to the
-float64 golden at rtol 1e-3, checks that the path went through the kernels,
-then compares each kernel with its plain PyTorch version on the same arrays
-and times both.  It exits nonzero, without a result line, when there is no
-CUDA card or any check fails.  The last line of standard output is
-``{"ok": true, "device": {...}}``.
+It builds the hand-written CUDA kernels from ``hispmv_tpu_torch/csrc/``
+(B1, B7, B9, B11), drives the port's main path (``prepare`` ->
+``SpmvHandle.run`` and ``Accelerator``; formats window, ellx, block, dense
+and routed, the latter in original and rank space) on full-scale suite
+stand-ins, holds every result to the float64 golden at rtol 1e-3, checks
+that each run went through its kernels (launch counts zeroed just before
+the run and read just after), then compares each kernel with its plain
+PyTorch version on the same arrays and times both, and times the rank-space
+permutation beside a direct ``index_select``.  It exits nonzero, without a
+result line, when there is no CUDA card or any check fails.  The last line
+of standard output is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -28,9 +31,19 @@ import torch
 from hispmv_tpu_torch import Accelerator, SpmvConfig, prepare
 from hispmv_tpu_torch.formats.synth import suite_matrix
 from hispmv_tpu_torch.ops import cuda_build
+from hispmv_tpu_torch.ops.permute import (
+    permute_apply,
+    permute_stage,
+    permute_stage_plain,
+)
 from hispmv_tpu_torch.ops.spmv_chunked import (
     spmv_chunked,
     spmv_chunked_plain,
+)
+from hispmv_tpu_torch.ops.spmv_routed import (
+    spmv_routed_stream,
+    spmv_routed_stream_plain,
+    stream_array_names,
 )
 from hispmv_tpu_torch.ops.spmv_windowed import (
     spmv_windowed,
@@ -44,15 +57,22 @@ RTOL = 1e-3  # the reference's acceptance (utils/errors.py)
 KERNEL_RTOL = 1e-5  # kernel vs plain: fp32 both, only the summation order
 TIMED_RUNS = 20
 
-# (label, fixture, config, format asked, format expected, kernel expected)
+# (label, fixture, config, format asked, format expected, kernels expected)
 SPARSE_RUNS = [
     ("crystk03 auto", "crystk03", SpmvConfig(), "auto", "window",
-     "spmv_windowed"),
+     ("spmv_windowed",)),
     ("crystk03 window bh64", "crystk03", SpmvConfig(block_h=64), "window",
-     "window", "spmv_windowed"),
-    ("trans5 auto", "trans5", SpmvConfig(), "auto", "ellx", "spmv_chunked"),
+     "window", ("spmv_windowed",)),
+    ("trans5 auto", "trans5", SpmvConfig(), "auto", "ellx",
+     ("spmv_chunked",)),
     ("TSOPF_RS_b2383 block", "TSOPF_RS_b2383", SpmvConfig(), "block",
-     "block", "spmv_chunked"),
+     "block", ("spmv_chunked",)),
+    ("trans5 routed", "trans5", SpmvConfig(), "routed", "routed",
+     ("spmv_routed",)),
+    ("ford2 routed", "ford2", SpmvConfig(), "routed", "routed",
+     ("spmv_routed",)),
+    ("language routed rank", "language", SpmvConfig(rank_sort=True),
+     "routed", "routed", ("spmv_routed", "permute_stage")),
 ]
 DENSE_N = 4096
 
@@ -66,6 +86,16 @@ KERNELS = {
         "wrapper": spmv_windowed,
         "source": "hispmv_tpu_torch/csrc/spmv_windowed.cu",
         "replaces": "hispmv_tpu/ops/spmv_windowed.py:60",
+    },
+    "spmv_routed": {
+        "wrapper": spmv_routed_stream,
+        "source": "hispmv_tpu_torch/csrc/spmv_routed.cu",
+        "replaces": "hispmv_tpu/ops/spmv_routed.py:301",
+    },
+    "permute_stage": {
+        "wrapper": permute_stage,
+        "source": "hispmv_tpu_torch/csrc/permute.cu",
+        "replaces": "hispmv_tpu/ops/permute.py:58",
     },
 }
 
@@ -85,6 +115,11 @@ def gpu_line() -> str:
 
 def launches() -> dict:
     return {n: k["wrapper"].launches for n, k in KERNELS.items()}
+
+
+def zero_launches() -> None:
+    for k in KERNELS.values():
+        k["wrapper"].launches = 0
 
 
 def median_ms(fn, runs: int = TIMED_RUNS, warmup: int = 3) -> float:
@@ -127,15 +162,39 @@ def check_run(label, y, want, handle, failures):
                         f"{want.shape} and finite")
 
 
+def routed_checks(label, h, once, failures):
+    """What each routed run must show, from the launches of ONE run."""
+    nstreams = len(h.plan.streams)
+    meta = h._routed_meta
+    log(f"  {label}: streams (tiles, W, l1, lmax) "
+        f"{[(s.num_tiles, s.wmax, s.l1, s.lmax) for s in h.plan.streams]}, "
+        f"residual {len(h.plan.residual_vals)} nnz "
+        f"({'COO' if meta['res_coo'] else 'ELLX' if meta['res'] else 'none'}"
+        f"), launches of one run {once}")
+    if once["spmv_routed"] != nstreams:
+        failures.append(f"{label}: {once['spmv_routed']} B9 launches for "
+                        f"{nstreams} streams")
+    if label.startswith("trans5") and not meta["res_coo"]:
+        failures.append(f"{label}: no COO residual")
+    if label.startswith("ford2") and any(s.l1 != 1 for s in h.plan.streams):
+        failures.append(f"{label}: a stream with l1 > 1")
+    want_perm = 6 if h.config.rank_sort else 0  # 3 stages, x in and y out
+    if once["permute_stage"] != want_perm:
+        failures.append(f"{label}: {once['permute_stage']} B11 launches, "
+                        f"want {want_perm}")
+
+
 def main_path(fixtures, failures):
     """Drive prepare -> run (and Accelerator) once per configuration; the
-    kernels' launch counts are zeroed just before and read just after."""
-    for k in KERNELS.values():
-        k["wrapper"].launches = 0
+    kernels' launch counts are zeroed just before each run and read just
+    after it.  Returns the handles, the run rows and the launch counts
+    summed over the runs."""
     rng = np.random.default_rng(SEED)
     handles, rows_out = {}, []
-    for label, name, cfg, fmt, want_fmt, kernel in SPARSE_RUNS:
+    counts = dict.fromkeys(KERNELS, 0)
+    for label, name, cfg, fmt, want_fmt, kernels in SPARSE_RUNS:
         coo = fixtures[name]
+        zero_launches()
         t0 = time.perf_counter()
         h = prepare(coo, cfg, fmt)
         torch.cuda.synchronize()
@@ -146,15 +205,20 @@ def main_path(fixtures, failures):
             failures.append(f"{label}: no ELLX overflow stream")
         x, y_in = inputs(coo.num_rows, coo.num_cols, rng)
         xd, yd = torch.from_numpy(x).cuda(), torch.from_numpy(y_in).cuda()
-        before = launches()
         y = h.run(xd, yd, ALPHA, BETA)
         torch.cuda.synchronize()
+        once = launches()
         want = ALPHA * coo.matvec(x.astype(np.float64)) + BETA * y_in
         check_run(label, y, want, h, failures)
         ms = median_ms(lambda: h.run(xd, yd, ALPHA, BETA))
-        used = {n: c - before[n] for n, c in launches().items()}
-        if used[kernel] == 0:
-            failures.append(f"{label}: {kernel} was not launched")
+        used = launches()
+        for n in kernels:
+            if used[n] == 0:
+                failures.append(f"{label}: {n} was not launched")
+        if want_fmt == "routed":
+            routed_checks(label, h, once, failures)
+        for n, c in used.items():
+            counts[n] += c
         rows_out.append(_row(label, h, coo.nnz, coo.num_rows, prep_s, ms,
                              used))
         handles[label] = (h, xd)
@@ -162,6 +226,7 @@ def main_path(fixtures, failures):
     # dense overlay through the Accelerator
     label = f"dense {DENSE_N}x{DENSE_N} Accelerator"
     w = rng.standard_normal((DENSE_N, DENSE_N)).astype(np.float32)
+    zero_launches()
     acc = Accelerator()
     t0 = time.perf_counter()
     mid = acc.create_dense_handle(w)
@@ -170,17 +235,17 @@ def main_path(fixtures, failures):
     acc.select_matrix(mid)
     x, y_in = inputs(DENSE_N, DENSE_N, rng)
     xd, yd = torch.from_numpy(x).cuda(), torch.from_numpy(y_in).cuda()
-    before = launches()
     y = acc.run_kernel(xd, yd, ALPHA, BETA)
     torch.cuda.synchronize()
     want = (ALPHA * (w.astype(np.float64) @ x.astype(np.float64))
             + BETA * y_in)
     check_run(label, y, want, acc.handle(mid), failures)
     ms = median_ms(lambda: acc.run_kernel(xd, yd, ALPHA, BETA))
-    used = {n: c - before[n] for n, c in launches().items()}
+    used = launches()
     rows_out.append(_row(label, acc.handle(mid), DENSE_N * DENSE_N, DENSE_N,
                          prep_s, ms, used))
-    counts = launches()
+    for n, c in used.items():
+        counts[n] += c
     for n, c in counts.items():
         if c == 0:
             failures.append(f"main path never launched {n}")
@@ -222,8 +287,31 @@ def kernel_checks(handles, failures):
                       (h._d["data"], h._d["subidx"], h._d["meta"],
                        h._pad_x(xd).reshape(-1, 128), p.num_row_blocks,
                        p.block_h, h._wchunk)))
+    for label in ("trans5 routed", "ford2 routed"):
+        h, xd = handles[label]
+        meta = h._routed_meta
+        x2d = h._pad_x(xd).reshape(-1, 128)
+        for i, dims in enumerate(meta["streams"]):
+            p = f"s{i}_"
+            packed = tuple(h._d[p + n] for n in stream_array_names(dims[4]))
+            packed += (h._d[p + "base"], h._d[p + "byt"])
+            cases.append(("spmv_routed",
+                          f"{label.split()[0]} stream {i}: {dims[0]} tiles, "
+                          f"W {dims[2]}, l1 {dims[3]}, lmax {dims[4]}",
+                          (packed, dims, x2d, meta["nyt"])))
+    h, xd = handles["language routed rank"]
+    xmeta = h._routed_meta["xperm"][0]
+    rng = np.random.default_rng(SEED)
+    for si, dims in enumerate(xmeta["dims"]):
+        a = torch.from_numpy(rng.standard_normal(
+            (dims[0] * dims[1] * 8, 128)).astype(np.float32)).to(xd.device)
+        cases.append(("permute_stage",
+                      f"language x S{si + 1}: {dims[0] * dims[1]} windows",
+                      ((h._d[f"xp0_a{si}_0"],), dims, a)))
     plain = {"spmv_chunked": spmv_chunked_plain,
-             "spmv_windowed": spmv_windowed_plain}
+             "spmv_windowed": spmv_windowed_plain,
+             "spmv_routed": spmv_routed_stream_plain,
+             "permute_stage": permute_stage_plain}
     results = []
     for name, shape, args in cases:
         kern = KERNELS[name]["wrapper"]
@@ -233,7 +321,9 @@ def kernel_checks(handles, failures):
         diff = (yk - yp).abs()
         ymax = float(yp.abs().max())
         bound = KERNEL_RTOL * yp.abs() + KERNEL_RTOL * max(ymax, 1e-30)
-        worst = float((diff / bound).max())
+        if name == "permute_stage":  # a permutation does no arithmetic
+            bound = torch.zeros_like(bound)
+        worst = float((diff / bound.clamp_min(1e-30)).max())
         err = float(diff.max())
         ms = median_ms(lambda: kern(*args))
         plain_ms = median_ms(lambda: plain[name](*args))
@@ -247,6 +337,27 @@ def kernel_checks(handles, failures):
                             "version")
         results.append((name, shape, err, ms, plain_ms))
     return results
+
+
+def permute_vs_gather(handles, failures):
+    """The rank-space x permutation of language through B11 (three stages
+    and two transposes) beside one direct ``index_select``."""
+    h, xd = handles["language routed rank"]
+    meta = h._routed_meta["xperm"][0]
+    arrays = [[h._d[f"xp0_a{si}_0"]] for si in range(3)]
+    perm = torch.from_numpy(h.plan.col_perms[0]).to(xd.device)
+    got = permute_apply(meta, arrays, xd)
+    want = xd.index_select(0, perm)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        failures.append("permute_apply differs from x.index_select(0, perm)")
+    ms = median_ms(lambda: permute_apply(meta, arrays, xd))
+    gather_ms = median_ms(lambda: xd.index_select(0, perm))
+    log(f"  language x permutation ({meta['n']} elements): permute_apply "
+        f"{ms:.4f} ms, index_select {gather_ms:.4f} ms, "
+        f"{'equal' if torch.equal(got, want) else 'DIFFERENT'}")
+    return {"n": meta["n"], "permute_apply_ms": ms, "index_select_ms":
+            gather_ms}
 
 
 def main() -> int:
@@ -280,6 +391,7 @@ def main() -> int:
 
     log("phase 4: each kernel against its plain version")
     results = kernel_checks(handles, failures)
+    perm_times = permute_vs_gather(handles, failures)
 
     kernels = [{
         "name": f"{name} [{shape}]", "route": "cuda",
@@ -288,7 +400,7 @@ def main() -> int:
         "launches": counts[name], "max_abs_err": err,
         "ms": ms, "plain_ms": plain_ms,
     } for name, shape, err, ms, plain_ms in results]
-    log(json.dumps({"runs": runs}))
+    log(json.dumps({"runs": runs, "permutation": perm_times}))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     if failures:
         for f in failures:

@@ -1,7 +1,9 @@
 """Prepare-once / run-many execution handles on PyTorch.
 
 Port of ``hispmv_tpu/api/handle.py`` for the formats ``auto``, ``dense``,
-``block``, ``window``, ``ellx`` and ``stream``:
+``block``, ``window``, ``ellx``, ``stream`` and ``routed`` (original space,
+rank space with ``SpmvConfig(rank_sort=True)``, and the banded cell grid
+for matrices that fail ``routed_vmem_ok``):
 
 - :class:`SpmvHandle` holds one prepared matrix as device tensors in
   ``_d`` (same key names as the JAX package) and runs
@@ -30,6 +32,10 @@ import torch
 from hispmv_tpu_torch.config import SpmvConfig
 from hispmv_tpu_torch.formats.matrix import COOMatrix
 from hispmv_tpu_torch.ops.gemv import gemv
+from hispmv_tpu_torch.ops.permute import (
+    pack_permute_into,
+    panel_permute_apply_from,
+)
 from hispmv_tpu_torch.ops.spmv_chunked import (
     chunk_for,
     pack_chunks,
@@ -41,6 +47,11 @@ from hispmv_tpu_torch.ops.spmv_ellx import (
     ellx_matvec,
 )
 from hispmv_tpu_torch.ops.spmv_ref import spmv_ref
+from hispmv_tpu_torch.ops.spmv_routed import (
+    pack_stream,
+    spmv_routed_stream,
+    stream_array_names,
+)
 from hispmv_tpu_torch.ops.spmv_windowed import (
     chunk_for_windowed,
     pack_window_chunks,
@@ -53,6 +64,16 @@ from hispmv_tpu_torch.plan.blocks import (
     degree_column_perm,
 )
 from hispmv_tpu_torch.plan.partition import StreamPlan, build_plan
+from hispmv_tpu_torch.plan.permute import build_permute_plan
+from hispmv_tpu_torch.plan.routed import (
+    WINDOW,
+    BandedRoutedPlan,
+    RoutedPlan,
+    build_banded_routed_plan,
+    build_ranked_routed_plan,
+    build_routed_plan,
+    routed_vmem_ok,
+)
 from hispmv_tpu_torch.plan.windows import SEGS, WindowPlan, build_window_plan
 from hispmv_tpu_torch.utils.errors import error_stats
 
@@ -74,6 +95,72 @@ def _extend_perm(col_perm: np.ndarray, num_cols: int, target: int) -> np.ndarray
         [np.asarray(col_perm, np.int32),
          np.arange(num_cols, target, dtype=np.int32)]
     )
+
+
+def _run_routed_part(d, x, R, meta, prefix):
+    """Execute a routed plan (+ its residual) from device dict ``d`` under
+    key ``prefix``; returns y[:R].  Each cost-class stream runs its own B9
+    launch and their y tiles are summed.  A banded meta dispatches to the
+    cell grid; a rank-space meta permutes x in and y out through B11."""
+    if meta.get("cells") is not None:
+        return _run_routed_banded(d, x, R, meta, prefix)
+    if meta["xperm"] is not None:
+        x = panel_permute_apply_from(d, meta["xperm"], prefix + "xp", x)
+    need = meta["nwin"] * WINDOW
+    if x.shape[0] < need:
+        x = torch.nn.functional.pad(x, (0, need - x.shape[0]))
+    x2d = x.reshape(-1, LANES)
+    y2d = None
+    for i, dims in enumerate(meta["streams"]):
+        p = prefix + f"s{i}_"
+        packed = tuple(d[p + n] for n in stream_array_names(dims[4])) + (
+            d[p + "base"], d[p + "byt"])
+        ys = spmv_routed_stream(packed, dims, x2d, meta["nyt"])
+        y2d = ys if y2d is None else y2d + ys
+    if y2d is None:
+        y = x.new_zeros(R)
+    else:
+        y = y2d.reshape(-1)[:R]
+    if meta["res_coo"]:  # small residual: element scatter
+        contrib = d[prefix + "r_vals"] * x.index_select(
+            0, d[prefix + "r_cols"])
+        y = y.index_add(0, d[prefix + "r_rows"], contrib)
+    if meta["res"] is not None:  # large residual: row-granular ELLX (B1)
+        rd = {"base_data": d[prefix + "r_base_data"],
+              "base_cols": d[prefix + "r_base_cols"]}
+        if (prefix + "r_odata") in d:
+            rd["odata"] = d[prefix + "r_odata"]
+            rd["ometa"] = d[prefix + "r_ometa"]
+            rd["ov_expand"] = d[prefix + "r_ov_expand"]
+        yr = ellx_matvec(rd, x2d, meta["res"].num_row_blocks, 1,
+                         meta["rchunk"], meta["res_ov"])
+        y = y + yr.reshape(-1)[:R]
+    if meta["yperm"] is not None:
+        y = panel_permute_apply_from(d, meta["yperm"], prefix + "yp", y)
+    return y
+
+
+def _run_routed_banded(d, x, R, meta, prefix):
+    """Execute a banded routed plan: per-cell streams over slices of x,
+    panel results summed into each row band, bands concatenated.  The
+    rank-space sandwich (when present) wraps the whole grid."""
+    if meta["xperm"] is not None:
+        x = panel_permute_apply_from(d, meta["xperm"], prefix + "xp", x)
+    band_rows = meta["band_rows"]
+    bands = [None] * meta["nbands"]
+    for cell in meta["cells"]:
+        xs = x[cell["c0"]:cell["c0"] + cell["ncols"]]
+        yc = _run_routed_part(d, xs, cell["nrows"], cell["meta"],
+                              cell["prefix"])
+        bi = cell["r0"] // band_rows
+        bands[bi] = yc if bands[bi] is None else bands[bi] + yc
+    y = torch.cat([
+        b if b is not None else x.new_zeros(min(band_rows, R - bi * band_rows))
+        for bi, b in enumerate(bands)
+    ])
+    if meta["yperm"] is not None:
+        y = panel_permute_apply_from(d, meta["yperm"], prefix + "yp", y)
+    return y
 
 
 @dataclasses.dataclass
@@ -117,7 +204,9 @@ class SpmvHandle:
                 self._prepare_window(matrix)
             elif fmt == "stream":
                 self._prepare_stream(matrix)
-            elif fmt in ("split", "routed"):
+            elif fmt == "routed":
+                self._prepare_routed(matrix)
+            elif fmt == "split":
                 raise NotImplementedError(
                     f"format {fmt!r} is not ported yet (see ROADMAP.md)"
                 )
@@ -142,7 +231,10 @@ class SpmvHandle:
         self.coo = None
         self.shape = tuple(plan.shape)
         self.nnz = plan.nnz
-        if isinstance(plan, EllxPlan):
+        if isinstance(plan, (RoutedPlan, BandedRoutedPlan)):
+            self._build_routed_arrays(plan)
+            fmt = "routed"
+        elif isinstance(plan, EllxPlan):
             self.config = dataclasses.replace(
                 self.config, block_h=plan.block_h
             )
@@ -286,6 +378,135 @@ class SpmvHandle:
             "seg_rows": self._upload(plan.seg_rows),
         }, 1.0 - plan.padding_ratio)
 
+    def _routed_pack_into(self, d, plan: RoutedPlan, shape, prefix=""):
+        """Pack a RoutedPlan (+ residual executor) into device dict ``d``
+        under ``prefix``; returns the static meta the runner needs.  Each
+        stream is packed exactly (``bucket=False``, one tile per chunk): x
+        is padded to ``num_windows*1024`` and y to ``num_ytiles*1024``,
+        not to powers of two."""
+        if plan.gathered is not None:
+            raise NotImplementedError(
+                "gathered side-plans are not ported (ROADMAP.md queue A "
+                "item 9)")
+        streams = []
+        for i, s in enumerate(plan.streams):
+            ((packed, dims),) = pack_stream(s, tchunk=1, bucket=False)
+            names = stream_array_names(dims[4]) + ("base", "byt")
+            for n, a in zip(names, packed):
+                d[prefix + f"s{i}_" + n] = self._upload(a)
+            streams.append(dims)
+        meta = {
+            "streams": streams,
+            "nwin": plan.num_windows,
+            "nyt": plan.num_ytiles,
+            "res": None,
+            "res_coo": False,
+            "res_ov": 0,
+            "rchunk": None,
+            "xperm": None,
+            "yperm": None,
+        }
+        if plan.col_perms is not None:
+            meta["xperm"], meta["yperm"] = self._pack_rank_perms(
+                d, plan.col_perms, plan.row_perms, prefix
+            )
+        n_res = len(plan.residual_vals)
+        if n_res:
+            # the JAX package's choice (TPU-measured constants, kept so the
+            # two packages run the same executors): element scatter below
+            # the row-granular ELLX's fixed per-row cost
+            if n_res * 16e-9 < shape[0] * 11e-9 + n_res * 2.5e-9:
+                meta["res_coo"] = True
+                d[prefix + "r_rows"] = self._upload(
+                    plan.residual_rows.astype(np.int32))
+                d[prefix + "r_cols"] = self._upload(
+                    plan.residual_cols.astype(np.int32))
+                d[prefix + "r_vals"] = self._upload(
+                    plan.residual_vals.astype(np.float32))
+            else:
+                res = COOMatrix(shape, plan.residual_rows,
+                                plan.residual_cols, plan.residual_vals)
+                eplan = build_ellx_plan(build_block_plan(res, block_h=1),
+                                        max_base_bytes=2 << 30)
+                meta["res"] = eplan
+                d[prefix + "r_base_data"] = self._upload(eplan.base_data)
+                d[prefix + "r_base_cols"] = self._upload(eplan.base_cols)
+                if eplan.overflow is not None:
+                    meta["rchunk"] = chunk_for(1)
+                    meta["res_ov"] = eplan.overflow.num_row_blocks
+                    odata, ometa, _ = pack_chunks(eplan.overflow,
+                                                  meta["rchunk"])
+                    d[prefix + "r_odata"] = self._upload(odata)
+                    d[prefix + "r_ometa"] = self._upload(ometa)
+                    d[prefix + "r_ov_expand"] = self._upload(eplan.ov_expand)
+        return meta
+
+    def _pack_rank_perms(self, d, col_perms, row_perms, prefix=""):
+        """Pack the rank-space sandwich: x is permuted into rank space
+        before the streams and y back after (B11, panel-local plans).
+        Returns the (xperm, yperm) metas."""
+        xperm = [
+            pack_permute_into(d, build_permute_plan(p), prefix + f"xp{i}_",
+                              self.device)
+            for i, p in enumerate(col_perms)
+        ]
+        yperm = []
+        for i, p in enumerate(row_perms):
+            inv = np.empty(len(p), np.int64)
+            inv[p] = np.arange(len(p))
+            yperm.append(pack_permute_into(
+                d, build_permute_plan(inv), prefix + f"yp{i}_", self.device
+            ))
+        return xperm, yperm
+
+    def _routed_pack_banded_into(self, d, plan: BandedRoutedPlan, prefix=""):
+        """Pack a BandedRoutedPlan: every cell's RoutedPlan under its own
+        key prefix, plus the grid-wide rank-space sandwich."""
+        meta = {
+            "cells": [],
+            "nbands": plan.num_bands,
+            "band_rows": plan.band_rows,
+            "xperm": None,
+            "yperm": None,
+        }
+        for i, c in enumerate(plan.cells):
+            cp = prefix + f"c{i}_"
+            meta["cells"].append({
+                "r0": c.r0, "c0": c.c0, "nrows": c.nrows, "ncols": c.ncols,
+                "prefix": cp,
+                "meta": self._routed_pack_into(d, c.plan, (c.nrows, c.ncols),
+                                               prefix=cp),
+            })
+        if plan.col_perms is not None:
+            meta["xperm"], meta["yperm"] = self._pack_rank_perms(
+                d, plan.col_perms, plan.row_perms, prefix
+            )
+        return meta
+
+    def _prepare_routed(self, coo: COOMatrix):
+        """Routed format: per-nnz execution with plan-time routing (B9),
+        its residual as an element scatter or row-granular ELLX (B1), in
+        rank space with ``config.rank_sort`` (B11 sandwich), and as a grid
+        of cells when x + y fail ``routed_vmem_ok`` (the JAX package's
+        dispatch, kept so both build the same plan)."""
+        if not routed_vmem_ok(coo.shape):
+            plan = build_banded_routed_plan(
+                coo, rank_sort=self.config.rank_sort)
+        elif self.config.rank_sort:
+            plan = build_ranked_routed_plan(coo)
+        else:
+            plan = build_routed_plan(coo)
+        self._build_routed_arrays(plan)
+
+    def _build_routed_arrays(self, plan):
+        self._routed_plan_meta = plan
+        d = {}
+        if isinstance(plan, BandedRoutedPlan):
+            self._routed_meta = self._routed_pack_banded_into(d, plan)
+        else:
+            self._routed_meta = self._routed_pack_into(d, plan, plan.shape)
+        self._set_device_dict(d, plan.fill)
+
     # -- execution --------------------------------------------------------
 
     @property
@@ -293,8 +514,8 @@ class SpmvHandle:
         """The prepared plan object for this handle's format (reloadable
         with :meth:`from_plan`); ``None`` for the dense overlay."""
         for attr in (
-            "_window_plan_meta", "_stream_plan_meta", "_ellx_plan_meta",
-            "_block_plan_meta",
+            "_routed_plan_meta", "_window_plan_meta", "_stream_plan_meta",
+            "_ellx_plan_meta", "_block_plan_meta",
         ):
             p = getattr(self, attr, None)
             if p is not None:
@@ -311,6 +532,9 @@ class SpmvHandle:
             return self._ellx_plan_meta.num_col_blocks * LANES
         if self.format == "window":
             return self._window_plan_meta.num_windows * SEGS * LANES
+        if self.format == "routed" and "cells" not in self._routed_meta:
+            # banded grids slice x at original offsets and pad each slice
+            return self._routed_meta["nwin"] * WINDOW
         return self.shape[1]
 
     def _pad_x(self, x: torch.Tensor) -> torch.Tensor:
@@ -334,6 +558,8 @@ class SpmvHandle:
             plan = self._stream_plan_meta
             return spmv_ref(d["vals"], d["cols"], d["round_ids"],
                             d["seg_rows"], plan.num_rounds, R, x)
+        if self.format == "routed":
+            return _run_routed_part(d, x, R, self._routed_meta, "")
         if "perm" in d:
             x = x.index_select(0, d["perm"])
         x2d = x.reshape(-1, LANES)

@@ -2,7 +2,8 @@
 
 The sources under ``hispmv_tpu_torch/csrc/`` are compiled with ``nvcc`` for
 ``sm_90a`` into one shared library with a plain C interface, loaded with
-``ctypes``.  The build happens at first use (never at import), into
+``ctypes``: one ``nvcc`` per source, all started together, then one link.
+The build happens at first use (never at import), into
 ``hispmv_tpu_torch/_build/`` (listed in ``.gitignore``), and again whenever
 a source is newer than the library.  No PyTorch header is compiled, so a
 build takes seconds.
@@ -24,7 +25,7 @@ LIB_PATH = os.path.join(_PKG, "_build", "libhispmv_kernels.so")
 
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 ]
 
 _lock = threading.Lock()
@@ -61,27 +62,50 @@ def _stale() -> bool:
     return any(os.path.getmtime(s) > built for s in _inputs())
 
 
+def _check_nvcc(cmd, rc: int, out: str, verbose: bool) -> None:
+    if rc != 0:
+        raise RuntimeError(f"nvcc failed ({rc}):\n{' '.join(cmd)}\n{out}")
+    if verbose and out:
+        print(out)
+
+
 def build(verbose: bool = False) -> float:
     """Compile the kernels if the library is stale; returns the seconds
     spent compiling (0.0 when the library was current).  Raises with the
     compiler's output when nvcc fails."""
     if not _stale():
         return 0.0
-    cmd = [_nvcc(), *NVCC_FLAGS]
+    nvcc = _nvcc()
     os.makedirs(os.path.dirname(LIB_PATH), exist_ok=True)
     tmp = f"{LIB_PATH}.{os.getpid()}.tmp"
-    if verbose:
-        cmd += ["-Xptxas", "-v"]
-    cmd += ["-o", tmp, *sources()]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}"
-        )
-    if verbose:
-        print(proc.stdout + proc.stderr)
+    # one nvcc per source, all started together, then one link
+    objs, procs = [], []
+    for src in sources():
+        obj = f"{tmp}.{os.path.basename(src)}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src]
+        if verbose:
+            cmd[1:1] = ["-Xptxas", "-v"]
+        objs.append(obj)
+        procs.append(subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+        ))
+    link = [nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs]
+    try:
+        for p in procs:
+            out = p.communicate()[0]
+            _check_nvcc(p.args, p.returncode, out, verbose)
+        proc = subprocess.run(link, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+        _check_nvcc(link, proc.returncode, proc.stdout, verbose)
+    finally:
+        for p in procs:  # stop every compiler this call started
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
     os.replace(tmp, LIB_PATH)  # atomic: concurrent loaders see a whole file
     return time.perf_counter() - t0
 
@@ -102,6 +126,13 @@ def get_lib() -> ctypes.CDLL:
             lib.hispmv_spmv_windowed.argtypes = [
                 ptr, i32, ptr, ptr, ptr, ptr, i32, i32, i32, ptr,
             ]
+            lib.hispmv_spmv_routed.restype = i32
+            lib.hispmv_spmv_routed.argtypes = [
+                ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ctypes.c_longlong,
+                ptr, i32, i32, i32, i32, i32, ptr,
+            ]
+            lib.hispmv_permute_stage.restype = i32
+            lib.hispmv_permute_stage.argtypes = [ptr, ptr, ptr, i32, ptr]
             lib.hispmv_error_string.restype = ctypes.c_char_p
             lib.hispmv_error_string.argtypes = [i32]
             _lib = lib

@@ -78,9 +78,8 @@ def check_stream_args(name, data3d, meta, x2d, block_h, chunk):
                          f"{tuple(x2d.shape)}")
 
 
-def check_cuda_args(name, block_h, *tensors):
-    """On the card: every tensor on one CUDA device and contiguous, and a
-    block height the kernel is instantiated for."""
+def check_cuda_tensors(name, *tensors):
+    """On the card: every tensor on one CUDA device and contiguous."""
     dev = tensors[0].device
     if dev.type != "cuda":
         raise ValueError(f"{name}: no kernel for device {dev}")
@@ -89,6 +88,12 @@ def check_cuda_args(name, block_h, *tensors):
             raise ValueError(f"{name}: tensors on {t.device} and {dev}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: tensors must be contiguous")
+
+
+def check_cuda_args(name, block_h, *tensors):
+    """On the card: :func:`check_cuda_tensors`, and a block height the
+    kernel is instantiated for."""
+    check_cuda_tensors(name, *tensors)
     if block_h not in SUPPORTED_BLOCK_H:
         raise ValueError(f"{name}: block_h={block_h} is not supported by the "
                          f"CUDA kernel (one of {SUPPORTED_BLOCK_H})")

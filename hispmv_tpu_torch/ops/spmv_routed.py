@@ -1,0 +1,352 @@
+"""B9, the routed-stream SpMV: packer, CUDA kernel wrapper and plain
+PyTorch version.
+
+Port of ``hispmv_tpu/ops/spmv_routed.py`` (``chunk_for_stream``,
+``_chunk_terms``, ``_segment_terms``, ``stream_array_names``,
+``pack_stream``, ``_routed_kernel`` / ``spmv_routed_stream_pallas``).  The
+kernel is ``csrc/spmv_routed.cu``; it consumes the packed arrays of the
+TPU kernel, so both packages can be fed identical inputs.
+
+Per (8,128) tile of 1024 slots, cell (s, j) being sublane s and lane j:
+
+1. x gather.  L = slot[s,j] & 127, rank = (slot[s,j] >> 7) & 7; the
+   slot's layer (rank, or 0 when the stream has one pass-1 layer) names a
+   9-bit field read at cell (s, L): gsub >> 9l for l < 3, slot >> (10 +
+   9(l-3)) for l = 3, 4.  sub = field & 7, vid = field >> 3, and
+   xg = x2d[(base[t] + vid)*8 + sub, L] (0 when vid >= W or the layer is
+   >= l1).
+2. p = vals * xg; P = inclusive fp32 prefix over the tile's 1024 slots in
+   flat order s*128 + j (the reserved lane-0 slots make P[0, 0] == 0).
+3. Per boundary layer k < lmax: raw (bl word, or the merged bm word when
+   lmax == 1) gives end lane a and start lane b, the sub fields are read at
+   the gathered lanes, and P[sub_a, a] - P[sub_b, b] is added into y tile
+   byt[t, k] at (s, j).
+
+Left out of the port on purpose: the TPU's bf16x3 prefix split (the port's
+prefix is a plain fp32 scan) and the unused ``lt`` prefetch table.  The
+pow-2 bucketing of W, lmax and the segment grids is kept only behind
+``pack_stream(bucket=True)``, so tests can feed both packages identical
+arrays; the handle packs with ``bucket=False`` and one tile per chunk.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from hispmv_tpu_torch.ops import cuda_build
+from hispmv_tpu_torch.ops.spmv_chunked import check_cuda_tensors
+from hispmv_tpu_torch.plan.routed import (
+    L1_CAP,
+    L_CAP,
+    LAUNCH_NS,
+    TILE,
+    TILE_BASE_NS,
+    TILE_BND_NS,
+    TILE_OV_NS,
+    TILE_W_NS,
+    W_CAP,
+    RoutedStream,
+)
+
+LANES = 128
+DEFAULT_TCHUNK = 16
+
+
+def _bucket(n: int) -> int:
+    """Round up to a power of two."""
+    b = 1
+    while b < n:
+        b *= 2
+    return b
+
+
+def chunk_for_stream(s: RoutedStream) -> int:
+    """Tiles per chunk of the TPU kernel (the JAX package's sizing, kept so
+    ``pack_stream`` gives identical arrays)."""
+    if s.lmax <= 4:
+        return 32
+    if s.lmax <= 16:
+        return DEFAULT_TCHUNK
+    return 8
+
+
+def _chunk_terms(nch: int, max_terms: int = 4, cap: int = 0) -> list:
+    """Binary decomposition of a chunk count into descending powers of two,
+    capped at ``max_terms`` (the remainder rounds UP to one final pow-2
+    term); ``cap`` bounds any single term, and capped full terms repeat
+    without counting against ``max_terms``."""
+    terms = []
+    rem = max(nch, 1)
+    if cap:
+        while rem > cap:
+            terms.append(cap)
+            rem -= cap
+    nfull = len(terms)  # cap-sized terms don't count against max_terms
+    while rem and len(terms) - nfull < max_terms - 1:
+        k = 1 << (rem.bit_length() - 1)
+        terms.append(k)
+        rem -= k
+    if rem:
+        terms.append(_bucket(rem))
+    return terms
+
+
+def stream_array_names(lmax: int = 2) -> tuple:
+    """Device-dict key names of one packed segment's data arrays, in
+    ``pack_stream`` order (without base/byt).  lmax == 1 streams carry ONE
+    merged boundary word ``bm`` (end_lane | start_lane<<7 | end_sub<<14 |
+    start_sub<<17) instead of the bl/bs pair."""
+    if lmax == 1:
+        return ("vals", "slot", "gsub", "bm")
+    return ("vals", "slot", "gsub", "bl", "bs")
+
+
+def _segment_terms(nch: int, chunk_cost_ns: float, cap: int = 0) -> list:
+    """The pow-2 segmentation of the JAX package (binary split or one
+    rounded-up grid, whichever its TPU cost model finds cheaper)."""
+    split = _chunk_terms(nch, cap=cap)
+    single = [_bucket(max(nch, 1))]
+    if cap and single[0] > cap:
+        return split
+    cost_split = LAUNCH_NS * len(split) \
+        + chunk_cost_ns * (sum(split) - nch)
+    cost_single = LAUNCH_NS + chunk_cost_ns * (single[0] - nch)
+    return single if cost_single <= cost_split else split
+
+
+def pack_stream(s: RoutedStream, tchunk: int = 0, bucket: bool = True):
+    """Pad one compressed stream to whole chunks of ``tchunk`` tiles.
+
+    Returns a list of ``(arrays, dims)`` segments: ``arrays`` is
+    ``(vals, slot, gsub, bm, base, byt)`` when the padded layer count lp is
+    1 and ``(vals, slot, gsub, bl, bs, base, byt)`` otherwise; ``dims`` is
+    ``(nch, tchunk, W, l1, lp)``.  The 3-D arrays are ``[nch, tchunk*rows,
+    128]`` (rows 8 for vals/slot/gsub/bm, ``ceil(lp/2)*8`` for bl,
+    ``ceil(lp/4)*8`` for bs); base is ``[nch*tchunk]``, byt
+    ``[nch*tchunk*lp]``.  With ``bucket=True`` W, lp and the segment grids
+    are bucketed to powers of two exactly as the JAX package does (its
+    arrays, without the ``lt`` table); ``bucket=False`` gives one segment
+    at the stream's own W and lmax.  Padding tiles are all zero and add
+    exact zeros into y tile 0."""
+    tchunk = tchunk or chunk_for_stream(s)
+    T = s.num_tiles
+    nch = max(-(-T // tchunk), 1)
+    W = s.wmax if not bucket else _bucket(s.wmax)
+    l1 = min(s.l1, L1_CAP)
+    lp = s.lmax if not bucket else _bucket(s.lmax)
+    if bucket:
+        chunk_cost = tchunk * (
+            TILE_BASE_NS + TILE_W_NS * (W - 1)
+            + TILE_OV_NS * (l1 - 1) + TILE_BND_NS * lp
+        )
+
+        # the TPU keeps base/byt/lt in 1 MiB of scalar memory, padded per
+        # row to 512 B: the largest pow-2 segment that fits
+        def _smem_bytes(seg_chunks):
+            t = seg_chunks * tchunk
+            return sum(max(t * d * 4, 512) for d in (1, lp, 1))
+
+        cap = 1
+        while _smem_bytes(cap * 2) <= 600 * 1024:
+            cap *= 2
+        terms = _segment_terms(nch, chunk_cost, cap=cap)
+    else:
+        terms = [nch]
+    nch = sum(terms)
+    Tp = nch * tchunk
+    npair = -(-lp // 2)
+    nquad = -(-lp // 4)
+
+    vals = np.zeros((Tp, 8, LANES), np.float32)
+    vals[:T] = s.vals
+    slot = np.zeros((Tp, 8, LANES), np.int32)
+    slot[:T] = s.slot
+    gsub = np.zeros((Tp, 8, LANES), np.int32)
+    gsub[:T] = s.gsub
+    base = np.zeros(Tp, np.int32)
+    base[:T] = s.base
+    byt = np.zeros((Tp, lp), np.int32)
+    byt[:T, : s.byt.shape[1]] = s.byt
+
+    if lp == 1:
+        # merged single boundary word: a pack-time transformation of the
+        # plan's bl/bs pair
+        bm = np.zeros((Tp, 1, 8, LANES), np.int32)
+        blv = s.bl[:, 0].view(np.uint32)
+        bsv = s.bs[:, 0].view(np.uint32)
+        bm[:T, 0] = (
+            (blv & np.uint32(0x3FFF))
+            | ((bsv & np.uint32(7)) << np.uint32(14))
+            | (((bsv >> np.uint32(4)) & np.uint32(7)) << np.uint32(17))
+        ).view(np.int32)
+        bnd = [bm.reshape(nch, tchunk * 8, LANES)]
+    else:
+        bl = np.zeros((Tp, npair, 8, LANES), np.int32)
+        bl[:T, : s.bl.shape[1]] = s.bl
+        bs = np.zeros((Tp, nquad, 8, LANES), np.int32)
+        bs[:T, : s.bs.shape[1]] = s.bs
+        bnd = [
+            bl.reshape(nch, tchunk * npair * 8, LANES),
+            bs.reshape(nch, tchunk * nquad * 8, LANES),
+        ]
+
+    full = [
+        vals.reshape(nch, tchunk * 8, LANES),
+        slot.reshape(nch, tchunk * 8, LANES),
+        gsub.reshape(nch, tchunk * 8, LANES),
+        *bnd,
+        base.reshape(nch, tchunk),
+        byt.reshape(nch, tchunk * lp),
+    ]
+    segments = []
+    off = 0
+    for term in terms:
+        seg = tuple(
+            np.ascontiguousarray(a[off: off + term])
+            if a.ndim == 3
+            else np.ascontiguousarray(a[off: off + term]).reshape(-1)
+            for a in full
+        )
+        segments.append((seg, (term, tchunk, W, l1, lp)))
+        off += term
+    return segments
+
+
+def _unpack(packed, dims):
+    """Split ``packed`` into (vals, slot, gsub, bl, bs, base, byt), with bl
+    the merged bm word and bs None when lmax == 1."""
+    lmax = dims[4]
+    want = len(stream_array_names(lmax)) + 2
+    if len(packed) != want:
+        raise ValueError(f"spmv_routed: {len(packed)} arrays for lmax="
+                         f"{lmax}, want {want} (see pack_stream)")
+    if lmax == 1:
+        vals, slot, gsub, bm, base, byt = packed
+        return vals, slot, gsub, bm, None, base, byt
+    return packed
+
+
+def check_stream_args(packed, dims, x2d, num_ytiles):
+    """Validate one packed segment before any launch."""
+    nch, tchunk, W, l1, lmax = dims
+    vals, slot, gsub, bl, bs, base, byt = _unpack(packed, dims)
+    if not (1 <= W <= W_CAP and 1 <= l1 <= L1_CAP and 1 <= lmax <= L_CAP):
+        raise ValueError(f"spmv_routed: dims W={W}, l1={l1}, lmax={lmax} "
+                         f"outside the caps ({W_CAP}, {L1_CAP}, {L_CAP})")
+    if vals.dtype != torch.float32 or x2d.dtype != torch.float32:
+        raise TypeError("spmv_routed: vals and x must be float32")
+    words = [slot, gsub, bl, base, byt] + ([bs] if bs is not None else [])
+    if any(a.dtype != torch.int32 for a in words):
+        raise TypeError("spmv_routed: routing words must be int32")
+    Tp = nch * tchunk
+    npair = 1 if lmax == 1 else -(-lmax // 2)
+    shapes = [(vals, (nch, tchunk * 8, LANES)),
+              (slot, (nch, tchunk * 8, LANES)),
+              (gsub, (nch, tchunk * 8, LANES)),
+              (bl, (nch, tchunk * npair * 8, LANES)),
+              (base, (Tp,)), (byt, (Tp * lmax,))]
+    if bs is not None:
+        shapes.append((bs, (nch, tchunk * (-(-lmax // 4)) * 8, LANES)))
+    for a, shape in shapes:
+        if tuple(a.shape) != shape:
+            raise ValueError(f"spmv_routed: array of shape {tuple(a.shape)}"
+                             f" where {shape} is needed for dims {dims}")
+    if x2d.ndim != 2 or x2d.shape[1] != LANES:
+        raise ValueError(f"spmv_routed: x must be [n, {LANES}], got "
+                         f"{tuple(x2d.shape)}")
+    if num_ytiles < 1:
+        raise ValueError("spmv_routed: num_ytiles must be >= 1")
+
+
+def spmv_routed_stream_plain(packed, dims, x2d, num_ytiles):
+    """Plain PyTorch version of B9 on the same arrays: gathers and advanced
+    indexing for the x gather, ``cumsum`` over the 1024 flat slots of each
+    tile, ``index_add_`` over ``byt``.  Every shift is masked, so torch's
+    arithmetic ``>>`` on int32 reads the same bits as the kernel's logical
+    one (no field reaches bit 31)."""
+    nch, tchunk, W, l1, lmax = dims
+    vals, slot, gsub, bl, bs, base, byt = _unpack(packed, dims)
+    dev = x2d.device
+    Tp = nch * tchunk
+    vals = vals.reshape(Tp, 8, LANES)
+    slot = slot.reshape(Tp, 8, LANES)
+    gsub = gsub.reshape(Tp, 8, LANES)
+    t_idx = torch.arange(Tp, device=dev).view(Tp, 1, 1)
+    s_idx = torch.arange(8, device=dev).view(1, 8, 1)
+    j_idx = torch.arange(LANES, device=dev).view(1, 1, LANES)
+
+    # 1. x gather: the slot's layer field at cell (s, lane)
+    lane = (slot & 127).long()
+    rank = (slot >> 7) & 7
+    xflat = x2d.reshape(-1)
+    xg = torch.zeros((Tp, 8, LANES), dtype=torch.float32, device=dev)
+    for layer in range(l1):
+        word = gsub if layer < 3 else slot
+        shift = 9 * layer if layer < 3 else 10 + 9 * (layer - 3)
+        field = torch.gather((word >> shift) & 511, 2, lane)
+        vid = (field >> 3).long()
+        row = (base.long().view(Tp, 1, 1) + vid) * 8 + (field & 7).long()
+        ok = (vid < W) & (row < x2d.shape[0])
+        g = xflat[torch.where(ok, row * LANES + lane, 0)]
+        g = torch.where(ok, g, torch.zeros((), device=dev))
+        xg = g if l1 == 1 else torch.where(rank == layer, g, xg)
+
+    # 2. products and the flat inclusive prefix of each tile
+    pf = torch.cumsum((vals * xg).reshape(Tp, TILE), dim=1).reshape(
+        Tp, 8, LANES)
+
+    # 3. boundary layers into the y tiles
+    y = torch.zeros(num_ytiles * TILE, dtype=torch.float32, device=dev)
+    byt = byt.reshape(Tp, lmax).long()
+    if lmax == 1:
+        bm = bl.reshape(Tp, 8, LANES)
+    else:
+        bl = bl.reshape(Tp, -(-lmax // 2), 8, LANES)
+        bs = bs.reshape(Tp, -(-lmax // 4), 8, LANES)
+    for k in range(lmax):
+        if lmax == 1:
+            raw = bm
+            q = (((bm >> 14) & 7) | (((bm >> 17) & 7) << 4))
+        else:
+            raw = bl[:, k // 2] >> (14 * (k % 2))
+            q = bs[:, k // 4] >> (8 * (k % 4))
+        a = (raw & 127).long()
+        b = ((raw >> 7) & 127).long()
+        sub_a = (torch.gather(q, 2, a) & 7).long()
+        sub_b = ((torch.gather(q, 2, b) >> 4) & 7).long()
+        diff = pf[t_idx, sub_a, a] - pf[t_idx, sub_b, b]
+        ok = byt[:, k] < num_ytiles
+        dest = (byt[:, k].view(Tp, 1, 1) * TILE + s_idx * LANES + j_idx)
+        y.index_add_(0, dest[ok].reshape(-1), diff[ok].reshape(-1))
+    return y.reshape(num_ytiles * 8, LANES)
+
+
+def spmv_routed_stream(packed, dims, x2d, num_ytiles):
+    """Run one packed routed-stream segment; returns y f32 [num_ytiles*8,
+    128].  ``packed``/``dims`` come from :func:`pack_stream`, ``x2d`` is
+    f32 [nwin*8, 128].  CPU tensors take the plain PyTorch version; CUDA
+    tensors launch the CUDA kernel (csrc/spmv_routed.cu) or raise."""
+    check_stream_args(packed, dims, x2d, num_ytiles)
+    if x2d.device.type == "cpu":
+        return spmv_routed_stream_plain(packed, dims, x2d, num_ytiles)
+    nch, tchunk, W, l1, lmax = dims
+    vals, slot, gsub, bl, bs, base, byt = _unpack(packed, dims)
+    check_cuda_tensors("spmv_routed", x2d, *(a for a in packed))
+    lib = cuda_build.get_lib()
+    y = torch.zeros((num_ytiles * 8, LANES), dtype=torch.float32,
+                    device=x2d.device)
+    with torch.cuda.device(x2d.device):
+        rc = lib.hispmv_spmv_routed(
+            vals.data_ptr(), slot.data_ptr(), gsub.data_ptr(),
+            bl.data_ptr(), 0 if bs is None else bs.data_ptr(),
+            base.data_ptr(), byt.data_ptr(), x2d.data_ptr(),
+            x2d.shape[0], y.data_ptr(), num_ytiles, nch * tchunk,
+            W, l1, lmax, torch.cuda.current_stream().cuda_stream,
+        )
+    cuda_build.check(rc, "spmv_routed")
+    spmv_routed_stream.launches += 1
+    return y
+
+
+spmv_routed_stream.launches = 0  # kernel launches, for the smoke run's check

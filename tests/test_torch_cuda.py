@@ -8,8 +8,11 @@ neither jax nor hispmv_tpu, so the conftest is left out):
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
 Tolerance, kernel against plain version: both fp32 with the same products,
-only the order of summation differs (atomics, run to run):
-rtol=1e-5, atol=1e-5*max(1, max|y|)."""
+only the order of summation differs (atomics, run to run; B9's prefix is a
+block scan on the card and a sequential cumsum in the plain version):
+rtol=1e-5, atol=1e-5*max(1, max|y|).  B11 does no arithmetic and is held
+to its plain version and to ``x[perm]`` exactly.  Handles are held to the
+float64 golden at rtol=1e-3."""
 
 import numpy as np
 import pytest
@@ -19,7 +22,16 @@ from hispmv_tpu_torch import COOMatrix, SpmvConfig, SpmvHandle
 from hispmv_tpu_torch.formats.synth import (
     banded_coo,
     blocked_coo,
+    powerlaw_coo,
     random_coo,
+    rmat_coo,
+)
+from hispmv_tpu_torch.ops.permute import (
+    pack_permute_plan,
+    pack_stage,
+    permute_apply,
+    permute_stage,
+    permute_stage_plain,
 )
 from hispmv_tpu_torch.ops.spmv_chunked import (
     chunk_for,
@@ -33,7 +45,14 @@ from hispmv_tpu_torch.ops.spmv_windowed import (
     spmv_windowed,
     spmv_windowed_plain,
 )
+from hispmv_tpu_torch.ops.spmv_routed import (
+    pack_stream,
+    spmv_routed_stream,
+    spmv_routed_stream_plain,
+)
 from hispmv_tpu_torch.plan.blocks import build_block_plan
+from hispmv_tpu_torch.plan.permute import build_permute_plan
+from hispmv_tpu_torch.plan.routed import build_routed_plan
 from hispmv_tpu_torch.plan.windows import SEGS, build_window_plan
 from hispmv_tpu_torch.utils.errors import error_stats
 
@@ -168,3 +187,104 @@ def test_ellx_overflow_runs_b1_on_card(dev):
     before = spmv_chunked.launches
     assert h.verify().ok
     assert spmv_chunked.launches == before + 1
+
+
+# --- routed format: B9 and B11 -------------------------------------------
+
+def _one_row():
+    n = 3000  # one row across ~3 windows: every tile has one run (lmax 1)
+    return COOMatrix((8, 4096), np.zeros(n), np.arange(n),
+                     np.linspace(-1, 1, n).astype(np.float32))
+
+
+# (matrix, (l1, lmax) of its first stream)
+ROUTED = {
+    "tiny": (lambda: random_coo(3, 7, 8, seed=6), (1, 1)),
+    "one_row": (_one_row, (1, 1)),
+    "banded": (lambda: banded_coo(300, 300, 3000, seed=0), (1, 2)),
+    "wide": (lambda: random_coo(40, 5000, 3000, seed=4), (5, 2)),
+    "tall_l1_5_lmax16": (lambda: random_coo(33000, 1024, 3000, seed=1),
+                         (5, 16)),
+    "tall_lmax32": (lambda: random_coo(33000, 128, 2000, seed=1), (1, 32)),
+}
+
+
+@pytest.mark.parametrize("bucket", [True, False])
+@pytest.mark.parametrize("name", list(ROUTED))
+def test_b9_kernel_matches_plain(dev, name, bucket):
+    coo, (l1, lmax) = ROUTED[name][0](), ROUTED[name][1]
+    plan = build_routed_plan(coo)
+    assert (plan.streams[0].l1, plan.streams[0].lmax) == (l1, lmax)
+    x2d = _x2d(coo.num_cols, plan.num_windows * 1024, dev)
+    for s in plan.streams:
+        tchunk = 4 if bucket else 1
+        for arrays, dims in pack_stream(s, tchunk, bucket=bucket):
+            packed = tuple(torch.from_numpy(a).to(dev) for a in arrays)
+            before = spmv_routed_stream.launches
+            y = spmv_routed_stream(packed, dims, x2d, plan.num_ytiles)
+            torch.cuda.synchronize()
+            assert spmv_routed_stream.launches == before + 1
+            assert_close(y, spmv_routed_stream_plain(packed, dims, x2d,
+                                                     plan.num_ytiles))
+
+
+@pytest.mark.parametrize("n", [700, 9000, 400_000])
+def test_b11_kernel_equals_plain_and_gather(dev, n):
+    perm = np.random.default_rng(n).permutation(n)
+    plan = build_permute_plan(perm)
+    rng = np.random.default_rng(1)
+    for s in (plan.s1, plan.s2, plan.s3):
+        for bucket in (True, False):
+            (route,), dims = pack_stage(s, bucket=bucket)
+            arrays = (torch.from_numpy(route).to(dev),)
+            a = torch.from_numpy(rng.standard_normal(
+                (dims[0] * dims[1] * 8, 128)).astype(np.float32)).to(dev)
+            before = permute_stage.launches
+            got = permute_stage(arrays, dims, a)
+            torch.cuda.synchronize()
+            assert permute_stage.launches == before + 1
+            assert torch.equal(got, permute_stage_plain(arrays, dims, a))
+    packed = pack_permute_plan(plan, dev)
+    x = rng.standard_normal(n).astype(np.float32)
+    y = permute_apply(packed, packed["arrays"], torch.from_numpy(x).to(dev))
+    assert np.array_equal(y.cpu().numpy(), x[perm])
+
+
+def _stretched_rmat():
+    """An R-MAT scattered along the diagonal of a 1.1M x 1.1M index space:
+    fails routed_vmem_ok, so the handle builds the banded cell grid."""
+    coo = rmat_coo(2048, 2048, 12_000, seed=23)
+    rows = coo.rows.astype(np.int64) + (coo.cols.astype(np.int64) % 7) \
+        * 150_000
+    cols = coo.cols.astype(np.int64) + (coo.rows.astype(np.int64) % 5) \
+        * 200_000
+    return COOMatrix((1_100_000, 1_100_000), rows, cols, coo.values)
+
+
+@pytest.mark.parametrize("rank_sort", [False, True])
+@pytest.mark.parametrize("name", ["powerlaw", "banded_grid", "residual"])
+def test_routed_handle_runs_on_card(dev, name, rank_sort):
+    if name == "powerlaw":
+        coo = powerlaw_coo(4000, 4000, 60_000, seed=7)
+    elif name == "banded_grid":
+        coo = _stretched_rmat()
+    else:  # one nnz per macro cell: everything demotes to the residual
+        rng = np.random.default_rng(54)
+        cols = np.arange(60) * 16384 + rng.integers(0, 1024, 60)
+        coo = COOMatrix((64, int(cols.max()) + 1), rng.integers(0, 64, 60),
+                        cols, rng.standard_normal(60).astype(np.float32))
+    h = SpmvHandle(coo, SpmvConfig(rank_sort=rank_sort), "routed")
+    assert h.format == "routed"
+    assert all(t.device.type == "cuda" for t in h._d.values())
+    rng = np.random.default_rng(4)
+    x = rng.standard_normal(coo.num_cols).astype(np.float32)
+    y_in = rng.standard_normal(coo.num_rows).astype(np.float32)
+    b9, b11 = spmv_routed_stream.launches, permute_stage.launches
+    y = h.run(torch.from_numpy(x).to(dev), torch.from_numpy(y_in).to(dev),
+              1.5, -0.5)
+    torch.cuda.synchronize()
+    want = 1.5 * coo.matvec(x.astype(np.float64)) - 0.5 * y_in
+    assert error_stats(y.cpu().numpy(), want, rtol=1e-3).ok
+    assert (spmv_routed_stream.launches > b9) == (h.plan.num_tiles > 0)
+    assert (permute_stage.launches > b11) == rank_sort
+    assert h.verify().ok
