@@ -6,16 +6,24 @@ Run from the root of a checkout, with no arguments:
     python3 chip_smoke.py
 
 It builds the hand-written CUDA kernels from ``hispmv_tpu_torch/csrc/``
-(B1, B7, B9, B11), drives the port's main path (``prepare`` ->
-``SpmvHandle.run`` and ``Accelerator``; formats window, ellx, block, dense
-and routed, the latter in original and rank space) on full-scale suite
-stand-ins, holds every result to the float64 golden at rtol 1e-3, checks
-that each run went through its kernels (launch counts zeroed just before
-the run and read just after), then compares each kernel with its plain
-PyTorch version on the same arrays and times both, and times the rank-space
-permutation beside a direct ``index_select``.  It exits nonzero, without a
-result line, when there is no CUDA card or any check fails.  The last line
-of standard output is ``{"ok": true, "device": {...}}``.
+(B1, B2, B7, B8, B9, B10, B11), then drives three paths of the port, each
+run with the launch counts zeroed just before it and read just after:
+
+- ``prepare`` -> ``SpmvHandle.run`` and ``Accelerator`` (formats window,
+  ellx, block, dense and routed, the latter in original and rank space) on
+  full-scale suite stand-ins;
+- ``SpmvHandle.linear`` / ``Accelerator.linear`` on those handles at a
+  batch of 64 (8 for the ELLX base), with a bias;
+- the three-layer MLP at full width (4096 -> 8192 -> 8192 -> 1024, density
+  0.1) swapped onto the card by ``AcceleratorLayerManager``, at batches of
+  64 and 1.
+
+Every result is held to a float64 golden at rtol 1e-3.  Then each kernel
+is compared with its plain PyTorch version on the arrays the paths gave it
+and both are timed, and the rank-space permutation is timed beside a
+direct ``index_select``.  It exits nonzero, without a result line, when
+there is no CUDA card or any check fails.  The last line of standard
+output is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -30,6 +38,11 @@ import torch
 
 from hispmv_tpu_torch import Accelerator, SpmvConfig, prepare
 from hispmv_tpu_torch.formats.synth import suite_matrix
+from hispmv_tpu_torch.models import (
+    AcceleratorLayerManager,
+    ThreeLayerFCModel,
+    compare_model_outputs,
+)
 from hispmv_tpu_torch.ops import cuda_build
 from hispmv_tpu_torch.ops.permute import (
     permute_apply,
@@ -38,15 +51,22 @@ from hispmv_tpu_torch.ops.permute import (
 )
 from hispmv_tpu_torch.ops.spmv_chunked import (
     spmv_chunked,
+    spmv_chunked_batched,
+    spmv_chunked_batched_plain,
     spmv_chunked_plain,
 )
 from hispmv_tpu_torch.ops.spmv_routed import (
     spmv_routed_stream,
+    spmv_routed_stream_batched,
+    spmv_routed_stream_batched_plain,
     spmv_routed_stream_plain,
     stream_array_names,
 )
 from hispmv_tpu_torch.ops.spmv_windowed import (
+    pack_batch_x,
     spmv_windowed,
+    spmv_windowed_batched,
+    spmv_windowed_batched_plain,
     spmv_windowed_plain,
 )
 from hispmv_tpu_torch.utils.errors import error_stats
@@ -55,6 +75,11 @@ SEED = 0
 ALPHA, BETA = 1.5, -0.5
 RTOL = 1e-3  # the reference's acceptance (utils/errors.py)
 KERNEL_RTOL = 1e-5  # kernel vs plain: fp32 both, only the summation order
+# linear outputs against the float64 golden: rtol 1e-3 plus an absolute
+# floor of 1e-5 of the largest |y|, since an fp32 sum of K terms errs by
+# ~eps*sqrt(K) of the output's scale, and among a batch's millions of
+# outputs some cancel to near zero
+GOLDEN_ATOL = 1e-5
 TIMED_RUNS = 20
 
 # (label, fixture, config, format asked, format expected, kernels expected)
@@ -75,6 +100,26 @@ SPARSE_RUNS = [
      "routed", "routed", ("spmv_routed", "permute_stage")),
 ]
 DENSE_N = 4096
+SPARSE_NAME = {r[0]: r[1] for r in SPARSE_RUNS}
+
+BATCH = 64
+# (label, handle of the main path, batch, kernels expected)
+LINEAR_RUNS = [
+    ("TSOPF_RS_b2383 block linear", "TSOPF_RS_b2383 block", BATCH,
+     ("spmv_chunked_batched",)),
+    ("trans5 ellx linear", "trans5 auto", 8, ("spmv_chunked_batched",)),
+    ("crystk03 auto linear", "crystk03 auto", BATCH,
+     ("spmv_windowed_batched",)),
+    ("trans5 routed linear", "trans5 routed", BATCH,
+     ("spmv_routed_batched",)),
+    ("ford2 routed linear", "ford2 routed", BATCH, ("spmv_routed_batched",)),
+    ("language routed rank linear", "language routed rank", BATCH,
+     ("spmv_routed", "permute_stage")),
+]
+# the model of hispmv_tpu/models/demo.py at full width
+MLP = {"input": 4096, "hidden": 8192, "out": 1024, "density": 0.1}
+MLP_BATCHES = (64, 1)
+MLP_FORMATS = ["dense", "ellx", "window"]
 
 KERNELS = {
     "spmv_chunked": {
@@ -96,6 +141,21 @@ KERNELS = {
         "wrapper": permute_stage,
         "source": "hispmv_tpu_torch/csrc/permute.cu",
         "replaces": "hispmv_tpu/ops/permute.py:58",
+    },
+    "spmv_chunked_batched": {
+        "wrapper": spmv_chunked_batched,
+        "source": "hispmv_tpu_torch/csrc/spmv_chunked_batched.cu",
+        "replaces": "hispmv_tpu/ops/spmv_chunked.py:240",
+    },
+    "spmv_windowed_batched": {
+        "wrapper": spmv_windowed_batched,
+        "source": "hispmv_tpu_torch/csrc/spmv_windowed_batched.cu",
+        "replaces": "hispmv_tpu/ops/spmv_windowed.py:211",
+    },
+    "spmv_routed_batched": {
+        "wrapper": spmv_routed_stream_batched,
+        "source": "hispmv_tpu_torch/csrc/spmv_routed.cu",
+        "replaces": "hispmv_tpu/ops/spmv_routed.py:469",
     },
 }
 
@@ -246,9 +306,7 @@ def main_path(fixtures, failures):
                          prep_s, ms, used))
     for n, c in used.items():
         counts[n] += c
-    for n, c in counts.items():
-        if c == 0:
-            failures.append(f"main path never launched {n}")
+    handles["dense"] = (acc, mid)
     return handles, rows_out, counts
 
 
@@ -265,9 +323,175 @@ def _row(label, h, nnz, rows, prep_s, ms, used):
     return row
 
 
-def kernel_checks(handles, failures):
+def linear_checks(label, h, B, once, failures):
+    """Launch counts of ONE linear call: B10 once per stream for the whole
+    batch; B9 per stream and B11 six times per vector in rank space."""
+    if h.format != "routed":
+        return
+    nstreams = len(h.plan.streams)
+    want = {"spmv_routed_batched": nstreams, "spmv_routed": 0,
+            "permute_stage": 0}
+    if h.config.rank_sort:
+        want = {"spmv_routed_batched": 0, "spmv_routed": B * nstreams,
+                "permute_stage": B * 6}
+    for n, c in want.items():
+        if once[n] != c:
+            failures.append(f"{label}: {once[n]} {n} launches in one call, "
+                            f"want {c}")
+
+
+def linear_path(handles, fixtures, counts, failures):
+    """Drive ``linear`` on the main path's handles (and the dense one
+    through ``Accelerator.linear``), each held to the float64 golden
+    ``A @ xb.T + bias``; counts zeroed before each run, read after."""
+    rng = np.random.default_rng(SEED + 1)
+    rows_out, inputs_used = [], {}
+    runs = LINEAR_RUNS + [(f"dense {DENSE_N}x{DENSE_N} Accelerator.linear",
+                           "dense", BATCH, ())]
+    for label, key, B, kernels in runs:
+        if key == "dense":
+            acc, mid = handles["dense"]
+            h = acc.handle(mid)
+            dense = h._dense.cpu().numpy()[:DENSE_N, :DENSE_N]
+            golden_a = dense.astype(np.float64)
+            nnz = DENSE_N * DENSE_N
+
+            def call(xd, bd, acc=acc, mid=mid):
+                return acc.linear(mid, xd, bd)
+        else:
+            h, _ = handles[key]
+            coo = fixtures[SPARSE_NAME[key]]
+            golden_a = coo.to_scipy()
+            nnz = coo.nnz
+
+            def call(xd, bd, h=h):
+                return h.linear(xd, bd)
+        R, C = h.shape
+        xb = rng.standard_normal((B, C)).astype(np.float32)
+        bias = rng.standard_normal(R).astype(np.float32)
+        xd = torch.from_numpy(xb).cuda()
+        bd = torch.from_numpy(bias).cuda()
+        zero_launches()
+        y = call(xd, bd)
+        torch.cuda.synchronize()
+        once = launches()
+        want = (golden_a @ xb.astype(np.float64).T).T + bias
+        got = y.cpu().numpy()
+        atol = GOLDEN_ATOL * float(np.abs(want).max())
+        st = error_stats(got, want, rtol=RTOL, atol=atol)
+        slack = np.abs(got - want) / (atol + RTOL * np.abs(want))
+        worst = np.unravel_index(np.argmax(slack), want.shape)
+        log(f"  {label}: B {B}, max abs err {st.max_abs_error:.3e} (max |y| "
+            f"{np.abs(want).max():.3e}), {st.num_mismatches} past rtol "
+            f"{RTOL} + atol {atol:.2e}; closest to the bound: y{list(worst)} "
+            f"= {got[worst]:.6e}, golden {want[worst]:.6e}; launches of one "
+            f"call {once}")
+        if not st.ok:
+            failures.append(f"{label}: linear off the golden")
+        if y.shape != (B, R) or not torch.isfinite(y).all():
+            failures.append(f"{label}: output of shape {tuple(y.shape)} is "
+                            f"not ({B}, {R}) and finite")
+        linear_checks(label, h, B, once, failures)
+        ms = median_ms(lambda: call(xd, bd))
+        used = launches()
+        for n in kernels:
+            if used[n] == 0:
+                failures.append(f"{label}: {n} was not launched")
+        for n, c in used.items():
+            counts[n] += c
+        gflops = 2.0 * B * (nnz + R) / (ms * 1e-3) / 1e9
+        log(f"  {label}: launches {used}, median linear {ms:.4f} ms, "
+            f"{gflops:.2f} GFLOP/s")
+        rows_out.append({"run": label, "format": h.format, "batch": B,
+                         "launches": used, "linear_ms": ms,
+                         "gflops": gflops,
+                         "device_mb": h.device_bytes / 2**20})
+        inputs_used[key] = xd
+    return rows_out, inputs_used
+
+
+def model_forward_f64(model, x):
+    """Float64 numpy forward of the same masked weights."""
+    def w(m):
+        mask = getattr(m, "mask", None)
+        wt = m.weight if mask is None else m.weight * mask
+        return (wt.detach().double().cpu().numpy(),
+                m.bias.detach().double().cpu().numpy())
+    y = x.astype(np.float64)
+    for i, m in enumerate((model.fc1, model.fc2, model.fc3)):
+        wt, b = w(m)
+        y = y @ wt.T + b
+        if i < 2:
+            y = np.maximum(y, 0.0)
+    return y
+
+
+def model_path(counts, failures):
+    """The three-layer MLP at full width, built on the card from a seeded
+    ``torch.Generator``, swapped onto an ``Accelerator``, run at batches of
+    64 and 1 and held to a float64 forward (rtol 1e-3, atol 1e-4)."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    t0 = time.perf_counter()
+    model = ThreeLayerFCModel(MLP["input"], hidden=MLP["hidden"],
+                              out=MLP["out"], density=MLP["density"],
+                              generator=gen, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mgr = AcceleratorLayerManager(Accelerator())
+    accel = mgr.replace_layers(model)
+    swap_s = time.perf_counter() - t0
+    fmts = [h.format for h, _ in accel.layers]
+    mb = [h.device_bytes / 2**20 for h, _ in accel.layers]
+    log(f"  model init {init_s:.2f} s, layer swap {swap_s:.2f} s; formats "
+        f"{dict(zip(mgr.layer_names, fmts))}, device MB "
+        f"{[round(m, 1) for m in mb]}")
+    if fmts != MLP_FORMATS:
+        failures.append(f"MLP: layer formats {fmts}, want {MLP_FORMATS}")
+    rng = np.random.default_rng(SEED + 2)
+    rows_out = []
+    for B in MLP_BATCHES:
+        xb = rng.standard_normal((B, MLP["input"])).astype(np.float32)
+        x = torch.from_numpy(xb).cuda()
+        zero_launches()
+        got = accel(x)
+        torch.cuda.synchronize()
+        once = launches()
+        want = model_forward_f64(model, xb)
+        st = compare_model_outputs(got, want)
+        log(f"  MLP B {B}: max rel err {st.max_rel_error:.3e} "
+            f"({st.num_mismatches} mismatches), launches of one forward "
+            f"{once}")
+        if not st.ok or got.shape != (B, MLP["out"]):
+            failures.append(f"MLP B {B}: output off the float64 forward")
+        accel_ms = median_ms(lambda: accel(x))
+        used = launches()
+        if used["spmv_windowed_batched"] == 0:
+            failures.append(f"MLP B {B}: B8 was not launched")
+        for n, c in used.items():
+            counts[n] += c
+        with torch.no_grad():
+            module_ms = median_ms(lambda: model(x))
+        layer_ms = []
+        y = x
+        for (h, bias), act in zip(accel.layers, accel.activations):
+            layer_ms.append(median_ms(lambda: h.linear(y, bias)))
+            y = h.linear(y, bias)
+            y = act(y) if act is not None else y
+        log(f"  MLP B {B}: accelerated {accel_ms:.4f} ms/batch, torch.nn "
+            f"module {module_ms:.4f} ms/batch, linear per layer "
+            f"{[round(m, 4) for m in layer_ms]} ms, launches {used}")
+        rows_out.append({"batch": B, "accelerated_ms": accel_ms,
+                         "module_ms": module_ms, "layer_linear_ms": layer_ms,
+                         "formats": fmts, "device_mb": mb})
+    return accel, rows_out
+
+
+def kernel_checks(handles, linear_x, accel, failures):
     """Each kernel against its plain PyTorch version on the arrays and x
-    that the main path gave it; launches here are not counted."""
+    that the paths gave it (the batched kernels on the batches of the
+    linear runs and on the MLP's fc3 activations); launches here are not
+    counted."""
     cases = []
     h, xd = handles["TSOPF_RS_b2383 block"]
     p = h.plan
@@ -308,10 +532,14 @@ def kernel_checks(handles, failures):
         cases.append(("permute_stage",
                       f"language x S{si + 1}: {dims[0] * dims[1]} windows",
                       ((h._d[f"xp0_a{si}_0"],), dims, a)))
+    cases += batched_cases(handles, linear_x, accel)
     plain = {"spmv_chunked": spmv_chunked_plain,
              "spmv_windowed": spmv_windowed_plain,
              "spmv_routed": spmv_routed_stream_plain,
-             "permute_stage": permute_stage_plain}
+             "permute_stage": permute_stage_plain,
+             "spmv_chunked_batched": spmv_chunked_batched_plain,
+             "spmv_windowed_batched": spmv_windowed_batched_plain,
+             "spmv_routed_batched": spmv_routed_stream_batched_plain}
     results = []
     for name, shape, args in cases:
         kern = KERNELS[name]["wrapper"]
@@ -337,6 +565,63 @@ def kernel_checks(handles, failures):
                             "version")
         results.append((name, shape, err, ms, plain_ms))
     return results
+
+
+def batched_cases(handles, linear_x, accel):
+    """B2, B8 and B10 on the arrays and batches of the linear runs, and B8
+    on the MLP's fc3 at batch 64."""
+    cases = []
+    h, _ = handles["TSOPF_RS_b2383 block"]
+    xb = h._pad_x(linear_x["TSOPF_RS_b2383 block"])
+    p = h.plan
+    cases.append(("spmv_chunked_batched",
+                  f"TSOPF_RS_b2383 block, bh 8, B {xb.shape[0]}",
+                  (h._d["data"], h._d["meta"],
+                   xb.T.reshape(-1, 128, xb.shape[0]).contiguous(),
+                   p.num_row_blocks, p.block_h, h._chunk)))
+    h, _ = handles["trans5 auto"]
+    xb = h._pad_x(linear_x["trans5 auto"])
+    p = h.plan
+    cases.append(("spmv_chunked_batched",
+                  f"trans5 ELLX overflow, bh 8, B {xb.shape[0]}",
+                  (h._d["odata"], h._d["ometa"],
+                   xb.T.reshape(-1, 128, xb.shape[0]).contiguous(),
+                   p.overflow.num_row_blocks, p.block_h, h._chunk)))
+    h, _ = handles["crystk03 auto"]
+    xb = h._pad_x(linear_x["crystk03 auto"])
+    p = h.plan
+    cases.append(("spmv_windowed_batched",
+                  f"crystk03, bh {p.block_h}, B {xb.shape[0]}",
+                  (h._d["data"], h._d["subidx"], h._d["meta"],
+                   pack_batch_x(xb, p.num_windows), p.num_row_blocks,
+                   p.block_h, h._wchunk)))
+    # fc3 of the MLP on its real input: fc2's activations at batch 64
+    (h1, b1), (h2, b2), (h, _) = accel.layers
+    x = torch.from_numpy(np.random.default_rng(SEED + 3).standard_normal(
+        (BATCH, MLP["input"])).astype(np.float32)).cuda()
+    xb = h._pad_x(torch.relu(h2.linear(torch.relu(h1.linear(x, b1)), b2)))
+    p = h.plan
+    cases.append(("spmv_windowed_batched",
+                  f"MLP fc3 {p.shape[0]}x{p.shape[1]}, bh {p.block_h}, "
+                  f"B {BATCH}",
+                  (h._d["data"], h._d["subidx"], h._d["meta"],
+                   pack_batch_x(xb, p.num_windows), p.num_row_blocks,
+                   p.block_h, h._wchunk)))
+    for label in ("trans5 routed", "ford2 routed"):
+        h, _ = handles[label]
+        meta = h._routed_meta
+        xb = h._pad_x(linear_x[label])
+        B = xb.shape[0]
+        for i, dims in enumerate(meta["streams"]):
+            p = f"s{i}_"
+            packed = tuple(h._d[p + n] for n in stream_array_names(dims[4]))
+            packed += (h._d[p + "base"], h._d[p + "byt"])
+            cases.append(("spmv_routed_batched",
+                          f"{label.split()[0]} stream {i}: {dims[0]} tiles, "
+                          f"W {dims[2]}, l1 {dims[3]}, lmax {dims[4]}, B {B}",
+                          (packed, dims, xb.reshape(-1, 128), meta["nyt"],
+                           B)))
+    return cases
 
 
 def permute_vs_gather(handles, failures):
@@ -388,9 +673,21 @@ def main() -> int:
     log("phase 3: main path (prepare -> run, Accelerator)")
     handles, runs, counts = main_path(fixtures, failures)
     log(f"  launches on the main path: {counts}")
+    log(f"phase 3b: linear on the main path's handles (B {BATCH}, bias)")
+    linear_runs, linear_x = linear_path(handles, fixtures, counts, failures)
+    log("phase 3c: the three-layer MLP at full width "
+        f"({MLP['input']} -> {MLP['hidden']} -> {MLP['hidden']} -> "
+        f"{MLP['out']}, density {MLP['density']})")
+    accel, mlp_runs = model_path(counts, failures)
+    log(f"  launches on the three paths: {counts}")
+    for n, c in counts.items():
+        if c == 0:
+            failures.append(f"the paths never launched {n}")
+    log(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**20:.0f}"
+        " MB")
 
     log("phase 4: each kernel against its plain version")
-    results = kernel_checks(handles, failures)
+    results = kernel_checks(handles, linear_x, accel, failures)
     perm_times = permute_vs_gather(handles, failures)
 
     kernels = [{
@@ -400,7 +697,8 @@ def main() -> int:
         "launches": counts[name], "max_abs_err": err,
         "ms": ms, "plain_ms": plain_ms,
     } for name, shape, err, ms, plain_ms in results]
-    log(json.dumps({"runs": runs, "permutation": perm_times}))
+    log(json.dumps({"runs": runs, "linear": linear_runs, "mlp": mlp_runs,
+                    "permutation": perm_times}))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     if failures:
         for f in failures:

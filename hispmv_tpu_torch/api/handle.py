@@ -7,14 +7,16 @@ for matrices that fail ``routed_vmem_ok``):
 
 - :class:`SpmvHandle` holds one prepared matrix as device tensors in
   ``_d`` (same key names as the JAX package) and runs
-  ``y = alpha * A @ x + beta * y_in``;
+  ``y = alpha * A @ x + beta * y_in`` (``run``) and the batched layer
+  ``y[B, R] = x[B, C] @ A.T + bias`` (``linear``);
 - :func:`choose_format` is the same structural dispatch;
 - :class:`Accelerator` keeps many handles resident and runs the selected
-  one.
+  one, or any one's ``linear``.
 
-The runner is eager Python on explicit tensors: no jit, no interpret mode,
-and no VMEM-budget dispatch (a GPU kernel reads x from device memory, so
-the block format always uses the chunked layout and the B1 kernel).  Every
+The runners are eager Python on explicit tensors: no jit, no interpret
+mode, no runner cache per batch size, and no VMEM-budget dispatch (a GPU
+kernel reads x and y from device memory, so the block format always uses
+the chunked layout: B1 for one vector, B2 for a batch of any size).  Every
 handle lives on one ``device`` (default ``"cuda"``); it never moves to the
 CPU on its own.  On a CPU device the kernel wrappers run their plain
 PyTorch versions.
@@ -40,22 +42,27 @@ from hispmv_tpu_torch.ops.spmv_chunked import (
     chunk_for,
     pack_chunks,
     spmv_chunked,
+    spmv_chunked_batched,
 )
 from hispmv_tpu_torch.ops.spmv_ellx import (
     EllxPlan,
     build_ellx_plan,
     ellx_matvec,
+    ellx_matvec_batched,
 )
 from hispmv_tpu_torch.ops.spmv_ref import spmv_ref
 from hispmv_tpu_torch.ops.spmv_routed import (
     pack_stream,
     spmv_routed_stream,
+    spmv_routed_stream_batched,
     stream_array_names,
 )
 from hispmv_tpu_torch.ops.spmv_windowed import (
     chunk_for_windowed,
+    pack_batch_x,
     pack_window_chunks,
     spmv_windowed,
+    spmv_windowed_batched,
 )
 from hispmv_tpu_torch.plan.blocks import (
     LANES,
@@ -97,6 +104,24 @@ def _extend_perm(col_perm: np.ndarray, num_cols: int, target: int) -> np.ndarray
     )
 
 
+def _stream_packed(d, prefix, i, dims):
+    """The device arrays of routed stream ``i`` in ``pack_stream`` order."""
+    p = prefix + f"s{i}_"
+    return tuple(d[p + n] for n in stream_array_names(dims[4])) + (
+        d[p + "base"], d[p + "byt"])
+
+
+def _residual_dict(d, prefix):
+    """The row-granular ELLX residual's arrays under ``ellx_matvec`` names."""
+    rd = {"base_data": d[prefix + "r_base_data"],
+          "base_cols": d[prefix + "r_base_cols"]}
+    if (prefix + "r_odata") in d:
+        rd["odata"] = d[prefix + "r_odata"]
+        rd["ometa"] = d[prefix + "r_ometa"]
+        rd["ov_expand"] = d[prefix + "r_ov_expand"]
+    return rd
+
+
 def _run_routed_part(d, x, R, meta, prefix):
     """Execute a routed plan (+ its residual) from device dict ``d`` under
     key ``prefix``; returns y[:R].  Each cost-class stream runs its own B9
@@ -112,10 +137,8 @@ def _run_routed_part(d, x, R, meta, prefix):
     x2d = x.reshape(-1, LANES)
     y2d = None
     for i, dims in enumerate(meta["streams"]):
-        p = prefix + f"s{i}_"
-        packed = tuple(d[p + n] for n in stream_array_names(dims[4])) + (
-            d[p + "base"], d[p + "byt"])
-        ys = spmv_routed_stream(packed, dims, x2d, meta["nyt"])
+        ys = spmv_routed_stream(_stream_packed(d, prefix, i, dims), dims,
+                                x2d, meta["nyt"])
         y2d = ys if y2d is None else y2d + ys
     if y2d is None:
         y = x.new_zeros(R)
@@ -126,17 +149,43 @@ def _run_routed_part(d, x, R, meta, prefix):
             0, d[prefix + "r_cols"])
         y = y.index_add(0, d[prefix + "r_rows"], contrib)
     if meta["res"] is not None:  # large residual: row-granular ELLX (B1)
-        rd = {"base_data": d[prefix + "r_base_data"],
-              "base_cols": d[prefix + "r_base_cols"]}
-        if (prefix + "r_odata") in d:
-            rd["odata"] = d[prefix + "r_odata"]
-            rd["ometa"] = d[prefix + "r_ometa"]
-            rd["ov_expand"] = d[prefix + "r_ov_expand"]
-        yr = ellx_matvec(rd, x2d, meta["res"].num_row_blocks, 1,
-                         meta["rchunk"], meta["res_ov"])
+        yr = ellx_matvec(_residual_dict(d, prefix), x2d,
+                         meta["res"].num_row_blocks, 1, meta["rchunk"],
+                         meta["res_ov"])
         y = y + yr.reshape(-1)[:R]
     if meta["yperm"] is not None:
         y = panel_permute_apply_from(d, meta["yperm"], prefix + "yp", y)
+    return y
+
+
+def _run_routed_batched(d, xb, R, meta):
+    """``linear`` of a routed plan in original space: each stream against
+    the whole batch in one B10 launch, the y tiles summed, then the COO
+    residual as one scatter and the ELLX residual through B2 at bh 1.
+    ``xb`` [B, C'] -> y [B, R]."""
+    B = xb.shape[0]
+    need = meta["nwin"] * WINDOW
+    if xb.shape[1] < need:
+        xb = torch.nn.functional.pad(xb, (0, need - xb.shape[1]))
+    xb2d = xb.reshape(-1, LANES)
+    y2d = None
+    for i, dims in enumerate(meta["streams"]):
+        ys = spmv_routed_stream_batched(_stream_packed(d, "", i, dims), dims,
+                                        xb2d, meta["nyt"], B)
+        y2d = ys if y2d is None else y2d + ys
+    if y2d is None:
+        y = xb.new_zeros((B, R))
+    else:
+        y = y2d.reshape(B, -1)[:, :R]
+    if meta["res_coo"]:
+        contrib = d["r_vals"] * xb.index_select(1, d["r_cols"])
+        y = y.index_add(1, d["r_rows"], contrib)
+    if meta["res"] is not None:
+        xt = xb.T.reshape(-1, LANES, B).contiguous()
+        yr = ellx_matvec_batched(_residual_dict(d, ""), xt,
+                                 meta["res"].num_row_blocks, 1,
+                                 meta["rchunk"], meta["res_ov"])
+        y = y + yr.reshape(-1, B)[:R].T
     return y
 
 
@@ -592,6 +641,69 @@ class SpmvHandle:
         y_in = torch.as_tensor(y_in, dtype=torch.float32, device=self.device)
         return y + beta * y_in
 
+    def _matmat(self, xb: torch.Tensor) -> torch.Tensor:
+        """Unscaled x @ A.T [B, R] from the padded batch ``xb`` [B, Cp]."""
+        R = self.shape[0]
+        B = xb.shape[0]
+        if self.format == "dense":
+            return gemv(self._dense, xb)[:, :R]
+        d = self._d
+        if self.format == "stream":
+            plan = self._stream_plan_meta
+            return spmv_ref(d["vals"], d["cols"], d["round_ids"],
+                            d["seg_rows"], plan.num_rounds, R, xb)
+        if self.format == "routed":
+            meta = self._routed_meta
+            if meta.get("cells") is not None or meta["xperm"] is not None:
+                # banded grids slice x per cell and rank space permutes
+                # each vector (B11): one vector at a time, as the JAX
+                # package does
+                return torch.stack([_run_routed_part(d, xb[b], R, meta, "")
+                                    for b in range(B)])
+            return _run_routed_batched(d, xb, R, meta)
+        if "perm" in d:
+            xb = xb.index_select(1, d["perm"])
+        if self.format == "window":
+            plan = self._window_plan_meta
+            y = spmv_windowed_batched(
+                d["data"], d["subidx"], d["meta"],
+                pack_batch_x(xb, plan.num_windows), plan.num_row_blocks,
+                plan.block_h, self._wchunk)
+            return y.reshape(-1, B)[:R].T
+        xt = xb.T.reshape(-1, LANES, B).contiguous()  # [ncb, 128, B]
+        if self.format == "block":
+            plan = self._block_plan_meta
+            y = spmv_chunked_batched(d["data"], d["meta"], xt,
+                                     plan.num_row_blocks, plan.block_h,
+                                     self._chunk)
+        else:  # ellx
+            eplan = self._ellx_plan_meta
+            ov_nrb = (eplan.overflow.num_row_blocks
+                      if eplan.overflow is not None else 0)
+            y = ellx_matvec_batched(d, xt, eplan.num_row_blocks,
+                                    eplan.block_h, self._chunk, ov_nrb)
+        return y.reshape(-1, B)[:R].T
+
+    def linear(self, x_batch, bias=None) -> torch.Tensor:
+        """Batched ``y[B, R] = x[B, C] @ A.T + bias``, the NN-layer entry
+        point, as a float32 tensor on the handle's device.  ``x_batch``
+        [B, C], or [C] (the result is then [R]).  Per format: dense as one
+        fp32 GeMM; block through B2; ellx as the grouped base product plus
+        B2 overflow; window through B8; stream as the batched reference;
+        routed in original space through B10 (one launch per stream for
+        the whole batch), and vector by vector (B9, B11) in rank space and
+        on the banded grid."""
+        xb = torch.as_tensor(x_batch, dtype=torch.float32,
+                             device=self.device)
+        squeeze = xb.ndim == 1
+        if squeeze:
+            xb = xb[None, :]
+        y = self._matmat(self._pad_x(xb).contiguous())
+        if bias is not None:
+            y = y + torch.as_tensor(bias, dtype=torch.float32,
+                                    device=self.device)[None, :]
+        return y[0] if squeeze else y
+
     def verify(self, x=None, rtol=1e-3, atol=1e-5):
         """Golden check vs the host matrix (float64 accumulation)."""
         if x is None:
@@ -646,7 +758,7 @@ def prepare(
 
 
 class Accelerator:
-    """Multi-matrix residency + selection.
+    """Multi-matrix residency + selection + batched linear.
 
     Create handles for many matrices up front, keep them resident on one
     device, then run any of them back to back.  ``budget_bytes`` imitates
@@ -711,3 +823,6 @@ class Accelerator:
 
     def run_kernel(self, x, y_in=None, alpha=1.0, beta=0.0) -> torch.Tensor:
         return self.handle().run(x, y_in=y_in, alpha=alpha, beta=beta)
+
+    def linear(self, mid: int, x_batch, bias=None) -> torch.Tensor:
+        return self.handle(mid).linear(x_batch, bias=bias)

@@ -62,11 +62,17 @@ def _stale() -> bool:
     return any(os.path.getmtime(s) > built for s in _inputs())
 
 
-def _check_nvcc(cmd, rc: int, out: str, verbose: bool) -> None:
-    if rc != 0:
-        raise RuntimeError(f"nvcc failed ({rc}):\n{' '.join(cmd)}\n{out}")
-    if verbose and out:
-        print(out)
+def _check_nvcc(runs, verbose: bool) -> None:
+    """``runs``: (cmd, returncode, output) of finished nvcc calls.  Raises
+    with the output of every failed call."""
+    failed = [f"nvcc failed ({rc}):\n{' '.join(cmd)}\n{out}"
+              for cmd, rc, out in runs if rc != 0]
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    if verbose:
+        for _, _, out in runs:
+            if out:
+                print(out)
 
 
 def build(verbose: bool = False) -> float:
@@ -92,12 +98,14 @@ def build(verbose: bool = False) -> float:
         ))
     link = [nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs]
     try:
+        runs = []
         for p in procs:
             out = p.communicate()[0]
-            _check_nvcc(p.args, p.returncode, out, verbose)
+            runs.append((p.args, p.returncode, out))
+        _check_nvcc(runs, verbose)
         proc = subprocess.run(link, stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True)
-        _check_nvcc(link, proc.returncode, proc.stdout, verbose)
+        _check_nvcc([(link, proc.returncode, proc.stdout)], verbose)
     finally:
         for p in procs:  # stop every compiler this call started
             if p.poll() is None:
@@ -130,6 +138,19 @@ def get_lib() -> ctypes.CDLL:
             lib.hispmv_spmv_routed.argtypes = [
                 ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ctypes.c_longlong,
                 ptr, i32, i32, i32, i32, i32, ptr,
+            ]
+            lib.hispmv_spmv_chunked_batched.restype = i32
+            lib.hispmv_spmv_chunked_batched.argtypes = [
+                ptr, i32, ptr, ptr, ptr, i32, i32, i32, i32, ptr,
+            ]
+            lib.hispmv_spmv_windowed_batched.restype = i32
+            lib.hispmv_spmv_windowed_batched.argtypes = [
+                ptr, i32, ptr, ptr, ptr, ptr, i32, i32, i32, i32, ptr,
+            ]
+            lib.hispmv_spmv_routed_batched.restype = i32
+            lib.hispmv_spmv_routed_batched.argtypes = [
+                ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ctypes.c_longlong,
+                i32, ptr, i32, i32, i32, i32, i32, ptr,
             ]
             lib.hispmv_permute_stage.restype = i32
             lib.hispmv_permute_stage.argtypes = [ptr, ptr, ptr, i32, ptr]

@@ -1,4 +1,4 @@
-"""Dense overlay: GeMV in full fp32.
+"""Dense overlay: GeMV and batched GeMM in full fp32.
 
 Port of ``hispmv_tpu/ops/gemv.py``.  The JAX version asks for
 ``Precision.HIGHEST`` on every dot, because anything less misses the
@@ -27,10 +27,10 @@ def full_fp32():
 
 
 def gemv(a, x, y_in=None, alpha=1.0, beta=0.0):
-    """y = alpha * A @ x + beta * y_in for one vector x (the batched form
-    of the JAX version waits for ``linear()``)."""
+    """y = alpha * A @ x + beta * y_in; batched when x is 2-D:
+    [B, C] -> [B, R] as ``x @ A.T`` (the ``linear()`` form)."""
     with full_fp32():
-        y = torch.mv(a, x)
+        y = torch.mv(a, x) if x.ndim == 1 else x @ a.T
     y = alpha * y
     if y_in is not None:
         y = y + beta * y_in

@@ -1,10 +1,12 @@
-"""B1, the chunked block-ELL SpMV stream: packer, CUDA kernel wrapper and
-plain PyTorch version.
+"""B1 and B2, the chunked block-ELL SpMV stream against one vector and
+against B vectors: packer, CUDA kernel wrappers and plain PyTorch versions.
 
 Port of ``hispmv_tpu/ops/spmv_chunked.py`` (``chunk_for``, ``pack_chunks``,
-``_chunked_kernel`` / ``spmv_chunked_pallas``).  The kernel itself is
-``csrc/spmv_chunked.cu``; it consumes the same packed arrays as the TPU
-kernel, so both packages can be fed identical inputs.
+``_chunked_kernel`` / ``spmv_chunked_pallas``, ``_chunked_batched_kernel``
+/ ``spmv_chunked_batched_pallas``).  The kernels are
+``csrc/spmv_chunked.cu`` (B1) and ``csrc/spmv_chunked_batched.cu`` (B2);
+they consume the same packed arrays as the TPU kernels, so both packages
+can be fed identical inputs.
 """
 
 from __future__ import annotations
@@ -61,10 +63,18 @@ def pack_chunks(plan: BlockPlan, chunk: int):
 
 def check_stream_args(name, data3d, meta, x2d, block_h, chunk):
     """Validate the arrays shared by B1 and B7 before any launch."""
+    check_payload(name, data3d, meta, x2d, block_h, chunk)
+    if x2d.ndim != 2 or x2d.shape[1] != LANES:
+        raise ValueError(f"{name}: x must be [n, {LANES}], got "
+                         f"{tuple(x2d.shape)}")
+
+
+def check_payload(name, data3d, meta, x, block_h, chunk):
+    """Validate the packed stream of B1, B2, B7 and B8 and the type of x."""
     if data3d.dtype not in _VALUE_DTYPES:
         raise TypeError(f"{name}: data must be float32 or bfloat16, got "
                         f"{data3d.dtype}")
-    if meta.dtype != torch.int32 or x2d.dtype != torch.float32:
+    if meta.dtype != torch.int32 or x.dtype != torch.float32:
         raise TypeError(f"{name}: meta must be int32 and x float32")
     nch = data3d.shape[0]
     if data3d.shape != (nch, chunk * block_h, LANES):
@@ -73,9 +83,6 @@ def check_stream_args(name, data3d, meta, x2d, block_h, chunk):
     if meta.shape != (nch, 2, chunk):
         raise ValueError(f"{name}: meta shape {tuple(meta.shape)} is not "
                          f"[{nch}, 2, {chunk}]")
-    if x2d.ndim != 2 or x2d.shape[1] != LANES:
-        raise ValueError(f"{name}: x must be [n, {LANES}], got "
-                         f"{tuple(x2d.shape)}")
 
 
 def check_cuda_tensors(name, *tensors):
@@ -147,3 +154,74 @@ def spmv_chunked(data3d, meta, x2d, num_row_blocks, block_h, chunk):
 
 
 spmv_chunked.launches = 0  # kernel launches, for the smoke run's check
+
+
+# Bytes of the [blocks, bh, 128, B] products the plain batched versions form
+# at a time (the same sums in groups of blocks, so large batches fit).
+PLAIN_GROUP_BYTES = 256 << 20
+
+
+def block_products(a, gather_x, rb, y):
+    """``y[rb[j]] += sum_l a[j, :, l, None] * xg[j, l, :]`` over blocks j,
+    in groups: ``a`` f32 [nb, bh, 128], ``gather_x(sl)`` gives the x rows
+    ``xg`` f32 [len, 128, B] of the blocks in slice ``sl``, ``y`` f32
+    [nrb, bh, B].  Elementwise fp32 products summed over the lanes (no
+    TF32 path): the plain form of B2 and B8."""
+    nb, bh, _ = a.shape
+    per_block = bh * LANES * y.shape[2] * 4
+    g = max(1, PLAIN_GROUP_BYTES // per_block)
+    for j0 in range(0, nb, g):
+        sl = slice(j0, j0 + g)
+        contrib = (a[sl, :, :, None] * gather_x(sl)[:, None]).sum(2)
+        y.index_add_(0, rb[sl], contrib)
+    return y
+
+
+def spmv_chunked_batched_plain(data3d, meta, xb, num_row_blocks, block_h,
+                               chunk):
+    """Plain PyTorch version of B2: B1's plain version with a batch axis,
+    ``xb`` f32 [ncb, 128, B] -> y f32 [num_row_blocks, block_h, B]."""
+    nb = data3d.shape[0] * chunk
+    a = data3d.reshape(nb, block_h, LANES).float()
+    rb = meta[:, 0, :].reshape(-1) >> 1
+    cb = meta[:, 1, :].reshape(-1)
+    y = torch.zeros((num_row_blocks, block_h, xb.shape[2]),
+                    dtype=torch.float32, device=xb.device)
+    return block_products(a, lambda sl: xb.index_select(0, cb[sl]), rb, y)
+
+
+def spmv_chunked_batched(data3d, meta, xb, num_row_blocks, block_h, chunk):
+    """Run the chunked stream against B vectors; returns y f32
+    [num_row_blocks, block_h, B].
+
+    ``data3d`` and ``meta`` as for :func:`spmv_chunked`, ``xb`` f32
+    [ncb, 128, B] (the JAX layout).  CPU tensors take the plain PyTorch
+    version; CUDA tensors launch the CUDA kernel
+    (csrc/spmv_chunked_batched.cu) or raise."""
+    name = "spmv_chunked_batched"
+    check_payload(name, data3d, meta, xb, block_h, chunk)
+    if xb.ndim != 3 or xb.shape[1] != LANES or xb.shape[2] < 1:
+        raise ValueError(f"{name}: x must be [n, {LANES}, B], got "
+                         f"{tuple(xb.shape)}")
+    if data3d.device.type == "cpu":
+        return spmv_chunked_batched_plain(
+            data3d, meta, xb, num_row_blocks, block_h, chunk
+        )
+    check_cuda_args(name, block_h, data3d, meta, xb)
+    lib = cuda_build.get_lib()
+    batch = xb.shape[2]
+    y = torch.zeros((num_row_blocks, block_h, batch), dtype=torch.float32,
+                    device=xb.device)
+    with torch.cuda.device(xb.device):
+        rc = lib.hispmv_spmv_chunked_batched(
+            data3d.data_ptr(), int(data3d.dtype == torch.bfloat16),
+            meta.data_ptr(), xb.data_ptr(), y.data_ptr(),
+            data3d.shape[0], chunk, block_h, batch,
+            torch.cuda.current_stream().cuda_stream,
+        )
+    cuda_build.check(rc, name)
+    spmv_chunked_batched.launches += 1
+    return y
+
+
+spmv_chunked_batched.launches = 0  # kernel launches, for the smoke run's check

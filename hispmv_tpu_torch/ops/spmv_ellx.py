@@ -1,12 +1,12 @@
-"""ELLX: base-K block-ELL executor + B1 overflow stream.
+"""ELLX: base-K block-ELL executor + B1 / B2 overflow stream.
 
 Port of ``hispmv_tpu/ops/spmv_ellx.py``.  The planner (``EllxPlan``,
 ``choose_k_base``, ``build_ellx_plan``) is carried over unchanged,
 TPU-calibrated cost constants included, so both packages build identical
-plans.  ``ellx_base_matvec`` is a plain torch gather plus batched product in
-full fp32, as the JAX package leaves it to XLA outside any kernel; the overflow
-stream runs the B1 kernel (ops/spmv_chunked.py) and merges back through
-``ov_expand``.
+plans.  ``ellx_base_matvec`` (and its batched form) is a plain torch gather
+plus batched product in full fp32, as the JAX package leaves it to XLA
+outside any kernel; the overflow stream runs the B1 kernel (B2 against a
+batch, ops/spmv_chunked.py) and merges back through ``ov_expand``.
 
 Original notes on the design: every row-block gets exactly ``k_base``
 block slots in a [nrb, K, bh, 128] array (zero-padded), executed as one
@@ -24,7 +24,10 @@ import numpy as np
 import torch
 
 from hispmv_tpu_torch.ops.gemv import full_fp32
-from hispmv_tpu_torch.ops.spmv_chunked import spmv_chunked
+from hispmv_tpu_torch.ops.spmv_chunked import (
+    spmv_chunked,
+    spmv_chunked_batched,
+)
 from hispmv_tpu_torch.plan.blocks import LANES, BlockPlan
 
 # Measured TPU v5e constants of the JAX package, kept unchanged so that
@@ -34,6 +37,10 @@ from hispmv_tpu_torch.plan.blocks import LANES, BlockPlan
 _ELLX_BYTES_PER_S = 450e9
 _OVERFLOW_BLOCK_S = 4.5e-8
 _OVERFLOW_LAUNCH_S = 3e-6
+
+# The batched base product gathers x for a group of row-blocks at a time,
+# [group, K, 128, B], so that its copy stays under this size whatever B is.
+BASE_GATHER_BYTES = 256 << 20
 
 
 @dataclasses.dataclass
@@ -204,5 +211,40 @@ def ellx_matvec(d: dict, x2d, num_row_blocks: int, block_h: int,
             d["odata"], d["ometa"], x2d, ov_nrb, block_h, chunk
         )  # [ov_nrb, bh] — compact
         padded = torch.cat([y_ov.new_zeros((1, y_ov.shape[1])), y_ov])
+        y = y + padded.index_select(0, d["ov_expand"])
+    return y
+
+
+def ellx_base_matvec_batched(base_data, base_cols, xb):
+    """y_tiles [nrb, bh, B] over the base ELL against ``xb`` f32
+    [ncb, 128, B]: per group of row-blocks, gather the x rows of every slot
+    ([group, K, 128, B], at most ``BASE_GATHER_BYTES``), one (bh, 128) @
+    (128, B) product per slot in full fp32, and a sum over the K slots.
+    The groups give the same sums as one pass over all row-blocks."""
+    nrb, K = base_cols.shape
+    bh = base_data.shape[2]
+    B = xb.shape[2]
+    group = max(1, BASE_GATHER_BYTES // (K * LANES * B * 4))
+    y = torch.empty((nrb, bh, B), dtype=torch.float32, device=xb.device)
+    for r0 in range(0, nrb, group):
+        cols = base_cols[r0:r0 + group].reshape(-1)
+        xr = xb.index_select(0, cols).reshape(-1, K, LANES, B)
+        with full_fp32():
+            yk = torch.matmul(base_data[r0:r0 + group].float(), xr)
+        y[r0:r0 + group] = yk.sum(dim=1)
+    return y
+
+
+def ellx_matvec_batched(d: dict, xb, num_row_blocks: int, block_h: int,
+                        chunk: Optional[int] = None, ov_nrb: int = 0):
+    """Batched ELLX: ``xb`` f32 [ncb, 128, B] -> y [nrb, bh, B]; the base
+    product in groups (:func:`ellx_base_matvec_batched`) plus the overflow
+    through B2, merged back through ``ov_expand``."""
+    y = ellx_base_matvec_batched(d["base_data"], d["base_cols"], xb)
+    if "odata" in d:
+        y_ov = spmv_chunked_batched(
+            d["odata"], d["ometa"], xb, ov_nrb, block_h, chunk
+        )  # [ov_nrb, bh, B] — compact
+        padded = torch.cat([y_ov.new_zeros((1,) + y_ov.shape[1:]), y_ov])
         y = y + padded.index_select(0, d["ov_expand"])
     return y

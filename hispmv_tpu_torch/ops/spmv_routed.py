@@ -1,11 +1,14 @@
-"""B9, the routed-stream SpMV: packer, CUDA kernel wrapper and plain
-PyTorch version.
+"""B9 and B10, the routed-stream SpMV against one vector and against B
+vectors: packer, CUDA kernel wrappers and plain PyTorch versions.
 
 Port of ``hispmv_tpu/ops/spmv_routed.py`` (``chunk_for_stream``,
 ``_chunk_terms``, ``_segment_terms``, ``stream_array_names``,
-``pack_stream``, ``_routed_kernel`` / ``spmv_routed_stream_pallas``).  The
-kernel is ``csrc/spmv_routed.cu``; it consumes the packed arrays of the
-TPU kernel, so both packages can be fed identical inputs.
+``pack_stream``, ``_routed_kernel`` / ``spmv_routed_stream_pallas``,
+``_routed_kernel_batched`` / ``spmv_routed_stream_batched_pallas``).  Both
+kernels are in ``csrc/spmv_routed.cu``; they consume the packed arrays of
+the TPU kernels, so both packages can be fed identical inputs.  B10 runs
+B9's tile against B vectors stacked as [B*nwin*8, 128] and reads the
+stream once for the whole batch.
 
 Per (8,128) tile of 1024 slots, cell (s, j) being sublane s and lane j:
 
@@ -259,15 +262,17 @@ def check_stream_args(packed, dims, x2d, num_ytiles):
         raise ValueError("spmv_routed: num_ytiles must be >= 1")
 
 
-def spmv_routed_stream_plain(packed, dims, x2d, num_ytiles):
-    """Plain PyTorch version of B9 on the same arrays: gathers and advanced
-    indexing for the x gather, ``cumsum`` over the 1024 flat slots of each
-    tile, ``index_add_`` over ``byt``.  Every shift is masked, so torch's
-    arithmetic ``>>`` on int32 reads the same bits as the kernel's logical
-    one (no field reaches bit 31)."""
+def _routed_plain(packed, dims, x3, num_ytiles):
+    """B9's arithmetic on a batch: ``x3`` f32 [B, x_rows, 128] -> y f32
+    [B, num_ytiles*1024].  Gathers and advanced indexing for the x gather,
+    ``cumsum`` over the 1024 flat slots of each tile, ``index_add_`` over
+    ``byt``.  Every shift is masked, so torch's arithmetic ``>>`` on int32
+    reads the same bits as the kernel's logical one (no field reaches bit
+    31)."""
     nch, tchunk, W, l1, lmax = dims
     vals, slot, gsub, bl, bs, base, byt = _unpack(packed, dims)
-    dev = x2d.device
+    dev = x3.device
+    B, x_rows = x3.shape[0], x3.shape[1]
     Tp = nch * tchunk
     vals = vals.reshape(Tp, 8, LANES)
     slot = slot.reshape(Tp, 8, LANES)
@@ -279,25 +284,25 @@ def spmv_routed_stream_plain(packed, dims, x2d, num_ytiles):
     # 1. x gather: the slot's layer field at cell (s, lane)
     lane = (slot & 127).long()
     rank = (slot >> 7) & 7
-    xflat = x2d.reshape(-1)
-    xg = torch.zeros((Tp, 8, LANES), dtype=torch.float32, device=dev)
+    xflat = x3.reshape(B, -1)
+    xg = torch.zeros((B, Tp, 8, LANES), dtype=torch.float32, device=dev)
     for layer in range(l1):
         word = gsub if layer < 3 else slot
         shift = 9 * layer if layer < 3 else 10 + 9 * (layer - 3)
         field = torch.gather((word >> shift) & 511, 2, lane)
         vid = (field >> 3).long()
         row = (base.long().view(Tp, 1, 1) + vid) * 8 + (field & 7).long()
-        ok = (vid < W) & (row < x2d.shape[0])
-        g = xflat[torch.where(ok, row * LANES + lane, 0)]
+        ok = (vid < W) & (row < x_rows)
+        g = xflat[:, torch.where(ok, row * LANES + lane, 0)]
         g = torch.where(ok, g, torch.zeros((), device=dev))
         xg = g if l1 == 1 else torch.where(rank == layer, g, xg)
 
     # 2. products and the flat inclusive prefix of each tile
-    pf = torch.cumsum((vals * xg).reshape(Tp, TILE), dim=1).reshape(
-        Tp, 8, LANES)
+    pf = torch.cumsum((vals * xg).reshape(B, Tp, TILE), dim=2).reshape(
+        B, Tp, 8, LANES)
 
     # 3. boundary layers into the y tiles
-    y = torch.zeros(num_ytiles * TILE, dtype=torch.float32, device=dev)
+    y = torch.zeros((B, num_ytiles * TILE), dtype=torch.float32, device=dev)
     byt = byt.reshape(Tp, lmax).long()
     if lmax == 1:
         bm = bl.reshape(Tp, 8, LANES)
@@ -315,11 +320,26 @@ def spmv_routed_stream_plain(packed, dims, x2d, num_ytiles):
         b = ((raw >> 7) & 127).long()
         sub_a = (torch.gather(q, 2, a) & 7).long()
         sub_b = ((torch.gather(q, 2, b) >> 4) & 7).long()
-        diff = pf[t_idx, sub_a, a] - pf[t_idx, sub_b, b]
+        diff = pf[:, t_idx, sub_a, a] - pf[:, t_idx, sub_b, b]
         ok = byt[:, k] < num_ytiles
         dest = (byt[:, k].view(Tp, 1, 1) * TILE + s_idx * LANES + j_idx)
-        y.index_add_(0, dest[ok].reshape(-1), diff[ok].reshape(-1))
+        y.index_add_(1, dest[ok].reshape(-1), diff[:, ok].reshape(B, -1))
+    return y
+
+
+def spmv_routed_stream_plain(packed, dims, x2d, num_ytiles):
+    """Plain PyTorch version of B9 on the same arrays (see
+    :func:`_routed_plain`); returns y f32 [num_ytiles*8, 128]."""
+    y = _routed_plain(packed, dims, x2d[None], num_ytiles)
     return y.reshape(num_ytiles * 8, LANES)
+
+
+def spmv_routed_stream_batched_plain(packed, dims, xb2d, num_ytiles, B):
+    """Plain PyTorch version of B10: B9's plain version with the batch as a
+    leading dimension.  ``xb2d`` f32 [B*nwin*8, 128] -> y f32
+    [B*num_ytiles*8, 128]."""
+    y = _routed_plain(packed, dims, xb2d.reshape(B, -1, LANES), num_ytiles)
+    return y.reshape(B * num_ytiles * 8, LANES)
 
 
 def spmv_routed_stream(packed, dims, x2d, num_ytiles):
@@ -350,3 +370,39 @@ def spmv_routed_stream(packed, dims, x2d, num_ytiles):
 
 
 spmv_routed_stream.launches = 0  # kernel launches, for the smoke run's check
+
+
+def spmv_routed_stream_batched(packed, dims, xb2d, num_ytiles, B):
+    """Run one packed routed-stream segment against ``B`` vectors stacked
+    as ``xb2d`` f32 [B*nwin*8, 128] (vector b in rows b*nwin*8 onward);
+    returns y f32 [B*num_ytiles*8, 128].  One launch covers the whole
+    batch and reads the stream once.  CPU tensors take the plain PyTorch
+    version; CUDA tensors launch the CUDA kernel (csrc/spmv_routed.cu) or
+    raise."""
+    check_stream_args(packed, dims, xb2d, num_ytiles)
+    if B < 1 or xb2d.shape[0] % B:
+        raise ValueError(f"spmv_routed_batched: {xb2d.shape[0]} x rows do "
+                         f"not split into B={B} vectors")
+    if xb2d.device.type == "cpu":
+        return spmv_routed_stream_batched_plain(packed, dims, xb2d,
+                                                num_ytiles, B)
+    nch, tchunk, W, l1, lmax = dims
+    vals, slot, gsub, bl, bs, base, byt = _unpack(packed, dims)
+    check_cuda_tensors("spmv_routed_batched", xb2d, *(a for a in packed))
+    lib = cuda_build.get_lib()
+    y = torch.zeros((B * num_ytiles * 8, LANES), dtype=torch.float32,
+                    device=xb2d.device)
+    with torch.cuda.device(xb2d.device):
+        rc = lib.hispmv_spmv_routed_batched(
+            vals.data_ptr(), slot.data_ptr(), gsub.data_ptr(),
+            bl.data_ptr(), 0 if bs is None else bs.data_ptr(),
+            base.data_ptr(), byt.data_ptr(), xb2d.data_ptr(),
+            xb2d.shape[0] // B, B, y.data_ptr(), num_ytiles, nch * tchunk,
+            W, l1, lmax, torch.cuda.current_stream().cuda_stream,
+        )
+    cuda_build.check(rc, "spmv_routed_batched")
+    spmv_routed_stream_batched.launches += 1
+    return y
+
+
+spmv_routed_stream_batched.launches = 0  # kernel launches, for the smoke run

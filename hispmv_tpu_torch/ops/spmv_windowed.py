@@ -1,11 +1,13 @@
-"""B7, the windowed block-ELL SpMV stream: packer, CUDA kernel wrapper and
-plain PyTorch version.
+"""B7 and B8, the windowed block-ELL SpMV stream against one vector and
+against B vectors: packer, CUDA kernel wrappers and plain PyTorch versions.
 
 Port of ``hispmv_tpu/ops/spmv_windowed.py`` (``chunk_for_windowed``,
-``pack_window_chunks``, ``_windowed_kernel`` / ``spmv_windowed_pallas``).
-The kernel itself is ``csrc/spmv_windowed.cu``; it consumes the same packed
-arrays as the TPU kernel.  Lane l of block j reads
-``x2d[win*8 + subidx[j, l], l]`` (plan/windows.py).
+``pack_window_chunks``, ``_windowed_kernel`` / ``spmv_windowed_pallas``,
+``_windowed_batched_kernel`` / ``spmv_windowed_batched_pallas``,
+``pack_batch_x``).  The kernels are ``csrc/spmv_windowed.cu`` (B7) and
+``csrc/spmv_windowed_batched.cu`` (B8); they consume the same packed arrays
+as the TPU kernels.  Lane l of block j reads ``x2d[win*8 + subidx[j, l],
+l]`` (plan/windows.py), per vector for B8.
 """
 
 from __future__ import annotations
@@ -15,7 +17,9 @@ import torch
 
 from hispmv_tpu_torch.ops import cuda_build
 from hispmv_tpu_torch.ops.spmv_chunked import (
+    block_products,
     check_cuda_args,
+    check_payload,
     check_stream_args,
 )
 from hispmv_tpu_torch.plan.windows import LANES, SEGS, WindowPlan
@@ -54,11 +58,11 @@ def pack_window_chunks(plan: WindowPlan, chunk: int):
     return data3d, subidx3d, meta, nchunks
 
 
-def _check_subidx(subidx3d, meta, chunk):
+def _check_subidx(subidx3d, meta, chunk, name="spmv_windowed"):
     if subidx3d.dtype != torch.int32:
-        raise TypeError("spmv_windowed: subidx must be int32")
+        raise TypeError(f"{name}: subidx must be int32")
     if subidx3d.shape != (meta.shape[0], chunk, LANES):
-        raise ValueError(f"spmv_windowed: subidx shape "
+        raise ValueError(f"{name}: subidx shape "
                          f"{tuple(subidx3d.shape)} is not "
                          f"[{meta.shape[0]}, {chunk}, {LANES}]")
 
@@ -111,3 +115,69 @@ def spmv_windowed(data3d, subidx3d, meta, x2d, num_row_blocks, block_h,
 
 
 spmv_windowed.launches = 0  # kernel launches, for the smoke run's check
+
+
+def pack_batch_x(xb, num_windows: int):
+    """[B, Cp] -> the [nwin*8, B*128] layout of B8: value (s, b*128 + j) is
+    x_b[s*128 + j] (the JAX package's ``pack_batch_x``)."""
+    B = xb.shape[0]
+    S = num_windows * SEGS
+    return xb.reshape(B, S, LANES).transpose(0, 1).reshape(
+        S, B * LANES).contiguous()
+
+
+def spmv_windowed_batched_plain(data3d, subidx3d, meta, x_packed,
+                                num_row_blocks, block_h, chunk):
+    """Plain PyTorch version of B8 on the same arrays: B7's gather per
+    batch column from ``x_packed`` f32 [nwin*8, B*128], then the products
+    of B2's plain version -> y f32 [num_row_blocks, block_h, B]."""
+    nb = data3d.shape[0] * chunk
+    a = data3d.reshape(nb, block_h, LANES).float()
+    rb = meta[:, 0, :].reshape(-1) >> 1
+    win = meta[:, 1, :].reshape(-1)
+    batch = x_packed.shape[1] // LANES
+    x3 = x_packed.reshape(-1, batch, LANES).permute(0, 2, 1)  # [S, 128, B]
+    rows = (win[:, None] * SEGS + subidx3d.reshape(nb, LANES)).long()
+    lanes = torch.arange(LANES, device=x_packed.device)
+    y = torch.zeros((num_row_blocks, block_h, batch), dtype=torch.float32,
+                    device=x_packed.device)
+    return block_products(a, lambda sl: x3[rows[sl], lanes], rb, y)
+
+
+def spmv_windowed_batched(data3d, subidx3d, meta, x_packed, num_row_blocks,
+                          block_h, chunk):
+    """Run the windowed stream against B vectors; returns y f32
+    [num_row_blocks, block_h, B].  ``x_packed`` f32 [nwin*8, B*128] from
+    :func:`pack_batch_x`.  The kernel covers the batch in panels of at most
+    64 vectors (the TPU kernel's verified gather width) in one launch.  CPU
+    tensors take the plain PyTorch version; CUDA tensors launch the CUDA
+    kernel (csrc/spmv_windowed_batched.cu) or raise."""
+    name = "spmv_windowed_batched"
+    check_payload(name, data3d, meta, x_packed, block_h, chunk)
+    _check_subidx(subidx3d, meta, chunk, name)
+    if (x_packed.ndim != 2 or x_packed.shape[1] < LANES
+            or x_packed.shape[1] % LANES):
+        raise ValueError(f"{name}: x must be [n, B*{LANES}], got "
+                         f"{tuple(x_packed.shape)}")
+    if data3d.device.type == "cpu":
+        return spmv_windowed_batched_plain(
+            data3d, subidx3d, meta, x_packed, num_row_blocks, block_h, chunk
+        )
+    check_cuda_args(name, block_h, data3d, subidx3d, meta, x_packed)
+    lib = cuda_build.get_lib()
+    batch = x_packed.shape[1] // LANES
+    y = torch.zeros((num_row_blocks, block_h, batch), dtype=torch.float32,
+                    device=x_packed.device)
+    with torch.cuda.device(x_packed.device):
+        rc = lib.hispmv_spmv_windowed_batched(
+            data3d.data_ptr(), int(data3d.dtype == torch.bfloat16),
+            subidx3d.data_ptr(), meta.data_ptr(), x_packed.data_ptr(),
+            y.data_ptr(), data3d.shape[0], chunk, block_h, batch,
+            torch.cuda.current_stream().cuda_stream,
+        )
+    cuda_build.check(rc, name)
+    spmv_windowed_batched.launches += 1
+    return y
+
+
+spmv_windowed_batched.launches = 0  # kernel launches, for the smoke check

@@ -1,4 +1,5 @@
-"""The CUDA kernels against their plain PyTorch versions, on the card.
+"""The CUDA kernels against their plain PyTorch versions, on the card, and
+the handle's ``run`` and ``linear`` against the golden there.
 
 A CUDA kernel has no CPU mode, so every test here needs a card: each is
 marked ``cuda`` and skips without one (decided in the fixture, not at
@@ -18,7 +19,7 @@ import numpy as np
 import pytest
 import torch
 
-from hispmv_tpu_torch import COOMatrix, SpmvConfig, SpmvHandle
+from hispmv_tpu_torch import Accelerator, COOMatrix, SpmvConfig, SpmvHandle
 from hispmv_tpu_torch.formats.synth import (
     banded_coo,
     blocked_coo,
@@ -33,21 +34,33 @@ from hispmv_tpu_torch.ops.permute import (
     permute_stage,
     permute_stage_plain,
 )
+from hispmv_tpu_torch.models import (
+    AcceleratorLayerManager,
+    ThreeLayerFCModel,
+    compare_model_outputs,
+)
 from hispmv_tpu_torch.ops.spmv_chunked import (
     chunk_for,
     pack_chunks,
     spmv_chunked,
+    spmv_chunked_batched,
+    spmv_chunked_batched_plain,
     spmv_chunked_plain,
 )
 from hispmv_tpu_torch.ops.spmv_windowed import (
     chunk_for_windowed,
+    pack_batch_x,
     pack_window_chunks,
     spmv_windowed,
+    spmv_windowed_batched,
+    spmv_windowed_batched_plain,
     spmv_windowed_plain,
 )
 from hispmv_tpu_torch.ops.spmv_routed import (
     pack_stream,
     spmv_routed_stream,
+    spmv_routed_stream_batched,
+    spmv_routed_stream_batched_plain,
     spmv_routed_stream_plain,
 )
 from hispmv_tpu_torch.plan.blocks import build_block_plan
@@ -288,3 +301,158 @@ def test_routed_handle_runs_on_card(dev, name, rank_sort):
     assert (spmv_routed_stream.launches > b9) == (h.plan.num_tiles > 0)
     assert (permute_stage.launches > b11) == rank_sort
     assert h.verify().ok
+
+
+# --- batched linear(): B2, B8 and B10 ---------------------------------------
+
+
+def _batch(n, cols, dev, seed=0):
+    return torch.from_numpy(np.random.default_rng(seed).standard_normal(
+        (n, cols)).astype(np.float32)).to(dev)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B", [1, 7, 64])
+@pytest.mark.parametrize("bh", [1, 8, 64])
+@pytest.mark.parametrize("name", ["random", "blocked"])
+def test_b2_kernel_matches_plain(dev, name, bh, B, dtype):
+    data, meta, x2d, nrb, bh, chunk = _b1_args(name, bh, None, dtype, dev)
+    xb = _batch(B, x2d.numel(), dev, seed=B).T.reshape(-1, 128, B)
+    args = (data, meta, xb.contiguous(), nrb, bh, chunk)
+    before = spmv_chunked_batched.launches
+    y = spmv_chunked_batched(*args)
+    torch.cuda.synchronize()
+    assert spmv_chunked_batched.launches == before + 1
+    assert y.shape == (nrb, bh, B) and y.dtype == torch.float32
+    assert_close(y, spmv_chunked_batched_plain(*args))
+
+
+def test_b2_kernel_batch_past_one_panel(dev):
+    """130 vectors: three panels of at most 64 in one launch."""
+    data, meta, x2d, nrb, bh, chunk = _b1_args("banded", 8, 8,
+                                               torch.float32, dev)
+    xb = _batch(130, x2d.numel(), dev, seed=2).T.reshape(-1, 128, 130)
+    args = (data, meta, xb.contiguous(), nrb, bh, chunk)
+    assert_close(spmv_chunked_batched(*args),
+                 spmv_chunked_batched_plain(*args))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B", [1, 7, 64])
+@pytest.mark.parametrize("bh", [1, 8, 64])
+@pytest.mark.parametrize("name", ["random", "banded"])
+def test_b8_kernel_matches_plain(dev, name, bh, B, dtype):
+    data, subidx, meta, x2d, nrb, bh, chunk = _b7_args(name, bh, None,
+                                                       dtype, dev)
+    nwin = x2d.shape[0] // SEGS
+    xp = pack_batch_x(_batch(B, x2d.numel(), dev, seed=B), nwin)
+    args = (data, subidx, meta, xp, nrb, bh, chunk)
+    before = spmv_windowed_batched.launches
+    y = spmv_windowed_batched(*args)
+    torch.cuda.synchronize()
+    assert spmv_windowed_batched.launches == before + 1
+    assert y.shape == (nrb, bh, B)
+    assert_close(y, spmv_windowed_batched_plain(*args))
+
+
+@pytest.mark.parametrize("B", [1, 7, 64])
+@pytest.mark.parametrize("name", list(ROUTED))
+def test_b10_kernel_matches_plain(dev, name, B):
+    coo = ROUTED[name][0]()
+    plan = build_routed_plan(coo)
+    C = plan.num_windows * 1024
+    xb2d = _batch(B, C, dev, seed=B).reshape(-1, 128)
+    for s in plan.streams:
+        ((arrays, dims),) = pack_stream(s, 1, bucket=False)
+        packed = tuple(torch.from_numpy(a).to(dev) for a in arrays)
+        before = spmv_routed_stream_batched.launches
+        y = spmv_routed_stream_batched(packed, dims, xb2d, plan.num_ytiles,
+                                       B)
+        torch.cuda.synchronize()
+        assert spmv_routed_stream_batched.launches == before + 1
+        assert_close(y, spmv_routed_stream_batched_plain(
+            packed, dims, xb2d, plan.num_ytiles, B))
+        # vector b of the batch is B9 on vector b
+        y9 = spmv_routed_stream(packed, dims, xb2d[-C // 128:],
+                                plan.num_ytiles)
+        assert_close(y.reshape(B, -1)[-1], y9.reshape(-1))
+
+
+def _golden_linear(coo, xb, bias, value_dtype="float32"):
+    vals = coo.values
+    if value_dtype == "bfloat16":  # hold it to the rounded payload
+        vals = torch.from_numpy(vals).to(torch.bfloat16).float().numpy()
+    a = COOMatrix(coo.shape, coo.rows, coo.cols, vals).to_scipy()
+    return (a @ xb.astype(np.float64).T).T + bias
+
+
+@pytest.mark.parametrize("fmt,cfg", [
+    ("block", SpmvConfig()),
+    ("block", SpmvConfig(block_h=64, value_dtype="bfloat16")),
+    ("window", SpmvConfig()),
+    ("window", SpmvConfig(block_h=64)),
+    ("ellx", SpmvConfig()),
+    ("ellx", SpmvConfig(block_h=1)),
+    ("stream", SpmvConfig()),
+    ("dense", SpmvConfig()),
+    ("auto", SpmvConfig()),
+    ("routed", SpmvConfig()),
+    ("routed", SpmvConfig(rank_sort=True)),
+])
+@pytest.mark.parametrize("B", [1, 64])
+def test_linear_on_card(dev, fmt, cfg, B):
+    coo = MATRICES["random"]()
+    h = SpmvHandle(coo, cfg, fmt)
+    xb = np.random.default_rng(B).standard_normal(
+        (B, coo.num_cols)).astype(np.float32)
+    bias = np.linspace(-1, 1, coo.num_rows).astype(np.float32)
+    y = h.linear(torch.from_numpy(xb).to(dev), torch.from_numpy(bias).to(dev))
+    assert y.device.type == "cuda" and y.shape == (B, coo.num_rows)
+    want = _golden_linear(coo, xb, bias, cfg.value_dtype)
+    assert error_stats(y.cpu().numpy(), want, rtol=1e-3).ok
+
+
+def test_ellx_overflow_linear_runs_b2_on_card(dev):
+    coo = random_coo(4096, 4096, 4096, seed=3)
+    rows = np.concatenate([coo.rows, np.full(4096, 7, np.int32)])
+    cols = np.concatenate([coo.cols, np.arange(4096, dtype=np.int32)])
+    vals = np.concatenate([coo.values, np.ones(4096, np.float32)])
+    heavy = COOMatrix(coo.shape, rows, cols, vals)
+    h = SpmvHandle(heavy, format="ellx")
+    assert "odata" in h._d
+    xb = np.random.default_rng(9).standard_normal((9, 4096)).astype(
+        np.float32)
+    before = spmv_chunked_batched.launches
+    y = h.linear(torch.from_numpy(xb).to(dev))
+    torch.cuda.synchronize()
+    assert spmv_chunked_batched.launches == before + 1
+    assert error_stats(y.cpu().numpy(),
+                       _golden_linear(heavy, xb, 0.0), rtol=1e-3).ok
+
+
+def test_routed_linear_one_b10_launch_per_stream(dev):
+    coo = powerlaw_coo(4000, 4000, 60_000, seed=7)
+    h = SpmvHandle(coo, format="routed")
+    xb = np.random.default_rng(5).standard_normal((16, 4000)).astype(
+        np.float32)
+    before = spmv_routed_stream_batched.launches
+    y = h.linear(torch.from_numpy(xb).to(dev))
+    torch.cuda.synchronize()
+    assert (spmv_routed_stream_batched.launches - before
+            == len(h.plan.streams))
+    assert error_stats(y.cpu().numpy(), _golden_linear(coo, xb, 0.0),
+                       rtol=1e-3).ok
+
+
+def test_model_swap_on_card(dev):
+    gen = torch.Generator(device=dev).manual_seed(0)
+    model = ThreeLayerFCModel(512, hidden=1024, out=128, density=0.1,
+                              generator=gen, device=dev)
+    accel = AcceleratorLayerManager(Accelerator()).replace_layers(model)
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (16, 512)).astype(np.float32)).to(dev)
+    with torch.no_grad():
+        want = model(x)
+    got = accel(x)
+    assert got.device.type == "cuda"
+    assert compare_model_outputs(got, want).ok

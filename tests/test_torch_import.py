@@ -65,7 +65,8 @@ def test_kernel_library_is_stale_when_a_source_changes(tmp_path,
     monkeypatch.setattr(cuda_build, "CSRC_DIR", str(csrc))
     monkeypatch.setattr(cuda_build, "LIB_PATH", str(lib))
     assert [os.path.basename(s) for s in cuda_build.sources()] == [
-        "permute.cu", "spmv_chunked.cu", "spmv_routed.cu", "spmv_windowed.cu"
+        "permute.cu", "spmv_chunked.cu", "spmv_chunked_batched.cu",
+        "spmv_routed.cu", "spmv_windowed.cu", "spmv_windowed_batched.cu",
     ]
     assert cuda_build._stale()  # never built
     lib.write_bytes(b"")
