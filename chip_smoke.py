@@ -6,8 +6,9 @@ Run from the root of a checkout, with no arguments:
     python3 chip_smoke.py
 
 It builds the hand-written CUDA kernels from ``hispmv_tpu_torch/csrc/``
-(B1, B2, B7, B8, B9, B10, B11), then drives three paths of the port, each
-run with the launch counts zeroed just before it and read just after:
+(B1, B2, B3, B5, B6, B7, B8, B9, B10, B11), then drives five paths of the
+port, each run with the launch counts zeroed just before it and read just
+after:
 
 - ``prepare`` -> ``SpmvHandle.run`` and ``Accelerator`` (formats window,
   ellx, block, dense and routed, the latter in original and rank space) on
@@ -16,14 +17,24 @@ run with the launch counts zeroed just before it and read just after:
   batch of 64 (8 for the ELLX base), with a bias;
 - the three-layer MLP at full width (4096 -> 8192 -> 8192 -> 1024, density
   0.1) swapped onto the card by ``AcceleratorLayerManager``, at batches of
-  64 and 1.
+  64 and 1;
+- the sharded executors of ``dist`` (per-block with x gathered, chunked
+  with the x ring and replicated, windowed) on TSOPF_RS_b2383 and crystk03
+  over a mesh that repeats the one card four times, and over one card, then
+  ``dryrun_multichip``; on distinct cards too when there are two or more;
+- the ``ops`` entry: the one-shot ``spmv_block`` (B5) and B6 at a batch of
+  64 on TSOPF_RS_b2383, beside the handle's ``run`` (B1) and ``linear``
+  (B2).
 
 Every result is held to a float64 golden at rtol 1e-3.  Then each kernel
 is compared with its plain PyTorch version on the arrays the paths gave it
-and both are timed, and the rank-space permutation is timed beside a
-direct ``index_select``.  It exits nonzero, without a result line, when
-there is no CUDA card or any check fails.  The last line of standard
-output is ``{"ok": true, "device": {...}}``.
+and both are timed beside the kernel's bound (bytes over the HBM rate or
+fp32 operations over the FMA rate, whichever is larger) and, where one
+PyTorch call computes the same function (a CSR product, ``index_select``),
+that call; the rank-space permutation is timed beside a direct
+``index_select``.  It exits nonzero, without a result line, when there is
+no CUDA card or any check fails.  The last line of standard output is
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -36,7 +47,20 @@ import time
 import numpy as np
 import torch
 
+import hispmv_tpu_torch.ops as ops
 from hispmv_tpu_torch import Accelerator, SpmvConfig, prepare
+from hispmv_tpu_torch.dist import (
+    build_sharded_block_plan,
+    build_sharded_chunked_plan,
+    build_sharded_window_plan,
+    make_mesh,
+    spmv_sharded,
+    spmv_sharded_chunked,
+    spmv_sharded_window,
+    to_device,
+)
+from hispmv_tpu_torch.dist.dryrun import dryrun_multichip
+from hispmv_tpu_torch.dist.shard import device_bytes
 from hispmv_tpu_torch.formats.synth import suite_matrix
 from hispmv_tpu_torch.models import (
     AcceleratorLayerManager,
@@ -49,10 +73,21 @@ from hispmv_tpu_torch.ops.permute import (
     permute_stage,
     permute_stage_plain,
 )
+from hispmv_tpu_torch.ops.spmv_block import (
+    spmv_block_batched,
+    spmv_block_batched_plain,
+    spmv_block_stream,
+    spmv_block_stream_plain,
+    upload_block_plan,
+)
 from hispmv_tpu_torch.ops.spmv_chunked import (
+    chunk_for,
+    pack_chunks_paneled,
     spmv_chunked,
     spmv_chunked_batched,
     spmv_chunked_batched_plain,
+    spmv_chunked_paneled,
+    spmv_chunked_paneled_plain,
     spmv_chunked_plain,
 )
 from hispmv_tpu_torch.ops.spmv_routed import (
@@ -121,6 +156,36 @@ MLP = {"input": 4096, "hidden": 8192, "out": 1024, "density": 0.1}
 MLP_BATCHES = (64, 1)
 MLP_FORMATS = ["dense", "ellx", "window"]
 
+# sharded paths: meshes that repeat the one card, and the runs on each
+SHARD_MESHES = [("cuda:0",) * 4, ("cuda:0",)]
+# (label, fixture, plan kind, x_mode, single-device handle of the main path)
+SHARDED_RUNS = [
+    ("TSOPF_RS_b2383 block gather", "TSOPF_RS_b2383", "block", "gather",
+     "TSOPF_RS_b2383 block"),
+    ("TSOPF_RS_b2383 chunked ring", "TSOPF_RS_b2383", "chunked", "ring",
+     "TSOPF_RS_b2383 block"),
+    ("TSOPF_RS_b2383 chunked replicated", "TSOPF_RS_b2383", "chunked",
+     "replicated", "TSOPF_RS_b2383 block"),
+    ("crystk03 window replicated", "crystk03", "window", "replicated",
+     "crystk03 auto"),
+]
+SHARD_KINDS = {  # plan builder, executor, kernel, launches per call of D
+    "block": (lambda coo, D: build_sharded_block_plan(coo, D), spmv_sharded,
+              "spmv_block", lambda D: D),
+    "chunked": (lambda coo, D: build_sharded_chunked_plan(
+        coo, D, chunk=min(chunk_for(8), 128)), spmv_sharded_chunked,
+        "spmv_chunked_paneled", lambda D: D * D),
+    "window": (lambda coo, D: build_sharded_window_plan(coo, D),
+               spmv_sharded_window, "spmv_windowed", lambda D: D),
+}
+MAX_BALANCE = 1.3  # max/mean device load of the nnz-balanced planners
+PANEL_NCB = 64  # x panel of the multi-panel B3 check (8192 columns)
+
+# Published peaks of one H100 SXM (NVIDIA's data sheet): HBM bandwidth and
+# fp32 rate outside the tensor cores (an FMA counts as two operations).
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOPS = 67e12
+
 KERNELS = {
     "spmv_chunked": {
         "wrapper": spmv_chunked,
@@ -157,7 +222,32 @@ KERNELS = {
         "source": "hispmv_tpu_torch/csrc/spmv_routed.cu",
         "replaces": "hispmv_tpu/ops/spmv_routed.py:469",
     },
+    "spmv_chunked_paneled": {
+        "wrapper": spmv_chunked_paneled,
+        "source": "hispmv_tpu_torch/csrc/spmv_chunked_paneled.cu",
+        "replaces": "hispmv_tpu/ops/spmv_chunked.py:417",
+    },
+    "spmv_block": {
+        "wrapper": spmv_block_stream,
+        "source": "hispmv_tpu_torch/csrc/spmv_block.cu",
+        "replaces": "hispmv_tpu/ops/spmv_block.py:36",
+    },
+    "spmv_block_batched": {
+        "wrapper": spmv_block_batched,
+        "source": "hispmv_tpu_torch/csrc/spmv_block.cu",
+        "replaces": "hispmv_tpu/ops/spmv_block.py:215",
+    },
 }
+PLAIN = {"spmv_chunked": spmv_chunked_plain,
+         "spmv_windowed": spmv_windowed_plain,
+         "spmv_routed": spmv_routed_stream_plain,
+         "permute_stage": permute_stage_plain,
+         "spmv_chunked_batched": spmv_chunked_batched_plain,
+         "spmv_windowed_batched": spmv_windowed_batched_plain,
+         "spmv_routed_batched": spmv_routed_stream_batched_plain,
+         "spmv_chunked_paneled": spmv_chunked_paneled_plain,
+         "spmv_block": spmv_block_stream_plain,
+         "spmv_block_batched": spmv_block_batched_plain}
 
 
 def log(msg: str) -> None:
@@ -198,6 +288,26 @@ def median_ms(fn, runs: int = TIMED_RUNS, warmup: int = 3) -> float:
         events.append((start, end))
     torch.cuda.synchronize()
     return float(np.median([s.elapsed_time(e) for s, e in events]))
+
+
+def device_ms(fn, runs: int = TIMED_RUNS):
+    """Device busy time per call: the self device time of every kernel,
+    copy and fill that torch.profiler records over ``runs`` calls, summed,
+    over ``runs``; None when the profiler records no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    total_us = sum(e.self_device_time_total for e in prof.key_averages())
+    return total_us / runs / 1e3 if total_us > 0 else None
+
+
+def _ms(t) -> str:
+    return "not measured" if t is None else f"{t:.4f} ms"
 
 
 def inputs(rows: int, cols: int, rng):
@@ -279,8 +389,10 @@ def main_path(fixtures, failures):
             routed_checks(label, h, once, failures)
         for n, c in used.items():
             counts[n] += c
+        a = csr_of(name, coo)
+        lib_ms = median_ms(lambda: a @ xd)
         rows_out.append(_row(label, h, coo.nnz, coo.num_rows, prep_s, ms,
-                             used))
+                             used, lib_ms))
         handles[label] = (h, xd)
 
     # dense overlay through the Accelerator
@@ -310,17 +422,35 @@ def main_path(fixtures, failures):
     return handles, rows_out, counts
 
 
-def _row(label, h, nnz, rows, prep_s, ms, used):
+def _row(label, h, nnz, rows, prep_s, ms, used, lib_ms=None):
     gflops = 2.0 * (nnz + rows) / (ms * 1e-3) / 1e9
     row = {
         "run": label, "format": h.format, "nnz": int(nnz),
         "prepare_s": prep_s, "device_mb": h.device_bytes / 2**20,
         "launches": used, "run_ms": ms, "gflops": gflops,
+        "library_ms": lib_ms,
     }
+    lib = "" if lib_ms is None else f", CSR A @ x {lib_ms:.4f} ms"
     log(f"  {label}: format {h.format}, nnz {nnz}, prepare {prep_s:.2f} s, "
         f"device {row['device_mb']:.1f} MB, launches {used}, "
-        f"median run {ms:.4f} ms, {gflops:.2f} GFLOP/s")
+        f"median run {ms:.4f} ms, {gflops:.2f} GFLOP/s{lib}")
     return row
+
+
+_CSR: dict = {}
+
+
+def csr_of(name, coo):
+    """Fixture ``name`` as a CSR tensor on the card, the operand of the
+    library's (cuSPARSE) product that each run is timed beside."""
+    if name not in _CSR:
+        m = coo.to_scipy().tocsr()
+        _CSR[name] = torch.sparse_csr_tensor(
+            torch.from_numpy(m.indptr.astype(np.int64)),
+            torch.from_numpy(m.indices.astype(np.int64)),
+            torch.from_numpy(m.data.astype(np.float32)), size=m.shape,
+        ).cuda()
+    return _CSR[name]
 
 
 def linear_checks(label, h, B, once, failures):
@@ -363,6 +493,7 @@ def linear_path(handles, fixtures, counts, failures):
             coo = fixtures[SPARSE_NAME[key]]
             golden_a = coo.to_scipy()
             nnz = coo.nnz
+            a_csr = csr_of(SPARSE_NAME[key], coo)
 
             def call(xd, bd, h=h):
                 return h.linear(xd, bd)
@@ -400,11 +531,16 @@ def linear_path(handles, fixtures, counts, failures):
         for n, c in used.items():
             counts[n] += c
         gflops = 2.0 * B * (nnz + R) / (ms * 1e-3) / 1e9
+        lib_ms = None
+        if key != "dense":
+            xt = xd.T.contiguous()
+            lib_ms = median_ms(lambda: a_csr @ xt)
+        lib = "" if lib_ms is None else f", CSR A @ X {lib_ms:.4f} ms"
         log(f"  {label}: launches {used}, median linear {ms:.4f} ms, "
-            f"{gflops:.2f} GFLOP/s")
+            f"{gflops:.2f} GFLOP/s{lib}")
         rows_out.append({"run": label, "format": h.format, "batch": B,
                          "launches": used, "linear_ms": ms,
-                         "gflops": gflops,
+                         "gflops": gflops, "library_ms": lib_ms,
                          "device_mb": h.device_bytes / 2**20})
         inputs_used[key] = xd
     return rows_out, inputs_used
@@ -487,11 +623,215 @@ def model_path(counts, failures):
     return accel, rows_out
 
 
-def kernel_checks(handles, linear_x, accel, failures):
+def sharded_path(handles, fixtures, meshes, counts, failures):
+    """The sharded executors on each mesh: y against the float64 golden
+    and the single-device handle's y, balance, launches and ring copies of
+    one call, then 20 timed calls beside the handle's ``run``.  Counts
+    zeroed before each run and read after.  Returns the rows and the
+    arrays for phase 4 (shard 0 of the first mesh's block and ring plans)."""
+    rng = np.random.default_rng(SEED + 5)
+    rows_out, plans, kernel_args = [], {}, {}
+    xs = {n: rng.standard_normal(fixtures[n].num_cols).astype(np.float32)
+          for n in sorted({r[1] for r in SHARDED_RUNS})}
+    for devices in meshes:
+        mesh = make_mesh(devices=list(devices))
+        D = mesh.size
+        for label, name, kind, x_mode, single in SHARDED_RUNS:
+            coo = fixtures[name]
+            build, run, kernel, per_call = SHARD_KINDS[kind]
+            key = (name, kind, D)
+            t0 = time.perf_counter()
+            if key not in plans:
+                plans[key] = build(coo, D)
+            plan = plans[key]
+            plan_s = time.perf_counter() - t0
+            x = xs[name]
+            xd = torch.from_numpy(x).to(mesh.devices[0])
+            tag = f"{label}, D {D} on {','.join(str(d) for d in devices)}"
+            zero_launches()
+            rot0 = spmv_sharded_chunked.rotations
+            y = run(plan, xd, mesh, x_mode=x_mode)
+            torch.cuda.synchronize()
+            once, rot = launches(), spmv_sharded_chunked.rotations - rot0
+            want = coo.matvec(x.astype(np.float64))
+            st = error_stats(y.cpu().numpy(), want, rtol=RTOL)
+            h, _ = handles[single]
+            y1 = h.run(xd)
+            same = _agree(kernel, y, y1)[0]
+            want_rot = D * (D - 1) if x_mode == "ring" else 0
+            mb = device_bytes(plan, mesh) / 2**20
+            extra = ""
+            if kind == "chunked":  # every (device, shard) segment padded
+                nch = plan.data5.shape[2]
+                extra = (f", data5 {plan.data5.nbytes / 2**20:.1f} MB "
+                         f"({nch} chunks of {plan.chunk} a segment: "
+                         f"{sum(plan.blocks_per_dev)} real blocks in "
+                         f"{D * D * nch * plan.chunk} slots)")
+            log(f"  {tag}: plan {plan_s:.2f} s, balance {plan.balance:.3f}, "
+                f"device {mb:.1f} MB{extra}; max rel err {st.max_rel_error:.3e}"
+                f" ({st.num_mismatches} mismatches), "
+                f"{'equal to' if same else 'OFF'} the single-device y "
+                f"within {KERNEL_RTOL}; launches of one call {once}, ring "
+                f"copies {rot}")
+            if not st.ok or y.shape != want.shape:
+                failures.append(f"{tag}: off the golden")
+            if not same:
+                failures.append(f"{tag}: off the single-device handle's y")
+            if plan.balance >= MAX_BALANCE:
+                failures.append(f"{tag}: balance {plan.balance:.3f}")
+            if once[kernel] != per_call(D):
+                failures.append(f"{tag}: {once[kernel]} {kernel} launches, "
+                                f"want {per_call(D)}")
+            if rot != want_rot:  # ring: D - 1 rounds of D copies
+                failures.append(f"{tag}: {rot} ring copies, want "
+                                f"{want_rot}")
+            ms = median_ms(lambda: run(plan, xd, mesh, x_mode=x_mode))
+            busy = device_ms(lambda: run(plan, xd, mesh, x_mode=x_mode))
+            used = launches()
+            for n, c in used.items():
+                counts[n] += c
+            single_ms = median_ms(lambda: h.run(xd))
+            log(f"  {tag}: median {ms:.4f} ms (device busy {_ms(busy)}), "
+                f"single-device run {single_ms:.4f} ms ({h.format})")
+            rows_out.append({
+                "run": label, "devices": [str(d) for d in devices],
+                "x_mode": x_mode, "balance": plan.balance,
+                "device_mb": mb, "ms": ms, "device_busy_ms": busy,
+                "single_device_ms": single_ms,
+                "launches": used, "ring_copies_per_call": rot,
+                "max_rel_error": st.max_rel_error,
+            })
+            if D == 4 and kind in ("block", "chunked") and \
+                    kind not in kernel_args:
+                kernel_args[kind] = (plan, mesh, xd)
+    return rows_out, kernel_args
+
+
+def sharded_cases(kernel_args, handles):
+    """B5 and B3 on shard 0 of the four-position plans of phase 3d, and B3
+    on TSOPF_RS_b2383 packed in x panels of PANEL_NCB col blocks (several
+    panels, so the panel offset is exercised)."""
+    cases = []
+    plan, mesh, xd = kernel_args["block"]
+    sh = to_device(plan, mesh)[0]
+    Cp = plan.num_col_blocks * 128
+    xb = torch.nn.functional.pad(xd, (0, Cp - xd.shape[0])).reshape(
+        -1, 1, 128)
+    cases.append(("spmv_block",
+                  f"TSOPF_RS_b2383 shard 0 of 4, bh {plan.block_h}, "
+                  f"{plan.blocks_per_dev[0]} blocks",
+                  (sh["data"], sh["rows"], sh["cols"], sh["firsts"],
+                   sh["lasts"], xb, plan.nrb_max), {"starts": sh["starts"]}))
+    plan, mesh, xd = kernel_args["chunked"]
+    sh = to_device(plan, mesh)[0]
+    per = plan.ncb_per_shard * 128
+    x0 = torch.nn.functional.pad(xd, (0, 4 * per - xd.shape[0]))[:per]
+    cases.append(("spmv_chunked_paneled",
+                  f"TSOPF_RS_b2383 ring shard 0 step 0, bh {plan.block_h}, "
+                  f"{plan.data5.shape[2]} chunks of {plan.chunk}",
+                  (sh["data"][0], sh["meta"][0], sh["panels"],
+                   x0.reshape(-1, 128), plan.nrb_max, plan.block_h,
+                   plan.chunk, plan.ncb_per_shard)))
+    h, xd = handles["TSOPF_RS_b2383 block"]
+    p = h.plan
+    data3d, meta, panels, _ = pack_chunks_paneled(p, h._chunk, PANEL_NCB)
+    npanels = -(-p.num_col_blocks // PANEL_NCB)
+    x = torch.nn.functional.pad(xd, (0, npanels * PANEL_NCB * 128
+                                     - xd.shape[0]))
+    cases.append(("spmv_chunked_paneled",
+                  f"TSOPF_RS_b2383 in {npanels} x panels of {PANEL_NCB} "
+                  f"col blocks, bh {p.block_h}",
+                  (torch.from_numpy(data3d).cuda(),
+                   torch.from_numpy(meta).cuda(),
+                   torch.from_numpy(panels).cuda(), x.reshape(-1, 128),
+                   p.num_row_blocks, p.block_h, h._chunk, PANEL_NCB)))
+    return cases
+
+
+def ops_entry(handles, fixtures, counts, failures):
+    """The ``ops`` entry on TSOPF_RS_b2383: the one-shot ``spmv_block``
+    (B5) with alpha, beta and y_in against the golden, then B5 on resident
+    arrays beside the handle's ``run`` (B1), and B6 at a batch of 64 (the
+    call the JAX handle makes for this ``linear``) against the golden,
+    beside the handle's ``linear`` (B2).  Returns the row and the phase 4
+    cases."""
+    name = "TSOPF_RS_b2383"
+    coo = fixtures[name]
+    h, _ = handles["TSOPF_RS_b2383 block"]
+    plan = h.plan
+    R, C = coo.shape
+    nrb, B = plan.num_row_blocks, BATCH
+    rng = np.random.default_rng(SEED + 6)
+    x, y_in = inputs(R, C, rng)
+    zero_launches()
+    y = ops.spmv_block(plan, x, y_in, ALPHA, BETA)
+    torch.cuda.synchronize()
+    once = launches()
+    want = ALPHA * coo.matvec(x.astype(np.float64)) + BETA * y_in
+    st = error_stats(y.cpu().numpy(), want, rtol=RTOL)
+    log(f"  ops.spmv_block (one-shot, uploads the plan): max rel err "
+        f"{st.max_rel_error:.3e} ({st.num_mismatches} mismatches), launches "
+        f"{once}")
+    if not st.ok or once["spmv_block"] != 1:
+        failures.append("ops.spmv_block: off the golden or not one B5 launch")
+    d = upload_block_plan(plan, "cuda")
+    stream = (d["data"], d["rows"], d["cols"], d["firsts"], d["lasts"])
+    xd = torch.from_numpy(x).cuda()
+    x1 = h._pad_x(xd).reshape(-1, 1, 128)
+    b5_ms = median_ms(lambda: spmv_block_stream(*stream, x1, nrb,
+                                                starts=d["starts"]))
+    run_ms = median_ms(lambda: h.run(xd))
+
+    xb = rng.standard_normal((B, C)).astype(np.float32)
+    xbd = torch.from_numpy(xb).cuda()
+
+    def b6_linear():
+        xt = h._pad_x(xbd).T.reshape(-1, 128, B).contiguous()
+        yb = spmv_block_batched(*stream, xt, nrb, starts=d["starts"])
+        return yb.reshape(-1, B)[:R].T
+
+    got = b6_linear()
+    torch.cuda.synchronize()
+    b6_once = launches()
+    wantb = (coo.to_scipy() @ xb.astype(np.float64).T).T
+    atol = GOLDEN_ATOL * float(np.abs(wantb).max())
+    stb = error_stats(got.cpu().numpy(), wantb, rtol=RTOL, atol=atol)
+    if not stb.ok or b6_once["spmv_block_batched"] != 1:
+        failures.append("B6 at B 64: off the golden or not one launch")
+    xt = h._pad_x(xbd).T.reshape(-1, 128, B).contiguous()
+    b6_ms = median_ms(lambda: spmv_block_batched(*stream, xt, nrb,
+                                                 starts=d["starts"]))
+    b6_linear_ms = median_ms(b6_linear)
+    linear_ms = median_ms(lambda: h.linear(xbd))
+    used = launches()
+    for n, c in used.items():
+        counts[n] += c
+    log(f"  TSOPF_RS_b2383 B5 {b5_ms:.4f} ms vs handle run (B1) "
+        f"{run_ms:.4f} ms; B6 at B {B}: max abs err {stb.max_abs_error:.3e}"
+        f" ({stb.num_mismatches} past rtol {RTOL} + atol {atol:.2e}), kernel"
+        f" {b6_ms:.4f} ms, as a linear (pad, transpose, B6) "
+        f"{b6_linear_ms:.4f} ms vs handle linear (B2) {linear_ms:.4f} ms; "
+        f"launches {used}")
+    row = {"run": "ops entry TSOPF_RS_b2383", "b5_ms": b5_ms,
+           "handle_run_ms": run_ms, "b6_ms": b6_ms,
+           "b6_linear_ms": b6_linear_ms, "handle_linear_ms": linear_ms,
+           "batch": B, "launches": used}
+    cases = [
+        ("spmv_block", f"TSOPF_RS_b2383, bh {plan.block_h}, "
+         f"{plan.num_blocks} blocks", stream + (x1, nrb),
+         {"starts": d["starts"]}),
+        ("spmv_block_batched", f"TSOPF_RS_b2383, bh {plan.block_h}, B {B}",
+         stream + (xt, nrb), {"starts": d["starts"]}),
+    ]
+    return row, cases
+
+
+def kernel_checks(handles, linear_x, accel, extra_cases, failures):
     """Each kernel against its plain PyTorch version on the arrays and x
     that the paths gave it (the batched kernels on the batches of the
-    linear runs and on the MLP's fc3 activations); launches here are not
-    counted."""
+    linear runs and on the MLP's fc3 activations; ``extra_cases`` from the
+    sharded paths and the ops entry), timed beside its bound and its
+    library call; launches here are not counted."""
     cases = []
     h, xd = handles["TSOPF_RS_b2383 block"]
     p = h.plan
@@ -533,38 +873,163 @@ def kernel_checks(handles, linear_x, accel, failures):
                       f"language x S{si + 1}: {dims[0] * dims[1]} windows",
                       ((h._d[f"xp0_a{si}_0"],), dims, a)))
     cases += batched_cases(handles, linear_x, accel)
-    plain = {"spmv_chunked": spmv_chunked_plain,
-             "spmv_windowed": spmv_windowed_plain,
-             "spmv_routed": spmv_routed_stream_plain,
-             "permute_stage": permute_stage_plain,
-             "spmv_chunked_batched": spmv_chunked_batched_plain,
-             "spmv_windowed_batched": spmv_windowed_batched_plain,
-             "spmv_routed_batched": spmv_routed_stream_batched_plain}
+    cases += extra_cases
     results = []
-    for name, shape, args in cases:
+    for name, shape, args, *kw in cases:
+        kw = kw[0] if kw else {}
         kern = KERNELS[name]["wrapper"]
-        yk = kern(*args)
-        yp = plain[name](*args)
+        yk = kern(*args, **kw)
+        yp = PLAIN[name](*args)
         torch.cuda.synchronize()
-        diff = (yk - yp).abs()
-        ymax = float(yp.abs().max())
-        bound = KERNEL_RTOL * yp.abs() + KERNEL_RTOL * max(ymax, 1e-30)
-        if name == "permute_stage":  # a permutation does no arithmetic
-            bound = torch.zeros_like(bound)
-        worst = float((diff / bound.clamp_min(1e-30)).max())
-        err = float(diff.max())
-        ms = median_ms(lambda: kern(*args))
-        plain_ms = median_ms(lambda: plain[name](*args))
-        ok = bool((diff <= bound).all()) and bool(torch.isfinite(yk).all())
-        log(f"  {name} [{shape}]: max abs err {err:.3e} (max |y| "
-            f"{ymax:.3e}, max rel diff {err / max(ymax, 1e-30):.3e}, "
-            f"worst err/bound {worst:.3f}), kernel {ms:.4f} ms, "
-            f"plain {plain_ms:.4f} ms, {'ok' if ok else 'FAIL'}")
+        ok, err, line = _agree(name, yk, yp)
+        ms = median_ms(lambda: kern(*args, **kw))
+        busy = device_ms(lambda: kern(*args, **kw))
+        plain_ms = median_ms(lambda: PLAIN[name](*args))
+        bound_ms, bound_by = kernel_bound(name, args, kw, yk)
+        lib = library_call(name, args)
+        lib_ms = None
+        if lib is not None:
+            lib_ok, _, lib_line = _agree(name, lib().reshape(yp.shape), yp)
+            lib_ms = median_ms(lib)
+            line += f"; library {lib_line}"
+            if not lib_ok:
+                failures.append(f"{name} [{shape}]: the library call "
+                                "computes another function")
+        log(f"  {name} [{shape}]: {line}, kernel {ms:.4f} ms (device busy "
+            f"{_ms(busy)}), plain "
+            f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
+            f"library {'-' if lib_ms is None else f'{lib_ms:.4f} ms'}, "
+            f"{'ok' if ok else 'FAIL'}")
         if not ok:
             failures.append(f"{name} [{shape}] disagrees with its plain "
                             "version")
-        results.append((name, shape, err, ms, plain_ms))
+        results.append({"name": name, "shape": shape, "max_abs_err": err,
+                        "ms": ms, "device_busy_ms": busy,
+                        "plain_ms": plain_ms, "bound_ms": bound_ms,
+                        "bound_by": bound_by, "library_ms": lib_ms})
     return results
+
+
+def _agree(name, got, want):
+    """(ok, max abs err, log text): ``got`` within KERNEL_RTOL of ``want``
+    (relative, plus KERNEL_RTOL of max|want|; exact for a permutation)."""
+    diff = (got - want).abs()
+    ymax = float(want.abs().max())
+    bound = KERNEL_RTOL * want.abs() + KERNEL_RTOL * max(ymax, 1e-30)
+    if name == "permute_stage":  # a permutation does no arithmetic
+        bound = torch.zeros_like(bound)
+    worst = float((diff / bound.clamp_min(1e-30)).max())
+    err = float(diff.max())
+    ok = bool((diff <= bound).all()) and bool(torch.isfinite(got).all())
+    return ok, err, (f"max abs err {err:.3e} (max |y| {ymax:.3e}, max rel "
+                     f"diff {err / max(ymax, 1e-30):.3e}, worst err/bound "
+                     f"{worst:.3f})")
+
+
+def _tensors_in(obj):
+    if isinstance(obj, torch.Tensor):
+        yield obj
+    elif isinstance(obj, (tuple, list)):
+        for o in obj:
+            yield from _tensors_in(o)
+
+
+# per kernel: (payload tensor, vectors) from its arguments, for the
+# operations its inputs need (2 per nonzero payload value and vector)
+_WORK = {
+    "spmv_chunked": lambda a: (a[0], 1),
+    "spmv_chunked_paneled": lambda a: (a[0], 1),
+    "spmv_windowed": lambda a: (a[0], 1),
+    "spmv_block": lambda a: (a[0], 1),
+    "spmv_routed": lambda a: (a[0][0], 1),
+    "spmv_chunked_batched": lambda a: (a[0], a[2].shape[2]),
+    "spmv_block_batched": lambda a: (a[0], a[5].shape[2]),
+    "spmv_windowed_batched": lambda a: (a[0], a[3].shape[1] // 128),
+    "spmv_routed_batched": lambda a: (a[0][0], a[4]),
+    "permute_stage": lambda a: (None, 0),
+}
+
+
+def kernel_bound(name, args, kw, y):
+    """(ms, "bytes" or "operations"): the least time of the call on an H100
+    SXM, the larger of its inputs' and output's bytes (as packed, each read
+    or written once) over the HBM rate and its fp32 operations over the FMA
+    rate."""
+    nbytes = sum(t.nbytes for t in _tensors_in((args, tuple(kw.values()))))
+    nbytes += y.nbytes
+    payload, vectors = _WORK[name](args)
+    flops = 0.0
+    if payload is not None:
+        flops = 2.0 * int(torch.count_nonzero(payload)) * vectors
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def _block_csr(blocks, rb, col, nrows, ncols):
+    """CSR of a block stream on the card: ``blocks`` [nb, bh, 128], ``rb``
+    [nb] row-block of each block, ``col(j, l)`` the column of lane l of
+    block j; zero slots (padding included) are left out."""
+    bh = blocks.shape[1]
+    j, r, lane = blocks.nonzero().unbind(1)
+    rows = rb.long()[j] * bh + r
+    coo = torch.sparse_coo_tensor(torch.stack([rows, col(j, lane)]),
+                                  blocks[j, r, lane].float(), (nrows, ncols))
+    return coo.coalesce().to_sparse_csr()
+
+
+def library_call(name, args):
+    """A callable running one PyTorch call that computes the kernel's
+    function on the same inputs (a CSR product for the block streams,
+    ``index_select`` for B11), or None where none does (B9, B10: one
+    routed stream is a share of the matrix no single call computes)."""
+    if name in ("spmv_chunked", "spmv_chunked_batched",
+                "spmv_chunked_paneled"):
+        if name == "spmv_chunked_paneled":
+            data3d, meta, panels, x, nrb, bh, chunk, panel_ncb = args
+        else:
+            data3d, meta, x, nrb, bh, chunk = args
+        cb = meta[:, 1, :].reshape(-1).long()
+        if name == "spmv_chunked_paneled":
+            cb = cb + (panels.long() * panel_ncb).repeat_interleave(chunk)
+        blocks = data3d.reshape(-1, bh, 128)
+        a = _block_csr(blocks, meta[:, 0, :].reshape(-1) >> 1,
+                       lambda j, lane: cb[j] * 128 + lane, nrb * bh,
+                       x.shape[0] * 128)
+        xs = x.reshape(-1, x.shape[2]) if x.ndim == 3 else x.reshape(-1)
+        return lambda: a @ xs
+    if name in ("spmv_block", "spmv_block_batched"):
+        data, rows, cols, x, nrb = args[0], args[1], args[2], args[5], args[6]
+        a = _block_csr(data, rows, lambda j, lane: cols.long()[j] * 128 + lane,
+                       nrb * data.shape[1], x.shape[0] * 128)
+        xs = (x.reshape(-1) if name == "spmv_block"
+              else x.reshape(-1, x.shape[2]))
+        return lambda: a @ xs
+    if name in ("spmv_windowed", "spmv_windowed_batched"):
+        data3d, subidx3d, meta, x, nrb, bh = args[:6]
+        win = meta[:, 1, :].reshape(-1).long()
+        sub = subidx3d.reshape(-1, 128).long()
+        if name == "spmv_windowed":
+            xs, ncols = x.reshape(-1), x.numel()
+        else:  # [S, B*128] -> [S*128, B]
+            B = x.shape[1] // 128
+            xs = x.reshape(-1, B, 128).permute(0, 2, 1).reshape(
+                -1, B).contiguous()
+            ncols = xs.shape[0]
+        a = _block_csr(data3d.reshape(-1, bh, 128),
+                       meta[:, 0, :].reshape(-1) >> 1,
+                       lambda j, lane: (win[j] * 8 + sub[j, lane]) * 128
+                       + lane, nrb * bh, ncols)
+        return lambda: a @ xs
+    if name == "permute_stage":
+        arrays, dims, a = args
+        n = a.numel()
+        idx = permute_stage_plain(arrays, dims, torch.arange(
+            n, device=a.device, dtype=torch.float32).reshape(a.shape))
+        idx = idx.reshape(-1).long()  # exact: n < 2**24
+        flat = a.reshape(-1)
+        return lambda: flat.index_select(0, idx)
+    return None
 
 
 def batched_cases(handles, linear_x, accel):
@@ -680,24 +1145,52 @@ def main() -> int:
         f"{MLP['out']}, density {MLP['density']})")
     accel, mlp_runs = model_path(counts, failures)
     log(f"  launches on the three paths: {counts}")
+    meshes = list(SHARD_MESHES)
+    ncards = torch.cuda.device_count()
+    log("phase 3d: the sharded executors (dist) on meshes "
+        f"{[list(m) for m in meshes]}")
+    shard_runs, shard_args = sharded_path(handles, fixtures, meshes, counts,
+                                          failures)
+    zero_launches()
+    dry = dryrun_multichip(["cuda:0"] * 4)
+    for n, c in launches().items():
+        counts[n] += c
+    if ncards >= 2:
+        cards = tuple(f"cuda:{i}" for i in range(min(ncards, 4)))
+        log(f"  {ncards} cards: phase 3d on distinct cards {list(cards)}")
+        runs_d, _ = sharded_path(handles, fixtures, [cards], counts,
+                                 failures)
+        shard_runs += runs_d
+        dry_d = dryrun_multichip(list(cards))
+        log(f"  dryrun on distinct cards: {dry_d}")
+    else:
+        log(f"  {ncards} card: phase 3d on distinct cards was not run")
+    log(f"phase 3e: the ops entry (spmv_block, B6 at B {BATCH})")
+    ops_row, ops_cases = ops_entry(handles, fixtures, counts, failures)
+    log(f"  launches on the five paths: {counts}")
     for n, c in counts.items():
         if c == 0:
             failures.append(f"the paths never launched {n}")
     log(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**20:.0f}"
         " MB")
 
-    log("phase 4: each kernel against its plain version")
-    results = kernel_checks(handles, linear_x, accel, failures)
+    log("phase 4: each kernel against its plain version, its bound and its "
+        "library call")
+    extra = sharded_cases(shard_args, handles) + ops_cases
+    results = kernel_checks(handles, linear_x, accel, extra, failures)
     perm_times = permute_vs_gather(handles, failures)
 
     kernels = [{
-        "name": f"{name} [{shape}]", "route": "cuda",
-        "source": KERNELS[name]["source"],
-        "replaces": KERNELS[name]["replaces"],
-        "launches": counts[name], "max_abs_err": err,
-        "ms": ms, "plain_ms": plain_ms,
-    } for name, shape, err, ms, plain_ms in results]
+        "name": f"{r['name']} [{r['shape']}]", "route": "cuda",
+        "source": KERNELS[r["name"]]["source"],
+        "replaces": KERNELS[r["name"]]["replaces"],
+        "launches": counts[r["name"]], "max_abs_err": r["max_abs_err"],
+        "ms": r["ms"], "device_busy_ms": r["device_busy_ms"],
+        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+        "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+    } for r in results]
     log(json.dumps({"runs": runs, "linear": linear_runs, "mlp": mlp_runs,
+                    "sharded": shard_runs, "dryrun": dry, "ops": ops_row,
                     "permutation": perm_times}))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     if failures:

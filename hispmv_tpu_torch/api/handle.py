@@ -82,17 +82,8 @@ from hispmv_tpu_torch.plan.routed import (
     routed_vmem_ok,
 )
 from hispmv_tpu_torch.plan.windows import SEGS, WindowPlan, build_window_plan
+from hispmv_tpu_torch.utils.device import resolve_device
 from hispmv_tpu_torch.utils.errors import error_stats
-
-
-def _resolve_device(device) -> torch.device:
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"device {str(dev)!r} requested but torch.cuda.is_available() "
-            "is False; pass device='cpu' to run the plain PyTorch versions"
-        )
-    return dev
 
 
 def _extend_perm(col_perm: np.ndarray, num_cols: int, target: int) -> np.ndarray:
@@ -232,7 +223,7 @@ class SpmvHandle:
     ):
         t0 = time.perf_counter()
         self.config = config or SpmvConfig()
-        self.device = _resolve_device(device)
+        self.device = resolve_device(device)
         if isinstance(matrix, np.ndarray):
             self._from_dense_array(matrix)
             fmt = "dense"
@@ -276,7 +267,7 @@ class SpmvHandle:
         skipping preprocessing."""
         self = cls.__new__(cls)
         self.config = getattr(plan, "config", None) or SpmvConfig()
-        self.device = _resolve_device(device)
+        self.device = resolve_device(device)
         self.coo = None
         self.shape = tuple(plan.shape)
         self.nnz = plan.nnz
@@ -767,7 +758,7 @@ class Accelerator:
 
     def __init__(self, budget_bytes: Optional[int] = None, device="cuda"):
         self.budget_bytes = budget_bytes
-        self.device = _resolve_device(device)
+        self.device = resolve_device(device)
         self._handles: Dict[int, SpmvHandle] = {}
         self._next_id = 0
         self._selected: Optional[int] = None

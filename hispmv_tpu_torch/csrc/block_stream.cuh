@@ -1,14 +1,18 @@
-// Shared device code of the two block-stream SpMV kernels
-// (spmv_chunked.cu: B1, spmv_windowed.cu: B7).
+// Shared device code of the block-stream SpMV kernels
+// (spmv_chunked.cu: B1, spmv_chunked_paneled.cu: B3, spmv_windowed.cu: B7,
+// and the tile flush of spmv_block.cu: B5).
 //
-// Both consume the packed arrays of the JAX package unchanged:
-//   data   [nchunks, chunk*BH, 128]  f32 or bf16 block payloads
-//   meta   [nchunks, 2, chunk]       i32: meta[c,0,j] = row_block*2 + last,
-//                                         meta[c,1,j] = col block (B1) or
-//                                         1024-column window (B7)
-//   subidx [nchunks, chunk, 128]     i32 in [0, 8) (B7 only)
-//   x2d    [ncb, 128] (B1) or [nwin*8, 128] (B7) f32
-//   y      [nrb, BH] f32, zeroed by the caller; the kernel only adds to it.
+// They consume the packed arrays of the JAX package unchanged:
+//   data      [nchunks, chunk*BH, 128] f32 or bf16 block payloads
+//   meta      [nchunks, 2, chunk]      i32: meta[c,0,j] = row_block*2 + last,
+//                                           meta[c,1,j] = col block (B1, B3;
+//                                           local to the panel for B3) or
+//                                           1024-column window (B7)
+//   subidx    [nchunks, chunk, 128]    i32 in [0, 8) (B7 only)
+//   panel_ids [nchunks]                i32 x panel of each chunk (B3 only)
+//   x2d       [ncb, 128] (B1), [npanels*panel_ncb, 128] (B3) or
+//             [nwin*8, 128] (B7) f32
+//   y         [nrb, BH] f32, zeroed by the caller; the kernel only adds to it.
 //
 // Design.  One CTA per chunk, one thread per lane (128 threads), BH fp32
 // accumulators in registers per thread: thread l holds column l of the
@@ -44,9 +48,10 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
 
-// Adds the row sums of the (BH, 128) accumulator tile into y_rb[0:BH] and
-// zeroes the tile.  All 128 threads of the CTA must call it together.
-template <int BH>
+// Adds the row sums of the (BH, 128) accumulator tile into y_rb[0:BH]
+// (stores them with ASSIGN) and zeroes the tile.  All 128 threads of the CTA
+// must call it together.
+template <int BH, bool ASSIGN = false>
 __device__ __forceinline__ void flush_tile(float (&acc)[BH],
                                            float* __restrict__ y_rb,
                                            float (*red)[BH]) {
@@ -67,27 +72,36 @@ __device__ __forceinline__ void flush_tile(float (&acc)[BH],
     float s = 0.f;
 #pragma unroll
     for (int w = 0; w < kWarps; ++w) s += red[w][r];
-    atomicAdd(y_rb + r, s);
+    if constexpr (ASSIGN) {
+      y_rb[r] = s;
+    } else {
+      atomicAdd(y_rb + r, s);
+    }
   }
   __syncthreads();  // red is reused by the next flush
 }
 
 // One CTA streams one chunk of `chunk` blocks.  WINDOWED selects B7's x
 // gather (lane l reads x2d[win*8 + subidx[j, l], l]) over B1's
-// (lane l reads x2d[cb, l]).
-template <typename T, int BH, bool WINDOWED>
+// (lane l reads x2d[cb, l]).  PANELED (B3): chunk c reads x from row
+// panel_ids[c] * panel_ncb of x2d on.
+template <typename T, int BH, bool WINDOWED, bool PANELED>
 __global__ void __launch_bounds__(kLanes)
     block_stream_kernel(const T* __restrict__ data,
                         const int* __restrict__ subidx,
                         const int* __restrict__ meta,
+                        const int* __restrict__ panel_ids,
                         const float* __restrict__ x2d,
-                        float* __restrict__ y, int chunk) {
+                        float* __restrict__ y, int chunk, int panel_ncb) {
   __shared__ float red[kWarps][BH];
   const int l = threadIdx.x;
   const size_t c = blockIdx.x;
   const int* rows = meta + c * 2 * chunk;  // row_block*2 + last
   const int* cols = rows + chunk;          // col block or window
   const T* a = data + c * chunk * BH * kLanes + l;
+  if constexpr (PANELED) {
+    x2d += static_cast<size_t>(panel_ids[c]) * panel_ncb * kLanes;
+  }
 
   float acc[BH];
 #pragma unroll
@@ -120,17 +134,19 @@ __global__ void __launch_bounds__(kLanes)
   }
 }
 
-template <typename T, bool WINDOWED>
+template <typename T, bool WINDOWED, bool PANELED = false>
 int launch_block_stream(const void* data, const int* subidx, const int* meta,
-                        const float* x2d, float* y, int nchunks, int chunk,
-                        int bh, cudaStream_t stream) {
+                        const int* panel_ids, const float* x2d, float* y,
+                        int nchunks, int chunk, int bh, int panel_ncb,
+                        cudaStream_t stream) {
   if (nchunks <= 0 || chunk <= 0) return static_cast<int>(cudaErrorInvalidValue);
   const T* d = static_cast<const T*>(data);
   const dim3 grid(nchunks), block(kLanes);
-#define HISPMV_LAUNCH(BHV)                                               \
-  case BHV:                                                              \
-    block_stream_kernel<T, BHV, WINDOWED>                                \
-        <<<grid, block, 0, stream>>>(d, subidx, meta, x2d, y, chunk);    \
+#define HISPMV_LAUNCH(BHV)                                                 \
+  case BHV:                                                                \
+    block_stream_kernel<T, BHV, WINDOWED, PANELED>                         \
+        <<<grid, block, 0, stream>>>(                                      \
+        d, subidx, meta, panel_ids, x2d, y, chunk, panel_ncb);             \
     break;
   switch (bh) {
     HISPMV_LAUNCH(1)

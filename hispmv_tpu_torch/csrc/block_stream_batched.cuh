@@ -1,5 +1,6 @@
-// Shared device code of the two batched block-stream kernels
-// (spmv_chunked_batched.cu: B2, spmv_windowed_batched.cu: B8).
+// Shared device code of the batched block-stream kernels
+// (spmv_chunked_batched.cu: B2, spmv_windowed_batched.cu: B8, and the block
+// step of spmv_block.cu: B6).
 //
 // Both consume the packed arrays of the single-vector kernels
 // (block_stream.cuh) unchanged, against B vectors:
@@ -92,9 +93,9 @@ __device__ __forceinline__ OutputMap map_outputs(int pp) {
 }
 
 // Adds the thread's outputs into y_rb [BH, batch] (columns b0 + col, only
-// those below `live`) and zeroes them.  All threads of the CTA call it
-// together: the shuffles need every lane of each warp.
-template <int BH>
+// those below `live`; stores them with ASSIGN) and zeroes them.  All threads
+// of the CTA call it together: the shuffles need every lane of each warp.
+template <int BH, bool ASSIGN = false>
 __device__ __forceinline__ void flush_outputs(float (&acc)[max_outputs<BH>()],
                                               const OutputMap& m,
                                               float* __restrict__ y_rb,
@@ -104,9 +105,13 @@ __device__ __forceinline__ void flush_outputs(float (&acc)[max_outputs<BH>()],
 #pragma unroll
     for (int i = 0; i < kMax; ++i) {
       if (i < m.count && m.col < live) {
-        atomicAdd(y_rb + static_cast<size_t>(m.row0 + i * m.rstep) * batch +
-                      b0 + m.col,
-                  acc[i]);
+        float* out = y_rb + static_cast<size_t>(m.row0 + i * m.rstep) * batch +
+                     b0 + m.col;
+        if constexpr (ASSIGN) {
+          *out = acc[i];
+        } else {
+          atomicAdd(out, acc[i]);
+        }
       }
       acc[i] = 0.f;
     }
@@ -116,9 +121,77 @@ __device__ __forceinline__ void flush_outputs(float (&acc)[max_outputs<BH>()],
       v += __shfl_xor_sync(0xffffffffu, v, off);
     }
     if (m.count && m.lane0 == 0 && m.col < live) {
-      atomicAdd(y_rb + static_cast<size_t>(m.row0) * batch + b0 + m.col, v);
+      float* out = y_rb + static_cast<size_t>(m.row0) * batch + b0 + m.col;
+      if constexpr (ASSIGN) {
+        *out = v;
+      } else {
+        atomicAdd(out, v);
+      }
     }
     acc[0] = 0.f;
+  }
+}
+
+// Stages block `blk`'s (BH, 128) A tile and its x rows for the panel
+// (columns b0 .. b0+live of col block / window `col`) in shared memory
+// `smem` ((BH*kAStride + 128*(pp+1)) floats) and adds the tile's product
+// into the thread's outputs.  All threads of the CTA call it together.
+template <typename T, int BH, bool WINDOWED>
+__device__ __forceinline__ void accumulate_block(
+    const T* __restrict__ data, const int* __restrict__ subidx,
+    const float* __restrict__ x, size_t blk, int col, int batch, int b0,
+    int live, int pp, const OutputMap& m, float* smem,
+    float (&acc)[max_outputs<BH>()]) {
+  constexpr int kMax = max_outputs<BH>();
+  float* s_a = smem;                  // [BH][kAStride]
+  float* s_x = smem + BH * kAStride;  // [128][pp + 1]
+  const int xs = pp + 1;
+  const int t = threadIdx.x;
+  __syncthreads();  // every thread is done with the previous tiles
+  const T* ab = data + blk * BH * kLanes;
+  for (int i = t; i < BH * kLanes; i += kBatchThreads) {
+    s_a[(i >> 7) * kAStride + (i & (kLanes - 1))] = to_f32(ab[i]);
+  }
+  if constexpr (WINDOWED) {
+    const int* sub = subidx + blk * kLanes;
+    const size_t row_len = static_cast<size_t>(batch) * kLanes;
+    for (int i = t; i < kLanes * pp; i += kBatchThreads) {
+      const int l = i & (kLanes - 1);
+      const int b = i >> 7;
+      float v = 0.f;
+      if (b < live) {
+        v = x[(static_cast<size_t>(col) * kSegs + sub[l]) * row_len +
+              static_cast<size_t>(b0 + b) * kLanes + l];
+      }
+      s_x[l * xs + b] = v;
+    }
+  } else {
+    for (int i = t; i < kLanes * pp; i += kBatchThreads) {
+      const int b = i % pp;
+      const int l = i / pp;
+      float v = 0.f;
+      if (b < live) {
+        v = x[(static_cast<size_t>(col) * kLanes + l) * batch + b0 + b];
+      }
+      s_x[l * xs + b] = v;
+    }
+  }
+  __syncthreads();
+  if (m.split == 1) {
+    for (int l = 0; l < kLanes; ++l) {
+      const float xv = s_x[l * xs + m.col];
+#pragma unroll
+      for (int i = 0; i < kMax; ++i) {
+        if (i < m.count) {
+          acc[i] = fmaf(s_a[(m.row0 + i * m.rstep) * kAStride + l], xv,
+                        acc[i]);
+        }
+      }
+    }
+  } else if (m.count) {
+    for (int l = m.lane0; l < kLanes; l += m.split) {
+      acc[0] = fmaf(s_a[m.row0 * kAStride + l], s_x[l * xs + m.col], acc[0]);
+    }
   }
 }
 
@@ -135,10 +208,6 @@ __global__ void __launch_bounds__(kBatchThreads)
                                 int nsplit, int batch, int pp) {
   constexpr int kMax = max_outputs<BH>();
   extern __shared__ float smem[];
-  float* s_a = smem;                   // [BH][kAStride]
-  float* s_x = smem + BH * kAStride;   // [128][pp + 1]
-  const int xs = pp + 1;
-  const int t = threadIdx.x;
   const size_t c = blockIdx.x / nsplit;
   const int j0 = static_cast<int>(blockIdx.x % nsplit) * span;
   const int j1 = min(j0 + span, chunk);
@@ -156,55 +225,8 @@ __global__ void __launch_bounds__(kBatchThreads)
   bool open = false;  // outputs hold blocks not yet flushed
   for (int j = j0; j < j1; ++j) {
     const int rb2 = rows[j];
-    const int col = cols[j];
-    const size_t blk = c * chunk + j;
-    __syncthreads();  // every thread is done with the previous tiles
-    const T* ab = data + blk * BH * kLanes;
-    for (int i = t; i < BH * kLanes; i += kBatchThreads) {
-      s_a[(i >> 7) * kAStride + (i & (kLanes - 1))] = to_f32(ab[i]);
-    }
-    if constexpr (WINDOWED) {
-      const int* sub = subidx + blk * kLanes;
-      const size_t row_len = static_cast<size_t>(batch) * kLanes;
-      for (int i = t; i < kLanes * pp; i += kBatchThreads) {
-        const int l = i & (kLanes - 1);
-        const int b = i >> 7;
-        float v = 0.f;
-        if (b < live) {
-          v = x[(static_cast<size_t>(col) * kSegs + sub[l]) * row_len +
-                static_cast<size_t>(b0 + b) * kLanes + l];
-        }
-        s_x[l * xs + b] = v;
-      }
-    } else {
-      for (int i = t; i < kLanes * pp; i += kBatchThreads) {
-        const int b = i % pp;
-        const int l = i / pp;
-        float v = 0.f;
-        if (b < live) {
-          v = x[(static_cast<size_t>(col) * kLanes + l) * batch + b0 + b];
-        }
-        s_x[l * xs + b] = v;
-      }
-    }
-    __syncthreads();
-    if (m.split == 1) {
-      for (int l = 0; l < kLanes; ++l) {
-        const float xv = s_x[l * xs + m.col];
-#pragma unroll
-        for (int i = 0; i < kMax; ++i) {
-          if (i < m.count) {
-            acc[i] = fmaf(s_a[(m.row0 + i * m.rstep) * kAStride + l], xv,
-                          acc[i]);
-          }
-        }
-      }
-    } else if (m.count) {
-      for (int l = m.lane0; l < kLanes; l += m.split) {
-        acc[0] = fmaf(s_a[m.row0 * kAStride + l], s_x[l * xs + m.col],
-                      acc[0]);
-      }
-    }
+    accumulate_block<T, BH, WINDOWED>(data, subidx, x, c * chunk + j, cols[j],
+                                      batch, b0, live, pp, m, smem, acc);
     open = true;
     if (rb2 & 1) {  // uniform across the CTA: meta is per block
       flush_outputs<BH>(acc, m,

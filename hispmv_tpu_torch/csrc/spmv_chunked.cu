@@ -26,10 +26,10 @@ int hispmv_spmv_chunked(const void* data, int data_is_bf16, const int* meta,
                         int bh, cudaStream_t stream) {
   if (data_is_bf16) {
     return hispmv::launch_block_stream<__nv_bfloat16, false>(
-        data, nullptr, meta, x2d, y, nchunks, chunk, bh, stream);
+        data, nullptr, meta, nullptr, x2d, y, nchunks, chunk, bh, 0, stream);
   }
   return hispmv::launch_block_stream<float, false>(
-      data, nullptr, meta, x2d, y, nchunks, chunk, bh, stream);
+      data, nullptr, meta, nullptr, x2d, y, nchunks, chunk, bh, 0, stream);
 }
 
 const char* hispmv_error_string(int code) {

@@ -25,10 +25,10 @@ int hispmv_spmv_windowed(const void* data, int data_is_bf16,
                          int bh, cudaStream_t stream) {
   if (data_is_bf16) {
     return hispmv::launch_block_stream<__nv_bfloat16, true>(
-        data, subidx, meta, x2d, y, nchunks, chunk, bh, stream);
+        data, subidx, meta, nullptr, x2d, y, nchunks, chunk, bh, 0, stream);
   }
   return hispmv::launch_block_stream<float, true>(
-      data, subidx, meta, x2d, y, nchunks, chunk, bh, stream);
+      data, subidx, meta, nullptr, x2d, y, nchunks, chunk, bh, 0, stream);
 }
 
 }  // extern "C"

@@ -152,6 +152,19 @@ def get_lib() -> ctypes.CDLL:
                 ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ctypes.c_longlong,
                 i32, ptr, i32, i32, i32, i32, i32, ptr,
             ]
+            lib.hispmv_spmv_chunked_paneled.restype = i32
+            lib.hispmv_spmv_chunked_paneled.argtypes = [
+                ptr, i32, ptr, ptr, ptr, ptr, i32, i32, i32, i32, ptr,
+            ]
+            lib.hispmv_spmv_block.restype = i32
+            lib.hispmv_spmv_block.argtypes = [
+                ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, ptr,
+            ]
+            lib.hispmv_spmv_block_batched.restype = i32
+            lib.hispmv_spmv_block_batched.argtypes = [
+                ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32,
+                ptr,
+            ]
             lib.hispmv_permute_stage.restype = i32
             lib.hispmv_permute_stage.argtypes = [ptr, ptr, ptr, i32, ptr]
             lib.hispmv_error_string.restype = ctypes.c_char_p

@@ -1,12 +1,15 @@
-"""B1 and B2, the chunked block-ELL SpMV stream against one vector and
-against B vectors: packer, CUDA kernel wrappers and plain PyTorch versions.
+"""B1, B2 and B3, the chunked block-ELL SpMV stream against one vector,
+against B vectors and against x in column panels: packers, CUDA kernel
+wrappers and plain PyTorch versions.
 
 Port of ``hispmv_tpu/ops/spmv_chunked.py`` (``chunk_for``, ``pack_chunks``,
 ``_chunked_kernel`` / ``spmv_chunked_pallas``, ``_chunked_batched_kernel``
-/ ``spmv_chunked_batched_pallas``).  The kernels are
-``csrc/spmv_chunked.cu`` (B1) and ``csrc/spmv_chunked_batched.cu`` (B2);
-they consume the same packed arrays as the TPU kernels, so both packages
-can be fed identical inputs.
+/ ``spmv_chunked_batched_pallas``, ``pack_chunks_paneled``,
+``_chunked_paneled_kernel`` / ``spmv_chunked_paneled_pallas``).  The
+kernels are ``csrc/spmv_chunked.cu`` (B1), ``csrc/spmv_chunked_batched.cu``
+(B2) and ``csrc/spmv_chunked_paneled.cu`` (B3); they consume the same
+packed arrays as the TPU kernels, so both packages can be fed identical
+inputs.
 """
 
 from __future__ import annotations
@@ -225,3 +228,128 @@ def spmv_chunked_batched(data3d, meta, xb, num_row_blocks, block_h, chunk):
 
 
 spmv_chunked_batched.launches = 0  # kernel launches, for the smoke run's check
+
+
+def pack_chunks_paneled(plan: BlockPlan, chunk: int, panel_ncb: int):
+    """Re-sort the block stream by (column panel, row_block) and pack it
+    into chunks that never straddle a panel boundary (the JAX package's
+    packer; f32, a bfloat16 payload is made on upload).
+
+    Returns (data3d, meta, panel_ids, nchunks):
+      meta[:, 0] = row_block*2 + last_of_(panel,row_block)_run
+      meta[:, 1] = col_block LOCAL to the panel
+      panel_ids  = i32 [nchunks] panel index per chunk
+    """
+    bh = plan.block_h
+    panel = plan.block_cols // panel_ncb
+    order = np.lexsort((plan.block_cols, plan.block_rows, panel))
+    data = plan.data[order]
+    rows = plan.block_rows[order]
+    cols_local = (plan.block_cols - panel * panel_ncb)[order]
+    panel = panel[order]
+
+    # last flag per (panel, row_block) run
+    run_key = panel.astype(np.int64) * (plan.num_row_blocks + 1) + rows
+    lasts = np.ones(len(rows), np.int32)
+    lasts[:-1] = (run_key[1:] != run_key[:-1]).astype(np.int32)
+
+    # split into per-panel segments, pad each to whole chunks
+    seg_data, seg_meta, seg_panel = [], [], []
+    for p in np.unique(panel):
+        sel = panel == p
+        n = int(sel.sum())
+        n_pad = -(-n // chunk) * chunk
+        d = np.zeros((n_pad, bh, LANES), np.float32)
+        d[:n] = data[sel]
+        m = np.zeros((2, n_pad), np.int32)
+        m[0, :n] = rows[sel] * 2 + lasts[sel]
+        m[1, :n] = cols_local[sel]
+        if n_pad > n:
+            m[0, n:] = rows[sel][-1] * 2  # pad: no flush, zero payload
+        seg_data.append(d)
+        seg_meta.append(m)
+        seg_panel.extend([int(p)] * (n_pad // chunk))
+    data = np.concatenate(seg_data) if seg_data else np.zeros(
+        (chunk, bh, LANES), np.float32
+    )
+    meta = (
+        np.concatenate(seg_meta, axis=1)
+        if seg_meta
+        else np.zeros((2, chunk), np.int32)
+    )
+    if not seg_panel:
+        seg_panel = [0]
+    nchunks = len(seg_panel)
+    data3d = data.reshape(nchunks, chunk * bh, LANES)
+    meta = np.ascontiguousarray(
+        meta.reshape(2, nchunks, chunk).transpose(1, 0, 2)
+    )
+    return data3d, meta, np.asarray(seg_panel, np.int32), nchunks
+
+
+def _check_paneled(name, meta, panel_ids, panel_ncb, out, num_row_blocks,
+                   block_h):
+    if panel_ids.dtype != torch.int32 or panel_ids.shape != (meta.shape[0],):
+        raise ValueError(f"{name}: panel_ids must be int32 [{meta.shape[0]}]")
+    if panel_ncb < 1:
+        raise ValueError(f"{name}: panel_ncb must be >= 1")
+    if out is not None and (out.dtype != torch.float32 or out.shape !=
+                            (num_row_blocks, block_h)):
+        raise ValueError(f"{name}: out must be float32 "
+                         f"[{num_row_blocks}, {block_h}]")
+
+
+def spmv_chunked_paneled_plain(data3d, meta, panel_ids, x2d, num_row_blocks,
+                               block_h, chunk, panel_ncb, out=None):
+    """Plain PyTorch version of B3 on the same arrays: B1's, with block j
+    of chunk c reading x row ``panel_ids[c] * panel_ncb + cb``; adds into
+    ``out`` when given."""
+    nb = data3d.shape[0] * chunk
+    a = data3d.reshape(nb, block_h, LANES).float()
+    rb = meta[:, 0, :].reshape(-1) >> 1
+    cb = (meta[:, 1, :] + panel_ids[:, None] * panel_ncb).reshape(-1)
+    contrib = (a * x2d.index_select(0, cb)[:, None, :]).sum(-1)
+    y = out if out is not None else torch.zeros(
+        (num_row_blocks, block_h), dtype=torch.float32, device=x2d.device
+    )
+    return y.index_add_(0, rb, contrib)
+
+
+def spmv_chunked_paneled(data3d, meta, panel_ids, x2d, num_row_blocks,
+                         block_h, chunk, panel_ncb, out=None):
+    """Run the x-paneled chunked stream; returns y tiles f32
+    [num_row_blocks, block_h].
+
+    ``data3d`` / ``meta`` / ``panel_ids`` from :func:`pack_chunks_paneled`
+    (or one ring step of a sharded chunked plan, with all panel ids zero),
+    ``x2d`` f32 [npanels*panel_ncb, 128].  With ``out`` (f32
+    [num_row_blocks, block_h]) the stream adds into it and returns it, so
+    the steps of a ring sum into one y.  CPU tensors take the plain PyTorch
+    version; CUDA tensors launch the CUDA kernel
+    (csrc/spmv_chunked_paneled.cu) or raise."""
+    name = "spmv_chunked_paneled"
+    check_stream_args(name, data3d, meta, x2d, block_h, chunk)
+    _check_paneled(name, meta, panel_ids, panel_ncb, out, num_row_blocks,
+                   block_h)
+    if data3d.device.type == "cpu":
+        return spmv_chunked_paneled_plain(data3d, meta, panel_ids, x2d,
+                                          num_row_blocks, block_h, chunk,
+                                          panel_ncb, out)
+    y = out if out is not None else torch.zeros(
+        (num_row_blocks, block_h), dtype=torch.float32, device=x2d.device
+    )
+    check_cuda_args(name, block_h, data3d, meta, panel_ids, x2d, y)
+    lib = cuda_build.get_lib()
+    with torch.cuda.device(x2d.device):
+        rc = lib.hispmv_spmv_chunked_paneled(
+            data3d.data_ptr(), int(data3d.dtype == torch.bfloat16),
+            meta.data_ptr(), panel_ids.data_ptr(), x2d.data_ptr(),
+            y.data_ptr(), data3d.shape[0], chunk, block_h, panel_ncb,
+            torch.cuda.current_stream().cuda_stream,
+        )
+    cuda_build.check(rc, name)
+    spmv_chunked_paneled.launches += 1
+    return y
+
+
+spmv_chunked_paneled.launches = 0  # kernel launches, for the smoke run's check

@@ -1,5 +1,6 @@
 """The CUDA kernels against their plain PyTorch versions, on the card, and
-the handle's ``run`` and ``linear`` against the golden there.
+the handle's ``run`` and ``linear`` and the sharded executors against the
+golden there.
 
 A CUDA kernel has no CPU mode, so every test here needs a card: each is
 marked ``cuda`` and skips without one (decided in the fixture, not at
@@ -39,12 +40,33 @@ from hispmv_tpu_torch.models import (
     ThreeLayerFCModel,
     compare_model_outputs,
 )
+from hispmv_tpu_torch.dist import (
+    build_sharded_block_plan,
+    build_sharded_chunked_plan,
+    build_sharded_window_plan,
+    make_mesh,
+    spmv_sharded,
+    spmv_sharded_chunked,
+    spmv_sharded_window,
+)
+from hispmv_tpu_torch.dist.dryrun import dryrun_multichip
+from hispmv_tpu_torch.ops.spmv_block import (
+    run_starts,
+    spmv_block,
+    spmv_block_batched,
+    spmv_block_batched_plain,
+    spmv_block_stream,
+    spmv_block_stream_plain,
+)
 from hispmv_tpu_torch.ops.spmv_chunked import (
     chunk_for,
     pack_chunks,
+    pack_chunks_paneled,
     spmv_chunked,
     spmv_chunked_batched,
     spmv_chunked_batched_plain,
+    spmv_chunked_paneled,
+    spmv_chunked_paneled_plain,
     spmv_chunked_plain,
 )
 from hispmv_tpu_torch.ops.spmv_windowed import (
@@ -456,3 +478,159 @@ def test_model_swap_on_card(dev):
     got = accel(x)
     assert got.device.type == "cuda"
     assert compare_model_outputs(got, want).ok
+
+
+# --- the per-block and x-paneled streams: B5, B6 and B3 ---------------------
+
+
+def _b5_arrays(name, bh, dev):
+    plan = build_block_plan(MATRICES[name](), bh)
+    arrays = tuple(torch.from_numpy(a).to(dev) for a in (
+        plan.data, plan.block_rows, plan.block_cols, plan.block_firsts,
+        plan.block_lasts))
+    return plan, arrays, run_starts(plan.block_firsts).to(dev)
+
+
+@pytest.mark.parametrize("bh", [1, 8, 64])
+@pytest.mark.parametrize("name", list(MATRICES))
+def test_b5_kernel_matches_plain(dev, name, bh):
+    plan, arrays, starts = _b5_arrays(name, bh, dev)
+    xb = _x2d(plan.shape[1], plan.num_col_blocks * 128, dev).reshape(
+        -1, 1, 128)
+    before = spmv_block_stream.launches
+    y = spmv_block_stream(*arrays, xb, plan.num_row_blocks, starts=starts)
+    torch.cuda.synchronize()
+    assert spmv_block_stream.launches == before + 1
+    assert y.shape == (plan.num_row_blocks, 1, bh)
+    want = spmv_block_stream_plain(*arrays, xb, plan.num_row_blocks)
+    assert_close(y, want)
+    # no atomics: the same inputs give the same bits
+    assert torch.equal(y, spmv_block_stream(*arrays, xb,
+                                            plan.num_row_blocks))
+
+
+@pytest.mark.parametrize("D", [3, 8])
+def test_b5_kernel_on_sharded_streams(dev, D):
+    """Padding blocks after a shard's last run, and (D 8 on a 16-row
+    matrix) empty shards: one zero block storing y[0] = 0."""
+    for coo in (MATRICES["random"](), random_coo(16, 200, 100, seed=5)):
+        sp = build_sharded_block_plan(coo, D)
+        xb = _x2d(coo.num_cols, sp.num_col_blocks * 128, dev).reshape(
+            -1, 1, 128)
+        for d in range(D):
+            arrays = tuple(torch.from_numpy(a[d]).to(dev) for a in (
+                sp.data, sp.block_rows, sp.block_cols, sp.block_firsts,
+                sp.block_lasts))
+            y = spmv_block_stream(*arrays, xb, sp.nrb_max)
+            assert_close(y, spmv_block_stream_plain(*arrays, xb, sp.nrb_max))
+
+
+@pytest.mark.parametrize("B", [1, 7, 64, 130])
+@pytest.mark.parametrize("bh", [1, 8, 64])
+@pytest.mark.parametrize("name", ["random", "blocked"])
+def test_b6_kernel_matches_plain(dev, name, bh, B):
+    plan, arrays, starts = _b5_arrays(name, bh, dev)
+    xb = _batch(B, plan.num_col_blocks * 128, dev, seed=B).T.reshape(
+        -1, 128, B).contiguous()
+    before = spmv_block_batched.launches
+    y = spmv_block_batched(*arrays, xb, plan.num_row_blocks, starts=starts)
+    torch.cuda.synchronize()
+    assert spmv_block_batched.launches == before + 1
+    assert y.shape == (plan.num_row_blocks, bh, B)
+    assert_close(y, spmv_block_batched_plain(*arrays, xb,
+                                             plan.num_row_blocks))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bh", [1, 8, 64])
+@pytest.mark.parametrize("name", ["random", "blocked"])
+def test_b3_kernel_matches_plain(dev, name, bh, dtype):
+    plan = build_block_plan(MATRICES[name](), bh)
+    panel_ncb = 4  # random: 6 panels, blocked: 2
+    data3d, meta, panels, _ = pack_chunks_paneled(plan, 8, panel_ncb)
+    npanels = -(-plan.num_col_blocks // panel_ncb)
+    args = (torch.from_numpy(data3d).to(dev, dtype),
+            torch.from_numpy(meta).to(dev), torch.from_numpy(panels).to(dev),
+            _x2d(plan.shape[1], npanels * panel_ncb * 128, dev),
+            plan.num_row_blocks, bh, 8, panel_ncb)
+    assert len(np.unique(panels)) > 1
+    before = spmv_chunked_paneled.launches
+    y = spmv_chunked_paneled(*args)
+    torch.cuda.synchronize()
+    assert spmv_chunked_paneled.launches == before + 1
+    want = spmv_chunked_paneled_plain(*args)
+    assert_close(y, want)
+    out = torch.ones_like(y)
+    assert spmv_chunked_paneled(*args, out=out) is out
+    assert_close(out, want + 1.0)
+
+
+def test_one_shot_spmv_block_on_card(dev):
+    coo = MATRICES["banded"]()
+    plan = build_block_plan(coo, 8)
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal(coo.num_cols).astype(np.float32)
+    y_in = rng.standard_normal(coo.num_rows).astype(np.float32)
+    y = spmv_block(plan, x, y_in, 1.5, -0.5)
+    assert y.device.type == "cuda"
+    want = 1.5 * coo.matvec(x.astype(np.float64)) - 0.5 * y_in
+    assert error_stats(y.cpu().numpy(), want, rtol=1e-3).ok
+
+
+# --- dist: the sharded executors ---------------------------------------------
+
+SHARDED = {
+    "block": (build_sharded_block_plan, spmv_sharded, ("replicated",
+                                                       "gather")),
+    "window": (build_sharded_window_plan, spmv_sharded_window,
+               ("replicated", "gather")),
+    "chunked": (lambda c, d: build_sharded_chunked_plan(c, d, chunk=16),
+                spmv_sharded_chunked, ("ring", "replicated")),
+}
+
+
+def _run_sharded(kind, devices, coo):
+    build, run, modes = SHARDED[kind]
+    mesh = make_mesh(devices=devices)
+    plan = build(coo, mesh.size)
+    x = np.random.default_rng(mesh.size).standard_normal(
+        coo.num_cols).astype(np.float32)
+    want = coo.matvec(x.astype(np.float64))
+    D = mesh.size
+    for mode in modes:
+        b3, b5 = spmv_chunked_paneled.launches, spmv_block_stream.launches
+        b7, rot = spmv_windowed.launches, spmv_sharded_chunked.rotations
+        y = run(plan, x, mesh, x_mode=mode)
+        torch.cuda.synchronize()
+        assert y.device == mesh.devices[0] and y.shape == (coo.num_rows,)
+        assert error_stats(y.cpu().numpy(), want, rtol=1e-3).ok, (kind, mode)
+        if kind == "block":
+            assert spmv_block_stream.launches - b5 == D
+        elif kind == "window":
+            assert spmv_windowed.launches - b7 == D
+        else:
+            assert spmv_chunked_paneled.launches - b3 == D * D
+            assert spmv_sharded_chunked.rotations - rot == (
+                D * (D - 1) if mode == "ring" else 0)
+
+
+@pytest.mark.parametrize("D", [1, 4])
+@pytest.mark.parametrize("kind", list(SHARDED))
+def test_sharded_executors_on_one_card(dev, kind, D):
+    """The mesh repeats one card: the schedule runs as on D devices."""
+    _run_sharded(kind, ["cuda:0"] * D, powerlaw_coo(3000, 2500, 50_000,
+                                                    seed=9))
+
+
+@pytest.mark.parametrize("kind", list(SHARDED))
+def test_sharded_executors_on_distinct_cards(dev, kind):
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip(f"needs two or more cards, found {n}")
+    _run_sharded(kind, [f"cuda:{i}" for i in range(min(n, 4))],
+                 powerlaw_coo(3000, 2500, 50_000, seed=9))
+
+
+def test_dryrun_multichip_on_one_card(dev):
+    stats = dryrun_multichip(["cuda:0"] * 4)
+    assert stats["ring_copies"] == 12

@@ -2,6 +2,7 @@
 default device is the card with no silent move to the CPU, and the kernel
 library is rebuilt when a source changes."""
 
+import importlib
 import os
 import shutil
 import subprocess
@@ -57,6 +58,41 @@ def test_public_names():
         assert hasattr(hispmv_tpu_torch, name)
 
 
+@pytest.mark.parametrize("module,names", [
+    ("hispmv_tpu_torch.ops", ("spmv_block", "spmv_block_stream",
+                              "spmv_block_batched", "gemv", "spmv_ref",
+                              "finalize_ref")),
+    ("hispmv_tpu_torch.dist", ("init_distributed", "Mesh", "make_mesh",
+                               "ShardedBlockPlan", "ShardedWindowPlan",
+                               "ShardedChunkedPlan",
+                               "build_sharded_block_plan",
+                               "build_sharded_window_plan",
+                               "build_sharded_chunked_plan", "spmv_sharded",
+                               "spmv_sharded_window", "spmv_sharded_chunked",
+                               "to_device")),
+    ("hispmv_tpu_torch.dist.dryrun", ("dryrun_multichip",)),
+])
+def test_package_exports(module, names):
+    mod = importlib.import_module(module)
+    for name in names:
+        assert callable(getattr(mod, name)), name
+
+
+def test_import_builds_no_kernel():
+    code = textwrap.dedent("""
+        import hispmv_tpu_torch.dist, hispmv_tpu_torch.ops
+        import hispmv_tpu_torch.dist.dryrun
+        from hispmv_tpu_torch.ops import cuda_build
+        assert cuda_build._lib is None
+        print("ok")
+    """)
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
 def test_kernel_library_is_stale_when_a_source_changes(tmp_path,
                                                        monkeypatch):
     csrc = tmp_path / "csrc"
@@ -65,7 +101,8 @@ def test_kernel_library_is_stale_when_a_source_changes(tmp_path,
     monkeypatch.setattr(cuda_build, "CSRC_DIR", str(csrc))
     monkeypatch.setattr(cuda_build, "LIB_PATH", str(lib))
     assert [os.path.basename(s) for s in cuda_build.sources()] == [
-        "permute.cu", "spmv_chunked.cu", "spmv_chunked_batched.cu",
+        "permute.cu", "spmv_block.cu", "spmv_chunked.cu",
+        "spmv_chunked_batched.cu", "spmv_chunked_paneled.cu",
         "spmv_routed.cu", "spmv_windowed.cu", "spmv_windowed_batched.cu",
     ]
     assert cuda_build._stale()  # never built
