@@ -6,15 +6,16 @@ Run from the root of a checkout, with no arguments:
     python3 chip_smoke.py
 
 It builds the hand-written CUDA kernels from ``hispmv_tpu_torch/csrc/``
-(B1, B2, B3, B5, B6, B7, B8, B9, B10, B11), then drives five paths of the
-port, each run with the launch counts zeroed just before it and read just
-after:
+(B1-B13), then drives seven paths of the port, each run with the launch
+counts zeroed just before it and read just after:
 
 - ``prepare`` -> ``SpmvHandle.run`` and ``Accelerator`` (formats window,
   ellx, block, dense and routed, the latter in original and rank space) on
   full-scale suite stand-ins;
 - ``SpmvHandle.linear`` / ``Accelerator.linear`` on those handles at a
-  batch of 64 (8 for the ELLX base), with a bias;
+  batch of 64 (8 for the ELLX base; TSOPF_RS_b2383 also at 8, where the
+  block handle's batch fits its budget and runs B2 instead of B6), with a
+  bias;
 - the three-layer MLP at full width (4096 -> 8192 -> 8192 -> 1024, density
   0.1) swapped onto the card by ``AcceleratorLayerManager``, at batches of
   64 and 1;
@@ -23,8 +24,15 @@ after:
   over a mesh that repeats the one card four times, and over one card, then
   ``dryrun_multichip``; on distinct cards too when there are two or more;
 - the ``ops`` entry: the one-shot ``spmv_block`` (B5) and B6 at a batch of
-  64 on TSOPF_RS_b2383, beside the handle's ``run`` (B1) and ``linear``
-  (B2).
+  64 on TSOPF_RS_b2383, beside the handle's ``run`` (B1) and ``linear``;
+- block matrices past the chunked layout's budget: a Flan_1565-sized one
+  in the x- and y-paneled layout (``run`` through B4, ``linear`` at B 64
+  through B6) and a 200,000 x 5,120,000 one in the x-paneled layout
+  (``run`` through B3);
+- the routed format's gathered side-plan on the analytics stand-in, with
+  the gathered executor's modelled cost lowered so that the planner diverts
+  its scattered tiles: ``run`` through B12, B11 twice, B13 and B9, and
+  ``linear`` at B 8 vector by vector.
 
 Every result is held to a float64 golden at rtol 1e-3.  Then each kernel
 is compared with its plain PyTorch version on the arrays the paths gave it
@@ -32,7 +40,8 @@ and both are timed beside the kernel's bound (bytes over the HBM rate or
 fp32 operations over the FMA rate, whichever is larger) and, where one
 PyTorch call computes the same function (a CSR product, ``index_select``),
 that call; the rank-space permutation is timed beside a direct
-``index_select``.  It exits nonzero, without a result line, when there is
+``index_select`` and the gathered executor's chain (B12, B11, B11, B13)
+beside a CSR product of the nonzeros it takes.  It exits nonzero, without a result line, when there is
 no CUDA card or any check fails.  The last line of standard output is
 ``{"ok": true, "device": {...}}``.
 """
@@ -61,7 +70,7 @@ from hispmv_tpu_torch.dist import (
 )
 from hispmv_tpu_torch.dist.dryrun import dryrun_multichip
 from hispmv_tpu_torch.dist.shard import device_bytes
-from hispmv_tpu_torch.formats.synth import suite_matrix
+from hispmv_tpu_torch.formats.synth import blocked_coo, suite_matrix
 from hispmv_tpu_torch.models import (
     AcceleratorLayerManager,
     ThreeLayerFCModel,
@@ -69,6 +78,7 @@ from hispmv_tpu_torch.models import (
 )
 from hispmv_tpu_torch.ops import cuda_build
 from hispmv_tpu_torch.ops.permute import (
+    clos_gather,
     permute_apply,
     permute_stage,
     permute_stage_plain,
@@ -89,6 +99,15 @@ from hispmv_tpu_torch.ops.spmv_chunked import (
     spmv_chunked_paneled,
     spmv_chunked_paneled_plain,
     spmv_chunked_plain,
+    spmv_chunked_tiled,
+    spmv_chunked_tiled_plain,
+)
+from hispmv_tpu_torch.ops.spmv_gathered import (
+    gathered_gather_apply,
+    s1_gather,
+    s1_gather_plain,
+    spmv_gathered_tiles,
+    spmv_gathered_tiles_plain,
 )
 from hispmv_tpu_torch.ops.spmv_routed import (
     spmv_routed_stream,
@@ -104,6 +123,7 @@ from hispmv_tpu_torch.ops.spmv_windowed import (
     spmv_windowed_batched_plain,
     spmv_windowed_plain,
 )
+from hispmv_tpu_torch.plan import gathered as gathered_plan
 from hispmv_tpu_torch.utils.errors import error_stats
 
 SEED = 0
@@ -141,6 +161,9 @@ BATCH = 64
 # (label, handle of the main path, batch, kernels expected)
 LINEAR_RUNS = [
     ("TSOPF_RS_b2383 block linear", "TSOPF_RS_b2383 block", BATCH,
+     ("spmv_block_batched",)),
+    # last of TSOPF's: phase 4 holds B2 to this batch
+    ("TSOPF_RS_b2383 block linear B 8", "TSOPF_RS_b2383 block", 8,
      ("spmv_chunked_batched",)),
     ("trans5 ellx linear", "trans5 auto", 8, ("spmv_chunked_batched",)),
     ("crystk03 auto linear", "crystk03 auto", BATCH,
@@ -180,6 +203,22 @@ SHARD_KINDS = {  # plan builder, executor, kernel, launches per call of D
 }
 MAX_BALANCE = 1.3  # max/mean device load of the nnz-balanced planners
 PANEL_NCB = 64  # x panel of the multi-panel B3 check (8192 columns)
+
+# phase 3f: block matrices past the chunked layout's budget, the JAX
+# handle's dispatch with its constants.  (label, rows, cols, nonzeros
+# before dedup, layout, kernel of run, linear batch or None); the first is
+# SuiteSparse Janna/Flan_1565's size, the second tests/test_api.py's wide
+# shape.
+LARGE_BLOCK_RUNS = [
+    ("Flan_1565-sized block", 1_564_794, 1_564_794, 114_165_372, "tiled",
+     "spmv_chunked_tiled", BATCH),
+    ("200000x5120000 block", 200_000, 5_120_000, 14_600_000, "paneled",
+     "spmv_chunked_paneled", None),
+]
+# phase 3g: the gathered side-plan, diverted with cheap modelled costs
+GATHERED_FIXTURE = "analytics"
+GATHERED_COSTS = {"GATH_TILE_NS": 1.0, "GATH_STAGE_NS": 1.0}
+GATHERED_BATCH = 8
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet): HBM bandwidth and
 # fp32 rate outside the tensor cores (an FMA counts as two operations).
@@ -237,6 +276,21 @@ KERNELS = {
         "source": "hispmv_tpu_torch/csrc/spmv_block.cu",
         "replaces": "hispmv_tpu/ops/spmv_block.py:215",
     },
+    "spmv_chunked_tiled": {
+        "wrapper": spmv_chunked_tiled,
+        "source": "hispmv_tpu_torch/csrc/spmv_chunked_tiled.cu",
+        "replaces": "hispmv_tpu/ops/spmv_chunked.py:615",
+    },
+    "s1_gather": {
+        "wrapper": s1_gather,
+        "source": "hispmv_tpu_torch/csrc/spmv_gathered.cu",
+        "replaces": "hispmv_tpu/ops/spmv_gathered.py:55",
+    },
+    "spmv_gathered": {
+        "wrapper": spmv_gathered_tiles,
+        "source": "hispmv_tpu_torch/csrc/spmv_gathered.cu",
+        "replaces": "hispmv_tpu/ops/spmv_gathered.py:179",
+    },
 }
 PLAIN = {"spmv_chunked": spmv_chunked_plain,
          "spmv_windowed": spmv_windowed_plain,
@@ -247,7 +301,10 @@ PLAIN = {"spmv_chunked": spmv_chunked_plain,
          "spmv_routed_batched": spmv_routed_stream_batched_plain,
          "spmv_chunked_paneled": spmv_chunked_paneled_plain,
          "spmv_block": spmv_block_stream_plain,
-         "spmv_block_batched": spmv_block_batched_plain}
+         "spmv_block_batched": spmv_block_batched_plain,
+         "spmv_chunked_tiled": spmv_chunked_tiled_plain,
+         "s1_gather": s1_gather_plain,
+         "spmv_gathered": spmv_gathered_tiles_plain}
 
 
 def log(msg: str) -> None:
@@ -751,10 +808,10 @@ def sharded_cases(kernel_args, handles):
 def ops_entry(handles, fixtures, counts, failures):
     """The ``ops`` entry on TSOPF_RS_b2383: the one-shot ``spmv_block``
     (B5) with alpha, beta and y_in against the golden, then B5 on resident
-    arrays beside the handle's ``run`` (B1), and B6 at a batch of 64 (the
-    call the JAX handle makes for this ``linear``) against the golden,
-    beside the handle's ``linear`` (B2).  Returns the row and the phase 4
-    cases."""
+    arrays beside the handle's ``run`` (B1), and B6 at a batch of 64 on
+    these arrays against the golden, beside the handle's ``linear`` (B6 on
+    arrays of its own, as the JAX handle runs a batch past its budget).
+    Returns the row and the phase 4 cases."""
     name = "TSOPF_RS_b2383"
     coo = fixtures[name]
     h, _ = handles["TSOPF_RS_b2383 block"]
@@ -810,7 +867,7 @@ def ops_entry(handles, fixtures, counts, failures):
         f"{run_ms:.4f} ms; B6 at B {B}: max abs err {stb.max_abs_error:.3e}"
         f" ({stb.num_mismatches} past rtol {RTOL} + atol {atol:.2e}), kernel"
         f" {b6_ms:.4f} ms, as a linear (pad, transpose, B6) "
-        f"{b6_linear_ms:.4f} ms vs handle linear (B2) {linear_ms:.4f} ms; "
+        f"{b6_linear_ms:.4f} ms vs handle linear (B6) {linear_ms:.4f} ms; "
         f"launches {used}")
     row = {"run": "ops entry TSOPF_RS_b2383", "b5_ms": b5_ms,
            "handle_run_ms": run_ms, "b6_ms": b6_ms,
@@ -824,6 +881,231 @@ def ops_entry(handles, fixtures, counts, failures):
          stream + (xt, nrb), {"starts": d["starts"]}),
     ]
     return row, cases
+
+
+def _layout(h):
+    return [n for n in ("chunked", "paneled", "tiled") if getattr(h, "_" + n)]
+
+
+def large_block_path(counts, failures):
+    """Phase 3f: ``prepare(coo, format="block")`` on matrices past the
+    chunked layout's budget, ``run`` against the float64 golden through B4
+    or B3, and ``linear`` through B6 where a batch is given; counts zeroed
+    before each run and read after.  Returns the rows and, per run, the
+    handle and its x."""
+    rng = np.random.default_rng(SEED + 7)
+    rows_out, handles = [], {}
+    for label, R, C, nnz, layout, kernel, B in LARGE_BLOCK_RUNS:
+        t0 = time.perf_counter()
+        coo = blocked_coo(R, C, nnz, seed=SEED, spread_frac=0.4)
+        gen_s = time.perf_counter() - t0
+        zero_launches()
+        t0 = time.perf_counter()
+        h = prepare(coo, SpmvConfig(), "block")
+        torch.cuda.synchronize()
+        prep_s = time.perf_counter() - t0
+        if _layout(h) != [layout]:
+            failures.append(f"{label}: layout {_layout(h)}, want {layout}")
+        x, y_in = inputs(R, C, rng)
+        xd, yd = torch.from_numpy(x).cuda(), torch.from_numpy(y_in).cuda()
+        y = h.run(xd, yd, ALPHA, BETA)
+        torch.cuda.synchronize()
+        once = launches()
+        want = ALPHA * coo.matvec(x.astype(np.float64)) + BETA * y_in
+        check_run(label, y, want, h, failures)
+        if once[kernel] != 1 or sum(once.values()) != 1:
+            failures.append(f"{label}: launches of one run {once}, want one "
+                            f"{kernel}")
+        ms = median_ms(lambda: h.run(xd, yd, ALPHA, BETA))
+        busy = device_ms(lambda: h.run(xd, yd, ALPHA, BETA))
+        used = launches()
+        for n, c in used.items():
+            counts[n] += c
+        a = csr_of(label, coo)
+        lib_ms = median_ms(lambda: a @ xd)
+        log(f"  {label}: {R}x{C}, generated in {gen_s:.1f} s, layout "
+            f"{layout}, {h._d['data'].shape[0]} chunks of {h._chunk}, "
+            f"device busy {_ms(busy)} a run")
+        row = _row(label, h, coo.nnz, R, prep_s, ms, used, lib_ms)
+        row.update(layout=layout, device_busy_ms=busy, generate_s=gen_s)
+        if B:
+            row["linear"] = _large_linear(label, h, coo, a, B, rng, counts,
+                                          failures)
+        rows_out.append(row)
+        handles[label] = (h, xd)
+    return rows_out, handles
+
+
+def _large_linear(label, h, coo, a, B, rng, counts, failures):
+    """``linear`` at batch ``B`` on a handle past the budget: one B6 launch
+    on per-block arrays uploaded at the first call, against the golden."""
+    R, C = coo.shape
+    xb = rng.standard_normal((B, C)).astype(np.float32)
+    xbd = torch.from_numpy(xb).cuda()
+    zero_launches()
+    t0 = time.perf_counter()
+    yb = h.linear(xbd)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    once = launches()
+    want = (coo.to_scipy() @ xb.astype(np.float64).T).T
+    atol = GOLDEN_ATOL * float(np.abs(want).max())
+    st = error_stats(yb.cpu().numpy(), want, rtol=RTOL, atol=atol)
+    if not st.ok or yb.shape != (B, R) or not torch.isfinite(yb).all():
+        failures.append(f"{label} linear B {B}: off the golden")
+    if once["spmv_block_batched"] != 1 or sum(once.values()) != 1:
+        failures.append(f"{label} linear B {B}: launches {once}, want one "
+                        "B6")
+    ms = median_ms(lambda: h.linear(xbd))
+    busy = device_ms(lambda: h.linear(xbd))
+    used = launches()
+    for n, c in used.items():
+        counts[n] += c
+    xt = xbd.T.contiguous()
+    lib_ms = median_ms(lambda: a @ xt)
+    batch_mb = sum(v.nbytes for v in h._batch_d.values()) / 2**20
+    gflops = 2.0 * B * (coo.nnz + R) / (ms * 1e-3) / 1e9
+    log(f"  {label} linear B {B}: max abs err {st.max_abs_error:.3e} "
+        f"({st.num_mismatches} past rtol {RTOL} + atol {atol:.2e}); first "
+        f"call {first_s:.2f} s (uploads {batch_mb:.1f} MB of per-block "
+        f"arrays); launches {used}, median linear {ms:.4f} ms (device busy "
+        f"{_ms(busy)}), {gflops:.2f} GFLOP/s, CSR A @ X {lib_ms:.4f} ms")
+    return {"batch": B, "linear_ms": ms, "device_busy_ms": busy,
+            "gflops": gflops, "library_ms": lib_ms, "batch_arrays_mb":
+            batch_mb, "launches": used}
+
+
+def gathered_path(counts, failures):
+    """Phase 3g: ``prepare(coo, format="routed")`` on the analytics
+    stand-in with the gathered executor's modelled cost lowered (this
+    phase only), so that the planner diverts its scattered tiles to a
+    gathered side-plan; ``run`` against the golden, then ``linear`` at
+    GATHERED_BATCH vector by vector.  Counts zeroed before each run and
+    read after.  Returns the row and (handle, x)."""
+    coo = suite_matrix(GATHERED_FIXTURE, 1.0, seed=SEED)
+    label = f"{GATHERED_FIXTURE} routed gathered"
+    saved = {k: getattr(gathered_plan, k) for k in GATHERED_COSTS}
+    zero_launches()
+    t0 = time.perf_counter()
+    try:
+        for k, v in GATHERED_COSTS.items():
+            setattr(gathered_plan, k, v)
+        h = prepare(coo, SpmvConfig(), "routed")
+    finally:
+        for k, v in saved.items():
+            setattr(gathered_plan, k, v)
+    torch.cuda.synchronize()
+    prep_s = time.perf_counter() - t0
+    g = h.plan.gathered
+    if h.format != "routed" or g is None:
+        failures.append(f"{label}: no gathered side-plan")
+        return None, None
+    nstreams = len(h.plan.streams)
+    diverted = int(np.count_nonzero(g.vals))
+    log(f"  {label}: {coo.shape[0]}x{coo.shape[1]}, nnz {coo.nnz}; gathered "
+        f"side-plan {g.num_tiles} tiles, K {g.num_windows}, P "
+        f"{g.num_panels}, {g.num_ytiles} y tiles, {diverted} nonzeros "
+        f"diverted; {nstreams} streams")
+    rng = np.random.default_rng(SEED + 8)
+    x, y_in = inputs(*coo.shape, rng)
+    xd, yd = torch.from_numpy(x).cuda(), torch.from_numpy(y_in).cuda()
+    zero_launches()
+    y = h.run(xd, yd, ALPHA, BETA)
+    torch.cuda.synchronize()
+    once = launches()
+    want = ALPHA * coo.matvec(x.astype(np.float64)) + BETA * y_in
+    check_run(label, y, want, h, failures)
+    per_run = {"s1_gather": 1, "permute_stage": 2, "spmv_gathered": 1,
+               "spmv_routed": nstreams}
+    if any(once[n] != c for n, c in per_run.items()):
+        failures.append(f"{label}: launches of one run {once}, want "
+                        f"{per_run}")
+    ms = median_ms(lambda: h.run(xd, yd, ALPHA, BETA))
+    busy = device_ms(lambda: h.run(xd, yd, ALPHA, BETA))
+    used = launches()
+    for n, c in used.items():
+        counts[n] += c
+    a = csr_of(GATHERED_FIXTURE, coo)
+    lib_ms = median_ms(lambda: a @ xd)
+    log(f"  {label}: launches of one run {once}, device busy {_ms(busy)} a "
+        "run")
+    row = _row(label, h, coo.nnz, coo.shape[0], prep_s, ms, used, lib_ms)
+    row.update(device_busy_ms=busy, tiles=g.num_tiles, K=g.num_windows,
+               P=g.num_panels, diverted_nnz=diverted)
+
+    B = GATHERED_BATCH
+    xb = rng.standard_normal((B, coo.shape[1])).astype(np.float32)
+    xbd = torch.from_numpy(xb).cuda()
+    zero_launches()
+    yb = h.linear(xbd)
+    torch.cuda.synchronize()
+    once = launches()
+    wantb = (coo.to_scipy() @ xb.astype(np.float64).T).T
+    atol = GOLDEN_ATOL * float(np.abs(wantb).max())
+    st = error_stats(yb.cpu().numpy(), wantb, rtol=RTOL, atol=atol)
+    if not st.ok or yb.shape != (B, coo.shape[0]):
+        failures.append(f"{label} linear B {B}: off the golden")
+    if any(once[n] != B * c for n, c in per_run.items()):
+        failures.append(f"{label} linear B {B}: launches {once}, want "
+                        f"{B} x {per_run}")
+    lin_ms = median_ms(lambda: h.linear(xbd))
+    used = launches()
+    for n, c in used.items():
+        counts[n] += c
+    log(f"  {label} linear B {B}: max abs err {st.max_abs_error:.3e} "
+        f"({st.num_mismatches} past rtol {RTOL} + atol {atol:.2e}), "
+        f"launches of one call {once}, median linear {lin_ms:.4f} ms")
+    row["linear"] = {"batch": B, "linear_ms": lin_ms, "launches": used}
+    return row, (h, xd)
+
+
+def large_block_cases(large):
+    """B4 and B3 on the arrays and x of phase 3f's handles."""
+    cases = []
+    for label, *_ in LARGE_BLOCK_RUNS:
+        h, xd = large[label]
+        p, d = h.plan, h._d
+        x2d = h._pad_x(xd).reshape(-1, 128)
+        shape = (f"{label}, bh {p.block_h}, {d['data'].shape[0]} chunks of "
+                 f"{h._chunk}")
+        if h._tiled:
+            pnrb = h._panel_nrb(p.block_h)
+            npy = -(-p.num_row_blocks // pnrb)
+            cases.append(("spmv_chunked_tiled",
+                          f"{shape}, {npy} y panels of {pnrb} row blocks",
+                          (d["data"], d["meta"], d["xpanels"], d["ypanels"],
+                           x2d, npy, pnrb, p.block_h, h._chunk,
+                           h._PANEL_NCB)))
+        else:
+            cases.append(("spmv_chunked_paneled",
+                          f"{shape}, x panels of {h._PANEL_NCB} col blocks",
+                          (d["data"], d["meta"], d["panels"], x2d,
+                           p.num_row_blocks, p.block_h, h._chunk,
+                           h._PANEL_NCB)))
+    return cases
+
+
+def _gathered_x(h, xd):
+    """The routed executor's x of the gathered side-plan: its first K
+    windows, [K*8, 128]."""
+    kw = h._routed_meta["gathered"]["K"] * 1024
+    x = h._pad_x(xd)
+    return torch.nn.functional.pad(x[:kw], (0, max(kw - x.shape[0], 0)))
+
+
+def gathered_cases(gath):
+    """B12 and B13 on the side-plan arrays and x of phase 3g's handle."""
+    h, xd = gath
+    d, gm, nyt = h._d, h._routed_meta["gathered"], h._routed_meta["nyt"]
+    x2d = _gathered_x(h, xd).reshape(-1, 128)
+    xg = gathered_gather_apply(d, gm, "g_", x2d)
+    return [
+        ("s1_gather", f"{GATHERED_FIXTURE}: P {gm['P']} x K {gm['K']} "
+         "windows", (d["g_s1"], x2d, gm["P"], gm["K"])),
+        ("spmv_gathered", f"{GATHERED_FIXTURE}: {gm['T']} tiles, {nyt} y "
+         "tiles", (d["g_vals"], d["g_word"], d["g_byt"], xg, nyt, gm["nch"],
+                   gm["tchunk"])),
+    ]
 
 
 def kernel_checks(handles, linear_x, accel, extra_cases, failures):
@@ -916,7 +1198,7 @@ def _agree(name, got, want):
     diff = (got - want).abs()
     ymax = float(want.abs().max())
     bound = KERNEL_RTOL * want.abs() + KERNEL_RTOL * max(ymax, 1e-30)
-    if name == "permute_stage":  # a permutation does no arithmetic
+    if name in ("permute_stage", "s1_gather"):  # gathers: no arithmetic
         bound = torch.zeros_like(bound)
     worst = float((diff / bound.clamp_min(1e-30)).max())
     err = float(diff.max())
@@ -947,6 +1229,9 @@ _WORK = {
     "spmv_windowed_batched": lambda a: (a[0], a[3].shape[1] // 128),
     "spmv_routed_batched": lambda a: (a[0][0], a[4]),
     "permute_stage": lambda a: (None, 0),
+    "spmv_chunked_tiled": lambda a: (a[0], 1),
+    "s1_gather": lambda a: (None, 0),
+    "spmv_gathered": lambda a: (a[0], 1),
 }
 
 
@@ -984,18 +1269,24 @@ def library_call(name, args):
     ``index_select`` for B11), or None where none does (B9, B10: one
     routed stream is a share of the matrix no single call computes)."""
     if name in ("spmv_chunked", "spmv_chunked_batched",
-                "spmv_chunked_paneled"):
+                "spmv_chunked_paneled", "spmv_chunked_tiled"):
         if name == "spmv_chunked_paneled":
             data3d, meta, panels, x, nrb, bh, chunk, panel_ncb = args
+        elif name == "spmv_chunked_tiled":
+            (data3d, meta, panels, ypanels, x, npy, panel_nrb, bh, chunk,
+             panel_ncb) = args
+            nrb = npy * panel_nrb
         else:
             data3d, meta, x, nrb, bh, chunk = args
         cb = meta[:, 1, :].reshape(-1).long()
-        if name == "spmv_chunked_paneled":
+        rb = (meta[:, 0, :].reshape(-1) >> 1).long()
+        if name in ("spmv_chunked_paneled", "spmv_chunked_tiled"):
             cb = cb + (panels.long() * panel_ncb).repeat_interleave(chunk)
+        if name == "spmv_chunked_tiled":
+            rb = rb + (ypanels.long() * panel_nrb).repeat_interleave(chunk)
         blocks = data3d.reshape(-1, bh, 128)
-        a = _block_csr(blocks, meta[:, 0, :].reshape(-1) >> 1,
-                       lambda j, lane: cb[j] * 128 + lane, nrb * bh,
-                       x.shape[0] * 128)
+        a = _block_csr(blocks, rb, lambda j, lane: cb[j] * 128 + lane,
+                       nrb * bh, x.shape[0] * 128)
         xs = x.reshape(-1, x.shape[2]) if x.ndim == 3 else x.reshape(-1)
         return lambda: a @ xs
     if name in ("spmv_block", "spmv_block_batched"):
@@ -1029,7 +1320,89 @@ def library_call(name, args):
         idx = idx.reshape(-1).long()  # exact: n < 2**24
         flat = a.reshape(-1)
         return lambda: flat.index_select(0, idx)
+    if name == "s1_gather":  # the composed source of every slot
+        words, x, P, K = args
+        idx = s1_gather_plain(words, torch.arange(
+            x.numel(), device=x.device, dtype=torch.float32).reshape(x.shape),
+            P, K).reshape(-1).long()  # exact: K*1024 < 2**24
+        flat = x.reshape(-1)
+        return lambda: flat.index_select(0, idx)
+    if name == "spmv_gathered":
+        vals3, word3, byt, xg, nyt, nch, tchunk = args
+        rows, slots, v = gathered_tile_coo(vals3, word3, byt, nyt)
+        a = torch.sparse_coo_tensor(torch.stack([rows, slots]), v, (
+            nyt * 1024, nch * tchunk * 1024)).coalesce().to_sparse_csr()
+        xs = torch.nn.functional.pad(xg.reshape(-1), (
+            0, nch * tchunk * 1024 - xg.numel()))
+        return lambda: a @ xs
     return None
+
+
+def gathered_tile_coo(vals3, word3, byt, num_ytiles):
+    """(y row, tile slot, value) of every nonzero slot of the gathered
+    tiles: cell c of tile t sums the prefix from the slot after route 2's
+    source to route 1's source, so each slot in that run adds into y row
+    byt[t]*1024 + c (cell 0 is the trash cell)."""
+    Tp = byt.shape[0]
+    dev = vals3.device
+    w = word3.reshape(Tp, 8, 128)
+    slot = torch.arange(1024, device=dev, dtype=torch.float32).reshape(
+        1, 8, 128).expand(Tp, 8, 128).contiguous()
+    src1 = clos_gather(w & 0x1FFF, slot).reshape(Tp, 1024).long()
+    src2 = clos_gather((w >> 13) & 0x1FFF, slot).reshape(Tp, 1024).long()
+    cell = torch.arange(1024, device=dev)
+    run = (src1 > src2) & (cell > 0)[None, :] & (byt < num_ytiles)[:, None]
+    t, c = run.nonzero().unbind(1)
+    end = t * 1024 + src1[t, c]
+    order = torch.argsort(end)
+    end, t, c = end[order], t[order], c[order]
+    start = t * 1024 + src2[t, c] + 1
+    v = vals3.reshape(-1)
+    s = v.nonzero().squeeze(1)
+    k = torch.searchsorted(end, s).clamp(max=end.numel() - 1)
+    inside = (start[k] <= s) & (s <= end[k])
+    s, k = s[inside], k[inside]
+    return byt.long()[t[k]] * 1024 + c[k], s, v[s]
+
+
+def gathered_chain(gath, failures):
+    """The gathered executor's whole chain (B12, two transposes and B11s,
+    B13) beside one CSR product of the nonzeros it takes, A_g @ x: A_g's
+    columns are the tile slots' sources, from the chain's gather of the
+    column indices."""
+    h, xd = gath
+    d, gm, nyt = h._d, h._routed_meta["gathered"], h._routed_meta["nyt"]
+    x = _gathered_x(h, xd)
+    x2d = x.reshape(-1, 128)
+
+    def chain():
+        xg = gathered_gather_apply(d, gm, "g_", x2d)
+        return spmv_gathered_tiles(d["g_vals"], d["g_word"], d["g_byt"], xg,
+                                   nyt, gm["nch"], gm["tchunk"])
+
+    src = gathered_gather_apply(d, gm, "g_", torch.arange(
+        x.numel(), device=x.device, dtype=torch.float32).reshape(x2d.shape))
+    rows, slots, v = gathered_tile_coo(d["g_vals"], d["g_word"], d["g_byt"],
+                                       nyt)
+    cols = src.reshape(-1).long()[slots]  # exact: K*1024 < 2**24
+    a = torch.sparse_coo_tensor(torch.stack([rows, cols]), v, (
+        nyt * 1024, x.numel())).coalesce().to_sparse_csr()
+    got = chain()
+    want = (a @ x).reshape(got.shape)
+    torch.cuda.synchronize()
+    ok, err, line = _agree("gathered chain", got, want)
+    if not ok:
+        failures.append("the gathered chain disagrees with CSR A_g @ x")
+    ms = median_ms(chain)
+    busy = device_ms(chain)
+    lib_ms = median_ms(lambda: a @ x)
+    log(f"  gathered chain [{GATHERED_FIXTURE}, {a._nnz()} nonzeros, "
+        f"{gm['T']} tiles]: {line}; chain {ms:.4f} ms (device busy "
+        f"{_ms(busy)}), CSR A_g @ x {lib_ms:.4f} ms, "
+        f"{'ok' if ok else 'FAIL'}")
+    return {"nnz": int(a._nnz()), "tiles": gm["T"], "chain_ms": ms,
+            "device_busy_ms": busy, "library_ms": lib_ms,
+            "max_abs_err": err}
 
 
 def batched_cases(handles, linear_x, accel):
@@ -1167,7 +1540,12 @@ def main() -> int:
         log(f"  {ncards} card: phase 3d on distinct cards was not run")
     log(f"phase 3e: the ops entry (spmv_block, B6 at B {BATCH})")
     ops_row, ops_cases = ops_entry(handles, fixtures, counts, failures)
-    log(f"  launches on the five paths: {counts}")
+    log("phase 3f: block matrices past the chunked layout's budget")
+    large_runs, large = large_block_path(counts, failures)
+    log(f"phase 3g: the gathered side-plan of routed ({GATHERED_FIXTURE}, "
+        f"modelled costs {GATHERED_COSTS} for this phase)")
+    gath_row, gath = gathered_path(counts, failures)
+    log(f"  launches on the seven paths: {counts}")
     for n, c in counts.items():
         if c == 0:
             failures.append(f"the paths never launched {n}")
@@ -1176,9 +1554,15 @@ def main() -> int:
 
     log("phase 4: each kernel against its plain version, its bound and its "
         "library call")
-    extra = sharded_cases(shard_args, handles) + ops_cases
+    extra = (sharded_cases(shard_args, handles) + ops_cases
+             + large_block_cases(large))
+    if gath is not None:
+        extra += gathered_cases(gath)
     results = kernel_checks(handles, linear_x, accel, extra, failures)
     perm_times = permute_vs_gather(handles, failures)
+    chain = None if gath is None else gathered_chain(gath, failures)
+    log(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**20:.0f}"
+        " MB")
 
     kernels = [{
         "name": f"{r['name']} [{r['shape']}]", "route": "cuda",
@@ -1191,7 +1575,8 @@ def main() -> int:
     } for r in results]
     log(json.dumps({"runs": runs, "linear": linear_runs, "mlp": mlp_runs,
                     "sharded": shard_runs, "dryrun": dry, "ops": ops_row,
-                    "permutation": perm_times}))
+                    "large_block": large_runs, "gathered": gath_row,
+                    "gathered_chain": chain, "permutation": perm_times}))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     if failures:
         for f in failures:

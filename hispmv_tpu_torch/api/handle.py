@@ -14,12 +14,18 @@ for matrices that fail ``routed_vmem_ok``):
   one, or any one's ``linear``.
 
 The runners are eager Python on explicit tensors: no jit, no interpret
-mode, no runner cache per batch size, and no VMEM-budget dispatch (a GPU
-kernel reads x and y from device memory, so the block format always uses
-the chunked layout: B1 for one vector, B2 for a batch of any size).  Every
-handle lives on one ``device`` (default ``"cuda"``); it never moves to the
-CPU on its own.  On a CPU device the kernel wrappers run their plain
-PyTorch versions.
+mode and no runner cache per batch size.  The block format keeps the JAX
+handle's layout dispatch by its TPU VMEM budget (the class attributes
+``_CHUNKED_VMEM_BUDGET``, ``_PANEL_NCB`` and ``_PANEL_Y_BYTES``, with the
+JAX values), so both packages build the same arrays and run the same
+kernels: ``run`` takes B1 (chunked), B3 (x-paneled) or B4 (x- and
+y-paneled), and ``linear`` B2 when the handle is chunked and a batch's x +
+y fit the budget, else B6 on per-block arrays uploaded once.  A GPU kernel
+reads x and y from device memory, so on the card the budget only decides
+the layout; recalibrating it for the card is a measured change still to
+make.  Every handle lives on one ``device`` (default ``"cuda"``); it never
+moves to the CPU on its own.  On a CPU device the kernel wrappers run
+their plain PyTorch versions.
 """
 
 from __future__ import annotations
@@ -38,11 +44,17 @@ from hispmv_tpu_torch.ops.permute import (
     pack_permute_into,
     panel_permute_apply_from,
 )
+from hispmv_tpu_torch.ops.spmv_block import spmv_block_batched, \
+    upload_block_plan
 from hispmv_tpu_torch.ops.spmv_chunked import (
     chunk_for,
     pack_chunks,
+    pack_chunks_paneled,
+    pack_chunks_tiled,
     spmv_chunked,
     spmv_chunked_batched,
+    spmv_chunked_paneled,
+    spmv_chunked_tiled,
 )
 from hispmv_tpu_torch.ops.spmv_ellx import (
     EllxPlan,
@@ -51,6 +63,11 @@ from hispmv_tpu_torch.ops.spmv_ellx import (
     ellx_matvec_batched,
 )
 from hispmv_tpu_torch.ops.spmv_ref import spmv_ref
+from hispmv_tpu_torch.ops.spmv_gathered import (
+    gathered_gather_apply,
+    pack_gathered,
+    spmv_gathered_tiles,
+)
 from hispmv_tpu_torch.ops.spmv_routed import (
     pack_stream,
     spmv_routed_stream,
@@ -115,9 +132,10 @@ def _residual_dict(d, prefix):
 
 def _run_routed_part(d, x, R, meta, prefix):
     """Execute a routed plan (+ its residual) from device dict ``d`` under
-    key ``prefix``; returns y[:R].  Each cost-class stream runs its own B9
-    launch and their y tiles are summed.  A banded meta dispatches to the
-    cell grid; a rank-space meta permutes x in and y out through B11."""
+    key ``prefix``; returns y[:R].  The gathered side-plan (when there is
+    one) runs first, then each cost-class stream its own B9 launch, and
+    their y tiles are summed.  A banded meta dispatches to the cell grid; a
+    rank-space meta permutes x in and y out through B11."""
     if meta.get("cells") is not None:
         return _run_routed_banded(d, x, R, meta, prefix)
     if meta["xperm"] is not None:
@@ -127,6 +145,15 @@ def _run_routed_part(d, x, R, meta, prefix):
         x = torch.nn.functional.pad(x, (0, need - x.shape[0]))
     x2d = x.reshape(-1, LANES)
     y2d = None
+    gm = meta["gathered"]
+    if gm is not None:  # the gathered side-plan: B12, B11 twice, B13
+        # its K x windows are num_windows rounded up to a power of two
+        kw = gm["K"] * WINDOW
+        xk = torch.nn.functional.pad(x[:kw], (0, max(kw - x.shape[0], 0)))
+        xg = gathered_gather_apply(d, gm, prefix + "g_", xk.reshape(-1, LANES))
+        y2d = spmv_gathered_tiles(d[prefix + "g_vals"], d[prefix + "g_word"],
+                                  d[prefix + "g_byt"], xg, meta["nyt"],
+                                  gm["nch"], gm["tchunk"])
     for i, dims in enumerate(meta["streams"]):
         ys = spmv_routed_stream(_stream_packed(d, prefix, i, dims), dims,
                                 x2d, meta["nyt"])
@@ -346,21 +373,77 @@ class SpmvHandle:
                                 col_perm=perm)
         self._build_block_arrays(plan, coo.num_cols)
 
+    # The JAX handle's layout dispatch, with its TPU constants (kept so that
+    # both packages build the same arrays): the chunked kernel's resident x
+    # + y (+ two chunk buffers) must fit a 10 MiB VMEM budget, else x
+    # streams in panels of _PANEL_NCB col blocks, and when a resident y does
+    # not fit either, y streams in panels of _PANEL_Y_BYTES too.
+    _CHUNKED_VMEM_BUDGET = 10 * 2**20
+    _PANEL_NCB = 4096
+    _PANEL_Y_BYTES = 1 << 20
+
+    def _block_fits_chunked(self, plan) -> bool:
+        xy = (plan.num_col_blocks * LANES
+              + plan.num_row_blocks * plan.block_h) * 4
+        chunk_bytes = 2 * chunk_for(plan.block_h) * plan.block_h * LANES * 4
+        return xy + chunk_bytes <= self._CHUNKED_VMEM_BUDGET
+
+    def _block_fits_paneled(self, plan) -> bool:
+        need = (
+            plan.num_row_blocks * plan.block_h * 4  # y resident
+            + self._PANEL_NCB * LANES * 4 * 2  # x panel, double-buffered
+            + 2 * chunk_for(plan.block_h) * plan.block_h * LANES * 4
+        )
+        return need <= self._CHUNKED_VMEM_BUDGET
+
+    def _panel_nrb(self, block_h: int) -> int:
+        return max(self._PANEL_Y_BYTES // (block_h * 4), 8)
+
     def _build_block_arrays(self, plan: BlockPlan, num_cols: int):
-        """Chunked layout at every size (B1), plus the identity-extended x
+        """Dispatch a BlockPlan to the chunked (B1), x-paneled (B3) or x-
+        and y-paneled (B4) layout by the budget above, as the JAX handle
+        does, with its device dict keys; plus the identity-extended x
         permutation when the plan is column-reordered."""
         self._block_plan_meta = plan
+        self._chunked = self._block_fits_chunked(plan)
+        self._paneled = not self._chunked and self._block_fits_paneled(plan)
+        self._tiled = not self._chunked and not self._paneled
         self._chunk = chunk_for(plan.block_h)
-        data3d, meta, _ = pack_chunks(plan, self._chunk)
-        d = {
-            "data": self._upload(data3d, self._value_dtype()),
-            "meta": self._upload(meta),
-        }
+        self._batch_d = None  # B6's per-block arrays, uploaded at first use
+        vdt = self._value_dtype()
+        if self._chunked:
+            data3d, meta, _ = pack_chunks(plan, self._chunk)
+            d = {"data": self._upload(data3d, vdt),
+                 "meta": self._upload(meta)}
+        elif self._paneled:
+            data3d, meta, panel_ids, _ = pack_chunks_paneled(
+                plan, self._chunk, self._PANEL_NCB)
+            d = {"data": self._upload(data3d, vdt),
+                 "meta": self._upload(meta),
+                 "panels": self._upload(panel_ids)}
+        else:
+            data3d, meta, xp, yp, yf, _ = pack_chunks_tiled(
+                plan, self._chunk, self._PANEL_NCB,
+                self._panel_nrb(plan.block_h))
+            d = {"data": self._upload(data3d, vdt),
+                 "meta": self._upload(meta),
+                 "xpanels": self._upload(xp),
+                 "ypanels": self._upload(yp),
+                 "yfirst": self._upload(yf)}
+        del data3d
         if plan.col_perm is not None:
+            # to the full padded width: the paneled layouts pad x to whole
+            # panels
             d["perm"] = self._upload(_extend_perm(
-                plan.col_perm, num_cols, plan.num_col_blocks * LANES
+                plan.col_perm, num_cols, self._block_padded_cols()
             ))
         self._set_device_dict(d, plan.fill)
+
+    def _block_padded_cols(self) -> int:
+        ncb = self._block_plan_meta.num_col_blocks
+        if self._chunked:
+            return ncb * LANES
+        return -(-ncb // self._PANEL_NCB) * self._PANEL_NCB * LANES
 
     def _prepare_ellx(self, coo: COOMatrix):
         """Base-K ELL (plain torch product) + B1 overflow for heavy rows;
@@ -424,10 +507,6 @@ class SpmvHandle:
         stream is packed exactly (``bucket=False``, one tile per chunk): x
         is padded to ``num_windows*1024`` and y to ``num_ytiles*1024``,
         not to powers of two."""
-        if plan.gathered is not None:
-            raise NotImplementedError(
-                "gathered side-plans are not ported (ROADMAP.md queue A "
-                "item 9)")
         streams = []
         for i, s in enumerate(plan.streams):
             ((packed, dims),) = pack_stream(s, tchunk=1, bucket=False)
@@ -445,7 +524,12 @@ class SpmvHandle:
             "rchunk": None,
             "xperm": None,
             "yperm": None,
+            "gathered": None,
         }
+        if plan.gathered is not None:
+            garrays, meta["gathered"] = pack_gathered(plan.gathered)
+            for n, a in garrays.items():
+                d[prefix + "g_" + n] = self._upload(a)
         if plan.col_perms is not None:
             meta["xperm"], meta["yperm"] = self._pack_rank_perms(
                 d, plan.col_perms, plan.row_perms, prefix
@@ -567,7 +651,7 @@ class SpmvHandle:
         if self.format == "dense":
             return int(self._dense.shape[1])
         if self.format == "block":
-            return self._block_plan_meta.num_col_blocks * LANES
+            return self._block_padded_cols()
         if self.format == "ellx":
             return self._ellx_plan_meta.num_col_blocks * LANES
         if self.format == "window":
@@ -604,9 +688,7 @@ class SpmvHandle:
             x = x.index_select(0, d["perm"])
         x2d = x.reshape(-1, LANES)
         if self.format == "block":
-            plan = self._block_plan_meta
-            y = spmv_chunked(d["data"], d["meta"], x2d,
-                             plan.num_row_blocks, plan.block_h, self._chunk)
+            y = self._block_matvec(x2d)
         elif self.format == "ellx":
             eplan = self._ellx_plan_meta
             ov_nrb = (eplan.overflow.num_row_blocks
@@ -619,6 +701,60 @@ class SpmvHandle:
                               plan.num_row_blocks, plan.block_h,
                               self._wchunk)
         return y.reshape(-1)[:R]
+
+    def _block_matvec(self, x2d: torch.Tensor) -> torch.Tensor:
+        """y tiles of the block format from the permuted, padded x2d, by
+        the handle's layout: B1, B3 or B4."""
+        d, plan = self._d, self._block_plan_meta
+        nrb, bh = plan.num_row_blocks, plan.block_h
+        if self._chunked:
+            return spmv_chunked(d["data"], d["meta"], x2d, nrb, bh,
+                                self._chunk)
+        if self._paneled:
+            return spmv_chunked_paneled(d["data"], d["meta"], d["panels"],
+                                        x2d, nrb, bh, self._chunk,
+                                        self._PANEL_NCB)
+        panel_nrb = self._panel_nrb(bh)
+        return spmv_chunked_tiled(d["data"], d["meta"], d["xpanels"],
+                                  d["ypanels"], x2d, -(-nrb // panel_nrb),
+                                  panel_nrb, bh, self._chunk,
+                                  self._PANEL_NCB)
+
+    def _block_uses_b2(self, batch: int) -> bool:
+        """The JAX handle's ``linear`` rule: B2 when the handle is chunked
+        and the batch's x + y (+ two chunk buffers) fit the budget, else
+        B6."""
+        plan = self._block_plan_meta
+        need = ((plan.num_col_blocks * LANES
+                 + plan.num_row_blocks * plan.block_h) * batch * 4
+                + 2 * self._chunk * plan.block_h * LANES * 4)
+        return self._chunked and need <= self._CHUNKED_VMEM_BUDGET
+
+    def _block_matmat(self, xb: torch.Tensor) -> torch.Tensor:
+        """y [nrb, bh, B] of the block format from the padded batch ``xb``
+        [B, Cp] (not yet permuted), through B2 or B6."""
+        plan, B = self._block_plan_meta, xb.shape[0]
+        if self._block_uses_b2(B):
+            if "perm" in self._d:
+                xb = xb.index_select(1, self._d["perm"])
+            xt = xb.T.reshape(-1, LANES, B).contiguous()  # [ncb, 128, B]
+            return spmv_chunked_batched(self._d["data"], self._d["meta"], xt,
+                                        plan.num_row_blocks, plan.block_h,
+                                        self._chunk)
+        if self._batch_d is None:
+            # per-block arrays (f32, as the JAX handle uploads them), once
+            self._batch_d = upload_block_plan(plan, self.device)
+            if plan.col_perm is not None:
+                self._batch_d["perm"] = self._upload(_extend_perm(
+                    plan.col_perm, self.shape[1],
+                    plan.num_col_blocks * LANES))
+        bd = self._batch_d
+        if "perm" in bd:
+            xb = xb.index_select(1, bd["perm"])
+        xt = xb.T.reshape(-1, LANES, B).contiguous()
+        return spmv_block_batched(bd["data"], bd["rows"], bd["cols"],
+                                  bd["firsts"], bd["lasts"], xt,
+                                  plan.num_row_blocks, starts=bd["starts"])
 
     def run(self, x, y_in=None, alpha=1.0, beta=0.0) -> torch.Tensor:
         """``y = alpha * A @ x + beta * y_in`` (single vector), as a float32
@@ -645,13 +781,17 @@ class SpmvHandle:
                             d["seg_rows"], plan.num_rounds, R, xb)
         if self.format == "routed":
             meta = self._routed_meta
-            if meta.get("cells") is not None or meta["xperm"] is not None:
-                # banded grids slice x per cell and rank space permutes
-                # each vector (B11): one vector at a time, as the JAX
+            if (meta.get("cells") is not None or meta["xperm"] is not None
+                    or meta["gathered"] is not None):
+                # banded grids slice x per cell, rank space permutes each
+                # vector (B11) and a gathered side-plan gathers each
+                # vector (B12, B11): one vector at a time, as the JAX
                 # package does
                 return torch.stack([_run_routed_part(d, xb[b], R, meta, "")
                                     for b in range(B)])
             return _run_routed_batched(d, xb, R, meta)
+        if self.format == "block":
+            return self._block_matmat(xb).reshape(-1, B)[:R].T
         if "perm" in d:
             xb = xb.index_select(1, d["perm"])
         if self.format == "window":
@@ -662,24 +802,19 @@ class SpmvHandle:
                 plan.block_h, self._wchunk)
             return y.reshape(-1, B)[:R].T
         xt = xb.T.reshape(-1, LANES, B).contiguous()  # [ncb, 128, B]
-        if self.format == "block":
-            plan = self._block_plan_meta
-            y = spmv_chunked_batched(d["data"], d["meta"], xt,
-                                     plan.num_row_blocks, plan.block_h,
-                                     self._chunk)
-        else:  # ellx
-            eplan = self._ellx_plan_meta
-            ov_nrb = (eplan.overflow.num_row_blocks
-                      if eplan.overflow is not None else 0)
-            y = ellx_matvec_batched(d, xt, eplan.num_row_blocks,
-                                    eplan.block_h, self._chunk, ov_nrb)
+        eplan = self._ellx_plan_meta
+        ov_nrb = (eplan.overflow.num_row_blocks
+                  if eplan.overflow is not None else 0)
+        y = ellx_matvec_batched(d, xt, eplan.num_row_blocks, eplan.block_h,
+                                self._chunk, ov_nrb)
         return y.reshape(-1, B)[:R].T
 
     def linear(self, x_batch, bias=None) -> torch.Tensor:
         """Batched ``y[B, R] = x[B, C] @ A.T + bias``, the NN-layer entry
         point, as a float32 tensor on the handle's device.  ``x_batch``
         [B, C], or [C] (the result is then [R]).  Per format: dense as one
-        fp32 GeMM; block through B2; ellx as the grouped base product plus
+        fp32 GeMM; block through B2 or B6 (the JAX handle's rule, see
+        ``_block_uses_b2``); ellx as the grouped base product plus
         B2 overflow; window through B8; stream as the batched reference;
         routed in original space through B10 (one launch per stream for
         the whole batch), and vector by vector (B9, B11) in rank space and

@@ -67,6 +67,8 @@
 
 #include <cstdint>
 
+#include "tile_prefix.cuh"
+
 namespace {
 
 constexpr int kTile = 1024;  // slots per tile == threads per CTA
@@ -93,34 +95,6 @@ __device__ __forceinline__ long long gather_row(const unsigned* s_slot,
   const int vid = static_cast<int>(field >> 3);
   const long long row = (static_cast<long long>(base) + vid) * 8 + (field & 7);
   return (vid < W && row < x_rows) ? row : -1;
-}
-
-// Inclusive prefix of p over the tile's flat slot order, stored to s_pf.
-// All threads call it together.
-__device__ __forceinline__ void tile_prefix(float p, float* s_warp,
-                                            float* s_pf) {
-  const int i = threadIdx.x;
-  const int lane = i & 31;
-  const int warp = i >> 5;
-#pragma unroll
-  for (int d = 1; d < 32; d <<= 1) {
-    const float n = __shfl_up_sync(0xffffffffu, p, d);
-    if (lane >= d) p += n;
-  }
-  if (lane == 31) s_warp[warp] = p;
-  __syncthreads();
-  if (warp == 0) {
-    float w = s_warp[lane];
-#pragma unroll
-    for (int d = 1; d < 32; d <<= 1) {
-      const float n = __shfl_up_sync(0xffffffffu, w, d);
-      if (lane >= d) w += n;
-    }
-    s_warp[lane] = w;
-  }
-  __syncthreads();
-  if (warp > 0) p += s_warp[warp - 1];
-  s_pf[i] = p;
 }
 
 // Boundary layers of tile t: adds P[end] - P[start-1] into the y tiles
@@ -203,7 +177,7 @@ __global__ void __launch_bounds__(kTile)
       gather_row(s_slot, s_gsub, base[t], W, l1, x_rows, &L);
   const float xg = row >= 0 ? x2d[row * kLanes + L] : 0.f;
   // 2. inclusive prefix of p over the tile's flat slot order
-  tile_prefix(v * xg, s_warp, s_pf);
+  hispmv::tile_prefix(v * xg, s_warp, s_pf);
   // 3. boundary layers
   boundary_layers(t, bl, bs, byt, lmax, s_q, s_pf, y, y_tiles);
 }
@@ -243,7 +217,7 @@ __global__ void __launch_bounds__(kTile)
     const float xg =
         row >= 0 ? xb2d[(b * x_rows + row) * kLanes + L] : 0.f;
     __syncthreads();  // every read of the previous vector's prefix is done
-    tile_prefix(v * xg, s_warp, s_pf);
+    hispmv::tile_prefix(v * xg, s_warp, s_pf);
     boundary_layers(t, bl, bs, byt, lmax, s_q, s_pf,
                     y + static_cast<size_t>(b) * y_tiles * kTile, y_tiles);
   }

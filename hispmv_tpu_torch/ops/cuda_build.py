@@ -156,6 +156,11 @@ def get_lib() -> ctypes.CDLL:
             lib.hispmv_spmv_chunked_paneled.argtypes = [
                 ptr, i32, ptr, ptr, ptr, ptr, i32, i32, i32, i32, ptr,
             ]
+            lib.hispmv_spmv_chunked_tiled.restype = i32
+            lib.hispmv_spmv_chunked_tiled.argtypes = [
+                ptr, i32, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32,
+                ptr,
+            ]
             lib.hispmv_spmv_block.restype = i32
             lib.hispmv_spmv_block.argtypes = [
                 ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, ptr,
@@ -167,6 +172,12 @@ def get_lib() -> ctypes.CDLL:
             ]
             lib.hispmv_permute_stage.restype = i32
             lib.hispmv_permute_stage.argtypes = [ptr, ptr, ptr, i32, ptr]
+            lib.hispmv_s1_gather.restype = i32
+            lib.hispmv_s1_gather.argtypes = [ptr, ptr, ptr, i32, i32, ptr]
+            lib.hispmv_spmv_gathered.restype = i32
+            lib.hispmv_spmv_gathered.argtypes = [
+                ptr, ptr, ptr, ptr, ctypes.c_longlong, ptr, i32, i32, ptr,
+            ]
             lib.hispmv_error_string.restype = ctypes.c_char_p
             lib.hispmv_error_string.argtypes = [i32]
             _lib = lib

@@ -25,6 +25,7 @@ import torch.nn.functional as F
 from hispmv_tpu_torch.ops import cuda_build
 from hispmv_tpu_torch.ops.spmv_chunked import check_cuda_tensors
 from hispmv_tpu_torch.plan.permute import WINDOW, PermutePlan, WindowStage
+from hispmv_tpu_torch.utils.device import resolve_device
 
 LANES = 128
 TCHUNK = 16
@@ -70,18 +71,24 @@ def _check_stage_args(arrays, dims, a):
     return route
 
 
-def permute_stage_plain(arrays, dims, a):
-    """Plain PyTorch version of B11: per window, a sublane, a lane and a
-    sublane gather."""
-    (route,) = arrays
-    Wp = dims[0] * dims[1]
-    route = route.reshape(Wp, 8, LANES)
+def clos_gather(route, a):
+    """The three gathers of one 13-bit route word per cell (``subA |
+    laneB<<3 | subC<<10``) on windows ``a`` [W, 8, 128] with ``route`` of
+    the same shape: a sublane, a lane and a sublane gather."""
     sub_a = (route & 7).long()
     lane_b = ((route >> 3) & 127).long()
     sub_c = ((route >> 10) & 7).long()
-    a1 = torch.gather(a.reshape(Wp, 8, LANES), 1, sub_a)
+    a1 = torch.gather(a, 1, sub_a)
     b1 = torch.gather(a1, 2, lane_b)
-    return torch.gather(b1, 1, sub_c).reshape(Wp * 8, LANES)
+    return torch.gather(b1, 1, sub_c)
+
+
+def permute_stage_plain(arrays, dims, a):
+    """Plain PyTorch version of B11: :func:`clos_gather` per window."""
+    (route,) = arrays
+    Wp = dims[0] * dims[1]
+    return clos_gather(route.reshape(Wp, 8, LANES),
+                       a.reshape(Wp, 8, LANES)).reshape(Wp * 8, LANES)
 
 
 def permute_stage(arrays, dims, a):
@@ -108,9 +115,10 @@ def permute_stage(arrays, dims, a):
 permute_stage.launches = 0  # kernel launches, for the smoke run's check
 
 
-def pack_permute_plan(plan: PermutePlan, device="cpu") -> dict:
+def pack_permute_plan(plan: PermutePlan, device="cuda") -> dict:
     """All three stages as device tensors (one window per chunk, no
     padding) + shape metadata."""
+    device = resolve_device(device)
     stages = [pack_stage(s, tchunk=1, bucket=False)
               for s in (plan.s1, plan.s2, plan.s3)]
     return {
@@ -123,7 +131,7 @@ def pack_permute_plan(plan: PermutePlan, device="cpu") -> dict:
 
 
 def pack_permute_into(d: dict, plan: PermutePlan, prefix: str,
-                      device="cpu") -> dict:
+                      device="cuda") -> dict:
     """Store a plan's stage arrays in device dict ``d`` under ``prefix``;
     returns the static meta the runner needs to reassemble them."""
     packed = pack_permute_plan(plan, device)

@@ -1,15 +1,17 @@
-"""B1, B2 and B3, the chunked block-ELL SpMV stream against one vector,
-against B vectors and against x in column panels: packers, CUDA kernel
-wrappers and plain PyTorch versions.
+"""B1, B2, B3 and B4, the chunked block-ELL SpMV stream against one
+vector, against B vectors, against x in column panels and against x and y
+in panels: packers, CUDA kernel wrappers and plain PyTorch versions.
 
 Port of ``hispmv_tpu/ops/spmv_chunked.py`` (``chunk_for``, ``pack_chunks``,
 ``_chunked_kernel`` / ``spmv_chunked_pallas``, ``_chunked_batched_kernel``
 / ``spmv_chunked_batched_pallas``, ``pack_chunks_paneled``,
-``_chunked_paneled_kernel`` / ``spmv_chunked_paneled_pallas``).  The
-kernels are ``csrc/spmv_chunked.cu`` (B1), ``csrc/spmv_chunked_batched.cu``
-(B2) and ``csrc/spmv_chunked_paneled.cu`` (B3); they consume the same
-packed arrays as the TPU kernels, so both packages can be fed identical
-inputs.
+``_chunked_paneled_kernel`` / ``spmv_chunked_paneled_pallas``,
+``pack_chunks_tiled``, ``_chunked_tiled_kernel`` /
+``spmv_chunked_tiled_pallas``).  The kernels are ``csrc/spmv_chunked.cu``
+(B1), ``csrc/spmv_chunked_batched.cu`` (B2),
+``csrc/spmv_chunked_paneled.cu`` (B3) and ``csrc/spmv_chunked_tiled.cu``
+(B4); they consume the same packed arrays as the TPU kernels, so both
+packages can be fed identical inputs.
 """
 
 from __future__ import annotations
@@ -353,3 +355,135 @@ def spmv_chunked_paneled(data3d, meta, panel_ids, x2d, num_row_blocks,
 
 
 spmv_chunked_paneled.launches = 0  # kernel launches, for the smoke run's check
+
+
+def pack_chunks_tiled(plan: BlockPlan, chunk: int, panel_ncb: int,
+                      panel_nrb: int):
+    """Re-sort the block stream by (row panel, col panel, row_block) and
+    pack it into chunks that never straddle a (row panel, col panel) pair
+    (the JAX package's packer; f32, a bfloat16 payload is made on upload).
+
+    Returns (data3d, meta, xpanel_ids, ypanel_ids, yfirst, nchunks):
+      meta[:, 0] = local_row_block*2 + last_of_(rp,cp,row_block)_run
+      meta[:, 1] = col_block LOCAL to the column panel
+      xpanel_ids i32 [nchunks] column panel per chunk
+      ypanel_ids i32 [nchunks] row panel per chunk
+      yfirst     i32 [nchunks] 1 on the first chunk of each row panel (the
+                 TPU kernel zeroes its y panel there; B4 does not read it)
+    """
+    bh = plan.block_h
+    cpanel = plan.block_cols // panel_ncb
+    rpanel = plan.block_rows // panel_nrb
+    order = np.lexsort((plan.block_cols, plan.block_rows, cpanel, rpanel))
+    data = plan.data[order]
+    rows_local = (plan.block_rows - rpanel * panel_nrb)[order]
+    cols_local = (plan.block_cols - cpanel * panel_ncb)[order]
+    cpanel = cpanel[order]
+    rpanel = rpanel[order]
+
+    # last flag per (rpanel, cpanel, row_block) run
+    ncp = int(cpanel.max()) + 1 if len(cpanel) else 1
+    run_key = (rpanel.astype(np.int64) * ncp + cpanel) * (panel_nrb + 1) \
+        + rows_local
+    lasts = np.ones(len(rows_local), np.int32)
+    lasts[:-1] = (run_key[1:] != run_key[:-1]).astype(np.int32)
+
+    # split into per-(rpanel, cpanel) segments, pad each to whole chunks
+    seg_key = rpanel.astype(np.int64) * ncp + cpanel
+    seg_data, seg_meta, seg_xp, seg_yp = [], [], [], []
+    for k in np.unique(seg_key):
+        sel = seg_key == k
+        n = int(sel.sum())
+        n_pad = -(-n // chunk) * chunk
+        d = np.zeros((n_pad, bh, LANES), np.float32)
+        d[:n] = data[sel]
+        m = np.zeros((2, n_pad), np.int32)
+        m[0, :n] = rows_local[sel] * 2 + lasts[sel]
+        m[1, :n] = cols_local[sel]
+        if n_pad > n:
+            m[0, n:] = rows_local[sel][-1] * 2  # pad: no flush, zero payload
+        seg_data.append(d)
+        seg_meta.append(m)
+        seg_xp.extend([int(k % ncp)] * (n_pad // chunk))
+        seg_yp.extend([int(k // ncp)] * (n_pad // chunk))
+    if not seg_data:
+        seg_data = [np.zeros((chunk, bh, LANES), np.float32)]
+        seg_meta = [np.zeros((2, chunk), np.int32)]
+        seg_xp, seg_yp = [0], [0]
+    data = np.concatenate(seg_data)
+    meta = np.concatenate(seg_meta, axis=1)
+    nchunks = len(seg_xp)
+    data3d = data.reshape(nchunks, chunk * bh, LANES)
+    meta = np.ascontiguousarray(
+        meta.reshape(2, nchunks, chunk).transpose(1, 0, 2)
+    )
+    ypanel_ids = np.asarray(seg_yp, np.int32)
+    yfirst = np.ones(nchunks, np.int32)
+    yfirst[1:] = (ypanel_ids[1:] != ypanel_ids[:-1]).astype(np.int32)
+    return (data3d, meta, np.asarray(seg_xp, np.int32), ypanel_ids, yfirst,
+            nchunks)
+
+
+def _check_tiled(name, meta, xpanel_ids, ypanel_ids, panel_ncb, panel_nrb,
+                 num_row_panels):
+    nch = meta.shape[0]
+    for ids in (xpanel_ids, ypanel_ids):
+        if ids.dtype != torch.int32 or ids.shape != (nch,):
+            raise ValueError(f"{name}: panel ids must be int32 [{nch}]")
+    if panel_ncb < 1 or panel_nrb < 1 or num_row_panels < 1:
+        raise ValueError(f"{name}: panel_ncb, panel_nrb and num_row_panels "
+                         "must be >= 1")
+
+
+def spmv_chunked_tiled_plain(data3d, meta, xpanel_ids, ypanel_ids, x2d,
+                             num_row_panels, panel_nrb, block_h, chunk,
+                             panel_ncb):
+    """Plain PyTorch version of B4 on the same arrays: B1's, with block j
+    of chunk c reading x row ``xpanel_ids[c] * panel_ncb + cb`` and adding
+    into row-block ``ypanel_ids[c] * panel_nrb + rb``.  Row panels no chunk
+    visits stay zero."""
+    nb = data3d.shape[0] * chunk
+    a = data3d.reshape(nb, block_h, LANES).float()
+    rb = ((meta[:, 0, :] >> 1) + ypanel_ids[:, None] * panel_nrb).reshape(-1)
+    cb = (meta[:, 1, :] + xpanel_ids[:, None] * panel_ncb).reshape(-1)
+    contrib = (a * x2d.index_select(0, cb)[:, None, :]).sum(-1)
+    y = torch.zeros((num_row_panels * panel_nrb, block_h),
+                    dtype=torch.float32, device=x2d.device)
+    return y.index_add_(0, rb, contrib)
+
+
+def spmv_chunked_tiled(data3d, meta, xpanel_ids, ypanel_ids, x2d,
+                       num_row_panels, panel_nrb, block_h, chunk, panel_ncb):
+    """Run the x- and y-paneled chunked stream; returns y tiles f32
+    [num_row_panels*panel_nrb, block_h].
+
+    ``data3d`` / ``meta`` / ``xpanel_ids`` / ``ypanel_ids`` from
+    :func:`pack_chunks_tiled` (its ``yfirst`` is not needed: y is zeroed
+    once before the launch), ``x2d`` f32 [npanels_x*panel_ncb, 128].  CPU
+    tensors take the plain PyTorch version; CUDA tensors launch the CUDA
+    kernel (csrc/spmv_chunked_tiled.cu) or raise."""
+    name = "spmv_chunked_tiled"
+    check_stream_args(name, data3d, meta, x2d, block_h, chunk)
+    _check_tiled(name, meta, xpanel_ids, ypanel_ids, panel_ncb, panel_nrb,
+                 num_row_panels)
+    if data3d.device.type == "cpu":
+        return spmv_chunked_tiled_plain(data3d, meta, xpanel_ids, ypanel_ids,
+                                        x2d, num_row_panels, panel_nrb,
+                                        block_h, chunk, panel_ncb)
+    check_cuda_args(name, block_h, data3d, meta, xpanel_ids, ypanel_ids, x2d)
+    lib = cuda_build.get_lib()
+    y = torch.zeros((num_row_panels * panel_nrb, block_h),
+                    dtype=torch.float32, device=x2d.device)
+    with torch.cuda.device(x2d.device):
+        rc = lib.hispmv_spmv_chunked_tiled(
+            data3d.data_ptr(), int(data3d.dtype == torch.bfloat16),
+            meta.data_ptr(), xpanel_ids.data_ptr(), ypanel_ids.data_ptr(),
+            x2d.data_ptr(), y.data_ptr(), data3d.shape[0], chunk, block_h,
+            panel_ncb, panel_nrb, torch.cuda.current_stream().cuda_stream,
+        )
+    cuda_build.check(rc, name)
+    spmv_chunked_tiled.launches += 1
+    return y
+
+
+spmv_chunked_tiled.launches = 0  # kernel launches, for the smoke run's check

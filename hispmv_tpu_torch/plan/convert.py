@@ -2,8 +2,10 @@
 
 :func:`plan_from_reference` reads a ``hispmv_tpu`` plan object
 (``BlockPlan``, ``WindowPlan``, ``EllxPlan``, ``StreamPlan``,
-``RoutedPlan`` or ``BandedRoutedPlan``) field by field, duck-typed, and returns the port's plan of the same kind.  With
-``SpmvHandle.from_plan`` both packages then run the same prepared matrix.
+``RoutedPlan`` with its gathered side-plan, or ``BandedRoutedPlan``)
+field by field, duck-typed, and returns the port's plan of the same
+kind.  With ``SpmvHandle.from_plan`` both packages then run the same
+prepared matrix.
 Nothing here imports ``hispmv_tpu``: the object only has to carry the
 fields by name.
 """
@@ -15,6 +17,7 @@ import dataclasses
 from hispmv_tpu_torch.config import SpmvConfig
 from hispmv_tpu_torch.ops.spmv_ellx import EllxPlan
 from hispmv_tpu_torch.plan.blocks import BlockPlan
+from hispmv_tpu_torch.plan.gathered import GatheredPlan
 from hispmv_tpu_torch.plan.partition import StreamPlan
 from hispmv_tpu_torch.plan.routed import (
     BandedRoutedPlan,
@@ -34,14 +37,12 @@ def _copy(cls, obj, **override):
 
 
 def _routed(obj):
-    if obj.gathered is not None:
-        raise NotImplementedError(
-            "the plan carries a gathered side-plan, which is not ported "
-            "(ROADMAP.md queue A item 9)")
     streams = {f"s{i}": None if getattr(obj, f"s{i}") is None
                else _copy(RoutedStream, getattr(obj, f"s{i}"))
                for i in range(RoutedPlan.MAX_STREAMS)}
-    return _copy(RoutedPlan, obj, **streams)
+    gathered = (None if obj.gathered is None
+                else _copy(GatheredPlan, obj.gathered))
+    return _copy(RoutedPlan, obj, gathered=gathered, **streams)
 
 
 def plan_from_reference(obj):

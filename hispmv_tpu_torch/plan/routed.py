@@ -7,9 +7,9 @@ native routines (``hispmv_tpu_torch/native``) raise when they cannot be
 built; their numpy versions stay here as ``_greedy_merge_py``,
 ``_distinct_rank_py``, ``_tile_stats_py`` and ``np.lexsort``.  The
 stream kernel is B9 (``ops/spmv_routed.py``, ``csrc/spmv_routed.cu``).
-The gathered side-plan is not ported: where the JAX planner would
-build one, ``plan/gathered.py::build_gathered_plan`` raises.  Original
-notes follow; every time quoted in them is the TPU's.
+The gathered side-plan is ``plan/gathered.py`` (executor
+``ops/spmv_gathered.py``: kernels B12, B11 and B13).  Original notes
+follow; every time quoted in them is the TPU's.
 
 THE load-balance/crossbar answer for scattered matrices (v4 layout, round
 3).  Every other format pays either ~4 KiB of payload per touched
@@ -1398,7 +1398,10 @@ def routed_matvec_numpy(plan: RoutedPlan, x: np.ndarray) -> np.ndarray:
     for s in plan.streams:
         _stream_matvec_numpy(s, x2d, y)
     if plan.gathered is not None:
-        raise NotImplementedError("gathered side-plans are not ported")
+        from hispmv_tpu_torch.plan.gathered import gathered_matvec_numpy
+
+        yg = gathered_matvec_numpy(plan.gathered, xp.astype(np.float32))
+        y[: len(yg)] += yg
     if len(plan.residual_vals):
         np.add.at(
             y, plan.residual_rows,

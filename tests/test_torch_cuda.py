@@ -13,8 +13,8 @@ Tolerance, kernel against plain version: both fp32 with the same products,
 only the order of summation differs (atomics, run to run; B9's prefix is a
 block scan on the card and a sequential cumsum in the plain version):
 rtol=1e-5, atol=1e-5*max(1, max|y|).  B11 does no arithmetic and is held
-to its plain version and to ``x[perm]`` exactly.  Handles are held to the
-float64 golden at rtol=1e-3."""
+to its plain version and to ``x[perm]`` exactly, B12 and the full gathered
+x gather likewise.  Handles are held to the float64 golden at rtol=1e-3."""
 
 import numpy as np
 import pytest
@@ -62,12 +62,23 @@ from hispmv_tpu_torch.ops.spmv_chunked import (
     chunk_for,
     pack_chunks,
     pack_chunks_paneled,
+    pack_chunks_tiled,
     spmv_chunked,
     spmv_chunked_batched,
     spmv_chunked_batched_plain,
     spmv_chunked_paneled,
     spmv_chunked_paneled_plain,
     spmv_chunked_plain,
+    spmv_chunked_tiled,
+    spmv_chunked_tiled_plain,
+)
+from hispmv_tpu_torch.ops.spmv_gathered import (
+    gathered_gather_apply,
+    pack_gathered,
+    s1_gather,
+    s1_gather_plain,
+    spmv_gathered_tiles,
+    spmv_gathered_tiles_plain,
 )
 from hispmv_tpu_torch.ops.spmv_windowed import (
     chunk_for_windowed,
@@ -85,6 +96,7 @@ from hispmv_tpu_torch.ops.spmv_routed import (
     spmv_routed_stream_batched_plain,
     spmv_routed_stream_plain,
 )
+from hispmv_tpu_torch.plan import gathered as G
 from hispmv_tpu_torch.plan.blocks import build_block_plan
 from hispmv_tpu_torch.plan.permute import build_permute_plan
 from hispmv_tpu_torch.plan.routed import build_routed_plan
@@ -634,3 +646,161 @@ def test_sharded_executors_on_distinct_cards(dev, kind):
 def test_dryrun_multichip_on_one_card(dev):
     stats = dryrun_multichip(["cuda:0"] * 4)
     assert stats["ring_copies"] == 12
+
+
+# --- B4 and the block handle's layouts ---------------------------------------
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bh", [1, 8, 64])
+@pytest.mark.parametrize("name", ["random", "banded"])
+def test_b4_kernel_matches_plain(dev, name, bh, dtype):
+    plan = build_block_plan(MATRICES[name](), bh)
+    panel_ncb, panel_nrb = 4, 8  # several x and y panels
+    data3d, meta, xp, yp, _, _ = pack_chunks_tiled(plan, 8, panel_ncb,
+                                                   panel_nrb)
+    npx = -(-plan.num_col_blocks // panel_ncb)
+    npy = -(-plan.num_row_blocks // panel_nrb)
+    assert len(np.unique(xp)) > 1 and len(np.unique(yp)) > 1
+    args = (torch.from_numpy(data3d).to(dev, dtype),
+            torch.from_numpy(meta).to(dev), torch.from_numpy(xp).to(dev),
+            torch.from_numpy(yp).to(dev),
+            _x2d(plan.shape[1], npx * panel_ncb * 128, dev), npy, panel_nrb,
+            bh, 8, panel_ncb)
+    before = spmv_chunked_tiled.launches
+    y = spmv_chunked_tiled(*args)
+    torch.cuda.synchronize()
+    assert spmv_chunked_tiled.launches == before + 1
+    assert y.shape == (npy * panel_nrb, bh)
+    assert_close(y, spmv_chunked_tiled_plain(*args))
+
+
+# class constants that give each layout on banded_coo(5000, 20000, 60000)
+BLOCK_LAYOUTS = {
+    "chunked": ({}, spmv_chunked),
+    "paneled": ({"_CHUNKED_VMEM_BUDGET": 2 * 2**20 + 48 * 1024,
+                 "_PANEL_NCB": 8}, spmv_chunked_paneled),
+    "tiled": ({"_CHUNKED_VMEM_BUDGET": 64 * 1024, "_PANEL_NCB": 16,
+               "_PANEL_Y_BYTES": 8 * 1024}, spmv_chunked_tiled),
+}
+
+
+@pytest.mark.parametrize("col_reorder", [False, True])
+@pytest.mark.parametrize("layout", list(BLOCK_LAYOUTS))
+def test_block_handle_layouts_on_card(dev, layout, col_reorder, monkeypatch):
+    consts, kernel = BLOCK_LAYOUTS[layout]
+    for k, v in consts.items():
+        monkeypatch.setattr(SpmvHandle, k, v)
+    coo = banded_coo(5000, 20_000, 60_000, seed=52)
+    h = SpmvHandle(coo, SpmvConfig(col_reorder=col_reorder), "block")
+    assert getattr(h, "_" + layout)
+    rng = np.random.default_rng(53)
+    x = rng.standard_normal(coo.num_cols).astype(np.float32)
+    before = kernel.launches
+    y = h.run(torch.from_numpy(x).to(dev))
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    assert error_stats(y.cpu().numpy(), coo.matvec(x.astype(np.float64)),
+                       rtol=1e-3).ok
+    # linear: B2 for the chunked handle at this batch, else B6
+    xb = rng.standard_normal((8, coo.num_cols)).astype(np.float32)
+    b2, b6 = spmv_chunked_batched.launches, spmv_block_batched.launches
+    yb = h.linear(torch.from_numpy(xb).to(dev))
+    torch.cuda.synchronize()
+    want = (1, 0) if layout == "chunked" else (0, 1)
+    assert (spmv_chunked_batched.launches - b2,
+            spmv_block_batched.launches - b6) == want
+    assert error_stats(yb.cpu().numpy(), _golden_linear(coo, xb, 0.0),
+                       rtol=1e-3).ok
+
+
+# --- the gathered executor: B12, B11 twice and B13 ---------------------------
+
+
+def _unique_coo(n_rows, n_cols, nnz, seed):
+    rng = np.random.default_rng(seed)
+    k = np.unique(rng.integers(0, n_rows, nnz).astype(np.int64) * n_cols
+                  + rng.integers(0, n_cols, nnz))
+    vals = rng.standard_normal(len(k)).astype(np.float32)
+    return COOMatrix((n_rows, n_cols), k // n_cols, k % n_cols, vals)
+
+
+def _gathered(dev):
+    coo = _unique_coo(4096, 16384, 60_000, 1)
+    plan = G.build_gathered_plan(coo.rows, coo.cols, coo.values, coo.shape,
+                                 16)[0]
+    arrays, meta = pack_gathered(plan, tchunk=4)
+    d = {k: torch.from_numpy(v).to(dev) for k, v in arrays.items()}
+    x = np.random.default_rng(2).standard_normal(coo.num_cols).astype(
+        np.float32)
+    x2d = torch.from_numpy(x[: meta["K"] * 1024]).to(dev).reshape(-1, 128)
+    return plan, d, meta, x, x2d
+
+
+def test_b12_kernel_equals_plain(dev):
+    plan, d, meta, _, x2d = _gathered(dev)
+    before = s1_gather.launches
+    got = s1_gather(d["s1"], x2d, meta["P"], meta["K"])
+    torch.cuda.synchronize()
+    assert s1_gather.launches == before + 1
+    assert torch.equal(got, s1_gather_plain(d["s1"], x2d, meta["P"],
+                                            meta["K"]))
+
+
+def test_gathered_gather_on_card_is_exact(dev):
+    plan, d, meta, x, x2d = _gathered(dev)
+    b12, b11 = s1_gather.launches, permute_stage.launches
+    xg = gathered_gather_apply(d, meta, "", x2d)
+    torch.cuda.synchronize()
+    assert (s1_gather.launches - b12, permute_stage.launches - b11) == (1, 2)
+    np.testing.assert_array_equal(xg.cpu().numpy().reshape(-1),
+                                  G.gather_x_numpy(plan, x))
+
+
+@pytest.mark.parametrize("pad", [False, True])
+def test_b13_kernel_matches_plain(dev, pad):
+    """pad adds a chunk of padding tiles (route 0 both ways, y tile 0), as
+    the JAX package's packer does."""
+    plan, d, meta, x, _ = _gathered(dev)
+    if pad:
+        for k in ("vals", "word"):
+            d[k] = torch.cat([d[k], torch.zeros_like(d[k][:1])])
+        d["byt"] = torch.cat([d["byt"], d["byt"].new_zeros(meta["tchunk"])])
+        meta["nch"] += 1
+    xg = torch.from_numpy(G.gather_x_numpy(plan, x)).to(dev).reshape(-1, 128)
+    args = (d["vals"], d["word"], d["byt"], xg, plan.num_ytiles, meta["nch"],
+            meta["tchunk"])
+    before = spmv_gathered_tiles.launches
+    y = spmv_gathered_tiles(*args)
+    torch.cuda.synchronize()
+    assert spmv_gathered_tiles.launches == before + 1
+    assert_close(y, spmv_gathered_tiles_plain(*args))
+    want = G.gathered_matvec_numpy(plan, x)
+    got = y.cpu().numpy().reshape(-1)[: len(want)]
+    assert error_stats(got, want, rtol=1e-3).ok
+
+
+def test_gathered_routed_handle_on_card(dev, monkeypatch):
+    """Cheap gathered constants divert this matrix's tiles to the side-plan:
+    one run is B12, B11 twice, B13 and one B9 per stream."""
+    monkeypatch.setattr(G, "GATH_TILE_NS", 1.0)
+    monkeypatch.setattr(G, "GATH_STAGE_NS", 1.0)
+    monkeypatch.setattr(G, "GATH_LAUNCH_NS", 0.0)
+    coo = _unique_coo(16384, 16384, 150_000, 3)
+    h = SpmvHandle(coo, format="routed")
+    assert h.plan.gathered is not None
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal(coo.num_cols).astype(np.float32)
+    counts = (s1_gather, permute_stage, spmv_gathered_tiles,
+              spmv_routed_stream)
+    before = [k.launches for k in counts]
+    y = h.run(torch.from_numpy(x).to(dev))
+    torch.cuda.synchronize()
+    assert [k.launches - b for k, b in zip(counts, before)] == [
+        1, 2, 1, len(h.plan.streams)]
+    assert error_stats(y.cpu().numpy(), coo.matvec(x.astype(np.float64)),
+                       rtol=1e-3).ok
+    xb = rng.standard_normal((3, coo.num_cols)).astype(np.float32)
+    yb = h.linear(torch.from_numpy(xb).to(dev))
+    assert error_stats(yb.cpu().numpy(), _golden_linear(coo, xb, 0.0),
+                       rtol=1e-3).ok

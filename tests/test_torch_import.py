@@ -103,7 +103,8 @@ def test_kernel_library_is_stale_when_a_source_changes(tmp_path,
     assert [os.path.basename(s) for s in cuda_build.sources()] == [
         "permute.cu", "spmv_block.cu", "spmv_chunked.cu",
         "spmv_chunked_batched.cu", "spmv_chunked_paneled.cu",
-        "spmv_routed.cu", "spmv_windowed.cu", "spmv_windowed_batched.cu",
+        "spmv_chunked_tiled.cu", "spmv_gathered.cu", "spmv_routed.cu",
+        "spmv_windowed.cu", "spmv_windowed_batched.cu",
     ]
     assert cuda_build._stale()  # never built
     lib.write_bytes(b"")

@@ -116,7 +116,7 @@ def test_plain_b11_equals_pallas_bit_for_bit(n):
 @pytest.mark.parametrize("n", SIZES + [50_000])
 def test_permute_apply_equals_gather(n):
     perm = _perm(n)
-    dev = pack_permute_plan(build_permute_plan(perm))
+    dev = pack_permute_plan(build_permute_plan(perm), device="cpu")
     assert [d[1] for d in dev["dims"]] == [1, 1, 1]  # no padded window
     x = np.random.default_rng(3).standard_normal(n).astype(np.float32)
     y = permute_apply(dev, dev["arrays"], torch.from_numpy(x))
@@ -135,7 +135,7 @@ def test_panel_permute_apply_from_equals_gather():
     _, perms = degree_rank_perms(deg)
     assert [len(p) for p in perms] == [PANEL, 3000]
     d = {}
-    metas = [pack_permute_into(d, build_permute_plan(p), f"xp{i}_")
+    metas = [pack_permute_into(d, build_permute_plan(p), f"xp{i}_", "cpu")
              for i, p in enumerate(perms)]
     x = np.random.default_rng(5).standard_normal(n).astype(np.float32)
     y = panel_permute_apply_from(d, metas, "xp", torch.from_numpy(x))

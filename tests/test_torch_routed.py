@@ -45,7 +45,6 @@ from hispmv_tpu_torch.ops.spmv_routed import (
 )
 from hispmv_tpu_torch.plan import routed as R
 from hispmv_tpu_torch.plan.convert import plan_from_reference
-from hispmv_tpu_torch.plan.gathered import build_gathered_plan
 from hispmv_tpu_torch.utils.errors import error_stats
 
 # the power-law / R-MAT / random cases of tests/test_routed.py (ranked)
@@ -249,12 +248,6 @@ def test_cost_model_matches_jax():
         JR.build_routed_plan(coo))
 
 
-def test_gathered_diversion_raises_instead_of_dropping_nnz():
-    rows = np.arange(5, dtype=np.int32)
-    with pytest.raises(NotImplementedError, match="5 nonzeros"):
-        build_gathered_plan(rows, rows, np.ones(5, np.float32), (9, 9), 1)
-
-
 # ---------------------------------------------------------------------------
 # B9: the packer and the plain version against the Pallas kernel
 # ---------------------------------------------------------------------------
@@ -451,10 +444,3 @@ def test_banded_routed_handle_matches_golden(rank_sort):
     jplan = JR.build_banded_routed_plan(coo, rank_sort=rank_sort)
     h2 = SpmvHandle.from_plan(plan_from_reference(jplan), device="cpu")
     assert_close(h2.run(x).numpy(), h.run(x).numpy())
-
-
-def test_from_plan_rejects_gathered_side_plans():
-    plan = JR.build_routed_plan(_case("random"))
-    plan.gathered = object()
-    with pytest.raises(NotImplementedError, match="gathered"):
-        plan_from_reference(plan)
