@@ -41,7 +41,12 @@ fp32 operations over the FMA rate, whichever is larger) and, where one
 PyTorch call computes the same function (a CSR product, ``index_select``),
 that call; the rank-space permutation is timed beside a direct
 ``index_select`` and the gathered executor's chain (B12, B11, B11, B13)
-beside a CSR product of the nonzeros it takes.  It exits nonzero, without a result line, when there is
+beside a CSR product of the nonzeros it takes.  B10 (the routed stream
+against a batch) is also timed at each V it is built for (vectors a
+thread: 4, 8), with x = 0 (no atomic issued) and beside the zeroing of
+its y, and each routed ``linear`` line carries the sum of B10's device
+time over the handle's streams beside cuSPARSE SpMM of the whole matrix.
+It exits nonzero, without a result line, when there is
 no CUDA card or any check fails.  The last line of standard output is
 ``{"ok": true, "device": {...}}``.
 """
@@ -113,6 +118,7 @@ from hispmv_tpu_torch.ops.spmv_routed import (
     spmv_routed_stream,
     spmv_routed_stream_batched,
     spmv_routed_stream_batched_plain,
+    routed_batched_v,
     spmv_routed_stream_plain,
     stream_array_names,
 )
@@ -347,20 +353,25 @@ def median_ms(fn, runs: int = TIMED_RUNS, warmup: int = 3) -> float:
     return float(np.median([s.elapsed_time(e) for s, e in events]))
 
 
-def device_ms(fn, runs: int = TIMED_RUNS):
+def device_ms(fn, runs: int = TIMED_RUNS, tries: int = 3):
     """Device busy time per call: the self device time of every kernel,
     copy and fill that torch.profiler records over ``runs`` calls, summed,
-    over ``runs``; None when the profiler records no device time."""
+    over ``runs``; a window in which the profiler records no device time
+    is taken again, up to ``tries`` windows, then None."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(runs):
-            fn()
-        torch.cuda.synchronize()
-    total_us = sum(e.self_device_time_total for e in prof.key_averages())
-    return total_us / runs / 1e3 if total_us > 0 else None
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(runs):
+                fn()
+            torch.cuda.synchronize()
+        total_us = sum(e.self_device_time_total
+                       for e in prof.key_averages())
+        if total_us > 0:
+            return total_us / runs / 1e3
+    return None
 
 
 def _ms(t) -> str:
@@ -593,11 +604,20 @@ def linear_path(handles, fixtures, counts, failures):
             xt = xd.T.contiguous()
             lib_ms = median_ms(lambda: a_csr @ xt)
         lib = "" if lib_ms is None else f", CSR A @ X {lib_ms:.4f} ms"
+        b10_ms = None
+        if "spmv_routed_batched" in kernels:  # after `used`: not counted
+            b10 = [device_ms(lambda a=a: spmv_routed_stream_batched(*a))
+                   for a in routed_batched_args(h, xd)]
+            b10_ms = None if None in b10 else sum(b10)
+            lib += (f"; B10 device time summed over {len(b10)} streams "
+                    f"{_ms(b10_ms)} beside CSR A @ X; the whole linear's "
+                    f"device busy {_ms(device_ms(lambda: call(xd, bd)))}")
         log(f"  {label}: launches {used}, median linear {ms:.4f} ms, "
             f"{gflops:.2f} GFLOP/s{lib}")
         rows_out.append({"run": label, "format": h.format, "batch": B,
                          "launches": used, "linear_ms": ms,
                          "gflops": gflops, "library_ms": lib_ms,
+                         "b10_device_ms": b10_ms,
                          "device_mb": h.device_bytes / 2**20})
         inputs_used[key] = xd
     return rows_out, inputs_used
@@ -1227,7 +1247,7 @@ _WORK = {
     "spmv_chunked_batched": lambda a: (a[0], a[2].shape[2]),
     "spmv_block_batched": lambda a: (a[0], a[5].shape[2]),
     "spmv_windowed_batched": lambda a: (a[0], a[3].shape[1] // 128),
-    "spmv_routed_batched": lambda a: (a[0][0], a[4]),
+    "spmv_routed_batched": lambda a: (a[0][0], a[2].shape[2]),
     "permute_stage": lambda a: (None, 0),
     "spmv_chunked_tiled": lambda a: (a[0], 1),
     "s1_gather": lambda a: (None, 0),
@@ -1446,20 +1466,63 @@ def batched_cases(handles, linear_x, accel):
                    pack_batch_x(xb, p.num_windows), p.num_row_blocks,
                    p.block_h, h._wchunk)))
     for label in ("trans5 routed", "ford2 routed"):
-        h, _ = handles[label]
-        meta = h._routed_meta
-        xb = h._pad_x(linear_x[label])
-        B = xb.shape[0]
-        for i, dims in enumerate(meta["streams"]):
-            p = f"s{i}_"
-            packed = tuple(h._d[p + n] for n in stream_array_names(dims[4]))
-            packed += (h._d[p + "base"], h._d[p + "byt"])
+        for i, (packed, dims, xt, nyt) in enumerate(
+                routed_batched_args(handles[label][0], linear_x[label])):
+            B = xt.shape[2]
+            V = routed_batched_v(B, dims[0] * dims[1])
             cases.append(("spmv_routed_batched",
                           f"{label.split()[0]} stream {i}: {dims[0]} tiles, "
-                          f"W {dims[2]}, l1 {dims[3]}, lmax {dims[4]}, B {B}",
-                          (packed, dims, xb.reshape(-1, 128), meta["nyt"],
-                           B)))
+                          f"W {dims[2]}, l1 {dims[3]}, lmax {dims[4]}, B {B}, "
+                          f"V {V}, {dims[0] * dims[1] * -(-B // V)} CTAs",
+                          (packed, dims, xt, nyt)))
     return cases
+
+
+def routed_batched_args(h, xd):
+    """B10's arguments for each stream of a routed handle's ``linear`` on
+    the batch ``xd`` [B, C], as ``_run_routed_batched`` builds them: the
+    packed stream and x vector-minor, xt [nwin*8, 128, B]."""
+    meta = h._routed_meta
+    xb = h._pad_x(xd)
+    xt = xb.T.reshape(-1, 128, xb.shape[0]).contiguous()
+    out = []
+    for i, dims in enumerate(meta["streams"]):
+        p = f"s{i}_"
+        packed = tuple(h._d[p + n] for n in stream_array_names(dims[4]))
+        packed += (h._d[p + "base"], h._d[p + "byt"])
+        out.append((packed, dims, xt, meta["nyt"]))
+    return out
+
+
+def b10_v_sweep(handles, linear_x):
+    """B10's device time on each stream of the routed ``linear`` runs at
+    each V the kernel is built for; at the launcher's V with x = 0 (every
+    difference is zero, so no atomic is issued and the rest of the kernel
+    runs as before); and the zeroing of its y alone.  Launches here are
+    not counted."""
+    rows = []
+    for label in ("trans5 routed", "ford2 routed"):
+        args = routed_batched_args(handles[label][0], linear_x[label])
+        row = {"run": label, "batch": args[0][2].shape[2]}
+        for vpt in (4, 8):
+            row[f"V{vpt}_ms"] = [device_ms(
+                lambda a=a: spmv_routed_stream_batched(*a, vpt=vpt))
+                for a in args]
+        x0 = torch.zeros_like(args[0][2])
+        row["x0_ms"] = [device_ms(lambda a=a: spmv_routed_stream_batched(
+            a[0], a[1], x0, a[3])) for a in args]
+        row["y_fill_ms"] = [device_ms(lambda a=a: torch.zeros(
+            (a[2].shape[2] * a[3] * 8, 128), device=a[2].device))
+            for a in args]
+        for key, what in (("V4_ms", "V 4"), ("V8_ms", "V 8"),
+                          ("x0_ms", "launcher's V, x = 0 (no atomics)"),
+                          ("y_fill_ms", "zeroing y alone")):
+            per = row[key]
+            log(f"  B10 {label} B {row['batch']}, {what}: device ms per "
+                f"stream {[_ms(t) for t in per]}, sum "
+                f"{_ms(sum(per) if None not in per else None)}")
+        rows.append(row)
+    return rows
 
 
 def permute_vs_gather(handles, failures):
@@ -1559,6 +1622,7 @@ def main() -> int:
     if gath is not None:
         extra += gathered_cases(gath)
     results = kernel_checks(handles, linear_x, accel, extra, failures)
+    sweep = b10_v_sweep(handles, linear_x)
     perm_times = permute_vs_gather(handles, failures)
     chain = None if gath is None else gathered_chain(gath, failures)
     log(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**20:.0f}"
@@ -1576,7 +1640,8 @@ def main() -> int:
     log(json.dumps({"runs": runs, "linear": linear_runs, "mlp": mlp_runs,
                     "sharded": shard_runs, "dryrun": dry, "ops": ops_row,
                     "large_block": large_runs, "gathered": gath_row,
-                    "gathered_chain": chain, "permutation": perm_times}))
+                    "gathered_chain": chain, "permutation": perm_times,
+                    "b10_v_sweep": sweep}))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     if failures:
         for f in failures:

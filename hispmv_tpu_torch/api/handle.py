@@ -185,11 +185,11 @@ def _run_routed_batched(d, xb, R, meta):
     need = meta["nwin"] * WINDOW
     if xb.shape[1] < need:
         xb = torch.nn.functional.pad(xb, (0, need - xb.shape[1]))
-    xb2d = xb.reshape(-1, LANES)
+    xt = xb.T.reshape(-1, LANES, B).contiguous()  # vector-minor, shared
     y2d = None
     for i, dims in enumerate(meta["streams"]):
         ys = spmv_routed_stream_batched(_stream_packed(d, "", i, dims), dims,
-                                        xb2d, meta["nyt"], B)
+                                        xt, meta["nyt"])
         y2d = ys if y2d is None else y2d + ys
     if y2d is None:
         y = xb.new_zeros((B, R))
@@ -199,7 +199,6 @@ def _run_routed_batched(d, xb, R, meta):
         contrib = d["r_vals"] * xb.index_select(1, d["r_cols"])
         y = y.index_add(1, d["r_rows"], contrib)
     if meta["res"] is not None:
-        xt = xb.T.reshape(-1, LANES, B).contiguous()
         yr = ellx_matvec_batched(_residual_dict(d, ""), xt,
                                  meta["res"].num_row_blocks, 1,
                                  meta["rchunk"], meta["res_ov"])

@@ -10,7 +10,8 @@
 //   bl [Tp, ceil(lmax/2), 8, 128] i32 and bs [Tp, ceil(lmax/4), 8, 128] i32,
 //   or, when lmax == 1, the merged word bm [Tp, 8, 128] in place of bl
 //   (bs unused), base [Tp] i32, byt [Tp, lmax] i32,
-//   x2d [x_rows, 128] f32, y [y_tiles*8, 128] f32 zeroed by the caller.
+//   x2d [x_rows, 128] f32, y [y_tiles*8, 128] f32 zeroed by the caller
+//   (B10: xt and y as below).
 //
 // What it computes, per tile t, cell (s, j) = sublane s, lane j, all shifts
 // logical:
@@ -49,19 +50,45 @@
 // per CTA; batching tiles per CTA, prefetching the next tile's stream and
 // merging a tile's layers that target the same y tile are later work.
 //
-// B10 runs the same tile against B vectors stacked as x2d
-// [B*x_rows, 128] -> y [B*y_tiles*8, 128]: vector b reads x rows
-// b*x_rows + (base + vid)*8 + sub (the row bound x_rows holds per vector)
-// and adds into y tile b*y_tiles + byt.  The tile's vals (a register),
-// slot and gsub words (shared memory) and, at lmax 1, its merged boundary
-// word (shared memory) are read from HBM once per call, before a loop over
-// the vectors; the gather coordinates are formed once too.  Each vector
-// then has its own prefix scan and boundary layers.  At lmax > 1 the bl
-// and bs words are read again for every vector: the first vector brings
-// the tile's words (4 KB per word row) into L2 and the others read them
-// from there.  Bound: per vector a tile costs a scattered x read per slot,
-// a block scan and lmax barriers plus atomics, so at B = 64 the kernel is
-// bound by those barriers and atomics, not by the stream bytes.
+// B10 runs the same tile against B vectors.  x comes vector-minor, as
+// xt [x_rows, 128, B] (B2's convention): the B values of one (row, lane)
+// are contiguous.  y is [B*y_tiles*8, 128]: vector b adds into y tile
+// b*y_tiles + byt.
+//
+// B10 design.  The grid is tiles x vector groups: CTA (t, g) runs tile t
+// against the V vectors b0 = g*V .. b0+V-1 (the last group masked when V
+// does not divide B), V a template parameter.  A CTA has 256 threads of
+// four slots each; thread i holds slots c*256 + i (c < 4), so each slot
+// word load and each vector's y atomics stay coalesced across a warp.
+// - Gather: a thread forms its four gather coordinates once and reads the
+//   V values of xt[row, L, b0:b0+V], contiguous: one 32-byte sector
+//   carries 8 vectors, where a vector-major x spread one warp's 32 loads
+//   over 18-24 sectors.  16-byte loads when B % 4 == 0 (and xt is
+//   16-byte aligned), else 4-byte loads, a template flag.
+// - Prefix: one block scan for all V: 4V values a shuffle step, the 32
+//   (slot quarter, warp) totals of each vector scanned by one warp, two
+//   barriers.  The prefix goes to shared memory as s_pf[slot][V] (4V KB,
+//   dynamic), read with 16-byte loads.
+// - Boundary layers: each group of four layers stages its bs word into a
+//   double-buffered s_q, one barrier a group; the tile's byt row is in
+//   shared memory, and the bl and bs words of the next group are loaded
+//   into registers while the current group runs.  A cell whose end and
+//   start name the same prefix entry (every padded layer) adds nothing and
+//   is skipped; otherwise each vector's nonzero difference is one atomic.
+// Registers: 4V products a thread; __launch_bounds__(256, 2) caps a thread
+// at 128 registers, so at least two CTAs share an SM (V 8 takes 76-80, so
+// three do).  V is chosen in the launcher (see pick_v): 8, or 4 at B <= 4
+// and when V 8 would leave SMs without a CTA.  V 16 (nearly all of its
+// 128 registers) was slower than V 8 on every stream measured.
+// Bound: the stream is read once for each vector group (ceil(B/V) times,
+// from L2 after the first), x moves 32 bytes a slot for 8 vectors, and
+// every layer costs one atomic per vector and nonzero difference.  The
+// byte bound is set by y (B*y_tiles*4 KB a launch, zeroed by the wrapper);
+// on an H100 SXM the kernel runs 1.4-5x above it at B 64 (chip_smoke.py).
+// Issuing no atomic (x = 0) saved at most a fifth there, and a scan
+// through shared memory (fewer shuffles, more registers), 512-thread CTAs,
+// a 64-register cap and a grid with the vector group fastest measured no
+// faster, so no single one of atomics, shuffles or occupancy holds it.
 
 #include <cuda_runtime.h>
 
@@ -71,17 +98,16 @@
 
 namespace {
 
-constexpr int kTile = 1024;  // slots per tile == threads per CTA
+constexpr int kTile = 1024;  // slots per tile == threads of a B9 CTA
 constexpr int kLanes = 128;
 
 // Where slot i of tile t gathers from: the row within one vector's x (or -1
 // when the slot gathers nothing) and its lane L.  Reads the tile's slot and
 // gsub words in shared memory.
-__device__ __forceinline__ long long gather_row(const unsigned* s_slot,
+__device__ __forceinline__ long long gather_row(int i, const unsigned* s_slot,
                                                 const unsigned* s_gsub,
                                                 int base, int W, int l1,
                                                 long long x_rows, int* lane) {
-  const int i = threadIdx.x;
   const unsigned sw = s_slot[i];
   const int L = sw & 127;
   *lane = L;
@@ -174,7 +200,7 @@ __global__ void __launch_bounds__(kTile)
   // 1. x gather
   int L;
   const long long row =
-      gather_row(s_slot, s_gsub, base[t], W, l1, x_rows, &L);
+      gather_row(i, s_slot, s_gsub, base[t], W, l1, x_rows, &L);
   const float xg = row >= 0 ? x2d[row * kLanes + L] : 0.f;
   // 2. inclusive prefix of p over the tile's flat slot order
   hispmv::tile_prefix(v * xg, s_warp, s_pf);
@@ -182,8 +208,133 @@ __global__ void __launch_bounds__(kTile)
   boundary_layers(t, bl, bs, byt, lmax, s_q, s_pf, y, y_tiles);
 }
 
-// B10: the tile of B9 against `batch` vectors; see the file comment.
-__global__ void __launch_bounds__(kTile)
+// --- B10 ------------------------------------------------------------------
+
+constexpr int kThreads = 256;             // threads of a B10 CTA
+constexpr int kSlots = kTile / kThreads;  // slots a thread: c*256 + i
+constexpr int kWarps = kThreads / 32;
+
+// The boundary words of one group of four layers, for a thread's slots: the
+// group's bs word and the bl words of its two layer pairs (at lmax 1, the
+// merged bm word in l[0]).
+struct GroupWords {
+  unsigned q[kSlots];
+  unsigned l[2][kSlots];
+};
+
+__device__ __forceinline__ void load_group(GroupWords& w, size_t t, int g,
+                                           const int* __restrict__ bl,
+                                           const int* __restrict__ bs,
+                                           int lmax) {
+  const int npair = (lmax + 1) / 2;
+  const int nquad = (lmax + 3) / 4;
+#pragma unroll
+  for (int c = 0; c < kSlots; ++c) {
+    const int cell = c * kThreads + threadIdx.x;
+    w.q[c] = static_cast<unsigned>(bs[(t * nquad + g) * kTile + cell]);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int pair = 2 * g + h;
+      w.l[h][c] = pair < npair ? static_cast<unsigned>(
+                                     bl[(t * npair + pair) * kTile + cell])
+                               : 0u;
+    }
+  }
+}
+
+// The V values xt[row, L, b0:b0+V] (zeros past the batch or for row -1).
+template <int V, bool kVec4>
+__device__ __forceinline__ void load_x(const float* __restrict__ xt,
+                                       long long row, int L, int batch,
+                                       int b0, float (&xv)[V]) {
+#pragma unroll
+  for (int v = 0; v < V; ++v) xv[v] = 0.f;
+  if (row < 0) return;
+  const float* src = xt + (row * kLanes + L) * batch + b0;
+  if constexpr (kVec4) {
+#pragma unroll
+    for (int u = 0; u < V / 4; ++u) {
+      if (b0 + 4 * u < batch) {  // batch % 4 == 0: all four or none
+        const float4 f = __ldg(reinterpret_cast<const float4*>(src) + u);
+        xv[4 * u] = f.x;
+        xv[4 * u + 1] = f.y;
+        xv[4 * u + 2] = f.z;
+        xv[4 * u + 3] = f.w;
+      }
+    }
+  } else {
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      if (b0 + v < batch) xv[v] = __ldg(src + v);
+    }
+  }
+}
+
+// Inclusive prefix of each vector's products over the tile's flat slot
+// order, into s_pf[slot*V + v].  Thread i holds slots c*256 + i, so the
+// order of the 32 (quarter c, warp) runs is c*8 + warp: a shuffle scan
+// inside each warp, then one warp scans the 32 run totals of each vector.
+template <int V>
+__device__ __forceinline__ void batched_prefix(float (&p)[kSlots][V],
+                                               float* s_tot, float* s_pf) {
+  const int i = threadIdx.x;
+  const int lane = i & 31;
+  const int warp = i >> 5;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+#pragma unroll
+    for (int c = 0; c < kSlots; ++c) {
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        const float n = __shfl_up_sync(0xffffffffu, p[c][v], d);
+        if (lane >= d) p[c][v] += n;
+      }
+    }
+  }
+  if (lane == 31) {
+#pragma unroll
+    for (int c = 0; c < kSlots; ++c) {
+#pragma unroll
+      for (int v = 0; v < V; ++v) s_tot[(c * kWarps + warp) * V + v] = p[c][v];
+    }
+  }
+  __syncthreads();
+  if (warp == 0) {  // lane r holds run r's totals
+    float w[V];
+#pragma unroll
+    for (int v = 0; v < V; ++v) w[v] = s_tot[lane * V + v];
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        const float n = __shfl_up_sync(0xffffffffu, w[v], d);
+        if (lane >= d) w[v] += n;
+      }
+    }
+#pragma unroll
+    for (int v = 0; v < V; ++v) s_tot[lane * V + v] = w[v];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int c = 0; c < kSlots; ++c) {
+    const int r = c * kWarps + warp;
+    float4* dst = reinterpret_cast<float4*>(s_pf + (c * kThreads + i) * V);
+#pragma unroll
+    for (int u = 0; u < V / 4; ++u) {
+      float e[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        e[k] = p[c][4 * u + k] + (r > 0 ? s_tot[(r - 1) * V + 4 * u + k] : 0.f);
+      }
+      dst[u] = make_float4(e[0], e[1], e[2], e[3]);
+    }
+  }
+}
+
+// B10: CTA (t, g) runs tile t against vectors g*V .. g*V+V-1; see the file
+// comment.  256 threads, four slots and V vectors a thread.
+template <int V, bool kVec4>
+__global__ void __launch_bounds__(kThreads, 2)
     routed_tile_batched_kernel(const float* __restrict__ vals,
                                const int* __restrict__ slot,
                                const int* __restrict__ gsub,
@@ -191,36 +342,155 @@ __global__ void __launch_bounds__(kTile)
                                const int* __restrict__ bs,
                                const int* __restrict__ base,
                                const int* __restrict__ byt,
-                               const float* __restrict__ xb2d,
+                               const float* __restrict__ xt,
                                long long x_rows, int batch,
                                float* __restrict__ y, int y_tiles, int W,
                                int l1, int lmax) {
+  static_assert(V % 4 == 0, "V is a multiple of 4");
+  extern __shared__ float4 s_pf4[];  // [kTile][V/4]: the prefix
+  float* s_pf = reinterpret_cast<float*>(s_pf4);
   __shared__ unsigned s_slot[kTile];
   __shared__ unsigned s_gsub[kTile];
-  __shared__ unsigned s_q[kTile];
-  __shared__ float s_pf[kTile];
-  __shared__ float s_warp[32];
+  __shared__ unsigned s_q[2][kTile];  // boundary subs, a group of 4 layers
+  __shared__ float s_tot[kSlots * kWarps * V];
+  __shared__ int s_byt[32];
 
   const int i = threadIdx.x;
   const size_t t = blockIdx.x;
-  const size_t off = t * kTile + i;
-  s_slot[i] = static_cast<unsigned>(slot[off]);
-  s_gsub[i] = static_cast<unsigned>(gsub[off]);
-  const float v = vals[off];
-  if (lmax == 1) s_q[i] = static_cast<unsigned>(bl[off]);  // kept for all b
+  const int b0 = blockIdx.y * V;
+  const size_t off = t * kTile;
+  float v[kSlots];
+  GroupWords w;
+#pragma unroll
+  for (int c = 0; c < kSlots; ++c) {
+    const int cell = c * kThreads + i;
+    s_slot[cell] = static_cast<unsigned>(slot[off + cell]);
+    s_gsub[cell] = static_cast<unsigned>(gsub[off + cell]);
+    v[c] = vals[off + cell];
+  }
+  if (lmax == 1) {
+#pragma unroll
+    for (int c = 0; c < kSlots; ++c) {
+      const int cell = c * kThreads + i;
+      w.l[0][c] = static_cast<unsigned>(bl[off + cell]);
+      s_q[0][cell] = w.l[0][c];
+    }
+  } else {
+    load_group(w, t, 0, bl, bs, lmax);
+  }
+  if (i < lmax) s_byt[i] = byt[t * lmax + i];
   __syncthreads();
 
-  int L;
-  const long long row =
-      gather_row(s_slot, s_gsub, base[t], W, l1, x_rows, &L);
-  for (int b = 0; b < batch; ++b) {
-    const float xg =
-        row >= 0 ? xb2d[(b * x_rows + row) * kLanes + L] : 0.f;
-    __syncthreads();  // every read of the previous vector's prefix is done
-    hispmv::tile_prefix(v * xg, s_warp, s_pf);
-    boundary_layers(t, bl, bs, byt, lmax, s_q, s_pf,
-                    y + static_cast<size_t>(b) * y_tiles * kTile, y_tiles);
+  // 1. x gather: V contiguous values of each slot's (row, lane), times vals
+  float p[kSlots][V];
+  const int tb = base[t];
+#pragma unroll
+  for (int c = 0; c < kSlots; ++c) {
+    int L;
+    const long long row =
+        gather_row(c * kThreads + i, s_slot, s_gsub, tb, W, l1, x_rows, &L);
+    load_x<V, kVec4>(xt, row, L, batch, b0, p[c]);
+#pragma unroll
+    for (int u = 0; u < V; ++u) p[c][u] *= v[c];
   }
+  // 2. the prefix of every vector, one scan
+  batched_prefix<V>(p, s_tot, s_pf);
+
+  // 3. boundary layers, a group of four at a time
+  const int nquad = (lmax + 3) / 4;
+  const size_t ystride = static_cast<size_t>(y_tiles) * kTile;
+  float* yb = y + static_cast<size_t>(b0) * ystride;
+  for (int g = 0; g < nquad; ++g) {
+    unsigned* q = s_q[g & 1];
+    if (lmax > 1) {
+#pragma unroll
+      for (int c = 0; c < kSlots; ++c) q[c * kThreads + i] = w.q[c];
+    }
+    // q complete (and s_pf, at g == 0); every read of this buffer, two
+    // groups back, was done before the previous group's barrier
+    __syncthreads();
+    const GroupWords cur = w;
+    if (g + 1 < nquad) load_group(w, t, g + 1, bl, bs, lmax);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const int k = 4 * g + kk;
+      if (k >= lmax) break;
+      const int yt = s_byt[k];
+      if (yt < 0 || yt >= y_tiles) continue;
+#pragma unroll
+      for (int c = 0; c < kSlots; ++c) {
+        const int cell = c * kThreads + i;
+        const int s = cell >> 7;
+        const unsigned raw =
+            lmax == 1 ? cur.l[0][c] : cur.l[kk >> 1][c] >> (14 * (kk & 1));
+        const int a = raw & 127;
+        const int b = (raw >> 7) & 127;
+        const unsigned qa = q[(s << 7) + a];
+        const unsigned qb = q[(s << 7) + b];
+        int sub_a, sub_b;
+        if (lmax == 1) {
+          sub_a = (qa >> 14) & 7;
+          sub_b = (qb >> 17) & 7;
+        } else {
+          sub_a = (qa >> (8 * kk)) & 7;
+          sub_b = (qb >> (8 * kk + 4)) & 7;
+        }
+        const int ea = (sub_a << 7) + a;
+        const int eb = (sub_b << 7) + b;
+        if (ea == eb) continue;  // the same prefix entry: adds nothing
+        float* yc = yb + static_cast<size_t>(yt) * kTile + cell;
+#pragma unroll
+        for (int u = 0; u < V / 4; ++u) {
+          const float4 fa = s_pf4[ea * (V / 4) + u];
+          const float4 fb = s_pf4[eb * (V / 4) + u];
+          const float d[4] = {fa.x - fb.x, fa.y - fb.y, fa.z - fb.z,
+                              fa.w - fb.w};
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int vec = 4 * u + e;
+            if (b0 + vec < batch && d[e] != 0.f) {
+              atomicAdd(yc + vec * ystride, d[e]);
+            }
+          }
+        }
+      }
+    }
+  }
+}
+
+// V for a batch: vpt when it is given (4 or 8); else 8, or 4 when the
+// batch is at most 4 or when V 8 would launch fewer CTAs than the card has
+// SMs (kSms: H100 SXM).  0 when vpt is neither.
+constexpr int kSms = 132;
+
+int pick_v(int batch, int num_tiles, int vpt) {
+  if (vpt != 0) return (vpt == 4 || vpt == 8) ? vpt : 0;
+  const long long ctas8 = static_cast<long long>(num_tiles) * ((batch + 7) / 8);
+  return (batch <= 4 || ctas8 < kSms) ? 4 : 8;
+}
+
+template <int V>
+int launch_batched(const float* vals, const int* slot, const int* gsub,
+                   const int* bl, const int* bs, const int* base,
+                   const int* byt, const float* xt, long long x_rows,
+                   int batch, float* y, int y_tiles, int num_tiles, int W,
+                   int l1, int lmax, cudaStream_t stream) {
+  const bool vec4 =
+      batch % 4 == 0 && reinterpret_cast<uintptr_t>(xt) % 16 == 0;
+  void (*kern)(const float*, const int*, const int*, const int*, const int*,
+               const int*, const int*, const float*, long long, int, float*,
+               int, int, int, int) =
+      vec4 ? routed_tile_batched_kernel<V, true>
+           : routed_tile_batched_kernel<V, false>;
+  const int smem = static_cast<int>(sizeof(float)) * kTile * V;
+  const cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid(num_tiles, (batch + V - 1) / V);
+  kern<<<grid, kThreads, smem, stream>>>(vals, slot, gsub, bl, bs, base, byt,
+                                         xt, x_rows, batch, y, y_tiles, W, l1,
+                                         lmax);
+  return static_cast<int>(cudaGetLastError());
 }
 
 bool dims_ok(int num_tiles, int W, int l1, int lmax, const int* bs) {
@@ -248,21 +518,33 @@ int hispmv_spmv_routed(const float* vals, const int* slot, const int* gsub,
   return static_cast<int>(cudaGetLastError());
 }
 
-// B10: xb2d [batch*x_rows, 128] (x_rows rows per vector), y
-// [batch*y_tiles*8, 128] zeroed.  Returns a cudaError_t code.
+// The V that hispmv_spmv_routed_batched launches for this batch, tile
+// count and vpt (0 when it would refuse vpt).
+int hispmv_spmv_routed_batched_v(int batch, int num_tiles, int vpt) {
+  return pick_v(batch, num_tiles, vpt);
+}
+
+// B10: xt [x_rows, 128, batch], y [batch*y_tiles*8, 128] zeroed; vpt 0
+// lets the launcher pick V (see pick_v).  Returns a cudaError_t code.
 int hispmv_spmv_routed_batched(const float* vals, const int* slot,
                                const int* gsub, const int* bl, const int* bs,
                                const int* base, const int* byt,
-                               const float* xb2d, long long x_rows, int batch,
+                               const float* xt, long long x_rows, int batch,
                                float* y, int y_tiles, int num_tiles, int W,
-                               int l1, int lmax, cudaStream_t stream) {
-  if (!dims_ok(num_tiles, W, l1, lmax, bs) || batch < 1) {
+                               int l1, int lmax, int vpt,
+                               cudaStream_t stream) {
+  const int V = pick_v(batch, num_tiles, vpt);
+  if (!dims_ok(num_tiles, W, l1, lmax, bs) || batch < 1 || V == 0 ||
+      (batch + V - 1) / V > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  routed_tile_batched_kernel<<<num_tiles, kTile, 0, stream>>>(
-      vals, slot, gsub, bl, bs, base, byt, xb2d, x_rows, batch, y, y_tiles,
-      W, l1, lmax);
-  return static_cast<int>(cudaGetLastError());
+  if (V == 4) {
+    return launch_batched<4>(vals, slot, gsub, bl, bs, base, byt, xt, x_rows,
+                             batch, y, y_tiles, num_tiles, W, l1, lmax,
+                             stream);
+  }
+  return launch_batched<8>(vals, slot, gsub, bl, bs, base, byt, xt, x_rows,
+                           batch, y, y_tiles, num_tiles, W, l1, lmax, stream);
 }
 
 }  // extern "C"

@@ -150,8 +150,10 @@ def get_lib() -> ctypes.CDLL:
             lib.hispmv_spmv_routed_batched.restype = i32
             lib.hispmv_spmv_routed_batched.argtypes = [
                 ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ctypes.c_longlong,
-                i32, ptr, i32, i32, i32, i32, i32, ptr,
+                i32, ptr, i32, i32, i32, i32, i32, i32, ptr,
             ]
+            lib.hispmv_spmv_routed_batched_v.restype = i32
+            lib.hispmv_spmv_routed_batched_v.argtypes = [i32, i32, i32]
             lib.hispmv_spmv_chunked_paneled.restype = i32
             lib.hispmv_spmv_chunked_paneled.argtypes = [
                 ptr, i32, ptr, ptr, ptr, ptr, i32, i32, i32, i32, ptr,

@@ -7,8 +7,8 @@ Port of ``hispmv_tpu/ops/spmv_routed.py`` (``chunk_for_stream``,
 ``_routed_kernel_batched`` / ``spmv_routed_stream_batched_pallas``).  Both
 kernels are in ``csrc/spmv_routed.cu``; they consume the packed arrays of
 the TPU kernels, so both packages can be fed identical inputs.  B10 runs
-B9's tile against B vectors stacked as [B*nwin*8, 128] and reads the
-stream once for the whole batch.
+B9's tile against B vectors given vector-minor, as xt [nwin*8, 128, B],
+on a grid of tiles x groups of V vectors.
 
 Per (8,128) tile of 1024 slots, cell (s, j) being sublane s and lane j:
 
@@ -230,14 +230,15 @@ def _unpack(packed, dims):
     return packed
 
 
-def check_stream_args(packed, dims, x2d, num_ytiles):
-    """Validate one packed segment before any launch."""
+def check_stream_args(packed, dims, x, num_ytiles):
+    """Validate one packed segment and the dtype of its x before any
+    launch (each wrapper checks the shape of its own x)."""
     nch, tchunk, W, l1, lmax = dims
     vals, slot, gsub, bl, bs, base, byt = _unpack(packed, dims)
     if not (1 <= W <= W_CAP and 1 <= l1 <= L1_CAP and 1 <= lmax <= L_CAP):
         raise ValueError(f"spmv_routed: dims W={W}, l1={l1}, lmax={lmax} "
                          f"outside the caps ({W_CAP}, {L1_CAP}, {L_CAP})")
-    if vals.dtype != torch.float32 or x2d.dtype != torch.float32:
+    if vals.dtype != torch.float32 or x.dtype != torch.float32:
         raise TypeError("spmv_routed: vals and x must be float32")
     words = [slot, gsub, bl, base, byt] + ([bs] if bs is not None else [])
     if any(a.dtype != torch.int32 for a in words):
@@ -255,9 +256,6 @@ def check_stream_args(packed, dims, x2d, num_ytiles):
         if tuple(a.shape) != shape:
             raise ValueError(f"spmv_routed: array of shape {tuple(a.shape)}"
                              f" where {shape} is needed for dims {dims}")
-    if x2d.ndim != 2 or x2d.shape[1] != LANES:
-        raise ValueError(f"spmv_routed: x must be [n, {LANES}], got "
-                         f"{tuple(x2d.shape)}")
     if num_ytiles < 1:
         raise ValueError("spmv_routed: num_ytiles must be >= 1")
 
@@ -334,12 +332,12 @@ def spmv_routed_stream_plain(packed, dims, x2d, num_ytiles):
     return y.reshape(num_ytiles * 8, LANES)
 
 
-def spmv_routed_stream_batched_plain(packed, dims, xb2d, num_ytiles, B):
+def spmv_routed_stream_batched_plain(packed, dims, xt, num_ytiles):
     """Plain PyTorch version of B10: B9's plain version with the batch as a
-    leading dimension.  ``xb2d`` f32 [B*nwin*8, 128] -> y f32
+    leading dimension.  ``xt`` f32 [nwin*8, 128, B] (vector-minor) -> y f32
     [B*num_ytiles*8, 128]."""
-    y = _routed_plain(packed, dims, xb2d.reshape(B, -1, LANES), num_ytiles)
-    return y.reshape(B * num_ytiles * 8, LANES)
+    y = _routed_plain(packed, dims, xt.permute(2, 0, 1), num_ytiles)
+    return y.reshape(-1, LANES)
 
 
 def spmv_routed_stream(packed, dims, x2d, num_ytiles):
@@ -348,6 +346,9 @@ def spmv_routed_stream(packed, dims, x2d, num_ytiles):
     f32 [nwin*8, 128].  CPU tensors take the plain PyTorch version; CUDA
     tensors launch the CUDA kernel (csrc/spmv_routed.cu) or raise."""
     check_stream_args(packed, dims, x2d, num_ytiles)
+    if x2d.ndim != 2 or x2d.shape[1] != LANES:
+        raise ValueError(f"spmv_routed: x must be [n, {LANES}], got "
+                         f"{tuple(x2d.shape)}")
     if x2d.device.type == "cpu":
         return spmv_routed_stream_plain(packed, dims, x2d, num_ytiles)
     nch, tchunk, W, l1, lmax = dims
@@ -372,33 +373,37 @@ def spmv_routed_stream(packed, dims, x2d, num_ytiles):
 spmv_routed_stream.launches = 0  # kernel launches, for the smoke run's check
 
 
-def spmv_routed_stream_batched(packed, dims, xb2d, num_ytiles, B):
-    """Run one packed routed-stream segment against ``B`` vectors stacked
-    as ``xb2d`` f32 [B*nwin*8, 128] (vector b in rows b*nwin*8 onward);
-    returns y f32 [B*num_ytiles*8, 128].  One launch covers the whole
-    batch and reads the stream once.  CPU tensors take the plain PyTorch
-    version; CUDA tensors launch the CUDA kernel (csrc/spmv_routed.cu) or
-    raise."""
-    check_stream_args(packed, dims, xb2d, num_ytiles)
-    if B < 1 or xb2d.shape[0] % B:
-        raise ValueError(f"spmv_routed_batched: {xb2d.shape[0]} x rows do "
-                         f"not split into B={B} vectors")
-    if xb2d.device.type == "cpu":
-        return spmv_routed_stream_batched_plain(packed, dims, xb2d,
-                                                num_ytiles, B)
+def spmv_routed_stream_batched(packed, dims, xt, num_ytiles, vpt=0):
+    """Run one packed routed-stream segment against the B vectors of ``xt``
+    f32 [nwin*8, 128, B] (vector-minor: xt[r, L, b] is vector b's x row r,
+    lane L); returns y f32 [B*num_ytiles*8, 128], vector b in rows
+    b*num_ytiles*8 onward.  One launch covers the whole batch: its grid is
+    tiles x groups of V vectors, V picked by the launcher unless ``vpt``
+    (4 or 8) names it.  CPU tensors take the plain PyTorch version;
+    CUDA tensors launch the CUDA kernel (csrc/spmv_routed.cu) or raise."""
+    check_stream_args(packed, dims, xt, num_ytiles)
+    if (xt.ndim != 3 or xt.shape[1] != LANES or xt.shape[0] % 8
+            or xt.shape[2] < 1):
+        raise ValueError(f"spmv_routed_batched: x must be [nwin*8, {LANES}, "
+                         f"B], got {tuple(xt.shape)}")
+    if vpt not in (0, 4, 8):
+        raise ValueError(f"spmv_routed_batched: vpt={vpt}, want 0, 4 or 8")
+    if xt.device.type == "cpu":
+        return spmv_routed_stream_batched_plain(packed, dims, xt, num_ytiles)
     nch, tchunk, W, l1, lmax = dims
     vals, slot, gsub, bl, bs, base, byt = _unpack(packed, dims)
-    check_cuda_tensors("spmv_routed_batched", xb2d, *(a for a in packed))
+    check_cuda_tensors("spmv_routed_batched", xt, *(a for a in packed))
     lib = cuda_build.get_lib()
+    B = xt.shape[2]
     y = torch.zeros((B * num_ytiles * 8, LANES), dtype=torch.float32,
-                    device=xb2d.device)
-    with torch.cuda.device(xb2d.device):
+                    device=xt.device)
+    with torch.cuda.device(xt.device):
         rc = lib.hispmv_spmv_routed_batched(
             vals.data_ptr(), slot.data_ptr(), gsub.data_ptr(),
             bl.data_ptr(), 0 if bs is None else bs.data_ptr(),
-            base.data_ptr(), byt.data_ptr(), xb2d.data_ptr(),
-            xb2d.shape[0] // B, B, y.data_ptr(), num_ytiles, nch * tchunk,
-            W, l1, lmax, torch.cuda.current_stream().cuda_stream,
+            base.data_ptr(), byt.data_ptr(), xt.data_ptr(), xt.shape[0], B,
+            y.data_ptr(), num_ytiles, nch * tchunk, W, l1, lmax, vpt,
+            torch.cuda.current_stream().cuda_stream,
         )
     cuda_build.check(rc, "spmv_routed_batched")
     spmv_routed_stream_batched.launches += 1
@@ -406,3 +411,11 @@ def spmv_routed_stream_batched(packed, dims, xb2d, num_ytiles, B):
 
 
 spmv_routed_stream_batched.launches = 0  # kernel launches, for the smoke run
+
+
+def routed_batched_v(B, num_tiles, vpt=0):
+    """The V (vectors a thread) that B10's launcher takes for a batch of
+    ``B``, ``num_tiles`` tiles and ``vpt``: its grid is num_tiles x
+    ceil(B/V).  Needs the built library."""
+    return cuda_build.get_lib().hispmv_spmv_routed_batched_v(B, num_tiles,
+                                                             vpt)

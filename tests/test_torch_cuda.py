@@ -91,6 +91,7 @@ from hispmv_tpu_torch.ops.spmv_windowed import (
 )
 from hispmv_tpu_torch.ops.spmv_routed import (
     pack_stream,
+    routed_batched_v,
     spmv_routed_stream,
     spmv_routed_stream_batched,
     spmv_routed_stream_batched_plain,
@@ -389,27 +390,86 @@ def test_b8_kernel_matches_plain(dev, name, bh, B, dtype):
     assert_close(y, spmv_windowed_batched_plain(*args))
 
 
-@pytest.mark.parametrize("B", [1, 7, 64])
-@pytest.mark.parametrize("name", list(ROUTED))
-def test_b10_kernel_matches_plain(dev, name, B):
+def _b10_stream_cases(name):
+    """The streams of ROUTED[name] packed three tiles a chunk, so a stream
+    whose tile count is not a multiple of 3 ends in padded tiles."""
     coo = ROUTED[name][0]()
     plan = build_routed_plan(coo)
+    segs = [seg for s in plan.streams
+            for seg in pack_stream(s, 3, bucket=False)]
+    padded = any(d[0] * d[1] > s.num_tiles
+                 for s, (_, d) in zip(plan.streams, segs))
+    return plan, segs, padded
+
+
+def _vector_minor(xb):
+    """[B, C] -> xt [C/128, 128, B], B10's x."""
+    return xb.T.reshape(-1, 128, xb.shape[0]).contiguous()
+
+
+@pytest.mark.parametrize("vpt", [0, 4, 8])
+@pytest.mark.parametrize("B", [1, 3, 8, 9, 64])
+@pytest.mark.parametrize("name", list(ROUTED))
+def test_b10_kernel_matches_plain(dev, name, B, vpt):
+    """Every V against the plain version: B below, at and past V (a masked
+    last vector group), 4-byte x loads at odd B, lmax 1 to 32, padded last
+    tiles."""
+    plan, segs, _ = _b10_stream_cases(name)
     C = plan.num_windows * 1024
-    xb2d = _batch(B, C, dev, seed=B).reshape(-1, 128)
-    for s in plan.streams:
-        ((arrays, dims),) = pack_stream(s, 1, bucket=False)
-        packed = tuple(torch.from_numpy(a).to(dev) for a in arrays)
+    xb = _batch(B, C, dev, seed=B)
+    xt = _vector_minor(xb)
+    for packed_np, dims in segs:
+        packed = tuple(torch.from_numpy(a).to(dev) for a in packed_np)
         before = spmv_routed_stream_batched.launches
-        y = spmv_routed_stream_batched(packed, dims, xb2d, plan.num_ytiles,
-                                       B)
+        y = spmv_routed_stream_batched(packed, dims, xt, plan.num_ytiles,
+                                       vpt=vpt)
         torch.cuda.synchronize()
         assert spmv_routed_stream_batched.launches == before + 1
+        assert y.shape == (B * plan.num_ytiles * 8, 128)
         assert_close(y, spmv_routed_stream_batched_plain(
-            packed, dims, xb2d, plan.num_ytiles, B))
+            packed, dims, xt, plan.num_ytiles))
         # vector b of the batch is B9 on vector b
-        y9 = spmv_routed_stream(packed, dims, xb2d[-C // 128:],
+        y9 = spmv_routed_stream(packed, dims, xb[-1].reshape(-1, 128),
                                 plan.num_ytiles)
         assert_close(y.reshape(B, -1)[-1], y9.reshape(-1))
+
+
+def test_b10_launcher_picks_v(dev):
+    """V 8, or 4 at B <= 4 and when V 8 would leave SMs (132) idle; vpt
+    names 4 or 8 and nothing else."""
+    assert [routed_batched_v(B, 1000) for B in (1, 4, 5, 64)] == [4, 4, 8, 8]
+    assert routed_batched_v(64, 16) == 4  # 128 CTAs at V 8
+    assert routed_batched_v(64, 17) == 8  # 136
+    assert [routed_batched_v(64, 4, v) for v in (4, 8, 16)] == [4, 8, 0]
+
+
+def test_b10_streams_end_in_padded_tiles():
+    """The cases above include streams with padded last tiles, lmax 1 and
+    lmax past one group of four layers."""
+    seen = set()
+    for name in ROUTED:
+        plan, segs, padded = _b10_stream_cases(name)
+        seen |= {("padded", padded)} | {("lmax>4", d[4] > 4) for _, d in segs}
+        seen |= {("lmax1", d[4] == 1) for _, d in segs}
+    assert {("padded", True), ("lmax>4", True), ("lmax1", True)} <= seen
+
+
+@pytest.mark.parametrize("B", [4, 8])
+def test_b10_kernel_unaligned_x(dev, B):
+    """An xt that is contiguous but not 16-byte aligned takes the 4-byte
+    loads at a batch that is a multiple of 4."""
+    plan, segs, _ = _b10_stream_cases("tall_l1_5_lmax16")
+    C = plan.num_windows * 1024
+    flat = torch.zeros(C * B + 1, device=dev)
+    xt = flat[1:].view(C // 128, 128, B)
+    xt.copy_(_vector_minor(_batch(B, C, dev, seed=3)))
+    assert xt.data_ptr() % 16 != 0 and xt.is_contiguous()
+    for packed_np, dims in segs:
+        packed = tuple(torch.from_numpy(a).to(dev) for a in packed_np)
+        assert_close(spmv_routed_stream_batched(packed, dims, xt,
+                                                plan.num_ytiles),
+                     spmv_routed_stream_batched_plain(packed, dims, xt,
+                                                      plan.num_ytiles))
 
 
 def _golden_linear(coo, xb, bias, value_dtype="float32"):
@@ -464,10 +524,11 @@ def test_ellx_overflow_linear_runs_b2_on_card(dev):
                        _golden_linear(heavy, xb, 0.0), rtol=1e-3).ok
 
 
-def test_routed_linear_one_b10_launch_per_stream(dev):
+@pytest.mark.parametrize("B", [3, 16, 64])
+def test_routed_linear_one_b10_launch_per_stream(dev, B):
     coo = powerlaw_coo(4000, 4000, 60_000, seed=7)
     h = SpmvHandle(coo, format="routed")
-    xb = np.random.default_rng(5).standard_normal((16, 4000)).astype(
+    xb = np.random.default_rng(5).standard_normal((B, 4000)).astype(
         np.float32)
     before = spmv_routed_stream_batched.launches
     y = h.linear(torch.from_numpy(xb).to(dev))

@@ -4,8 +4,8 @@ package.
 - The plain PyTorch version of B10 against ``spmv_routed_stream_batched_
   pallas`` in interpret mode, on identical packed arrays (``tchunk=4``, as
   ``tests/test_torch_routed.py`` runs B9) at lmax 1 (the merged ``bm``
-  word), 2 and 4 and l1 1 and 5; each vector of the batch also equals B9's
-  plain version alone.
+  word), 2, 4 and 16 and l1 1, 2 and 5, the port's x vector-minor; each
+  vector of the batch also equals B9's plain version alone.
 - ``SpmvHandle.linear`` in original space (B10, one call per stream for
   the whole batch), with a COO and an ELLX residual, in rank space and on
   the banded cell grid (vector by vector), against the JAX package's
@@ -57,24 +57,30 @@ def _one_row():
                      np.linspace(-1, 1, n).astype(np.float32))
 
 
-# (matrix, the (l1, lmax) its first stream must have): lmax 1 (bm), 2 and
-# 4; l1 1 and 5
+# (matrix, the (l1, lmax) its first stream must have): lmax 1 (bm), 2, 4
+# and 16 (layer groups past the first four); l1 1, 2 and 5
 B10_CASES = {
     "one_row": (_one_row, (1, 1)),
     "banded": (lambda: _case("banded"), (1, 2)),
     "wide": (lambda: _case("wide"), (5, 2)),
     "random900": (lambda: random_coo(900, 700, 8_000, seed=9), (5, 4)),
+    "tall_lmax16": (lambda: random_coo(16000, 256, 1500, seed=1), (2, 16)),
 }
 
 
 def _stacked_x(plan, C, B, seed=41):
     """B vectors, each padded to the JAX handle's bucketed window count,
-    stacked as [B*nwinp*8, 128]."""
+    stacked as [B*nwinp*8, 128] (the JAX kernel's layout)."""
     xb = batch(B, C, seed)
     nwinp = _bucket(plan.num_windows)
     xp = np.zeros((B, nwinp * R.WINDOW), np.float32)
     xp[:, :C] = xb
     return xb, xp.reshape(-1, 128)
+
+
+def _vector_minor(xb2d, B):
+    """The port's B10 layout of the same vectors: xt [nwinp*8, 128, B]."""
+    return torch.from_numpy(xb2d).reshape(B, -1, 128).permute(1, 2, 0)
 
 
 @pytest.mark.parametrize("name", list(B10_CASES))
@@ -92,7 +98,7 @@ def test_plain_b10_matches_pallas(name):
         for arrays, dims in jpack_stream(s, tchunk=4):
             packed = tuple(map(torch.from_numpy, arrays[:-1]))
             yp = spmv_routed_stream_batched_plain(
-                packed, dims, torch.from_numpy(xb2d), nyt, B)
+                packed, dims, _vector_minor(xb2d, B), nyt)
             yj = spmv_routed_stream_batched_pallas(
                 tuple(map(jnp.asarray, arrays)), dims, jnp.asarray(xb2d),
                 nyt, B, interpret=True)
@@ -118,18 +124,26 @@ def test_b10_wrapper_on_cpu_takes_plain_version_and_checks_arguments():
     plan = R.build_routed_plan(coo)
     _, xb2d = _stacked_x(plan, coo.num_cols, 2)
     ((arrays, dims),) = pack_stream(plan.streams[0], tchunk=1, bucket=False)
-    args = (tuple(map(torch.from_numpy, arrays)), dims,
-            torch.from_numpy(xb2d), plan.num_ytiles, 2)
+    xt = _vector_minor(xb2d, 2).contiguous()
+    args = (tuple(map(torch.from_numpy, arrays)), dims, xt, plan.num_ytiles)
     before = spmv_routed_stream_batched.launches
     torch.testing.assert_close(spmv_routed_stream_batched(*args),
                                spmv_routed_stream_batched_plain(*args),
                                rtol=0, atol=0)
     assert spmv_routed_stream_batched.launches == before
-    with pytest.raises(ValueError, match="B=3"):
-        spmv_routed_stream_batched(*args[:4], 3)
+    # rows that are not whole (8, 128) windows of the stream's x, the
+    # vector-major layout, and a V the kernel has no instance for
+    with pytest.raises(ValueError, match=r"\[nwin\*8, 128, B\]"):
+        spmv_routed_stream_batched(args[0], dims, xt[:-1], *args[3:])
+    with pytest.raises(ValueError, match=r"\[nwin\*8, 128, B\]"):
+        spmv_routed_stream_batched(args[0], dims, torch.from_numpy(xb2d),
+                                   *args[3:])
+    with pytest.raises(ValueError, match="vpt=3"):
+        spmv_routed_stream_batched(tuple(a.to("meta") for a in args[0]),
+                                   dims, xt.to("meta"), *args[3:], vpt=3)
     with pytest.raises(ValueError, match="no kernel"):
         spmv_routed_stream_batched(tuple(a.to("meta") for a in args[0]),
-                                   dims, args[2].to("meta"), *args[3:])
+                                   dims, xt.to("meta"), *args[3:])
 
 
 # ---------------------------------------------------------------------------
