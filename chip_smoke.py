@@ -46,6 +46,8 @@ against a batch) is also timed at each V it is built for (vectors a
 thread: 4, 8), with x = 0 (no atomic issued) and beside the zeroing of
 its y, and each routed ``linear`` line carries the sum of B10's device
 time over the handle's streams beside cuSPARSE SpMM of the whole matrix.
+B2 is also run directly on TSOPF_RS_b2383's arrays at B 64 and timed at V
+4 and 8 on each of its cases.
 It exits nonzero, without a result line, when there is
 no CUDA card or any check fails.  The last line of standard output is
 ``{"ok": true, "device": {...}}``.
@@ -97,6 +99,7 @@ from hispmv_tpu_torch.ops.spmv_block import (
 )
 from hispmv_tpu_torch.ops.spmv_chunked import (
     chunk_for,
+    chunked_batched_grid,
     pack_chunks_paneled,
     spmv_chunked,
     spmv_chunked_batched,
@@ -604,6 +607,9 @@ def linear_path(handles, fixtures, counts, failures):
             xt = xd.T.contiguous()
             lib_ms = median_ms(lambda: a_csr @ xt)
         lib = "" if lib_ms is None else f", CSR A @ X {lib_ms:.4f} ms"
+        if "spmv_chunked_batched" in kernels:  # after `used`: not counted
+            lib += (f"; the whole linear's device busy "
+                    f"{_ms(device_ms(lambda: call(xd, bd)))}")
         b10_ms = None
         if "spmv_routed_batched" in kernels:  # after `used`: not counted
             b10 = [device_ms(lambda a=a: spmv_routed_stream_batched(*a))
@@ -1428,23 +1434,7 @@ def gathered_chain(gath, failures):
 def batched_cases(handles, linear_x, accel):
     """B2, B8 and B10 on the arrays and batches of the linear runs, and B8
     on the MLP's fc3 at batch 64."""
-    cases = []
-    h, _ = handles["TSOPF_RS_b2383 block"]
-    xb = h._pad_x(linear_x["TSOPF_RS_b2383 block"])
-    p = h.plan
-    cases.append(("spmv_chunked_batched",
-                  f"TSOPF_RS_b2383 block, bh 8, B {xb.shape[0]}",
-                  (h._d["data"], h._d["meta"],
-                   xb.T.reshape(-1, 128, xb.shape[0]).contiguous(),
-                   p.num_row_blocks, p.block_h, h._chunk)))
-    h, _ = handles["trans5 auto"]
-    xb = h._pad_x(linear_x["trans5 auto"])
-    p = h.plan
-    cases.append(("spmv_chunked_batched",
-                  f"trans5 ELLX overflow, bh 8, B {xb.shape[0]}",
-                  (h._d["odata"], h._d["ometa"],
-                   xb.T.reshape(-1, 128, xb.shape[0]).contiguous(),
-                   p.overflow.num_row_blocks, p.block_h, h._chunk)))
+    cases = b2_cases(handles, linear_x)
     h, _ = handles["crystk03 auto"]
     xb = h._pad_x(linear_x["crystk03 auto"])
     p = h.plan
@@ -1476,6 +1466,53 @@ def batched_cases(handles, linear_x, accel):
                           f"V {V}, {dims[0] * dims[1] * -(-B // V)} CTAs",
                           (packed, dims, xt, nyt)))
     return cases
+
+
+def b2_cases(handles, linear_x):
+    """B2 on the arrays of the linear runs that take it (TSOPF's block
+    handle and trans5's ELLX overflow at B 8) and, as a direct call, on
+    TSOPF's arrays at B 64 (past the handle's budget, where its linear runs
+    B6); each label names V, the row slices and the CTAs of the launch."""
+    x64 = torch.from_numpy(np.random.default_rng(SEED + 7).standard_normal(
+        (BATCH, handles["TSOPF_RS_b2383 block"][0].shape[1])).astype(
+            np.float32)).cuda()
+    cases = []
+    for label, key, xd, ov in (
+            ("TSOPF_RS_b2383 block", "TSOPF_RS_b2383 block",
+             linear_x["TSOPF_RS_b2383 block"], ""),
+            ("TSOPF_RS_b2383 block", "TSOPF_RS_b2383 block", x64, ""),
+            ("trans5 ELLX overflow", "trans5 auto", linear_x["trans5 auto"],
+             "o")):
+        h, _ = handles[key]
+        xb = h._pad_x(xd)
+        B = xb.shape[0]
+        bh = h.plan.block_h
+        nrb = (h.plan.overflow if ov else h.plan).num_row_blocks
+        data, meta = h._d[ov + "data"], h._d[ov + "meta"]
+        V, slices, ctas = chunked_batched_grid(B, data.shape[0], h._chunk, bh)
+        cases.append(("spmv_chunked_batched",
+                      f"{label}, bh {bh}, B {B}, V {V}, {slices} row slices, "
+                      f"{ctas} CTAs",
+                      (data, meta, xb.T.reshape(-1, 128, B).contiguous(), nrb,
+                       bh, h._chunk)))
+    return cases
+
+
+def b2_v_sweep(cases):
+    """B2's device time on each of its cases at each V it is built for.
+    Launches here are not counted."""
+    rows = []
+    for name, shape, args in cases:
+        if name != "spmv_chunked_batched":
+            continue
+        row = {"case": shape}
+        for vpt in (4, 8):
+            row[f"V{vpt}_ms"] = device_ms(
+                lambda: spmv_chunked_batched(*args, vpt=vpt))
+        log(f"  B2 [{shape}]: device ms at V 4 {_ms(row['V4_ms'])}, "
+            f"V 8 {_ms(row['V8_ms'])}")
+        rows.append(row)
+    return rows
 
 
 def routed_batched_args(h, xd):
@@ -1623,6 +1660,7 @@ def main() -> int:
         extra += gathered_cases(gath)
     results = kernel_checks(handles, linear_x, accel, extra, failures)
     sweep = b10_v_sweep(handles, linear_x)
+    b2_sweep = b2_v_sweep(b2_cases(handles, linear_x))
     perm_times = permute_vs_gather(handles, failures)
     chain = None if gath is None else gathered_chain(gath, failures)
     log(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**20:.0f}"
@@ -1641,7 +1679,7 @@ def main() -> int:
                     "sharded": shard_runs, "dryrun": dry, "ops": ops_row,
                     "large_block": large_runs, "gathered": gath_row,
                     "gathered_chain": chain, "permutation": perm_times,
-                    "b10_v_sweep": sweep}))
+                    "b10_v_sweep": sweep, "b2_v_sweep": b2_sweep}))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     if failures:
         for f in failures:

@@ -1,10 +1,10 @@
 // Shared device code of the batched block-stream kernels
-// (spmv_chunked_batched.cu: B2, spmv_windowed_batched.cu: B8, and the block
-// step of spmv_block.cu: B6).
+// (spmv_windowed_batched.cu: B8, and the block step of spmv_block.cu: B6;
+// B2 has a kernel of its own in spmv_chunked_batched.cu).
 //
-// Both consume the packed arrays of the single-vector kernels
+// They consume the packed arrays of the single-vector kernels
 // (block_stream.cuh) unchanged, against B vectors:
-//   x  [ncb, 128, B] f32 with x[cb, l, b] (B2), or
+//   x  [ncb, 128, B] f32 with x[cb, l, b] (unwindowed, as B2's), or
 //      [nwin*8, B*128] f32 with x[win*8 + s, b*128 + l] (B8, pack_batch_x)
 //   y  [nrb, BH, B] f32, zeroed by the caller; the kernel only adds to it.
 //

@@ -16,6 +16,8 @@ packages can be fed identical inputs.
 
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 import torch
 
@@ -195,19 +197,24 @@ def spmv_chunked_batched_plain(data3d, meta, xb, num_row_blocks, block_h,
     return block_products(a, lambda sl: xb.index_select(0, cb[sl]), rb, y)
 
 
-def spmv_chunked_batched(data3d, meta, xb, num_row_blocks, block_h, chunk):
+def spmv_chunked_batched(data3d, meta, xb, num_row_blocks, block_h, chunk,
+                         vpt=0):
     """Run the chunked stream against B vectors; returns y f32
     [num_row_blocks, block_h, B].
 
     ``data3d`` and ``meta`` as for :func:`spmv_chunked`, ``xb`` f32
-    [ncb, 128, B] (the JAX layout).  CPU tensors take the plain PyTorch
-    version; CUDA tensors launch the CUDA kernel
+    [ncb, 128, B] (the JAX layout).  One launch covers the whole batch: its
+    grid is ranges of blocks x row slices x groups of V vectors, V picked by
+    the launcher unless ``vpt`` (4 or 8) names it.  CPU tensors take the
+    plain PyTorch version; CUDA tensors launch the CUDA kernel
     (csrc/spmv_chunked_batched.cu) or raise."""
     name = "spmv_chunked_batched"
     check_payload(name, data3d, meta, xb, block_h, chunk)
     if xb.ndim != 3 or xb.shape[1] != LANES or xb.shape[2] < 1:
         raise ValueError(f"{name}: x must be [n, {LANES}, B], got "
                          f"{tuple(xb.shape)}")
+    if vpt not in (0, 4, 8):
+        raise ValueError(f"{name}: vpt={vpt}, want 0, 4 or 8")
     if data3d.device.type == "cpu":
         return spmv_chunked_batched_plain(
             data3d, meta, xb, num_row_blocks, block_h, chunk
@@ -221,7 +228,7 @@ def spmv_chunked_batched(data3d, meta, xb, num_row_blocks, block_h, chunk):
         rc = lib.hispmv_spmv_chunked_batched(
             data3d.data_ptr(), int(data3d.dtype == torch.bfloat16),
             meta.data_ptr(), xb.data_ptr(), y.data_ptr(),
-            data3d.shape[0], chunk, block_h, batch,
+            data3d.shape[0], chunk, block_h, batch, vpt,
             torch.cuda.current_stream().cuda_stream,
         )
     cuda_build.check(rc, name)
@@ -230,6 +237,19 @@ def spmv_chunked_batched(data3d, meta, xb, num_row_blocks, block_h, chunk):
 
 
 spmv_chunked_batched.launches = 0  # kernel launches, for the smoke run's check
+
+
+def chunked_batched_grid(batch, nchunks, chunk, block_h, vpt=0):
+    """B2's launch shape for a batch of ``batch`` on ``nchunks`` chunks of
+    ``chunk`` blocks of height ``block_h``: (V, row slices, CTAs), with
+    V the vectors a thread that its launcher takes for ``vpt``.  Needs the
+    built library and a card (the CTA count follows the kernel's
+    occupancy)."""
+    out = (ctypes.c_int * 3)()
+    rc = cuda_build.get_lib().hispmv_spmv_chunked_batched_grid(
+        nchunks, chunk, block_h, batch, vpt, ctypes.addressof(out))
+    cuda_build.check(rc, "chunked_batched_grid")
+    return tuple(out)
 
 
 def pack_chunks_paneled(plan: BlockPlan, chunk: int, panel_ncb: int):

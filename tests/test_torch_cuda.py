@@ -60,6 +60,7 @@ from hispmv_tpu_torch.ops.spmv_block import (
 )
 from hispmv_tpu_torch.ops.spmv_chunked import (
     chunk_for,
+    chunked_batched_grid,
     pack_chunks,
     pack_chunks_paneled,
     pack_chunks_tiled,
@@ -346,30 +347,96 @@ def _batch(n, cols, dev, seed=0):
         (n, cols)).astype(np.float32)).to(dev)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B", [1, 7, 64])
-@pytest.mark.parametrize("bh", [1, 8, 64])
-@pytest.mark.parametrize("name", ["random", "blocked"])
-def test_b2_kernel_matches_plain(dev, name, bh, B, dtype):
-    data, meta, x2d, nrb, bh, chunk = _b1_args(name, bh, None, dtype, dev)
-    xb = _batch(B, x2d.numel(), dev, seed=B).T.reshape(-1, 128, B)
-    args = (data, meta, xb.contiguous(), nrb, bh, chunk)
+def _b2_run(args, vpt=0):
     before = spmv_chunked_batched.launches
-    y = spmv_chunked_batched(*args)
+    y = spmv_chunked_batched(*args, vpt=vpt)
     torch.cuda.synchronize()
     assert spmv_chunked_batched.launches == before + 1
-    assert y.shape == (nrb, bh, B) and y.dtype == torch.float32
+    data, _, xb, nrb, bh, _ = args
+    assert y.shape == (nrb, bh, xb.shape[2]) and y.dtype == torch.float32
     assert_close(y, spmv_chunked_batched_plain(*args))
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B", [1, 4, 7, 8, 9, 64])
+@pytest.mark.parametrize("bh", [1, 8, 16, 64])
+@pytest.mark.parametrize("name", ["random", "blocked"])
+def test_b2_kernel_matches_plain(dev, name, bh, B, dtype):
+    """Row slices (bh 16, 64), masked vector groups (B 1, 7, 9), 16-byte
+    and 4-byte x loads; V pinned to 4 and 8 on the f32 random cases."""
+    data, meta, x2d, nrb, bh, chunk = _b1_args(name, bh, None, dtype, dev)
+    xb = _batch(B, x2d.numel(), dev, seed=B).T.reshape(-1, 128, B)
+    args = (data, meta, xb.contiguous(), nrb, bh, chunk)
+    pinned = (4, 8) if name == "random" and dtype == torch.float32 else ()
+    for vpt in (0,) + pinned:
+        _b2_run(args, vpt)
+
+
 def test_b2_kernel_batch_past_one_panel(dev):
-    """130 vectors: three panels of at most 64 in one launch."""
+    """130 vectors: 17 groups of V 8 in one launch, the last masked."""
     data, meta, x2d, nrb, bh, chunk = _b1_args("banded", 8, 8,
                                                torch.float32, dev)
     xb = _batch(130, x2d.numel(), dev, seed=2).T.reshape(-1, 128, 130)
     args = (data, meta, xb.contiguous(), nrb, bh, chunk)
     assert_close(spmv_chunked_batched(*args),
                  spmv_chunked_batched_plain(*args))
+
+
+@pytest.mark.parametrize("B", [4, 8])
+def test_b2_kernel_unaligned_x(dev, B):
+    """An xb that is contiguous but not 16-byte aligned takes the 4-byte
+    loads at a batch that is a multiple of 4."""
+    data, meta, x2d, nrb, bh, chunk = _b1_args("blocked", 8, None,
+                                               torch.float32, dev)
+    flat = torch.zeros(x2d.numel() * B + 1, device=dev)
+    xb = flat[1:].view(-1, 128, B)
+    xb.copy_(_batch(B, x2d.numel(), dev, seed=3).T.reshape(-1, 128, B))
+    assert xb.data_ptr() % 16 != 0 and xb.is_contiguous()
+    for vpt in (4, 8):
+        _b2_run((data, meta, xb, nrb, bh, chunk), vpt)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_b2_kernel_row_block_across_ranges(dev, dtype):
+    """Eight dense rows of 100,000 columns beside a sparse rest: one
+    row-block of 782 blocks spans dozens of chunks of 16 and many ranges
+    (as on trans5's ELLX overflow), and the others flush every few
+    blocks."""
+    rng = np.random.default_rng(21)
+    n = 100_000
+    dense_r = np.repeat(np.arange(8, 16), n)
+    dense_c = np.tile(np.arange(n), 8)
+    sp = random_coo(4000, n, 2_000, seed=22)
+    coo = COOMatrix((4000, n), np.concatenate([dense_r, sp.rows]),
+                    np.concatenate([dense_c, sp.cols]),
+                    rng.standard_normal(8 * n + sp.nnz).astype(np.float32))
+    plan = build_block_plan(coo, 8)
+    data3d, meta, nch = pack_chunks(plan, 16)
+    assert np.bincount(plan.block_rows).max() > 10 * 16
+    xb = _batch(8, plan.num_col_blocks * 128, dev, seed=4).T.reshape(
+        -1, 128, 8)
+    args = (torch.from_numpy(data3d).to(dev, dtype),
+            torch.from_numpy(meta).to(dev), xb.contiguous(),
+            plan.num_row_blocks, 8, 16)
+    assert chunked_batched_grid(8, nch, 16, 8)[2] > nch
+    for vpt in (0, 4):
+        _b2_run(args, vpt)
+
+
+def test_b2_launcher_picks_v(dev):
+    """V 8, or 4 at B <= 4 and when V 8 would leave SMs (132) idle; vpt
+    names 4 or 8 and nothing else.  Row slices of 8 rows past bh 8, and a
+    grid of at most one wave that covers every slice and vector group."""
+    grid = chunked_batched_grid
+    assert [grid(B, 100, 256, 8)[0] for B in (1, 4, 5, 64)] == [4, 4, 8, 8]
+    assert grid(8, 1, 128, 1)[0] == 4  # 128 CTAs at V 8
+    assert grid(8, 1, 136, 1)[0] == 8
+    assert [grid(8, 1, 8, 64, v)[0] for v in (4, 8)] == [4, 8]
+    assert [grid(8, 1, 8, bh)[1] for bh in (1, 8, 16, 64)] == [1, 1, 2, 8]
+    V, slices, ctas = grid(64, 100, 256, 64)
+    assert ctas % (slices * 64 // V) == 0
+    with pytest.raises(RuntimeError, match="launch failed"):
+        grid(8, 1, 8, 8, 16)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

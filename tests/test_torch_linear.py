@@ -90,8 +90,8 @@ def _xb_blocks(ncb, B, seed=5):
         (ncb, 128, B)).astype(np.float32)
 
 
-@pytest.mark.parametrize("B", [1, 3, 8])
-@pytest.mark.parametrize("bh", [1, 8])
+@pytest.mark.parametrize("B", [1, 3, 8, 9])
+@pytest.mark.parametrize("bh", [1, 8, 16])
 def test_plain_b2_matches_pallas(bh, B):
     coo = _case("powerlaw")
     plan = build_block_plan(coo, bh)
@@ -121,6 +121,14 @@ def test_b2_wrapper_on_cpu_takes_plain_version_and_checks_arguments():
                                spmv_chunked_batched_plain(*args), rtol=0,
                                atol=0)
     assert spmv_chunked_batched.launches == before
+    for vpt in (0, 4, 8):  # V is the kernel's; the plain version ignores it
+        torch.testing.assert_close(spmv_chunked_batched(*args, vpt=vpt),
+                                   spmv_chunked_batched_plain(*args),
+                                   rtol=0, atol=0)
+    assert spmv_chunked_batched.launches == before
+    for vpt in (1, 3, 16):
+        with pytest.raises(ValueError, match=f"vpt={vpt}"):
+            spmv_chunked_batched(*args, vpt=vpt)
     with pytest.raises(ValueError, match="B"):
         spmv_chunked_batched(args[0], args[1], args[2][:, :, 0], *args[3:])
     with pytest.raises(ValueError, match="no kernel"):
