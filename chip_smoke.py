@@ -47,7 +47,8 @@ thread: 4, 8), with x = 0 (no atomic issued) and beside the zeroing of
 its y, and each routed ``linear`` line carries the sum of B10's device
 time over the handle's streams beside cuSPARSE SpMM of the whole matrix.
 B2 is also run directly on TSOPF_RS_b2383's arrays at B 64 and timed at V
-4 and 8 on each of its cases.
+4 and 8 on each of its cases, and B8 (x vector-minor, as B2's and B10's)
+likewise on crystk03's window handle and the MLP's fc3 at B 64.
 It exits nonzero, without a result line, when there is
 no CUDA card or any check fails.  The last line of standard output is
 ``{"ok": true, "device": {...}}``.
@@ -126,11 +127,11 @@ from hispmv_tpu_torch.ops.spmv_routed import (
     stream_array_names,
 )
 from hispmv_tpu_torch.ops.spmv_windowed import (
-    pack_batch_x,
     spmv_windowed,
     spmv_windowed_batched,
     spmv_windowed_batched_plain,
     spmv_windowed_plain,
+    windowed_batched_grid,
 )
 from hispmv_tpu_torch.plan import gathered as gathered_plan
 from hispmv_tpu_torch.utils.errors import error_stats
@@ -607,7 +608,8 @@ def linear_path(handles, fixtures, counts, failures):
             xt = xd.T.contiguous()
             lib_ms = median_ms(lambda: a_csr @ xt)
         lib = "" if lib_ms is None else f", CSR A @ X {lib_ms:.4f} ms"
-        if "spmv_chunked_batched" in kernels:  # after `used`: not counted
+        if {"spmv_chunked_batched", "spmv_windowed_batched"} & set(kernels):
+            # after `used`: not counted
             lib += (f"; the whole linear's device busy "
                     f"{_ms(device_ms(lambda: call(xd, bd)))}")
         b10_ms = None
@@ -1252,7 +1254,7 @@ _WORK = {
     "spmv_routed": lambda a: (a[0][0], 1),
     "spmv_chunked_batched": lambda a: (a[0], a[2].shape[2]),
     "spmv_block_batched": lambda a: (a[0], a[5].shape[2]),
-    "spmv_windowed_batched": lambda a: (a[0], a[3].shape[1] // 128),
+    "spmv_windowed_batched": lambda a: (a[0], a[3].shape[2]),
     "spmv_routed_batched": lambda a: (a[0][0], a[2].shape[2]),
     "permute_stage": lambda a: (None, 0),
     "spmv_chunked_tiled": lambda a: (a[0], 1),
@@ -1327,12 +1329,10 @@ def library_call(name, args):
         win = meta[:, 1, :].reshape(-1).long()
         sub = subidx3d.reshape(-1, 128).long()
         if name == "spmv_windowed":
-            xs, ncols = x.reshape(-1), x.numel()
-        else:  # [S, B*128] -> [S*128, B]
-            B = x.shape[1] // 128
-            xs = x.reshape(-1, B, 128).permute(0, 2, 1).reshape(
-                -1, B).contiguous()
-            ncols = xs.shape[0]
+            xs = x.reshape(-1)
+        else:  # xt [S, 128, B] -> [S*128, B]
+            xs = x.reshape(-1, x.shape[2])
+        ncols = xs.shape[0]
         a = _block_csr(data3d.reshape(-1, bh, 128),
                        meta[:, 0, :].reshape(-1) >> 1,
                        lambda j, lane: (win[j] * 8 + sub[j, lane]) * 128
@@ -1434,27 +1434,7 @@ def gathered_chain(gath, failures):
 def batched_cases(handles, linear_x, accel):
     """B2, B8 and B10 on the arrays and batches of the linear runs, and B8
     on the MLP's fc3 at batch 64."""
-    cases = b2_cases(handles, linear_x)
-    h, _ = handles["crystk03 auto"]
-    xb = h._pad_x(linear_x["crystk03 auto"])
-    p = h.plan
-    cases.append(("spmv_windowed_batched",
-                  f"crystk03, bh {p.block_h}, B {xb.shape[0]}",
-                  (h._d["data"], h._d["subidx"], h._d["meta"],
-                   pack_batch_x(xb, p.num_windows), p.num_row_blocks,
-                   p.block_h, h._wchunk)))
-    # fc3 of the MLP on its real input: fc2's activations at batch 64
-    (h1, b1), (h2, b2), (h, _) = accel.layers
-    x = torch.from_numpy(np.random.default_rng(SEED + 3).standard_normal(
-        (BATCH, MLP["input"])).astype(np.float32)).cuda()
-    xb = h._pad_x(torch.relu(h2.linear(torch.relu(h1.linear(x, b1)), b2)))
-    p = h.plan
-    cases.append(("spmv_windowed_batched",
-                  f"MLP fc3 {p.shape[0]}x{p.shape[1]}, bh {p.block_h}, "
-                  f"B {BATCH}",
-                  (h._d["data"], h._d["subidx"], h._d["meta"],
-                   pack_batch_x(xb, p.num_windows), p.num_row_blocks,
-                   p.block_h, h._wchunk)))
+    cases = b2_cases(handles, linear_x) + b8_cases(handles, linear_x, accel)
     for label in ("trans5 routed", "ford2 routed"):
         for i, (packed, dims, xt, nyt) in enumerate(
                 routed_batched_args(handles[label][0], linear_x[label])):
@@ -1498,18 +1478,46 @@ def b2_cases(handles, linear_x):
     return cases
 
 
-def b2_v_sweep(cases):
-    """B2's device time on each of its cases at each V it is built for.
-    Launches here are not counted."""
+def b8_cases(handles, linear_x, accel):
+    """B8 on crystk03's window handle at the batch of its linear run and on
+    the MLP's fc3 on its real input, fc2's activations at batch 64, with x
+    vector-minor as the handle builds it; each label names V, the row
+    slices and the CTAs of the launch."""
+    h, _ = handles["crystk03 auto"]
+    runs = [("crystk03", h, h._pad_x(linear_x["crystk03 auto"]))]
+    (h1, b1), (h2, b2), (h, _) = accel.layers
+    x = torch.from_numpy(np.random.default_rng(SEED + 3).standard_normal(
+        (BATCH, MLP["input"])).astype(np.float32)).cuda()
+    runs.append((f"MLP fc3 {h.shape[0]}x{h.shape[1]}", h, h._pad_x(
+        torch.relu(h2.linear(torch.relu(h1.linear(x, b1)), b2)))))
+    cases = []
+    for label, h, xb in runs:
+        p, B = h.plan, xb.shape[0]
+        data = h._d["data"]
+        V, slices, ctas = windowed_batched_grid(B, data.shape[0], h._wchunk,
+                                                p.block_h)
+        cases.append(("spmv_windowed_batched",
+                      f"{label}, bh {p.block_h}, B {B}, V {V}, {slices} row "
+                      f"slices, {ctas} CTAs",
+                      (data, h._d["subidx"], h._d["meta"],
+                       xb.T.reshape(-1, 128, B).contiguous(),
+                       p.num_row_blocks, p.block_h, h._wchunk)))
+    return cases
+
+
+def v_sweep(cases, name, tag):
+    """The device time of kernel ``name`` (B2 or B8, logged as ``tag``) on
+    each of its cases at each V it is built for.  Launches here are not
+    counted."""
+    wrapper = KERNELS[name]["wrapper"]
     rows = []
-    for name, shape, args in cases:
-        if name != "spmv_chunked_batched":
+    for n, shape, args in cases:
+        if n != name:
             continue
         row = {"case": shape}
         for vpt in (4, 8):
-            row[f"V{vpt}_ms"] = device_ms(
-                lambda: spmv_chunked_batched(*args, vpt=vpt))
-        log(f"  B2 [{shape}]: device ms at V 4 {_ms(row['V4_ms'])}, "
+            row[f"V{vpt}_ms"] = device_ms(lambda: wrapper(*args, vpt=vpt))
+        log(f"  {tag} [{shape}]: device ms at V 4 {_ms(row['V4_ms'])}, "
             f"V 8 {_ms(row['V8_ms'])}")
         rows.append(row)
     return rows
@@ -1660,7 +1668,10 @@ def main() -> int:
         extra += gathered_cases(gath)
     results = kernel_checks(handles, linear_x, accel, extra, failures)
     sweep = b10_v_sweep(handles, linear_x)
-    b2_sweep = b2_v_sweep(b2_cases(handles, linear_x))
+    b2_sweep = v_sweep(b2_cases(handles, linear_x), "spmv_chunked_batched",
+                       "B2")
+    b8_sweep = v_sweep(b8_cases(handles, linear_x, accel),
+                       "spmv_windowed_batched", "B8")
     perm_times = permute_vs_gather(handles, failures)
     chain = None if gath is None else gathered_chain(gath, failures)
     log(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**20:.0f}"
@@ -1679,7 +1690,8 @@ def main() -> int:
                     "sharded": shard_runs, "dryrun": dry, "ops": ops_row,
                     "large_block": large_runs, "gathered": gath_row,
                     "gathered_chain": chain, "permutation": perm_times,
-                    "b10_v_sweep": sweep, "b2_v_sweep": b2_sweep}))
+                    "b10_v_sweep": sweep, "b2_v_sweep": b2_sweep,
+                    "b8_v_sweep": b8_sweep}))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     if failures:
         for f in failures:

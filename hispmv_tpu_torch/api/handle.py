@@ -76,7 +76,6 @@ from hispmv_tpu_torch.ops.spmv_routed import (
 )
 from hispmv_tpu_torch.ops.spmv_windowed import (
     chunk_for_windowed,
-    pack_batch_x,
     pack_window_chunks,
     spmv_windowed,
     spmv_windowed_batched,
@@ -793,14 +792,14 @@ class SpmvHandle:
             return self._block_matmat(xb).reshape(-1, B)[:R].T
         if "perm" in d:
             xb = xb.index_select(1, d["perm"])
+        # x vector-minor: [nwin*8, 128, B] (window), [ncb, 128, B] (ellx)
+        xt = xb.T.reshape(-1, LANES, B).contiguous()
         if self.format == "window":
             plan = self._window_plan_meta
-            y = spmv_windowed_batched(
-                d["data"], d["subidx"], d["meta"],
-                pack_batch_x(xb, plan.num_windows), plan.num_row_blocks,
-                plan.block_h, self._wchunk)
+            y = spmv_windowed_batched(d["data"], d["subidx"], d["meta"], xt,
+                                      plan.num_row_blocks, plan.block_h,
+                                      self._wchunk)
             return y.reshape(-1, B)[:R].T
-        xt = xb.T.reshape(-1, LANES, B).contiguous()  # [ncb, 128, B]
         eplan = self._ellx_plan_meta
         ov_nrb = (eplan.overflow.num_row_blocks
                   if eplan.overflow is not None else 0)

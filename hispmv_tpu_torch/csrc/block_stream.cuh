@@ -1,6 +1,7 @@
 // Shared device code of the block-stream SpMV kernels
 // (spmv_chunked.cu: B1, spmv_chunked_paneled.cu: B3, spmv_chunked_tiled.cu:
-// B4, spmv_windowed.cu: B7, and the tile flush of spmv_block.cu: B5).
+// B4, spmv_windowed.cu: B7, and the tile flush of spmv_block.cu: B5; its
+// constants and to_f32 also serve block_vec.cuh and block_stream_batched.cuh).
 //
 // They consume the packed arrays of the JAX package unchanged:
 //   data      [nchunks, chunk*BH, 128] f32 or bf16 block payloads

@@ -30,10 +30,10 @@
 // Bound: B5 reads each payload byte once for one multiply-add, so it is
 // bound by the bytes of the A stream, as B1 (block_stream.cuh: a warp
 // reads 128 B of a block row, BH accumulators a thread in registers, one
-// shuffle reduction a run).  B6 is B2's block step (block_stream_batched.cuh:
-// A tile and x rows staged in shared memory, fp32 FMA, no TF32, as the TPU
-// kernel's Precision.HIGHEST) over a run instead of a chunk range.  One CTA
-// per run leaves a long run on one SM; making it fast is later work.
+// shuffle reduction a run).  B6 stages each block's A tile and x rows in
+// shared memory (block_stream_batched.cuh; fp32 FMA, no TF32, as the TPU
+// kernel's Precision.HIGHEST) over a run.  One CTA per run leaves a long run
+// on one SM; making it fast is later work.
 
 #include "block_stream.cuh"
 #include "block_stream_batched.cuh"
@@ -93,12 +93,11 @@ __global__ void __launch_bounds__(kBatchThreads)
   for (int i = 0; i < kMax; ++i) acc[i] = 0.f;
   for (int j = j0; j < nblocks; ++j) {
     if (j != j0 && firsts[j]) return;  // uniform: flags are per block
-    accumulate_block<float, BH, false>(data, nullptr, x, j, cols[j], batch,
-                                       b0, live, pp, m, smem, acc);
+    accumulate_block<BH>(data, x, j, cols[j], batch, b0, live, pp, m, smem,
+                         acc);
     if (lasts[j]) {
-      flush_outputs<BH, true>(
-          acc, m, y + static_cast<size_t>(rows[j]) * BH * batch, batch, b0,
-          live);
+      store_outputs<BH>(acc, m, y + static_cast<size_t>(rows[j]) * BH * batch,
+                        batch, b0, live);
       return;
     }
   }

@@ -10,373 +10,26 @@
 // It runs the block format's linear() within the budget, the ELLX overflow
 // of linear() and the row-granular ELLX residual of a routed linear().
 //
-// Design: B1's kernel (block_stream.cuh) with V vectors a thread.  A CTA
-// has 128 threads and thread l owns lane l; it holds acc[R][V] in
-// registers, R = min(bh, 8) rows of the block and V (4 or 8) vectors.  Per
-// block it loads its R payload values (each warp reads one 128-byte row a
-// load, coalesced) and the V contiguous values xb[cb, l, b0:b0+V] (two
-// 16-byte loads when B % 4 == 0 and xb is 16-byte aligned, else masked
-// 4-byte loads), then does R*V fp32 FMAs.  There is no shared memory and no
-// barrier per block, and the next block's loads (and the meta words of the
-// block after it) are issued before the current block's FMAs (faster on
-// an H100 SXM than loading each block where it is used).
-//
-// Grid: (ranges of blocks) x (bh/R row slices) x (ceil(B/V) vector groups),
-// the vector group fastest so that the groups reading one range of A run
-// side by side and all but one read it from L2.  The stream is cut into
-// equal ranges of the whole block sequence (a range may cross chunks: the
-// blocks are contiguous) until the grid holds one full wave: the kernel's
-// resident CTAs per SM, which its register count sets (the launcher asks
-// the occupancy API).  __launch_bounds__(128, 4) caps a thread at 128
-// registers: R 8, V 8 takes 123-128 (4 CTAs an SM, 528 on an H100 SXM),
-// R 8, V 4 88-96 (5), without spills.  Blocks are sorted by row-block and
-// every row-block ends with a last-flagged block, so the partial still open
-// at a range's end is added into the row-block of its last block and the
-// next range adds the rest (B1's chunk-boundary rule); padding blocks add
-// zeros and never flush.
-//
-// Flush (a last-flagged block, and a range's end): the R*V values are
-// reduced across the warp by recursive halving (each shuffle step a thread
-// keeps half its values and sends the other half: 62 shuffles for 64
-// values), the 4 warps are combined through a double-buffered shared array
-// (one barrier a flush), and each live output is one atomicAdd into y.
-// Columns past B are neither loaded nor written.
+// Design: block_vec.cuh's chunked_vec_kernel with kWindowed false (lane l
+// of block k reads x row cb): B1's kernel with V vectors a thread,
+// acc[R][V] in registers, no shared-memory staging, a grid of equal block
+// ranges x row slices x vector groups filling one wave, and a flush by
+// recursive halving across the warp.  __launch_bounds__(128, 4) caps a
+// thread at 128 registers: R 8, V 8 takes 123-128 (4 CTAs an SM, 528 on an
+// H100 SXM), R 8, V 4 88-96 (5), without spills.  Issuing the next block's
+// loads before the current block's FMAs was faster on an H100 SXM than
+// loading each block where it is used.
 //
 // Bound: at small B the payload bytes (HBM, read once by the one vector
 // group); at large B the re-reads of A by ceil(B/V) groups (from L2) and
 // the FMAs (R*V a payload value).  V is 8, so a payload value read feeds 8
 // FMAs and a trans5-like stream at B 8 reads its payload once (V 8 beat V 4
 // at B 8 and 64 on an H100 SXM); 4 at B <= 4, and when V 8 would leave SMs
-// without a CTA (see pick_v).  All arithmetic
-// is fp32 FMA (the TPU kernel runs at Precision.HIGHEST), no TF32; a bf16
-// payload is widened on load.  The order of the atomic additions varies
-// from run to run, so results agree with the plain version to fp32
-// rounding, not bit for bit.
+// without a CTA (pick_v).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
-#include <atomic>
-#include <climits>
 #include <cstdint>
 
-#include "block_stream.cuh"
-
-namespace {
-
-using hispmv::kLanes;
-using hispmv::kWarps;
-using hispmv::to_f32;
-
-constexpr int kMaxRows = 8;  // R at most: 64 accumulators at V 8
-constexpr int kMinCtas = 4;  // __launch_bounds__: 128 registers a thread
-constexpr int kSms = 132;    // H100 SXM, for pick_v
-
-// The V values xb[.., b0 : b0 + V] at src (zeros past the batch).
-template <int V, bool kVec4>
-__device__ __forceinline__ void load_x(const float* __restrict__ src,
-                                       int live, float (&xv)[V]) {
-  if constexpr (kVec4) {  // live is a multiple of 4: all four or none
-#pragma unroll
-    for (int u = 0; u < V / 4; ++u) {
-      float4 f = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (4 * u < live) f = __ldg(reinterpret_cast<const float4*>(src) + u);
-      xv[4 * u] = f.x;
-      xv[4 * u + 1] = f.y;
-      xv[4 * u + 2] = f.z;
-      xv[4 * u + 3] = f.w;
-    }
-  } else {
-#pragma unroll
-    for (int v = 0; v < V; ++v) xv[v] = v < live ? __ldg(src + v) : 0.f;
-  }
-}
-
-// Reduces the N values of every lane across the warp by recursive halving:
-// at offset 16, 8, ... a lane keeps the lower half of its M values (upper,
-// if its bit of the offset is set), adds its partner's copy of that half
-// and sends the other half, until one value is left; further offsets add
-// the partner's value.  Afterwards a[0 : max(1, N/32)) hold warp totals of
-// the outputs idx .. idx + N/32 - 1 (idx is accumulated here); lanes that
-// differ only in the bits of those further offsets hold the same totals.
-// Every count is a template parameter, so each loop unrolls and a stays in
-// registers.
-template <int N, int M = N, int OFF = 16>
-__device__ __forceinline__ void halve_across_warp(float (&a)[N], int lane,
-                                                  int& idx) {
-  if constexpr (OFF > 0) {
-    if constexpr (M >= 2) {
-      const bool up = lane & OFF;
-#pragma unroll
-      for (int i = 0; i < M / 2; ++i) {
-        const float lo = a[i];
-        const float hi = a[i + M / 2];
-        a[i] = (up ? hi : lo) +
-               __shfl_xor_sync(0xffffffffu, up ? lo : hi, OFF);
-      }
-      if (up) idx += M / 2;
-      halve_across_warp<N, M / 2, OFF / 2>(a, lane, idx);
-    } else {
-      a[0] += __shfl_xor_sync(0xffffffffu, a[0], OFF);
-      halve_across_warp<N, 1, OFF / 2>(a, lane, idx);
-    }
-  }
-}
-
-// log2 of a power of two, at compile time.
-__host__ __device__ constexpr int log2c(int n) {
-  return n <= 1 ? 0 : 1 + log2c(n / 2);
-}
-
-// Adds the CTA's R*V totals into y_rb (row r, vector v at r*batch + v; only
-// v < live) and zeroes acc.  All 128 threads call it together.
-template <int R, int V>
-__device__ __forceinline__ void flush_vec(float (&acc)[R * V],
-                                          float* __restrict__ y_rb,
-                                          int batch, int live,
-                                          float (&red)[2][kWarps][R * V],
-                                          int& buf) {
-  constexpr int N = R * V;
-  constexpr int kHalvings = log2c(N) < 5 ? log2c(N) : 5;
-  constexpr int kKeep = N >> kHalvings;  // totals a lane holds afterwards
-  constexpr int kLowBits = (1 << (5 - kHalvings)) - 1;  // not halved on
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  int idx = 0;
-  halve_across_warp<N>(acc, lane, idx);
-  // one writer per total: the lane whose bits below the halvings are zero
-  if ((lane & kLowBits) == 0) {
-#pragma unroll
-    for (int i = 0; i < kKeep; ++i) red[buf][warp][idx + i] = acc[i];
-  }
-#pragma unroll
-  for (int i = 0; i < N; ++i) acc[i] = 0.f;
-  // red[buf] complete; red[buf ^ 1] was last read before this barrier's
-  // predecessor, so the next flush may write it without another barrier
-  __syncthreads();
-  const int t = threadIdx.x;
-  if (t < N && t % V < live) {
-    float s = 0.f;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) s += red[buf][w][t];
-    atomicAdd(y_rb + static_cast<size_t>(t / V) * batch + t % V, s);
-  }
-  buf ^= 1;
-}
-
-// One CTA runs blocks k0 .. k1-1 (a range of the whole stream) for rows
-// r0 .. r0+R-1 of each block and vectors b0 .. b0+V-1; see the file comment.
-template <typename T, int R, int V, bool kVec4>
-__global__ void __launch_bounds__(kLanes, kMinCtas)
-    chunked_vec_kernel(const T* __restrict__ data,
-                       const int* __restrict__ meta,
-                       const float* __restrict__ xb, float* __restrict__ y,
-                       int nblocks, int chunk, int bh, int span, int nslice,
-                       int ngroups, int batch) {
-  constexpr int N = R * V;
-  __shared__ float red[2][kWarps][N];
-  const int l = threadIdx.x;
-  int cta = blockIdx.x;
-  const int g = cta % ngroups;
-  cta /= ngroups;
-  const int r0 = (cta % nslice) * R;
-  const int k0 = (cta / nslice) * span;
-  const int k1 = min(k0 + span, nblocks);
-  if (k0 >= k1) return;  // uniform across the CTA
-  const int b0 = g * V;
-  const int live = min(V, batch - b0);
-
-  const T* a_lane = data + static_cast<size_t>(r0) * kLanes + l;
-  const size_t a_step = static_cast<size_t>(bh) * kLanes;  // per block
-  const float* x_lane = xb + static_cast<size_t>(l) * batch + b0;
-  const size_t x_step = static_cast<size_t>(kLanes) * batch;  // per col
-  float* y_slice = y + static_cast<size_t>(r0) * batch + b0;
-  const size_t y_step = static_cast<size_t>(bh) * batch;  // per row-block
-
-  // meta cursor: block k of the stream is column k % chunk of chunk k/chunk
-  int mj = k0 % chunk;
-  const int* mrow = meta + static_cast<size_t>(k0 / chunk) * 2 * chunk;
-  auto next_meta = [&](int& rb2, int& col) {
-    rb2 = __ldg(mrow + mj);
-    col = __ldg(mrow + chunk + mj);
-    if (++mj == chunk) {
-      mj = 0;
-      mrow += 2 * chunk;
-    }
-  };
-  auto load_a = [&](int k, float (&a)[R]) {
-    const T* p = a_lane + static_cast<size_t>(k) * a_step;
-#pragma unroll
-    for (int r = 0; r < R; ++r) a[r] = to_f32(p[r * kLanes]);
-  };
-
-  int rb2, col, rb2n = 0, coln = 0;  // blocks k and k + 1
-  next_meta(rb2, col);
-  if (k0 + 1 < k1) next_meta(rb2n, coln);
-  float a[R], xv[V];
-  load_a(k0, a);
-  load_x<V, kVec4>(x_lane + static_cast<size_t>(col) * x_step, live, xv);
-
-  float acc[N];
-#pragma unroll
-  for (int i = 0; i < N; ++i) acc[i] = 0.f;
-  int buf = 0;
-  bool open = false;  // acc holds blocks not yet flushed
-  int rb_open = rb2 >> 1;
-  for (int k = k0; k < k1; ++k) {
-    // issue block k+1's loads and block k+2's meta before k's FMAs
-    float an[R], xn[V];
-    int rb2nn = 0, colnn = 0;
-    if (k + 1 < k1) {
-      load_a(k + 1, an);
-      load_x<V, kVec4>(x_lane + static_cast<size_t>(coln) * x_step, live,
-                       xn);
-      if (k + 2 < k1) next_meta(rb2nn, colnn);
-    }
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-#pragma unroll
-      for (int v = 0; v < V; ++v) {
-        acc[r * V + v] = fmaf(a[r], xv[v], acc[r * V + v]);
-      }
-    }
-    open = true;
-    rb_open = rb2 >> 1;
-    if (rb2 & 1) {  // uniform across the CTA: meta is per block
-      flush_vec<R, V>(acc, y_slice + static_cast<size_t>(rb_open) * y_step,
-                      batch, live, red, buf);
-      open = false;
-    }
-    if (k + 1 < k1) {
-#pragma unroll
-      for (int r = 0; r < R; ++r) a[r] = an[r];
-#pragma unroll
-      for (int v = 0; v < V; ++v) xv[v] = xn[v];
-      rb2 = rb2n;
-      rb2n = rb2nn;
-      coln = colnn;
-    }
-  }
-  if (open) {  // the row-block continues in the next range
-    flush_vec<R, V>(acc, y_slice + static_cast<size_t>(rb_open) * y_step,
-                    batch, live, red, buf);
-  }
-}
-
-// V for a batch: vpt when it is given (4 or 8); else 8, or 4 when the
-// batch is at most 4 or when V 8 would launch fewer CTAs than the card has
-// SMs even with one block a range.  0 when vpt is neither.
-int pick_v(int batch, long long nblocks, int nslice, int vpt) {
-  if (vpt != 0) return (vpt == 4 || vpt == 8) ? vpt : 0;
-  const long long ctas8 = nblocks * nslice * ((batch + 7) / 8);
-  return (batch <= 4 || ctas8 < kSms) ? 4 : 8;
-}
-
-int rows_per_slice(int bh) { return bh < kMaxRows ? bh : kMaxRows; }
-
-bool bh_ok(int bh) {
-  return bh == 1 || bh == 2 || bh == 4 || bh == 8 || bh == 16 || bh == 32 ||
-         bh == 64;
-}
-
-// The launch shape: V, row slices, blocks a range and CTAs.
-struct Grid {
-  int v, nslice, ngroups, span, ctas;
-};
-
-template <typename T, int R, int V, bool kVec4>
-cudaError_t grid_for(int nblocks, int bh, int batch, Grid* gr) {
-  // resident CTAs an SM, asked once per kernel (the query costs host time
-  // on every launch otherwise)
-  static std::atomic<int> resident{0};
-  int dev = 0, sms = 0, occ = resident.load(std::memory_order_relaxed);
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess) {
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  }
-  if (e == cudaSuccess && occ == 0) {
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &occ, chunked_vec_kernel<T, R, V, kVec4>, kLanes, 0);
-    if (e == cudaSuccess) resident.store(occ, std::memory_order_relaxed);
-  }
-  if (e != cudaSuccess) return e;
-  gr->v = V;
-  gr->nslice = bh / R;
-  gr->ngroups = (batch + V - 1) / V;
-  // equal ranges until the grid holds one wave of resident CTAs
-  const long long per = static_cast<long long>(gr->nslice) * gr->ngroups;
-  long long nranges = static_cast<long long>(occ > 0 ? occ : 1) * sms / per;
-  nranges = nranges < 1 ? 1 : (nranges > nblocks ? nblocks : nranges);
-  gr->span = static_cast<int>((nblocks + nranges - 1) / nranges);
-  nranges = (nblocks + gr->span - 1) / gr->span;
-  if (nranges * per > INT_MAX) return cudaErrorInvalidValue;
-  gr->ctas = static_cast<int>(nranges * per);
-  return cudaSuccess;
-}
-
-template <typename T, int R, int V, bool kVec4>
-int launch_vec(const T* data, const int* meta, const float* xb, float* y,
-               int nblocks, int chunk, int bh, int batch, Grid* out,
-               cudaStream_t stream) {
-  Grid gr;
-  const cudaError_t e = grid_for<T, R, V, kVec4>(nblocks, bh, batch, &gr);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  if (out != nullptr) {  // the shape only, no launch
-    *out = gr;
-    return 0;
-  }
-  chunked_vec_kernel<T, R, V, kVec4><<<gr.ctas, kLanes, 0, stream>>>(
-      data, meta, xb, y, nblocks, chunk, bh, gr.span, gr.nslice, gr.ngroups,
-      batch);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T, int R, int V>
-int launch_aligned(const void* data, const int* meta, const float* xb,
-                   float* y, int nblocks, int chunk, int bh, int batch,
-                   bool vec4, Grid* out, cudaStream_t stream) {
-  const T* d = static_cast<const T*>(data);
-  if (vec4) {
-    return launch_vec<T, R, V, true>(d, meta, xb, y, nblocks, chunk, bh,
-                                     batch, out, stream);
-  }
-  return launch_vec<T, R, V, false>(d, meta, xb, y, nblocks, chunk, bh,
-                                    batch, out, stream);
-}
-
-// vec4: 16-byte x loads (batch % 4 == 0 and xb 16-byte aligned).  With
-// out, computes the launch shape into it and launches nothing.
-template <typename T>
-int launch(const void* data, const int* meta, const float* xb, float* y,
-           int nchunks, int chunk, int bh, int batch, int vpt, bool vec4,
-           Grid* out, cudaStream_t stream) {
-  const long long nb = static_cast<long long>(nchunks) * chunk;
-  if (nchunks <= 0 || chunk <= 0 || batch <= 0 || !bh_ok(bh) ||
-      nb > INT_MAX) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const int nblocks = static_cast<int>(nb);
-  const int R = rows_per_slice(bh);
-  const int V = pick_v(batch, nblocks, bh / R, vpt);
-  if (V == 0) return static_cast<int>(cudaErrorInvalidValue);
-#define HISPMV_B2_LAUNCH(RV, VV)                                          \
-  if (R == RV && V == VV) {                                               \
-    return launch_aligned<T, RV, VV>(data, meta, xb, y, nblocks, chunk,   \
-                                     bh, batch, vec4, out, stream);       \
-  }
-  HISPMV_B2_LAUNCH(1, 4)
-  HISPMV_B2_LAUNCH(1, 8)
-  HISPMV_B2_LAUNCH(2, 4)
-  HISPMV_B2_LAUNCH(2, 8)
-  HISPMV_B2_LAUNCH(4, 4)
-  HISPMV_B2_LAUNCH(4, 8)
-  HISPMV_B2_LAUNCH(8, 4)
-  HISPMV_B2_LAUNCH(8, 8)
-#undef HISPMV_B2_LAUNCH
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-
-}  // namespace
+#include "block_vec.cuh"
 
 extern "C" {
 
@@ -391,11 +44,13 @@ int hispmv_spmv_chunked_batched(const void* data, int data_is_bf16,
   const bool vec4 =
       batch % 4 == 0 && reinterpret_cast<uintptr_t>(xb) % 16 == 0;
   if (data_is_bf16) {
-    return launch<__nv_bfloat16>(data, meta, xb, y, nchunks, chunk, bh,
-                                 batch, vpt, vec4, nullptr, stream);
+    return hispmv::launch_vec_stream<__nv_bfloat16, false>(
+        data, nullptr, meta, xb, y, nchunks, chunk, bh, batch, vpt, vec4,
+        nullptr, stream);
   }
-  return launch<float>(data, meta, xb, y, nchunks, chunk, bh, batch, vpt,
-                       vec4, nullptr, stream);
+  return hispmv::launch_vec_stream<float, false>(
+      data, nullptr, meta, xb, y, nchunks, chunk, bh, batch, vpt, vec4,
+      nullptr, stream);
 }
 
 // The launch shape of hispmv_spmv_chunked_batched for these sizes (f32
@@ -404,16 +59,7 @@ int hispmv_spmv_chunked_batched(const void* data, int data_is_bf16,
 // launcher refuses).
 int hispmv_spmv_chunked_batched_grid(int nchunks, int chunk, int bh,
                                      int batch, int vpt, int* out) {
-  Grid gr;
-  const int rc = launch<float>(nullptr, nullptr, nullptr, nullptr, nchunks,
-                               chunk, bh, batch, vpt, batch % 4 == 0, &gr,
-                               nullptr);
-  if (rc == 0) {
-    out[0] = gr.v;
-    out[1] = gr.nslice;
-    out[2] = gr.ctas;
-  }
-  return rc;
+  return hispmv::vec_stream_grid<false>(nchunks, chunk, bh, batch, vpt, out);
 }
 
 }  // extern "C"

@@ -149,7 +149,11 @@ def get_lib() -> ctypes.CDLL:
             ]
             lib.hispmv_spmv_windowed_batched.restype = i32
             lib.hispmv_spmv_windowed_batched.argtypes = [
-                ptr, i32, ptr, ptr, ptr, ptr, i32, i32, i32, i32, ptr,
+                ptr, i32, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, ptr,
+            ]
+            lib.hispmv_spmv_windowed_batched_grid.restype = i32
+            lib.hispmv_spmv_windowed_batched_grid.argtypes = [
+                i32, i32, i32, i32, i32, ptr,
             ]
             lib.hispmv_spmv_routed_batched.restype = i32
             lib.hispmv_spmv_routed_batched.argtypes = [

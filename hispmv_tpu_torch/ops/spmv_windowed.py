@@ -3,14 +3,18 @@ against B vectors: packer, CUDA kernel wrappers and plain PyTorch versions.
 
 Port of ``hispmv_tpu/ops/spmv_windowed.py`` (``chunk_for_windowed``,
 ``pack_window_chunks``, ``_windowed_kernel`` / ``spmv_windowed_pallas``,
-``_windowed_batched_kernel`` / ``spmv_windowed_batched_pallas``,
-``pack_batch_x``).  The kernels are ``csrc/spmv_windowed.cu`` (B7) and
-``csrc/spmv_windowed_batched.cu`` (B8); they consume the same packed arrays
-as the TPU kernels.  Lane l of block j reads ``x2d[win*8 + subidx[j, l],
-l]`` (plan/windows.py), per vector for B8.
+``_windowed_batched_kernel`` / ``spmv_windowed_batched_pallas``).  The
+kernels are ``csrc/spmv_windowed.cu`` (B7) and
+``csrc/spmv_windowed_batched.cu`` (B8); they consume the same packed block
+arrays as the TPU kernels.  Lane l of block j reads ``x2d[win*8 +
+subidx[j, l], l]`` (plan/windows.py); B8 reads it per vector from x
+vector-minor, ``xt[win*8 + subidx[j, l], l, b]``, where the TPU kernel
+takes x packed [nwin*8, B*128] (the JAX package's ``pack_batch_x``).
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import numpy as np
 import torch
@@ -117,62 +121,57 @@ def spmv_windowed(data3d, subidx3d, meta, x2d, num_row_blocks, block_h,
 spmv_windowed.launches = 0  # kernel launches, for the smoke run's check
 
 
-def pack_batch_x(xb, num_windows: int):
-    """[B, Cp] -> the [nwin*8, B*128] layout of B8: value (s, b*128 + j) is
-    x_b[s*128 + j] (the JAX package's ``pack_batch_x``)."""
-    B = xb.shape[0]
-    S = num_windows * SEGS
-    return xb.reshape(B, S, LANES).transpose(0, 1).reshape(
-        S, B * LANES).contiguous()
-
-
-def spmv_windowed_batched_plain(data3d, subidx3d, meta, x_packed,
-                                num_row_blocks, block_h, chunk):
+def spmv_windowed_batched_plain(data3d, subidx3d, meta, xt, num_row_blocks,
+                                block_h, chunk):
     """Plain PyTorch version of B8 on the same arrays: B7's gather per
-    batch column from ``x_packed`` f32 [nwin*8, B*128], then the products
-    of B2's plain version -> y f32 [num_row_blocks, block_h, B]."""
+    vector from ``xt`` f32 [nwin*8, 128, B], then the products of B2's
+    plain version -> y f32 [num_row_blocks, block_h, B]."""
     nb = data3d.shape[0] * chunk
     a = data3d.reshape(nb, block_h, LANES).float()
     rb = meta[:, 0, :].reshape(-1) >> 1
     win = meta[:, 1, :].reshape(-1)
-    batch = x_packed.shape[1] // LANES
-    x3 = x_packed.reshape(-1, batch, LANES).permute(0, 2, 1)  # [S, 128, B]
     rows = (win[:, None] * SEGS + subidx3d.reshape(nb, LANES)).long()
-    lanes = torch.arange(LANES, device=x_packed.device)
-    y = torch.zeros((num_row_blocks, block_h, batch), dtype=torch.float32,
-                    device=x_packed.device)
-    return block_products(a, lambda sl: x3[rows[sl], lanes], rb, y)
+    lanes = torch.arange(LANES, device=xt.device)
+    y = torch.zeros((num_row_blocks, block_h, xt.shape[2]),
+                    dtype=torch.float32, device=xt.device)
+    return block_products(a, lambda sl: xt[rows[sl], lanes], rb, y)
 
 
-def spmv_windowed_batched(data3d, subidx3d, meta, x_packed, num_row_blocks,
-                          block_h, chunk):
+def spmv_windowed_batched(data3d, subidx3d, meta, xt, num_row_blocks,
+                          block_h, chunk, vpt=0):
     """Run the windowed stream against B vectors; returns y f32
-    [num_row_blocks, block_h, B].  ``x_packed`` f32 [nwin*8, B*128] from
-    :func:`pack_batch_x`.  The kernel covers the batch in panels of at most
-    64 vectors (the TPU kernel's verified gather width) in one launch.  CPU
-    tensors take the plain PyTorch version; CUDA tensors launch the CUDA
-    kernel (csrc/spmv_windowed_batched.cu) or raise."""
+    [num_row_blocks, block_h, B].
+
+    ``data3d``, ``subidx3d`` and ``meta`` as for :func:`spmv_windowed`,
+    ``xt`` f32 [nwin*8, 128, B], x vector-minor (vector b's x[s*128 + l] at
+    ``xt[s, l, b]``).  One launch covers the whole batch: B2's grid of
+    ranges of blocks x row slices x groups of V vectors, V picked by the
+    launcher unless ``vpt`` (4 or 8) names it.  CPU tensors take the plain
+    PyTorch version; CUDA tensors launch the CUDA kernel
+    (csrc/spmv_windowed_batched.cu) or raise."""
     name = "spmv_windowed_batched"
-    check_payload(name, data3d, meta, x_packed, block_h, chunk)
+    check_payload(name, data3d, meta, xt, block_h, chunk)
     _check_subidx(subidx3d, meta, chunk, name)
-    if (x_packed.ndim != 2 or x_packed.shape[1] < LANES
-            or x_packed.shape[1] % LANES):
-        raise ValueError(f"{name}: x must be [n, B*{LANES}], got "
-                         f"{tuple(x_packed.shape)}")
+    if (xt.ndim != 3 or xt.shape[0] % SEGS or xt.shape[1] != LANES
+            or xt.shape[2] < 1):
+        raise ValueError(f"{name}: x must be [nwin*{SEGS}, {LANES}, B], got "
+                         f"{tuple(xt.shape)}")
+    if vpt not in (0, 4, 8):
+        raise ValueError(f"{name}: vpt={vpt}, want 0, 4 or 8")
     if data3d.device.type == "cpu":
         return spmv_windowed_batched_plain(
-            data3d, subidx3d, meta, x_packed, num_row_blocks, block_h, chunk
+            data3d, subidx3d, meta, xt, num_row_blocks, block_h, chunk
         )
-    check_cuda_args(name, block_h, data3d, subidx3d, meta, x_packed)
+    check_cuda_args(name, block_h, data3d, subidx3d, meta, xt)
     lib = cuda_build.get_lib()
-    batch = x_packed.shape[1] // LANES
+    batch = xt.shape[2]
     y = torch.zeros((num_row_blocks, block_h, batch), dtype=torch.float32,
-                    device=x_packed.device)
-    with torch.cuda.device(x_packed.device):
+                    device=xt.device)
+    with torch.cuda.device(xt.device):
         rc = lib.hispmv_spmv_windowed_batched(
             data3d.data_ptr(), int(data3d.dtype == torch.bfloat16),
-            subidx3d.data_ptr(), meta.data_ptr(), x_packed.data_ptr(),
-            y.data_ptr(), data3d.shape[0], chunk, block_h, batch,
+            subidx3d.data_ptr(), meta.data_ptr(), xt.data_ptr(),
+            y.data_ptr(), data3d.shape[0], chunk, block_h, batch, vpt,
             torch.cuda.current_stream().cuda_stream,
         )
     cuda_build.check(rc, name)
@@ -181,3 +180,16 @@ def spmv_windowed_batched(data3d, subidx3d, meta, x_packed, num_row_blocks,
 
 
 spmv_windowed_batched.launches = 0  # kernel launches, for the smoke check
+
+
+def windowed_batched_grid(batch, nchunks, chunk, block_h, vpt=0):
+    """B8's launch shape for a batch of ``batch`` on ``nchunks`` chunks of
+    ``chunk`` blocks of height ``block_h``: (V, row slices, CTAs), as
+    :func:`~hispmv_tpu_torch.ops.spmv_chunked.chunked_batched_grid` gives
+    B2's.  Needs the built library and a card (the CTA count follows the
+    kernel's occupancy)."""
+    out = (ctypes.c_int * 3)()
+    rc = cuda_build.get_lib().hispmv_spmv_windowed_batched_grid(
+        nchunks, chunk, block_h, batch, vpt, ctypes.addressof(out))
+    cuda_build.check(rc, "windowed_batched_grid")
+    return tuple(out)

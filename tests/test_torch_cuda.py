@@ -83,12 +83,12 @@ from hispmv_tpu_torch.ops.spmv_gathered import (
 )
 from hispmv_tpu_torch.ops.spmv_windowed import (
     chunk_for_windowed,
-    pack_batch_x,
     pack_window_chunks,
     spmv_windowed,
     spmv_windowed_batched,
     spmv_windowed_batched_plain,
     spmv_windowed_plain,
+    windowed_batched_grid,
 )
 from hispmv_tpu_torch.ops.spmv_routed import (
     pack_stream,
@@ -439,22 +439,102 @@ def test_b2_launcher_picks_v(dev):
         grid(8, 1, 8, 8, 16)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B", [1, 7, 64])
-@pytest.mark.parametrize("bh", [1, 8, 64])
-@pytest.mark.parametrize("name", ["random", "banded"])
-def test_b8_kernel_matches_plain(dev, name, bh, B, dtype):
-    data, subidx, meta, x2d, nrb, bh, chunk = _b7_args(name, bh, None,
-                                                       dtype, dev)
-    nwin = x2d.shape[0] // SEGS
-    xp = pack_batch_x(_batch(B, x2d.numel(), dev, seed=B), nwin)
-    args = (data, subidx, meta, xp, nrb, bh, chunk)
+def _b8_run(args, vpt=0):
     before = spmv_windowed_batched.launches
-    y = spmv_windowed_batched(*args)
+    y = spmv_windowed_batched(*args, vpt=vpt)
     torch.cuda.synchronize()
     assert spmv_windowed_batched.launches == before + 1
-    assert y.shape == (nrb, bh, B)
+    _, _, _, xt, nrb, bh, _ = args
+    assert y.shape == (nrb, bh, xt.shape[2]) and y.dtype == torch.float32
     assert_close(y, spmv_windowed_batched_plain(*args))
+
+
+def _b8_args(name, bh, dtype, B, dev, seed=None):
+    """B7's arrays and a batch of B vectors, x vector-minor [nwin*8, 128,
+    B]."""
+    data, subidx, meta, x2d, nrb, bh, chunk = _b7_args(name, bh, None, dtype,
+                                                       dev)
+    xt = _vector_minor(_batch(B, x2d.numel(), dev,
+                              seed=B if seed is None else seed))
+    return (data, subidx, meta, xt, nrb, bh, chunk)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B", [1, 4, 7, 8, 9, 64])
+@pytest.mark.parametrize("bh", [1, 8, 16, 64])
+@pytest.mark.parametrize("name", ["random", "banded"])
+def test_b8_kernel_matches_plain(dev, name, bh, B, dtype):
+    """B2's cases with the window gather: row slices (bh 16, 64, each
+    re-reading subidx), masked vector groups (B 1, 7, 9), 16-byte and
+    4-byte x loads; V pinned to 4 and 8 on the f32 random cases."""
+    args = _b8_args(name, bh, dtype, B, dev)
+    pinned = (4, 8) if name == "random" and dtype == torch.float32 else ()
+    for vpt in (0,) + pinned:
+        _b8_run(args, vpt)
+
+
+def test_b8_kernel_batch_past_one_panel(dev):
+    """130 vectors: 17 groups of V 8 in one launch, the last masked (the
+    staged design ran panels of 64)."""
+    _b8_run(_b8_args("banded", 8, torch.float32, 130, dev, seed=2))
+
+
+@pytest.mark.parametrize("B", [4, 8])
+def test_b8_kernel_unaligned_x(dev, B):
+    """An xt that is contiguous but not 16-byte aligned takes the 4-byte
+    loads at a batch that is a multiple of 4."""
+    data, subidx, meta, xt0, nrb, bh, chunk = _b8_args("banded", 8,
+                                                       torch.float32, B, dev)
+    flat = torch.zeros(xt0.numel() + 1, device=dev)
+    xt = flat[1:].view(xt0.shape)
+    xt.copy_(xt0)
+    assert xt.data_ptr() % 16 != 0 and xt.is_contiguous()
+    for vpt in (4, 8):
+        _b8_run((data, subidx, meta, xt, nrb, bh, chunk), vpt)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_b8_kernel_row_block_across_ranges(dev, dtype):
+    """Eight dense rows of 100,000 columns beside a sparse rest: one
+    row-block of ~780 window blocks spans dozens of chunks of 16 and many
+    ranges, and the others flush every few blocks."""
+    rng = np.random.default_rng(21)
+    n = 100_000
+    dense_r = np.repeat(np.arange(8, 16), n)
+    dense_c = np.tile(np.arange(n), 8)
+    sp = random_coo(4000, n, 2_000, seed=22)
+    coo = COOMatrix((4000, n), np.concatenate([dense_r, sp.rows]),
+                    np.concatenate([dense_c, sp.cols]),
+                    rng.standard_normal(8 * n + sp.nnz).astype(np.float32))
+    plan = build_window_plan(coo, 8)
+    data3d, subidx3d, meta, nch = pack_window_chunks(plan, 16)
+    assert np.bincount(plan.block_rows).max() > 10 * 16
+    xt = _vector_minor(_batch(8, plan.num_windows * SEGS * 128, dev,
+                              seed=4))
+    args = (torch.from_numpy(data3d).to(dev, dtype),
+            torch.from_numpy(subidx3d).to(dev),
+            torch.from_numpy(meta).to(dev), xt, plan.num_row_blocks, 8, 16)
+    assert windowed_batched_grid(8, nch, 16, 8)[2] > nch
+    for vpt in (0, 4):
+        _b8_run(args, vpt)
+
+
+def test_b8_launcher_picks_v(dev):
+    """B2's launcher rule: V 8, or 4 at B <= 4 and when V 8 would leave SMs
+    (132) idle; vpt names 4 or 8 and nothing else; row slices of 8 rows
+    past bh 8, and a grid of at most one wave that covers every slice and
+    vector group."""
+    grid = windowed_batched_grid
+    assert [grid(B, 100, 256, 8)[0] for B in (1, 4, 5, 64)] == [4, 4, 8, 8]
+    assert grid(8, 1, 128, 1)[0] == 4  # 128 CTAs at V 8
+    assert grid(8, 1, 136, 1)[0] == 8
+    assert [grid(8, 1, 8, 64, v)[0] for v in (4, 8)] == [4, 8]
+    assert [grid(8, 1, 8, bh)[1] for bh in (1, 8, 16, 64)] == [1, 1, 2, 8]
+    V, slices, ctas = grid(64, 100, 256, 64)
+    assert ctas % (slices * 64 // V) == 0
+    assert grid(130, 100, 256, 8)[2] % 17 == 0  # 17 vector groups of 8
+    with pytest.raises(RuntimeError, match="launch failed"):
+        grid(8, 1, 8, 8, 16)
 
 
 def _b10_stream_cases(name):

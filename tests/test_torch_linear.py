@@ -40,7 +40,6 @@ from hispmv_tpu_torch.ops.spmv_chunked import (
 )
 from hispmv_tpu_torch.ops.spmv_ellx import build_ellx_plan, ellx_matvec_batched
 from hispmv_tpu_torch.ops.spmv_windowed import (
-    pack_batch_x,
     pack_window_chunks,
     spmv_windowed_batched,
     spmv_windowed_batched_plain,
@@ -135,24 +134,32 @@ def test_b2_wrapper_on_cpu_takes_plain_version_and_checks_arguments():
         spmv_chunked_batched(*(a.to("meta") for a in args[:3]), *args[3:])
 
 
-@pytest.mark.parametrize("B", [1, 3, 8])
-@pytest.mark.parametrize("bh", [1, 8])
+def _xt(xb):
+    """[B, C] -> x vector-minor [C/128, 128, B], B8's x."""
+    return torch.from_numpy(xb).T.reshape(-1, 128, xb.shape[0]).contiguous()
+
+
+@pytest.mark.parametrize("B", [1, 3, 8, 9])
+@pytest.mark.parametrize("bh", [1, 8, 16])
 def test_plain_b8_matches_pallas(bh, B):
     coo = _case("banded")
     plan = build_window_plan(coo, bh)
     data3d, subidx3d, meta, _ = pack_window_chunks(plan, 16)
     xb = batch(B, plan.num_windows * SEGS * 128, seed=6)
-    xp = pack_batch_x(torch.from_numpy(xb), plan.num_windows)
+    xt = _xt(xb)
+    assert xt.shape == (plan.num_windows * SEGS, 128, B)
+    # the same x as the TPU kernel's packed [nwin*8, B*128], value for value
+    xp = np.asarray(jpack_batch_x(jnp.asarray(xb), plan.num_windows))
     np.testing.assert_array_equal(
-        xp.numpy(), np.asarray(jpack_batch_x(jnp.asarray(xb),
-                                             plan.num_windows)))
+        xt.permute(0, 2, 1).reshape(plan.num_windows * SEGS, B * 128).numpy(),
+        xp)
     y = spmv_windowed_batched_plain(
         torch.from_numpy(data3d), torch.from_numpy(subidx3d),
-        torch.from_numpy(meta), xp, plan.num_row_blocks, bh, 16)
+        torch.from_numpy(meta), xt, plan.num_row_blocks, bh, 16)
+    assert y.shape == (plan.num_row_blocks, bh, B)
     jy = spmv_windowed_batched_pallas(
         jnp.asarray(data3d), jnp.asarray(subidx3d), jnp.asarray(meta),
-        jnp.asarray(xp.numpy()), plan.num_row_blocks, bh, 16,
-        interpret=True)
+        jnp.asarray(xp), plan.num_row_blocks, bh, 16, interpret=True)
     assert_close(y.numpy(), np.asarray(jy))
     assert_golden(y.numpy().reshape(-1, B)[:coo.num_rows].T, coo,
                   xb[:, :coo.num_cols])
@@ -163,18 +170,30 @@ def test_b8_wrapper_on_cpu_takes_plain_version_and_checks_arguments():
     data3d, subidx3d, meta, _ = pack_window_chunks(plan, 16)
     xb = batch(2, plan.num_windows * SEGS * 128, seed=7)
     args = (torch.from_numpy(data3d), torch.from_numpy(subidx3d),
-            torch.from_numpy(meta),
-            pack_batch_x(torch.from_numpy(xb), plan.num_windows),
-            plan.num_row_blocks, 8, 16)
+            torch.from_numpy(meta), _xt(xb), plan.num_row_blocks, 8, 16)
     before = spmv_windowed_batched.launches
     torch.testing.assert_close(spmv_windowed_batched(*args),
                                spmv_windowed_batched_plain(*args), rtol=0,
                                atol=0)
+    for vpt in (0, 4, 8):  # V is the kernel's; the plain version ignores it
+        torch.testing.assert_close(spmv_windowed_batched(*args, vpt=vpt),
+                                   spmv_windowed_batched_plain(*args),
+                                   rtol=0, atol=0)
     assert spmv_windowed_batched.launches == before
-    with pytest.raises(ValueError, match="B\\*128"):
-        spmv_windowed_batched(*args[:3], args[3][:, :100], *args[4:])
+    for vpt in (1, 3, 16):
+        with pytest.raises(ValueError, match=f"vpt={vpt}"):
+            spmv_windowed_batched(*args, vpt=vpt)
+    xt = args[3]
+    for bad in (xt[:, :100], xt[:, :, 0], xt[1:],
+                xt.permute(0, 2, 1).reshape(xt.shape[0], -1)):
+        with pytest.raises(ValueError, match="B\\]"):
+            spmv_windowed_batched(*args[:3], bad, *args[4:])
     with pytest.raises(TypeError, match="subidx"):
         spmv_windowed_batched(args[0], args[1].long(), *args[2:])
+    with pytest.raises(TypeError, match="x float32"):
+        spmv_windowed_batched(*args[:3], xt.double(), *args[4:])
+    with pytest.raises(ValueError, match="no kernel"):
+        spmv_windowed_batched(*(a.to("meta") for a in args[:4]), *args[4:])
 
 
 # ---------------------------------------------------------------------------
