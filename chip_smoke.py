@@ -48,7 +48,9 @@ its y, and each routed ``linear`` line carries the sum of B10's device
 time over the handle's streams beside cuSPARSE SpMM of the whole matrix.
 B2 is also run directly on TSOPF_RS_b2383's arrays at B 64 and timed at V
 4 and 8 on each of its cases, and B8 (x vector-minor, as B2's and B10's)
-likewise on crystk03's window handle and the MLP's fc3 at B 64.
+likewise on crystk03's window handle and the MLP's fc3 at B 64.  B1 and B7
+(B2's and B8's kernel at one vector) are timed at V 1 and 4 on each of
+their cases, and their lines name V, the row slices and the CTAs.
 It exits nonzero, without a result line, when there is
 no CUDA card or any check fails.  The last line of standard output is
 ``{"ok": true, "device": {...}}``.
@@ -1142,25 +1144,7 @@ def kernel_checks(handles, linear_x, accel, extra_cases, failures):
     linear runs and on the MLP's fc3 activations; ``extra_cases`` from the
     sharded paths and the ops entry), timed beside its bound and its
     library call; launches here are not counted."""
-    cases = []
-    h, xd = handles["TSOPF_RS_b2383 block"]
-    p = h.plan
-    cases.append(("spmv_chunked", "TSOPF_RS_b2383 block, bh 8",
-                  (h._d["data"], h._d["meta"], h._pad_x(xd).reshape(-1, 128),
-                   p.num_row_blocks, p.block_h, h._chunk)))
-    h, xd = handles["trans5 auto"]
-    p = h.plan
-    cases.append(("spmv_chunked", "trans5 ELLX overflow, bh 8",
-                  (h._d["odata"], h._d["ometa"],
-                   h._pad_x(xd).reshape(-1, 128),
-                   p.overflow.num_row_blocks, p.block_h, h._chunk)))
-    for label in ("crystk03 auto", "crystk03 window bh64"):
-        h, xd = handles[label]
-        p = h.plan
-        cases.append(("spmv_windowed", f"{label}, bh {p.block_h}",
-                      (h._d["data"], h._d["subidx"], h._d["meta"],
-                       h._pad_x(xd).reshape(-1, 128), p.num_row_blocks,
-                       p.block_h, h._wchunk)))
+    cases = b1_b7_cases(handles)
     for label in ("trans5 routed", "ford2 routed"):
         h, xd = handles[label]
         meta = h._routed_meta
@@ -1431,6 +1415,41 @@ def gathered_chain(gath, failures):
             "max_abs_err": err}
 
 
+def b1_b7_cases(handles):
+    """B1 on the arrays and x of the main path's TSOPF block and trans5
+    ELLX overflow runs, B7 on crystk03's (auto, bh 8; window, bh 64); each
+    label names V, the row slices and the CTAs of the launch (B2's and
+    B8's grid at one vector)."""
+    cases = []
+    for label, key, ov in (("TSOPF_RS_b2383 block", "TSOPF_RS_b2383 block",
+                            ""),
+                           ("trans5 ELLX overflow", "trans5 auto", "o")):
+        h, xd = handles[key]
+        p = h.plan
+        data = h._d[ov + "data"]
+        V, slices, ctas = chunked_batched_grid(1, data.shape[0], h._chunk,
+                                               p.block_h)
+        cases.append(("spmv_chunked",
+                      f"{label}, bh {p.block_h}, V {V}, {slices} row slices, "
+                      f"{ctas} CTAs",
+                      (data, h._d[ov + "meta"], h._pad_x(xd).reshape(-1, 128),
+                       (p.overflow if ov else p).num_row_blocks, p.block_h,
+                       h._chunk)))
+    for label in ("crystk03 auto", "crystk03 window bh64"):
+        h, xd = handles[label]
+        p = h.plan
+        data = h._d["data"]
+        V, slices, ctas = windowed_batched_grid(1, data.shape[0], h._wchunk,
+                                                p.block_h)
+        cases.append(("spmv_windowed",
+                      f"{label}, bh {p.block_h}, V {V}, {slices} row slices, "
+                      f"{ctas} CTAs",
+                      (data, h._d["subidx"], h._d["meta"],
+                       h._pad_x(xd).reshape(-1, 128), p.num_row_blocks,
+                       p.block_h, h._wchunk)))
+    return cases
+
+
 def batched_cases(handles, linear_x, accel):
     """B2, B8 and B10 on the arrays and batches of the linear runs, and B8
     on the MLP's fc3 at batch 64."""
@@ -1505,20 +1524,20 @@ def b8_cases(handles, linear_x, accel):
     return cases
 
 
-def v_sweep(cases, name, tag):
-    """The device time of kernel ``name`` (B2 or B8, logged as ``tag``) on
-    each of its cases at each V it is built for.  Launches here are not
-    counted."""
+def v_sweep(cases, name, tag, vpts=(4, 8)):
+    """The device time of kernel ``name`` (B1, B2, B7 or B8, logged as
+    ``tag``) on each of its cases at each V of ``vpts``.  Launches here are
+    not counted."""
     wrapper = KERNELS[name]["wrapper"]
     rows = []
     for n, shape, args in cases:
         if n != name:
             continue
         row = {"case": shape}
-        for vpt in (4, 8):
+        for vpt in vpts:
             row[f"V{vpt}_ms"] = device_ms(lambda: wrapper(*args, vpt=vpt))
-        log(f"  {tag} [{shape}]: device ms at V 4 {_ms(row['V4_ms'])}, "
-            f"V 8 {_ms(row['V8_ms'])}")
+        log(f"  {tag} [{shape}]: device ms at " + ", ".join(
+            f"V {v} {_ms(row[f'V{v}_ms'])}" for v in vpts))
         rows.append(row)
     return rows
 
@@ -1672,6 +1691,9 @@ def main() -> int:
                        "B2")
     b8_sweep = v_sweep(b8_cases(handles, linear_x, accel),
                        "spmv_windowed_batched", "B8")
+    b1_cases = b1_b7_cases(handles)
+    b1_sweep = v_sweep(b1_cases, "spmv_chunked", "B1", (1, 4))
+    b7_sweep = v_sweep(b1_cases, "spmv_windowed", "B7", (1, 4))
     perm_times = permute_vs_gather(handles, failures)
     chain = None if gath is None else gathered_chain(gath, failures)
     log(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**20:.0f}"
@@ -1691,7 +1713,8 @@ def main() -> int:
                     "large_block": large_runs, "gathered": gath_row,
                     "gathered_chain": chain, "permutation": perm_times,
                     "b10_v_sweep": sweep, "b2_v_sweep": b2_sweep,
-                    "b8_v_sweep": b8_sweep}))
+                    "b8_v_sweep": b8_sweep, "b1_v_sweep": b1_sweep,
+                    "b7_v_sweep": b7_sweep}))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     if failures:
         for f in failures:

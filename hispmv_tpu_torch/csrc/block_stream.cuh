@@ -1,22 +1,19 @@
-// Shared device code of the block-stream SpMV kernels
-// (spmv_chunked.cu: B1, spmv_chunked_paneled.cu: B3, spmv_chunked_tiled.cu:
-// B4, spmv_windowed.cu: B7, and the tile flush of spmv_block.cu: B5; its
-// constants and to_f32 also serve block_vec.cuh and block_stream_batched.cuh).
+// Shared device code of the one-CTA-a-chunk block streams
+// (spmv_chunked_paneled.cu: B3, spmv_chunked_tiled.cu: B4) and the tile
+// flush of spmv_block.cu (B5); its constants and to_f32 also serve
+// block_vec.cuh (B1, B2, B7, B8) and block_stream_batched.cuh (B6).
 //
 // They consume the packed arrays of the JAX package unchanged:
-//   data      [nchunks, chunk*BH, 128] f32 or bf16 block payloads
-//   meta      [nchunks, 2, chunk]      i32: meta[c,0,j] = row_block*2 + last,
-//                                           meta[c,1,j] = col block (B1, B3;
-//                                           local to the panel for B3) or
-//                                           1024-column window (B7); B4's
-//                                           rows are local to the y panel
-//   subidx    [nchunks, chunk, 128]    i32 in [0, 8) (B7 only)
-//   panel_ids [nchunks]                i32 x panel of each chunk (B3, B4)
-//   ypanel_ids [nchunks]               i32 y panel of each chunk (B4 only)
-//   x2d       [ncb, 128] (B1), [npanels*panel_ncb, 128] (B3, B4) or
-//             [nwin*8, 128] (B7) f32
-//   y         [nrb, BH] (B4: [npanels_y*panel_nrb, BH]) f32, zeroed by the
-//             caller; the kernel only adds to it.
+//   data       [nchunks, chunk*BH, 128] f32 or bf16 block payloads
+//   meta       [nchunks, 2, chunk]      i32: meta[c,0,j] = row_block*2 +
+//                                           last, meta[c,1,j] = col block
+//                                           local to the x panel; B4's rows
+//                                           are local to the y panel
+//   panel_ids  [nchunks]                i32 x panel of each chunk
+//   ypanel_ids [nchunks]                i32 y panel of each chunk (B4 only)
+//   x2d        [npanels*panel_ncb, 128] f32
+//   y          [nrb, BH] (B4: [npanels_y*panel_nrb, BH]) f32, zeroed by the
+//              caller; the kernel only adds to it.
 //
 // Design.  One CTA per chunk, one thread per lane (128 threads), BH fp32
 // accumulators in registers per thread: thread l holds column l of the
@@ -45,7 +42,6 @@ namespace hispmv {
 
 constexpr int kLanes = 128;  // block width == threads per CTA
 constexpr int kWarps = kLanes / 32;
-constexpr int kSegs = 8;  // column segments per 1024-column window (B7)
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
@@ -85,16 +81,14 @@ __device__ __forceinline__ void flush_tile(float (&acc)[BH],
   __syncthreads();  // red is reused by the next flush
 }
 
-// One CTA streams one chunk of `chunk` blocks.  WINDOWED selects B7's x
-// gather (lane l reads x2d[win*8 + subidx[j, l], l]) over B1's
-// (lane l reads x2d[cb, l]).  PANELED (B3): chunk c reads x from row
-// panel_ids[c] * panel_ncb of x2d on.  TILED (B4, with PANELED): chunk c
-// also adds into y from row-block ypanel_ids[c] * panel_nrb on.  Each is a
-// template flag: a runtime branch on the panel offset slowed B1 by 65%.
-template <typename T, int BH, bool WINDOWED, bool PANELED, bool TILED>
+// One CTA streams one chunk of `chunk` blocks; lane l of block j reads
+// x2d[cb, l] of chunk c's x panel, from row panel_ids[c] * panel_ncb of
+// x2d on (B3).  TILED (B4): chunk c also adds into y from row-block
+// ypanel_ids[c] * panel_nrb on.  TILED is a template flag: a runtime
+// branch on the panel offset slowed this kernel by 65%.
+template <typename T, int BH, bool TILED>
 __global__ void __launch_bounds__(kLanes)
     block_stream_kernel(const T* __restrict__ data,
-                        const int* __restrict__ subidx,
                         const int* __restrict__ meta,
                         const int* __restrict__ panel_ids,
                         const int* __restrict__ ypanel_ids,
@@ -105,11 +99,9 @@ __global__ void __launch_bounds__(kLanes)
   const int l = threadIdx.x;
   const size_t c = blockIdx.x;
   const int* rows = meta + c * 2 * chunk;  // row_block*2 + last
-  const int* cols = rows + chunk;          // col block or window
+  const int* cols = rows + chunk;          // col block in the panel
   const T* a = data + c * chunk * BH * kLanes + l;
-  if constexpr (PANELED) {
-    x2d += static_cast<size_t>(panel_ids[c]) * panel_ncb * kLanes;
-  }
+  x2d += static_cast<size_t>(panel_ids[c]) * panel_ncb * kLanes;
   if constexpr (TILED) {
     y += static_cast<size_t>(ypanel_ids[c]) * panel_nrb * BH;
   }
@@ -121,13 +113,7 @@ __global__ void __launch_bounds__(kLanes)
   bool open = false;  // the tile holds blocks not yet flushed
   for (int j = 0; j < chunk; ++j) {
     const int rb2 = rows[j];
-    float xv;
-    if constexpr (WINDOWED) {
-      const int sub = subidx[(c * chunk + j) * kLanes + l];
-      xv = x2d[(static_cast<size_t>(cols[j]) * kSegs + sub) * kLanes + l];
-    } else {
-      xv = x2d[static_cast<size_t>(cols[j]) * kLanes + l];
-    }
+    const float xv = x2d[static_cast<size_t>(cols[j]) * kLanes + l];
     const T* ab = a + static_cast<size_t>(j) * BH * kLanes;
 #pragma unroll
     for (int r = 0; r < BH; ++r) {
@@ -145,22 +131,20 @@ __global__ void __launch_bounds__(kLanes)
   }
 }
 
-template <typename T, bool WINDOWED, bool PANELED = false, bool TILED = false>
-int launch_block_stream(const void* data, const int* subidx, const int* meta,
+template <typename T, bool TILED>
+int launch_block_stream(const void* data, const int* meta,
                         const int* panel_ids, const float* x2d, float* y,
                         int nchunks, int chunk, int bh, int panel_ncb,
                         cudaStream_t stream, const int* ypanel_ids = nullptr,
                         int panel_nrb = 0) {
-  static_assert(!TILED || PANELED, "TILED streams x in panels too");
   if (nchunks <= 0 || chunk <= 0) return static_cast<int>(cudaErrorInvalidValue);
   const T* d = static_cast<const T*>(data);
   const dim3 grid(nchunks), block(kLanes);
 #define HISPMV_LAUNCH(BHV)                                                 \
   case BHV:                                                                \
-    block_stream_kernel<T, BHV, WINDOWED, PANELED, TILED>                  \
-        <<<grid, block, 0, stream>>>(d, subidx, meta, panel_ids,           \
-                                     ypanel_ids, x2d, y, chunk, panel_ncb, \
-                                     panel_nrb);                           \
+    block_stream_kernel<T, BHV, TILED><<<grid, block, 0, stream>>>(        \
+        d, meta, panel_ids, ypanel_ids, x2d, y, chunk, panel_ncb,          \
+        panel_nrb);                                                        \
     break;
   switch (bh) {
     HISPMV_LAUNCH(1)

@@ -7,9 +7,9 @@
 //   y  [nrb, BH, B] f32, zeroed by the caller; the run's last block stores
 //      its row-block's outputs.
 //
-// Why not B1's design.  B1 keeps one lane's partial for BH rows in each
-// thread and reduces the 128 lanes at a flush; with B vectors that is BH*B
-// registers a thread (512 at bh 8, B 64).  Here the reduction over the 128
+// Why not block_stream.cuh's design.  It keeps one lane's partial for BH
+// rows in each thread and reduces the 128 lanes at a flush; with B vectors
+// that is BH*B registers a thread (512 at bh 8, B 64).  Here the reduction over the 128
 // lanes happens per block instead, as the (BH, 128) x (128, P) product the
 // TPU kernel hands to its MXU, and each thread keeps finished outputs.  (B2
 // and B8 hold only R*V partials a thread, block_vec.cuh.)

@@ -1,26 +1,28 @@
-// Shared device code of the batched block streams that read x vector-minor
-// (spmv_chunked_batched.cu: B2; spmv_windowed_batched.cu: B8), on Hopper
-// (sm_90a).
+// Shared device code of the block streams (spmv_chunked.cu: B1,
+// spmv_chunked_batched.cu: B2, spmv_windowed.cu: B7,
+// spmv_windowed_batched.cu: B8) on Hopper (sm_90a).  B1 and B7 are B2 and
+// B8 at one vector: x2d [ncb, 128] is xt [ncb, 128, 1] and y [nrb, bh] is
+// y [nrb, bh, 1], in the same memory.
 //
 // Arrays: data [nchunks, chunk*bh, 128] f32 or bf16, meta [nchunks, 2,
 // chunk] i32 (row_block*2 + last, col block or window), y [nrb, bh, B] f32
 // zeroed by the caller, and x vector-minor: x row s, lane l of vector b at
 // x[(s*128 + l)*B + b].  Block k's x row for lane l is its col block
-// (B2), or with kWindowed window*8 + subidx[k*128 + l] (B8: subidx
+// (B1, B2), or with kWindowed window*8 + subidx[k*128 + l] (B7, B8: subidx
 // [nchunks, chunk, 128] i32, one word a lane, coalesced).  kWindowed is a
-// template parameter, never a runtime branch (one in block_stream_kernel
+// template parameter, never a runtime branch (one in a shared template
 // once slowed B1 by 65%).
 //
-// Design: B1's kernel (block_stream.cuh) with V vectors a thread.  A CTA
-// has 128 threads and thread l owns lane l; it holds acc[R][V] in
-// registers, R = min(bh, 8) rows of the block and V (4 or 8) vectors.  Per
-// block it loads its R payload values (each warp reads one 128-byte row a
-// load, coalesced) and the V contiguous values of its x row (two 16-byte
-// loads when B % 4 == 0 and x is 16-byte aligned, else masked 4-byte
-// loads), then does R*V fp32 FMAs.  There is no shared memory and no
-// barrier per block, and the next block's loads (and the meta words, and
-// with kWindowed the subidx word, of the block after it) are issued before
-// the current block's FMAs, so an x load never waits on a fresh index load.
+// Design: a lane-per-thread stream with V vectors a thread.  A CTA has 128
+// threads and thread l owns lane l; it holds acc[R][V] in registers, R =
+// min(bh, 8) rows of the block and V (1, 4 or 8) vectors.  Per block it
+// loads its R payload values (each warp reads one 128-byte row a load,
+// coalesced) and the V contiguous values of its x row (two 16-byte loads
+// when B % 4 == 0 and x is 16-byte aligned, else masked 4-byte loads),
+// then does R*V fp32 FMAs.  There is no shared memory and no barrier per
+// block, and the next block's loads (and the meta words, and with
+// kWindowed the subidx word, of the block after it) are issued before the
+// current block's FMAs, so an x load never waits on a fresh index load.
 //
 // Grid: (ranges of blocks) x (bh/R row slices) x (ceil(B/V) vector groups),
 // the vector group fastest so that the groups reading one range of A run
@@ -28,19 +30,19 @@
 // equal ranges of the whole block sequence (a range may cross chunks: the
 // blocks are contiguous) until the grid holds one full wave: the kernel's
 // resident CTAs per SM, which its register count sets (the launcher asks
-// the occupancy API once per instance).  Blocks are sorted by row-block and
-// every row-block ends with a last-flagged block, so the partial still open
-// at a range's end is added into the row-block of its last block and the
-// next range adds the rest (B1's chunk-boundary rule); padding blocks (zero
-// payload, col 0, subidx 0, no last flag) read a valid x row, add zeros and
-// never flush.
+// the occupancy API once per instance), times the SMs.  Blocks are sorted
+// by row-block and every row-block ends with a last-flagged block, so the
+// partial still open at a range's end is added into the row-block of its
+// last block and the next range adds the rest; padding blocks (zero
+// payload, col 0, subidx 0, no last flag) read a valid x row, add zeros
+// and never flush.
 //
 // Flush (a last-flagged block, and a range's end): the R*V values are
 // reduced across the warp by recursive halving (each shuffle step a thread
 // keeps half its values and sends the other half: 62 shuffles for 64
-// values), the 4 warps are combined through a double-buffered shared array
-// (one barrier a flush), and each live output is one atomicAdd into y.
-// Columns past B are neither loaded nor written.
+// values, 9 for B1's 8), the 4 warps are combined through a
+// double-buffered shared array (one barrier a flush), and each live output
+// is one atomicAdd into y.  Columns past B are neither loaded nor written.
 //
 // All arithmetic is fp32 FMA (the TPU kernels run at Precision.HIGHEST), no
 // TF32; a bf16 payload is widened on load.  The order of the atomic
@@ -64,12 +66,13 @@ constexpr int kMaxRows = 8;  // R at most: 64 accumulators at V 8
 // windowed R 8, V 8 instance fits it without spills too (123-128), and a
 // bound of 3 for kWindowed was no faster on an H100 SXM
 constexpr int kMinCtas = 4;
-constexpr int kSms = 132;  // H100 SXM, for pick_v
+constexpr int kSegs = 8;  // column segments per 1024-column window (B7, B8)
 
 // The V values x[.., b0 : b0 + V] at src (zeros past the batch).
 template <int V, bool kVec4>
 __device__ __forceinline__ void load_x(const float* __restrict__ src,
                                        int live, float (&xv)[V]) {
+  static_assert(!kVec4 || V % 4 == 0, "16-byte loads take V in fours");
   if constexpr (kVec4) {  // live is a multiple of 4: all four or none
 #pragma unroll
     for (int u = 0; u < V / 4; ++u) {
@@ -264,13 +267,16 @@ __global__ void __launch_bounds__(kLanes, kMinCtas)
   }
 }
 
-// V for a batch: vpt when it is given (4 or 8); else 8, or 4 when the
-// batch is at most 4 or when V 8 would launch fewer CTAs than the card has
-// SMs even with one block a range.  0 when vpt is neither.
-inline int pick_v(int batch, long long nblocks, int nslice, int vpt) {
-  if (vpt != 0) return (vpt == 4 || vpt == 8) ? vpt : 0;
+// V for a batch on a card of sms SMs: vpt when it is given (1, 4 or 8);
+// else 1 for one vector (B1, B7), 4 when the batch is at most 4 or when V 8
+// would launch fewer CTAs than the card has SMs even with one block a
+// range, else 8.  0 when vpt is none of these.
+inline int pick_v(int batch, long long nblocks, int nslice, int vpt,
+                  int sms) {
+  if (vpt != 0) return (vpt == 1 || vpt == 4 || vpt == 8) ? vpt : 0;
+  if (batch == 1) return 1;
   const long long ctas8 = nblocks * nslice * ((batch + 7) / 8);
-  return (batch <= 4 || ctas8 < kSms) ? 4 : 8;
+  return (batch <= 4 || ctas8 < sms) ? 4 : 8;
 }
 
 inline int rows_per_slice(int bh) { return bh < kMaxRows ? bh : kMaxRows; }
@@ -285,22 +291,19 @@ struct Grid {
   int v, nslice, ngroups, span, ctas;
 };
 
+// The launch shape on a card of sms SMs.
 template <typename T, int R, int V, bool kVec4, bool kWindowed>
-cudaError_t grid_for(int nblocks, int bh, int batch, Grid* gr) {
+cudaError_t grid_for(int nblocks, int bh, int batch, int sms, Grid* gr) {
   // resident CTAs an SM, asked once per kernel (the query costs host time
   // on every launch otherwise)
   static std::atomic<int> resident{0};
-  int dev = 0, sms = 0, occ = resident.load(std::memory_order_relaxed);
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess) {
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  }
-  if (e == cudaSuccess && occ == 0) {
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+  int occ = resident.load(std::memory_order_relaxed);
+  if (occ == 0) {
+    const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
         &occ, chunked_vec_kernel<T, R, V, kVec4, kWindowed>, kLanes, 0);
-    if (e == cudaSuccess) resident.store(occ, std::memory_order_relaxed);
+    if (e != cudaSuccess) return e;
+    resident.store(occ, std::memory_order_relaxed);
   }
-  if (e != cudaSuccess) return e;
   gr->v = V;
   gr->nslice = bh / R;
   gr->ngroups = (batch + V - 1) / V;
@@ -323,14 +326,15 @@ struct VecArgs {
   const int* meta;
   const float* xt;
   float* y;
-  int nblocks, chunk, bh, batch;
+  int nblocks, chunk, bh, batch, sms;
 };
 
 template <typename T, int R, int V, bool kVec4, bool kWindowed>
 int launch_vec(const VecArgs& p, Grid* out, cudaStream_t stream) {
   Grid gr;
   const cudaError_t e =
-      grid_for<T, R, V, kVec4, kWindowed>(p.nblocks, p.bh, p.batch, &gr);
+      grid_for<T, R, V, kVec4, kWindowed>(p.nblocks, p.bh, p.batch, p.sms,
+                                          &gr);
   if (e != cudaSuccess) return static_cast<int>(e);
   if (out != nullptr) {  // the shape only, no launch
     *out = gr;
@@ -343,8 +347,9 @@ int launch_vec(const VecArgs& p, Grid* out, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// vec4: 16-byte x loads (batch % 4 == 0 and xt 16-byte aligned).  With
-// out, computes the launch shape into it and launches nothing.
+// vec4: 16-byte x loads (batch % 4 == 0 and xt 16-byte aligned; taken at
+// V 4 and 8).  With out, computes the launch shape into it and launches
+// nothing.
 template <typename T, bool kWindowed>
 int launch_vec_stream(const void* data, const int* subidx, const int* meta,
                       const float* xt, float* y, int nchunks, int chunk,
@@ -355,22 +360,35 @@ int launch_vec_stream(const void* data, const int* subidx, const int* meta,
       nb > INT_MAX) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const VecArgs p{data, subidx, meta, xt, y, static_cast<int>(nb), chunk,
-                  bh, batch};
-  const int R = rows_per_slice(bh);
-  const int V = pick_v(batch, nb, bh / R, vpt);
-  if (V == 0) return static_cast<int>(cudaErrorInvalidValue);
-#define HISPMV_VEC_LAUNCH(RV, VV)                                           \
-  if (R == RV && V == VV) {                                                 \
-    return vec4 ? launch_vec<T, RV, VV, true, kWindowed>(p, out, stream)    \
-                : launch_vec<T, RV, VV, false, kWindowed>(p, out, stream);  \
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) {
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   }
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const VecArgs p{data, subidx, meta, xt, y, static_cast<int>(nb), chunk,
+                  bh, batch, sms};
+  const int R = rows_per_slice(bh);
+  const int V = pick_v(batch, nb, bh / R, vpt, sms);
+  if (V == 0) return static_cast<int>(cudaErrorInvalidValue);
+  // V 1 has no 16-byte x load
+#define HISPMV_VEC_LAUNCH(RV, VV)                                            \
+  if (R == RV && V == VV) {                                                  \
+    constexpr bool kCan4 = VV % 4 == 0;                                      \
+    return vec4 && kCan4                                                     \
+               ? launch_vec<T, RV, VV, kCan4, kWindowed>(p, out, stream)     \
+               : launch_vec<T, RV, VV, false, kWindowed>(p, out, stream);    \
+  }
+  HISPMV_VEC_LAUNCH(1, 1)
   HISPMV_VEC_LAUNCH(1, 4)
   HISPMV_VEC_LAUNCH(1, 8)
+  HISPMV_VEC_LAUNCH(2, 1)
   HISPMV_VEC_LAUNCH(2, 4)
   HISPMV_VEC_LAUNCH(2, 8)
+  HISPMV_VEC_LAUNCH(4, 1)
   HISPMV_VEC_LAUNCH(4, 4)
   HISPMV_VEC_LAUNCH(4, 8)
+  HISPMV_VEC_LAUNCH(8, 1)
   HISPMV_VEC_LAUNCH(8, 4)
   HISPMV_VEC_LAUNCH(8, 8)
 #undef HISPMV_VEC_LAUNCH

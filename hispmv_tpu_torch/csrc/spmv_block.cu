@@ -28,9 +28,9 @@
 // TPU keeps the later run.
 //
 // Bound: B5 reads each payload byte once for one multiply-add, so it is
-// bound by the bytes of the A stream, as B1 (block_stream.cuh: a warp
-// reads 128 B of a block row, BH accumulators a thread in registers, one
-// shuffle reduction a run).  B6 stages each block's A tile and x rows in
+// bound by the bytes of the A stream, as B1 (as block_stream.cuh's
+// kernel: a warp reads 128 B of a block row, BH accumulators a thread in
+// registers, one shuffle reduction a run).  B6 stages each block's A tile and x rows in
 // shared memory (block_stream_batched.cuh; fp32 FMA, no TF32, as the TPU
 // kernel's Precision.HIGHEST) over a run.  One CTA per run leaves a long run
 // on one SM; making it fast is later work.

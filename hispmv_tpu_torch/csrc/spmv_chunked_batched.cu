@@ -11,10 +11,10 @@
 // of linear() and the row-granular ELLX residual of a routed linear().
 //
 // Design: block_vec.cuh's chunked_vec_kernel with kWindowed false (lane l
-// of block k reads x row cb): B1's kernel with V vectors a thread,
-// acc[R][V] in registers, no shared-memory staging, a grid of equal block
-// ranges x row slices x vector groups filling one wave, and a flush by
-// recursive halving across the warp.  __launch_bounds__(128, 4) caps a
+// of block k reads x row cb), which B1 runs at one vector: V vectors a
+// thread, acc[R][V] in registers, no shared-memory staging, a grid of equal
+// block ranges x row slices x vector groups filling one wave, and a flush
+// by recursive halving across the warp.  __launch_bounds__(128, 4) caps a
 // thread at 128 registers: R 8, V 8 takes 123-128 (4 CTAs an SM, 528 on an
 // H100 SXM), R 8, V 4 88-96 (5), without spills.  Issuing the next block's
 // loads before the current block's FMAs was faster on an H100 SXM than
@@ -24,8 +24,8 @@
 // group); at large B the re-reads of A by ceil(B/V) groups (from L2) and
 // the FMAs (R*V a payload value).  V is 8, so a payload value read feeds 8
 // FMAs and a trans5-like stream at B 8 reads its payload once (V 8 beat V 4
-// at B 8 and 64 on an H100 SXM); 4 at B <= 4, and when V 8 would leave SMs
-// without a CTA (pick_v).
+// at B 8 and 64 on an H100 SXM); 1 at B 1 (as B1), 4 at B 2-4, and when
+// V 8 would leave SMs without a CTA (pick_v).
 
 #include <cstdint>
 
@@ -36,7 +36,7 @@ extern "C" {
 // data: f32 (data_is_bf16 == 0) or bf16 [nchunks, chunk*bh, 128];
 // meta i32 [nchunks, 2, chunk]; xb f32 [ncb, 128, batch];
 // y f32 [nrb, bh, batch] zeroed; vpt 0 lets the launcher pick V (pick_v),
-// 4 or 8 names it.  Returns a cudaError_t code.
+// 1, 4 or 8 names it.  Returns a cudaError_t code.
 int hispmv_spmv_chunked_batched(const void* data, int data_is_bf16,
                                 const int* meta, const float* xb, float* y,
                                 int nchunks, int chunk, int bh, int batch,

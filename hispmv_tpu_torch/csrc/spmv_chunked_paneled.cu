@@ -9,9 +9,9 @@
 // shard the device holds).
 //
 // The TPU kernel needs panels because x must fit in VMEM; on the card x is
-// read from device memory, so a panel is only an offset: B1's kernel
-// (block_stream.cuh) with x2d moved by panel_ids[c] * panel_ncb rows per
-// chunk.  B1 already flushes by adding into a y the caller zeroed, which is
+// read from device memory, so a panel is only an offset: block_stream.cuh's
+// one-CTA-a-chunk kernel with x2d moved by panel_ids[c] * panel_ncb rows
+// per chunk.  It flushes by adding into a y the caller zeroed, which is
 // B3's contract; the caller may pass a y that holds earlier ring steps.
 //
 // Bound: bytes of the A stream, as for B1.
@@ -33,12 +33,12 @@ int hispmv_spmv_chunked_paneled(const void* data, int data_is_bf16,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (data_is_bf16) {
-    return hispmv::launch_block_stream<__nv_bfloat16, false, true>(
-        data, nullptr, meta, panel_ids, x2d, y, nchunks, chunk, bh, panel_ncb,
+    return hispmv::launch_block_stream<__nv_bfloat16, false>(
+        data, meta, panel_ids, x2d, y, nchunks, chunk, bh, panel_ncb,
         stream);
   }
-  return hispmv::launch_block_stream<float, false, true>(
-      data, nullptr, meta, panel_ids, x2d, y, nchunks, chunk, bh, panel_ncb,
+  return hispmv::launch_block_stream<float, false>(
+      data, meta, panel_ids, x2d, y, nchunks, chunk, bh, panel_ncb,
       stream);
 }
 

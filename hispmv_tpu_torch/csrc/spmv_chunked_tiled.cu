@@ -10,9 +10,10 @@
 // and y both exceed the TPU's VMEM budget (api/handle.py).
 //
 // The TPU needs the panels because neither vector fits in VMEM; on the card
-// both are read from device memory, so each panel is only an offset: B1's
-// kernel (block_stream.cuh) with x2d moved by xpanel_ids[c] * panel_ncb rows
-// and y by ypanel_ids[c] * panel_nrb row-blocks, both compile-time flags.
+// both are read from device memory, so each panel is only an offset:
+// block_stream.cuh's one-CTA-a-chunk kernel with x2d moved by
+// xpanel_ids[c] * panel_ncb rows and y by ypanel_ids[c] * panel_nrb
+// row-blocks (TILED, a compile-time flag).
 // The TPU zeroes a y panel at its first chunk (yfirst) because its grid
 // runs in order; here chunks of one row panel run in parallel, so zeroing
 // inside the kernel would race with other CTAs' adds.  The caller zeroes
@@ -42,12 +43,12 @@ int hispmv_spmv_chunked_tiled(const void* data, int data_is_bf16,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (data_is_bf16) {
-    return hispmv::launch_block_stream<__nv_bfloat16, false, true, true>(
-        data, nullptr, meta, xpanel_ids, x2d, y, nchunks, chunk, bh,
+    return hispmv::launch_block_stream<__nv_bfloat16, true>(
+        data, meta, xpanel_ids, x2d, y, nchunks, chunk, bh,
         panel_ncb, stream, ypanel_ids, panel_nrb);
   }
-  return hispmv::launch_block_stream<float, false, true, true>(
-      data, nullptr, meta, xpanel_ids, x2d, y, nchunks, chunk, bh, panel_ncb,
+  return hispmv::launch_block_stream<float, true>(
+      data, meta, xpanel_ids, x2d, y, nchunks, chunk, bh, panel_ncb,
       stream, ypanel_ids, panel_nrb);
 }
 

@@ -38,7 +38,7 @@ extern "C" {
 // data: f32 (data_is_bf16 == 0) or bf16 [nchunks, chunk*bh, 128];
 // subidx i32 [nchunks, chunk, 128]; meta i32 [nchunks, 2, chunk];
 // xt f32 [nwin*8, 128, batch]; y f32 [nrb, bh, batch] zeroed; vpt 0 lets
-// the launcher pick V (pick_v), 4 or 8 names it.  Returns a cudaError_t
+// the launcher pick V (pick_v), 1, 4 or 8 names it.  Returns a cudaError_t
 // code.
 int hispmv_spmv_windowed_batched(const void* data, int data_is_bf16,
                                  const int* subidx, const int* meta,

@@ -128,11 +128,11 @@ def get_lib() -> ctypes.CDLL:
             ptr, i32 = ctypes.c_void_p, ctypes.c_int
             lib.hispmv_spmv_chunked.restype = i32
             lib.hispmv_spmv_chunked.argtypes = [
-                ptr, i32, ptr, ptr, ptr, i32, i32, i32, ptr,
+                ptr, i32, ptr, ptr, ptr, i32, i32, i32, i32, ptr,
             ]
             lib.hispmv_spmv_windowed.restype = i32
             lib.hispmv_spmv_windowed.argtypes = [
-                ptr, i32, ptr, ptr, ptr, ptr, i32, i32, i32, ptr,
+                ptr, i32, ptr, ptr, ptr, ptr, i32, i32, i32, i32, ptr,
             ]
             lib.hispmv_spmv_routed.restype = i32
             lib.hispmv_spmv_routed.argtypes = [

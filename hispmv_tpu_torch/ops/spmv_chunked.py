@@ -24,8 +24,13 @@ import torch
 from hispmv_tpu_torch.ops import cuda_build
 from hispmv_tpu_torch.plan.blocks import LANES, BlockPlan
 
-# Block heights the CUDA kernels are instantiated for (csrc/block_stream.cuh).
+# Block heights the CUDA kernels are instantiated for (csrc/block_stream.cuh,
+# csrc/block_vec.cuh).
 SUPPORTED_BLOCK_H = (1, 2, 4, 8, 16, 32, 64)
+
+# ``vpt`` of B1, B2, B7 and B8: 0 lets the launcher pick V (csrc/
+# block_vec.cuh::pick_v), 1, 4 or 8 names the vectors a thread.
+VPT_CHOICES = (0, 1, 4, 8)
 
 _VALUE_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -69,11 +74,17 @@ def pack_chunks(plan: BlockPlan, chunk: int):
 
 
 def check_stream_args(name, data3d, meta, x2d, block_h, chunk):
-    """Validate the arrays shared by B1 and B7 before any launch."""
+    """Validate the arrays shared by B1, B3, B4 and B7 before any launch."""
     check_payload(name, data3d, meta, x2d, block_h, chunk)
     if x2d.ndim != 2 or x2d.shape[1] != LANES:
         raise ValueError(f"{name}: x must be [n, {LANES}], got "
                          f"{tuple(x2d.shape)}")
+
+
+def check_vpt(name, vpt):
+    """``vpt`` of the kernels on csrc/block_vec.cuh: one of VPT_CHOICES."""
+    if vpt not in VPT_CHOICES:
+        raise ValueError(f"{name}: vpt={vpt}, want one of {VPT_CHOICES}")
 
 
 def check_payload(name, data3d, meta, x, block_h, chunk):
@@ -131,14 +142,19 @@ def spmv_chunked_plain(data3d, meta, x2d, num_row_blocks, block_h, chunk):
     return y.index_add_(0, rb, contrib)
 
 
-def spmv_chunked(data3d, meta, x2d, num_row_blocks, block_h, chunk):
+def spmv_chunked(data3d, meta, x2d, num_row_blocks, block_h, chunk, vpt=0):
     """Run the chunked stream; returns y tiles f32 [num_row_blocks, block_h].
 
     ``data3d`` f32/bf16 [nchunks, chunk*block_h, 128], ``meta`` i32
     [nchunks, 2, chunk] (from :func:`pack_chunks`), ``x2d`` f32 [ncb, 128].
-    CPU tensors take the plain PyTorch version; CUDA tensors launch the
-    CUDA kernel (csrc/spmv_chunked.cu) or raise."""
+    The kernel is B2's at one vector (x2d is B2's xb [ncb, 128, 1]): a grid
+    of block ranges x row slices that fills one wave, V picked by the
+    launcher unless ``vpt`` (1, 4 or 8) names it; its shape is
+    ``chunked_batched_grid(1, nchunks, chunk, block_h, vpt)``.  CPU tensors
+    take the plain PyTorch version; CUDA tensors launch the CUDA kernel
+    (csrc/spmv_chunked.cu) or raise."""
     check_stream_args("spmv_chunked", data3d, meta, x2d, block_h, chunk)
+    check_vpt("spmv_chunked", vpt)
     if data3d.device.type == "cpu":
         return spmv_chunked_plain(
             data3d, meta, x2d, num_row_blocks, block_h, chunk
@@ -152,7 +168,7 @@ def spmv_chunked(data3d, meta, x2d, num_row_blocks, block_h, chunk):
         rc = lib.hispmv_spmv_chunked(
             data3d.data_ptr(), int(data3d.dtype == torch.bfloat16),
             meta.data_ptr(), x2d.data_ptr(), y.data_ptr(),
-            data3d.shape[0], chunk, block_h,
+            data3d.shape[0], chunk, block_h, vpt,
             torch.cuda.current_stream().cuda_stream,
         )
     cuda_build.check(rc, "spmv_chunked")
@@ -205,7 +221,7 @@ def spmv_chunked_batched(data3d, meta, xb, num_row_blocks, block_h, chunk,
     ``data3d`` and ``meta`` as for :func:`spmv_chunked`, ``xb`` f32
     [ncb, 128, B] (the JAX layout).  One launch covers the whole batch: its
     grid is ranges of blocks x row slices x groups of V vectors, V picked by
-    the launcher unless ``vpt`` (4 or 8) names it.  CPU tensors take the
+    the launcher unless ``vpt`` (1, 4 or 8) names it.  CPU tensors take the
     plain PyTorch version; CUDA tensors launch the CUDA kernel
     (csrc/spmv_chunked_batched.cu) or raise."""
     name = "spmv_chunked_batched"
@@ -213,8 +229,7 @@ def spmv_chunked_batched(data3d, meta, xb, num_row_blocks, block_h, chunk,
     if xb.ndim != 3 or xb.shape[1] != LANES or xb.shape[2] < 1:
         raise ValueError(f"{name}: x must be [n, {LANES}, B], got "
                          f"{tuple(xb.shape)}")
-    if vpt not in (0, 4, 8):
-        raise ValueError(f"{name}: vpt={vpt}, want 0, 4 or 8")
+    check_vpt(name, vpt)
     if data3d.device.type == "cpu":
         return spmv_chunked_batched_plain(
             data3d, meta, xb, num_row_blocks, block_h, chunk

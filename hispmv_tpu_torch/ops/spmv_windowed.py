@@ -25,6 +25,7 @@ from hispmv_tpu_torch.ops.spmv_chunked import (
     check_cuda_args,
     check_payload,
     check_stream_args,
+    check_vpt,
 )
 from hispmv_tpu_torch.plan.windows import LANES, SEGS, WindowPlan
 
@@ -90,12 +91,16 @@ def spmv_windowed_plain(data3d, subidx3d, meta, x2d, num_row_blocks,
 
 
 def spmv_windowed(data3d, subidx3d, meta, x2d, num_row_blocks, block_h,
-                  chunk):
+                  chunk, vpt=0):
     """Run the windowed stream; returns y tiles f32 [num_row_blocks,
-    block_h].  ``x2d`` f32 [nwin*8, 128].  CPU tensors take the plain
-    PyTorch version; CUDA tensors launch the CUDA kernel
-    (csrc/spmv_windowed.cu) or raise."""
+    block_h].  ``x2d`` f32 [nwin*8, 128].  The kernel is B8's at one vector
+    (x2d is B8's xt [nwin*8, 128, 1]), V picked by the launcher unless
+    ``vpt`` (1, 4 or 8) names it; its shape is ``windowed_batched_grid(1,
+    nchunks, chunk, block_h, vpt)``.  CPU tensors take the plain PyTorch
+    version; CUDA tensors launch the CUDA kernel (csrc/spmv_windowed.cu) or
+    raise."""
     check_stream_args("spmv_windowed", data3d, meta, x2d, block_h, chunk)
+    check_vpt("spmv_windowed", vpt)
     _check_subidx(subidx3d, meta, chunk)
     if data3d.device.type == "cpu":
         return spmv_windowed_plain(
@@ -110,7 +115,7 @@ def spmv_windowed(data3d, subidx3d, meta, x2d, num_row_blocks, block_h,
         rc = lib.hispmv_spmv_windowed(
             data3d.data_ptr(), int(data3d.dtype == torch.bfloat16),
             subidx3d.data_ptr(), meta.data_ptr(), x2d.data_ptr(),
-            y.data_ptr(), data3d.shape[0], chunk, block_h,
+            y.data_ptr(), data3d.shape[0], chunk, block_h, vpt,
             torch.cuda.current_stream().cuda_stream,
         )
     cuda_build.check(rc, "spmv_windowed")
@@ -146,7 +151,7 @@ def spmv_windowed_batched(data3d, subidx3d, meta, xt, num_row_blocks,
     ``xt`` f32 [nwin*8, 128, B], x vector-minor (vector b's x[s*128 + l] at
     ``xt[s, l, b]``).  One launch covers the whole batch: B2's grid of
     ranges of blocks x row slices x groups of V vectors, V picked by the
-    launcher unless ``vpt`` (4 or 8) names it.  CPU tensors take the plain
+    launcher unless ``vpt`` (1, 4 or 8) names it.  CPU tensors take the plain
     PyTorch version; CUDA tensors launch the CUDA kernel
     (csrc/spmv_windowed_batched.cu) or raise."""
     name = "spmv_windowed_batched"
@@ -156,8 +161,7 @@ def spmv_windowed_batched(data3d, subidx3d, meta, xt, num_row_blocks,
             or xt.shape[2] < 1):
         raise ValueError(f"{name}: x must be [nwin*{SEGS}, {LANES}, B], got "
                          f"{tuple(xt.shape)}")
-    if vpt not in (0, 4, 8):
-        raise ValueError(f"{name}: vpt={vpt}, want 0, 4 or 8")
+    check_vpt(name, vpt)
     if data3d.device.type == "cpu":
         return spmv_windowed_batched_plain(
             data3d, subidx3d, meta, xt, num_row_blocks, block_h, chunk

@@ -1,12 +1,18 @@
 #!/usr/bin/env python3
-"""Times B2 (``spmv_chunked_batched``) and B8 (``spmv_windowed_batched``)
-on their cases of ``chip_smoke.py`` in the checkout it runs from, so that
-two trees can be compared on one card in one run: copy this file to the root
-of each checkout and run it there, the trees in turns (parent, change,
-change, parent).
+"""Times the block streams on the vec kernel (``csrc/block_vec.cuh``): B1
+(``spmv_chunked``), B7 (``spmv_windowed``), B2 (``spmv_chunked_batched``)
+and B8 (``spmv_windowed_batched``), on their cases of ``chip_smoke.py`` in
+the checkout it runs from, so that two trees can be compared on one card in
+one run: copy this file to the root of each checkout and run it there, the
+trees in turns (parent, change, change, parent).
 
     python3 kernel_compare.py LABEL
 
+B1's cases, at one vector: TSOPF_RS_b2383's block handle and trans5's ELLX
+overflow.  B7's: crystk03's window handle (format auto, bh 8), crystk03 as
+window at bh 64, and TSOPF_RS_b2383 as window at bh 8 (its stream is
+larger than the card's 50 MB L2, so repeated calls read it from HBM).  For
+each of these the handle's ``run`` (alpha 1.5, beta -0.5) is timed too.
 B2's cases: TSOPF_RS_b2383's block handle at B 8 and 64 and trans5's ELLX
 overflow at B 8.  B8's: crystk03's window handle (format auto) at B 64 and
 the MLP's fc3 (the full-width model of ``chip_smoke.py``, seed 0) on fc2's
@@ -14,12 +20,14 @@ activations at B 64 and on the first of them alone (B 1).  Suite stand-ins
 at scale 1.0, seed 0; x from a seeded generator.  B8 takes x vector-minor,
 ``xt [nwin*8, 128, B]``, or in a checkout that still has ``pack_batch_x``,
 x packed [nwin*8, B*128]; the script passes whichever the checkout's
-wrapper takes.  Per case it prints
-the kernel's device busy time (torch.profiler, over 20 calls), its bound,
-and its agreement with the plain version; where the wrapper takes ``vpt``,
-also the time at V 4 and 8.  Exits 1 when a case disagrees, 2 without a
-CUDA card."""
+wrapper takes.  Per case it prints the kernel's device busy time
+(torch.profiler, over 20 calls), its bound, and its agreement with the
+plain version; where the wrapper takes ``vpt``, also the time at each V
+(B1, B7: 1 and 4; B2, B8: 4 and 8; five readings each, the V values
+alternating: median [min-max]) and the launch shape (V, row slices,
+CTAs).  Exits 1 when a case disagrees, 2 without a CUDA card."""
 
+import inspect
 import sys
 
 import numpy as np
@@ -33,15 +41,68 @@ from hispmv_tpu_torch.ops import spmv_chunked as sc
 from hispmv_tpu_torch.ops import spmv_windowed as sw
 
 
+def _takes_vpt(fn):
+    return "vpt" in inspect.signature(fn).parameters
+
+
+_HANDLES = {}
+
+
+def handle(name, block_h, fmt):
+    """The handle of suite stand-in ``name`` (scale 1.0, seed 0), prepared
+    once per (name, block_h, format)."""
+    key = (name, block_h, fmt)
+    if key not in _HANDLES:
+        _HANDLES[key] = prepare(suite_matrix(name, 1.0, seed=cs.SEED),
+                                SpmvConfig(block_h=block_h), fmt)
+    return _HANDLES[key]
+
+
+def b1_b7_cases(rng):
+    """(label, kernel name, args, run) of B1's two cases and B7's three;
+    ``run`` times the handle's ``run`` on the same x."""
+    runs = [("TSOPF_RS_b2383 block", "TSOPF_RS_b2383", 8, "block", ""),
+            ("trans5 ELLX overflow", "trans5", 8, "auto", "o"),
+            ("crystk03 auto", "crystk03", 8, "auto", ""),
+            ("crystk03 window", "crystk03", 64, "window", ""),
+            ("TSOPF_RS_b2383 window", "TSOPF_RS_b2383", 8, "window", "")]
+    cases = []
+    for label, name, bh, fmt, ov in runs:
+        h = handle(name, bh, fmt)
+        x = torch.from_numpy(rng.standard_normal(h.shape[1]).astype(
+            np.float32)).cuda()
+        y_in = torch.from_numpy(rng.standard_normal(h.shape[0]).astype(
+            np.float32)).cuda()
+        x2d = h._pad_x(x).reshape(-1, 128)
+        p, bh = h.plan, h.plan.block_h
+        if h.format == "window":
+            kern, grid = "spmv_windowed", getattr(sw, "windowed_batched_grid",
+                                                  None)
+            args = (h._d["data"], h._d["subidx"], h._d["meta"], x2d,
+                    p.num_row_blocks, bh, h._wchunk)
+            chunk = h._wchunk
+        elif h.format in ("block", "ellx"):
+            kern, grid = "spmv_chunked", getattr(sc, "chunked_batched_grid",
+                                                 None)
+            args = (h._d[ov + "data"], h._d[ov + "meta"], x2d,
+                    (p.overflow if ov else p).num_row_blocks, bh, h._chunk)
+            chunk = h._chunk
+        else:
+            raise SystemExit(f"kernel_compare: {label} runs as {h.format}")
+        tag = f"{label}, bh {bh}"
+        if _takes_vpt(cs.KERNELS[kern]["wrapper"]):
+            V, slices, ctas = grid(1, args[0].shape[0], chunk, bh)
+            tag += f", V {V}, {slices} row slices, {ctas} CTAs"
+        cases.append((f"{'B7' if kern == 'spmv_windowed' else 'B1'} [{tag}]",
+                      kern, args,
+                      lambda h=h, x=x, y=y_in: h.run(x, y, 1.5, -0.5)))
+    return cases
+
+
 def b2_cases(rng):
     """(label, kernel name, args) of B2's three cases."""
-    handles = {
-        "TSOPF_RS_b2383": prepare(suite_matrix("TSOPF_RS_b2383", 1.0,
-                                               seed=cs.SEED), SpmvConfig(),
-                                  "block"),
-        "trans5": prepare(suite_matrix("trans5", 1.0, seed=cs.SEED),
-                          SpmvConfig(), "auto"),
-    }
+    handles = {"TSOPF_RS_b2383": handle("TSOPF_RS_b2383", 8, "block"),
+               "trans5": handle("trans5", 8, "auto")}
     cases = []
     for name, B, ov in (("TSOPF_RS_b2383", 8, ""), ("TSOPF_RS_b2383", 64, ""),
                         ("trans5", 8, "o")):
@@ -54,7 +115,7 @@ def b2_cases(rng):
             "spmv_chunked_batched",
             (h._d[ov + "data"], h._d[ov + "meta"],
              xb.T.reshape(-1, 128, B).contiguous(), nrb, h.plan.block_h,
-             h._chunk)))
+             h._chunk), None))
     return cases
 
 
@@ -67,8 +128,7 @@ def b8_x(xb, num_windows):
 
 def b8_cases(rng):
     """(label, kernel name, args) of B8's three cases."""
-    h = prepare(suite_matrix("crystk03", 1.0, seed=cs.SEED), SpmvConfig(),
-                "auto")
+    h = handle("crystk03", 8, "auto")
     runs = [("crystk03", h, h._pad_x(torch.from_numpy(rng.standard_normal(
         (cs.BATCH, h.shape[1])).astype(np.float32)).cuda()))]
     gen = torch.Generator(device="cuda").manual_seed(cs.SEED)
@@ -93,8 +153,29 @@ def b8_cases(rng):
             "spmv_windowed_batched",
             (h._d["data"], h._d["subidx"], h._d["meta"],
              b8_x(xb, p.num_windows), p.num_row_blocks, p.block_h,
-             h._wchunk)))
+             h._wchunk), None))
     return cases
+
+
+SWEEP = {"spmv_chunked": (1, 4), "spmv_windowed": (1, 4),
+         "spmv_chunked_batched": (4, 8), "spmv_windowed_batched": (4, 8)}
+SWEEP_ROUNDS = 5  # the V values of a sweep alternate, round by round
+
+
+def v_sweep(kern, args, vpts):
+    """Device busy per call at each V of ``vpts``, ``SWEEP_ROUNDS`` readings
+    each, the V values alternating: "V v median [min-max]" per V."""
+    got = {v: [] for v in vpts}
+    for _ in range(SWEEP_ROUNDS):
+        for v in vpts:
+            got[v].append(cs.device_ms(lambda: kern(*args, vpt=v)))
+    out = []
+    for v, ts in got.items():
+        ts = [t for t in ts if t is not None]
+        out.append(f"V {v} " + (f"{np.median(ts):.4f} [{min(ts):.4f}-"
+                                f"{max(ts):.4f}] ms" if ts else
+                                "not measured"))
+    return "; ".join(out)
 
 
 def main(label: str) -> int:
@@ -102,11 +183,9 @@ def main(label: str) -> int:
         print("kernel_compare: needs a CUDA card", file=sys.stderr)
         return 2
     rng = np.random.default_rng(cs.SEED)
-    takes_vpt = {"spmv_chunked_batched": hasattr(sc, "chunked_batched_grid"),
-                 "spmv_windowed_batched": hasattr(sw,
-                                                  "windowed_batched_grid")}
     ok = True
-    for tag, name, args in b2_cases(rng) + b8_cases(rng):
+    for tag, name, args, run in (b1_b7_cases(rng) + b2_cases(rng)
+                                 + b8_cases(rng)):
         kern, plain = cs.KERNELS[name]["wrapper"], cs.PLAIN[name]
         y = kern(*args)
         agree, _, line = cs._agree(name, y, plain(*args))
@@ -115,10 +194,11 @@ def main(label: str) -> int:
         busy = cs.device_ms(lambda: kern(*args))
         msg = (f"{label} {tag}: device busy {cs._ms(busy)}, bound "
                f"{bound:.4f} ms ({by}), {line}, {'ok' if agree else 'FAIL'}")
-        if takes_vpt[name]:
-            for vpt in (4, 8):
-                t = cs.device_ms(lambda: kern(*args, vpt=vpt))
-                msg += f"; V {vpt} {cs._ms(t)}"
+        if _takes_vpt(kern):
+            msg += "; " + v_sweep(kern, args, SWEEP[name])
+        if run is not None:
+            msg += (f"; handle run wall {cs.median_ms(run):.4f} ms, device "
+                    f"busy {cs._ms(cs.device_ms(run))}")
         print(msg, flush=True)
     print(f"{label} {cs.gpu_line()}", flush=True)
     return 0 if ok else 1

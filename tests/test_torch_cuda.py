@@ -156,9 +156,12 @@ def _b7_args(name, bh, chunk, dtype, dev):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("chunk", [8, None])
-@pytest.mark.parametrize("bh", [1, 8, 64])
+@pytest.mark.parametrize("bh", [1, 2, 4, 8, 16, 64])
 @pytest.mark.parametrize("name", list(MATRICES))
 def test_b1_kernel_matches_plain(dev, name, bh, chunk, dtype):
+    """Every row count of a slice (R 1, 2, 4, 8; bh 16 and 64 in row
+    slices): at V 1 the flush reduces R values, and bh 1 and 2 take the
+    halvings 0 and 1 (the rest by plain additions across the warp)."""
     args = _b1_args(name, bh, chunk, dtype, dev)
     before = spmv_chunked.launches
     y = spmv_chunked(*args)
@@ -170,15 +173,143 @@ def test_b1_kernel_matches_plain(dev, name, bh, chunk, dtype):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("chunk", [8, None])
-@pytest.mark.parametrize("bh", [1, 8, 64])
+@pytest.mark.parametrize("bh", [1, 2, 4, 8, 16, 64])
 @pytest.mark.parametrize("name", list(MATRICES))
 def test_b7_kernel_matches_plain(dev, name, bh, chunk, dtype):
+    """B1's row counts with the window gather."""
     args = _b7_args(name, bh, chunk, dtype, dev)
     before = spmv_windowed.launches
     y = spmv_windowed(*args)
     torch.cuda.synchronize()
     assert spmv_windowed.launches == before + 1
     assert_close(y, spmv_windowed_plain(*args))
+
+
+def _b1_run(args, vpt=0):
+    before = spmv_chunked.launches
+    y = spmv_chunked(*args, vpt=vpt)
+    torch.cuda.synchronize()
+    assert spmv_chunked.launches == before + 1
+    assert y.shape == (args[3], args[4]) and y.dtype == torch.float32
+    assert_close(y, spmv_chunked_plain(*args))
+
+
+def _b7_run(args, vpt=0):
+    before = spmv_windowed.launches
+    y = spmv_windowed(*args, vpt=vpt)
+    torch.cuda.synchronize()
+    assert spmv_windowed.launches == before + 1
+    assert y.shape == (args[4], args[5]) and y.dtype == torch.float32
+    assert_close(y, spmv_windowed_plain(*args))
+
+
+@pytest.mark.parametrize("vpt", [1, 4, 8])
+@pytest.mark.parametrize("bh", [1, 2, 8, 64])
+def test_b1_b7_kernels_at_each_v(dev, bh, vpt):
+    """V pinned: at V 4 and 8 one vector is live and the others are masked
+    (not loaded, not written)."""
+    _b1_run(_b1_args("blocked", bh, 8, torch.float32, dev), vpt)
+    _b7_run(_b7_args("banded", bh, 8, torch.float32, dev), vpt)
+
+
+def test_b1_b7_kernels_refuse_other_v(dev):
+    b1 = _b1_args("random", 8, 8, torch.float32, dev)
+    b7 = _b7_args("random", 8, 8, torch.float32, dev)
+    for vpt in (2, 16):
+        with pytest.raises(ValueError, match=f"vpt={vpt}"):
+            spmv_chunked(*b1, vpt=vpt)
+        with pytest.raises(ValueError, match=f"vpt={vpt}"):
+            spmv_windowed(*b7, vpt=vpt)
+
+
+def _heavy_rows_coo():
+    """Eight dense rows of 100,000 columns beside a sparse rest: one
+    row-block of ~780 blocks at bh 8 spans dozens of chunks of 16 and many
+    ranges, and the others flush every few blocks."""
+    rng = np.random.default_rng(21)
+    n = 100_000
+    dense_r = np.repeat(np.arange(8, 16), n)
+    dense_c = np.tile(np.arange(n), 8)
+    sp = random_coo(4000, n, 2_000, seed=22)
+    return COOMatrix((4000, n), np.concatenate([dense_r, sp.rows]),
+                     np.concatenate([dense_c, sp.cols]),
+                     rng.standard_normal(8 * n + sp.nnz).astype(np.float32))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_b1_kernel_row_block_across_ranges(dev, dtype):
+    """B2's case at one vector: the partial open at a range's end goes to
+    the row-block of its last block, and the next range adds the rest."""
+    plan = build_block_plan(_heavy_rows_coo(), 8)
+    data3d, meta, nch = pack_chunks(plan, 16)
+    assert np.bincount(plan.block_rows).max() > 10 * 16
+    args = (torch.from_numpy(data3d).to(dev, dtype),
+            torch.from_numpy(meta).to(dev),
+            _x2d(plan.shape[1], plan.num_col_blocks * 128, dev, seed=4),
+            plan.num_row_blocks, 8, 16)
+    V, slices, ctas = chunked_batched_grid(1, nch, 16, 8)
+    assert (V, slices) == (1, 1) and ctas > nch
+    for vpt in (0, 4):
+        _b1_run(args, vpt)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_b7_kernel_row_block_across_ranges(dev, dtype):
+    """B1's case with the window gather."""
+    plan = build_window_plan(_heavy_rows_coo(), 8)
+    data3d, subidx3d, meta, nch = pack_window_chunks(plan, 16)
+    assert np.bincount(plan.block_rows).max() > 10 * 16
+    args = (torch.from_numpy(data3d).to(dev, dtype),
+            torch.from_numpy(subidx3d).to(dev),
+            torch.from_numpy(meta).to(dev),
+            _x2d(plan.shape[1], plan.num_windows * SEGS * 128, dev, seed=4),
+            plan.num_row_blocks, 8, 16)
+    V, slices, ctas = windowed_batched_grid(1, nch, 16, 8)
+    assert (V, slices) == (1, 1) and ctas > nch
+    for vpt in (0, 4):
+        _b7_run(args, vpt)
+
+
+@pytest.mark.parametrize("bh", [1, 8, 64])
+def test_b1_b7_kernels_on_padding_blocks(dev, bh):
+    """Chunks that do not divide the stream leave padding blocks at its end
+    (zero payload, the last real row-block, no last flag): they read x row
+    0 (window 0, sub-index 0), add zeros and never flush."""
+    coo = MATRICES["blocked"]()
+    plan = build_block_plan(coo, bh)
+    chunk = next(c for c in (40, 48, 56) if plan.num_blocks % c)
+    data3d, meta, _ = pack_chunks(plan, chunk)
+    assert (meta[:, 0, :].reshape(-1)[plan.num_blocks:]
+            == plan.block_rows[-1] * 2).all()
+    args = (torch.from_numpy(data3d).to(dev), torch.from_numpy(meta).to(dev),
+            _x2d(plan.shape[1], plan.num_col_blocks * 128, dev),
+            plan.num_row_blocks, bh, chunk)
+    wplan = build_window_plan(coo, bh)
+    wchunk = next(c for c in (40, 48, 56) if wplan.num_blocks % c)
+    wdata, wsub, wmeta, _ = pack_window_chunks(wplan, wchunk)
+    wargs = (torch.from_numpy(wdata).to(dev), torch.from_numpy(wsub).to(dev),
+             torch.from_numpy(wmeta).to(dev),
+             _x2d(wplan.shape[1], wplan.num_windows * SEGS * 128, dev),
+             wplan.num_row_blocks, bh, wchunk)
+    for vpt in (0, 1, 4):
+        _b1_run(args, vpt)
+        _b7_run(wargs, vpt)
+
+
+def test_b1_b7_launch_shape(dev):
+    """At one vector the launcher takes V 1; row slices of 8 rows past bh
+    8; a grid of one wave of the V 1 instance's resident CTAs on this
+    card's SMs, more CTAs than chunks (the design it replaces ran one a
+    chunk), and at least as many as at V 4 (fewer registers a thread)."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for grid in (chunked_batched_grid, windowed_batched_grid):
+        for bh, slices in ((1, 1), (2, 1), (8, 1), (16, 2), (64, 8)):
+            V, s, ctas = grid(1, 200, 128, bh)
+            assert (V, s) == (1, slices)
+            assert ctas % slices == 0 and ctas >= sms and ctas > 200
+            assert ctas >= grid(1, 200, 128, bh, 4)[2]
+        # one block a range at most: no more ranges than blocks
+        assert grid(1, 1, 8, 8) == (1, 1, 8)
 
 
 def test_kernels_reject_what_they_cannot_run(dev):
@@ -402,15 +533,7 @@ def test_b2_kernel_row_block_across_ranges(dev, dtype):
     row-block of 782 blocks spans dozens of chunks of 16 and many ranges
     (as on trans5's ELLX overflow), and the others flush every few
     blocks."""
-    rng = np.random.default_rng(21)
-    n = 100_000
-    dense_r = np.repeat(np.arange(8, 16), n)
-    dense_c = np.tile(np.arange(n), 8)
-    sp = random_coo(4000, n, 2_000, seed=22)
-    coo = COOMatrix((4000, n), np.concatenate([dense_r, sp.rows]),
-                    np.concatenate([dense_c, sp.cols]),
-                    rng.standard_normal(8 * n + sp.nnz).astype(np.float32))
-    plan = build_block_plan(coo, 8)
+    plan = build_block_plan(_heavy_rows_coo(), 8)
     data3d, meta, nch = pack_chunks(plan, 16)
     assert np.bincount(plan.block_rows).max() > 10 * 16
     xb = _batch(8, plan.num_col_blocks * 128, dev, seed=4).T.reshape(
@@ -424,14 +547,16 @@ def test_b2_kernel_row_block_across_ranges(dev, dtype):
 
 
 def test_b2_launcher_picks_v(dev):
-    """V 8, or 4 at B <= 4 and when V 8 would leave SMs (132) idle; vpt
-    names 4 or 8 and nothing else.  Row slices of 8 rows past bh 8, and a
-    grid of at most one wave that covers every slice and vector group."""
+    """V 1 at B 1 (B1's launch), 4 at B 2-4 and when V 8 would leave some
+    of the card's SMs idle, else 8; vpt names 1, 4 or 8 and nothing else.
+    Row slices of 8 rows past bh 8, and a grid of at most one wave that
+    covers every slice and vector group."""
     grid = chunked_batched_grid
-    assert [grid(B, 100, 256, 8)[0] for B in (1, 4, 5, 64)] == [4, 4, 8, 8]
-    assert grid(8, 1, 128, 1)[0] == 4  # 128 CTAs at V 8
-    assert grid(8, 1, 136, 1)[0] == 8
-    assert [grid(8, 1, 8, 64, v)[0] for v in (4, 8)] == [4, 8]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert [grid(B, 100, 256, 8)[0] for B in (1, 4, 5, 64)] == [1, 4, 8, 8]
+    assert grid(8, 1, sms - 1, 1)[0] == 4  # sms - 1 CTAs at V 8
+    assert grid(8, 1, sms, 1)[0] == 8
+    assert [grid(8, 1, 8, 64, v)[0] for v in (1, 4, 8)] == [1, 4, 8]
     assert [grid(8, 1, 8, bh)[1] for bh in (1, 8, 16, 64)] == [1, 1, 2, 8]
     V, slices, ctas = grid(64, 100, 256, 64)
     assert ctas % (slices * 64 // V) == 0
@@ -498,15 +623,7 @@ def test_b8_kernel_row_block_across_ranges(dev, dtype):
     """Eight dense rows of 100,000 columns beside a sparse rest: one
     row-block of ~780 window blocks spans dozens of chunks of 16 and many
     ranges, and the others flush every few blocks."""
-    rng = np.random.default_rng(21)
-    n = 100_000
-    dense_r = np.repeat(np.arange(8, 16), n)
-    dense_c = np.tile(np.arange(n), 8)
-    sp = random_coo(4000, n, 2_000, seed=22)
-    coo = COOMatrix((4000, n), np.concatenate([dense_r, sp.rows]),
-                    np.concatenate([dense_c, sp.cols]),
-                    rng.standard_normal(8 * n + sp.nnz).astype(np.float32))
-    plan = build_window_plan(coo, 8)
+    plan = build_window_plan(_heavy_rows_coo(), 8)
     data3d, subidx3d, meta, nch = pack_window_chunks(plan, 16)
     assert np.bincount(plan.block_rows).max() > 10 * 16
     xt = _vector_minor(_batch(8, plan.num_windows * SEGS * 128, dev,
@@ -520,15 +637,16 @@ def test_b8_kernel_row_block_across_ranges(dev, dtype):
 
 
 def test_b8_launcher_picks_v(dev):
-    """B2's launcher rule: V 8, or 4 at B <= 4 and when V 8 would leave SMs
-    (132) idle; vpt names 4 or 8 and nothing else; row slices of 8 rows
-    past bh 8, and a grid of at most one wave that covers every slice and
-    vector group."""
+    """B2's launcher rule: V 1 at B 1 (B7's launch), 4 at B 2-4 and when V
+    8 would leave some of the card's SMs idle, else 8; vpt names 1, 4 or 8
+    and nothing else; row slices of 8 rows past bh 8, and a grid of at most
+    one wave that covers every slice and vector group."""
     grid = windowed_batched_grid
-    assert [grid(B, 100, 256, 8)[0] for B in (1, 4, 5, 64)] == [4, 4, 8, 8]
-    assert grid(8, 1, 128, 1)[0] == 4  # 128 CTAs at V 8
-    assert grid(8, 1, 136, 1)[0] == 8
-    assert [grid(8, 1, 8, 64, v)[0] for v in (4, 8)] == [4, 8]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert [grid(B, 100, 256, 8)[0] for B in (1, 4, 5, 64)] == [1, 4, 8, 8]
+    assert grid(8, 1, sms - 1, 1)[0] == 4  # sms - 1 CTAs at V 8
+    assert grid(8, 1, sms, 1)[0] == 8
+    assert [grid(8, 1, 8, 64, v)[0] for v in (1, 4, 8)] == [1, 4, 8]
     assert [grid(8, 1, 8, bh)[1] for bh in (1, 8, 16, 64)] == [1, 1, 2, 8]
     V, slices, ctas = grid(64, 100, 256, 64)
     assert ctas % (slices * 64 // V) == 0
@@ -849,6 +967,15 @@ def test_sharded_executors_on_distinct_cards(dev, kind):
         pytest.skip(f"needs two or more cards, found {n}")
     _run_sharded(kind, [f"cuda:{i}" for i in range(min(n, 4))],
                  powerlaw_coo(3000, 2500, 50_000, seed=9))
+
+
+def test_sharded_window_with_empty_shards_on_one_card(dev):
+    """16 rows over 8 shards: some shards hold no block, some one chunk;
+    each launch of B7 sizes its own grid."""
+    coo = random_coo(16, 200, 100, seed=5)
+    plan = build_sharded_window_plan(coo, 8)
+    assert 0 in plan.blocks_per_dev or min(plan.nrb_per_dev) == 0
+    _run_sharded("window", ["cuda:0"] * 8, coo)
 
 
 def test_dryrun_multichip_on_one_card(dev):

@@ -120,12 +120,12 @@ def test_b2_wrapper_on_cpu_takes_plain_version_and_checks_arguments():
                                spmv_chunked_batched_plain(*args), rtol=0,
                                atol=0)
     assert spmv_chunked_batched.launches == before
-    for vpt in (0, 4, 8):  # V is the kernel's; the plain version ignores it
+    for vpt in (0, 1, 4, 8):  # V is the kernel's; the plain one ignores it
         torch.testing.assert_close(spmv_chunked_batched(*args, vpt=vpt),
                                    spmv_chunked_batched_plain(*args),
                                    rtol=0, atol=0)
     assert spmv_chunked_batched.launches == before
-    for vpt in (1, 3, 16):
+    for vpt in (2, 3, 16):
         with pytest.raises(ValueError, match=f"vpt={vpt}"):
             spmv_chunked_batched(*args, vpt=vpt)
     with pytest.raises(ValueError, match="B"):
@@ -175,12 +175,12 @@ def test_b8_wrapper_on_cpu_takes_plain_version_and_checks_arguments():
     torch.testing.assert_close(spmv_windowed_batched(*args),
                                spmv_windowed_batched_plain(*args), rtol=0,
                                atol=0)
-    for vpt in (0, 4, 8):  # V is the kernel's; the plain version ignores it
+    for vpt in (0, 1, 4, 8):  # V is the kernel's; the plain one ignores it
         torch.testing.assert_close(spmv_windowed_batched(*args, vpt=vpt),
                                    spmv_windowed_batched_plain(*args),
                                    rtol=0, atol=0)
     assert spmv_windowed_batched.launches == before
-    for vpt in (1, 3, 16):
+    for vpt in (2, 3, 16):
         with pytest.raises(ValueError, match=f"vpt={vpt}"):
             spmv_windowed_batched(*args, vpt=vpt)
     xt = args[3]
