@@ -50,7 +50,10 @@ B2 is also run directly on TSOPF_RS_b2383's arrays at B 64 and timed at V
 4 and 8 on each of its cases, and B8 (x vector-minor, as B2's and B10's)
 likewise on crystk03's window handle and the MLP's fc3 at B 64.  B1 and B7
 (B2's and B8's kernel at one vector) are timed at V 1 and 4 on each of
-their cases, and their lines name V, the row slices and the CTAs.
+their cases, and their lines name V, the row slices and the CTAs, as B3's
+(the same kernel at V 1 with each chunk's x panel offset) do.  The B 64
+``linear`` of the Flan_1565-sized matrix (B6) is logged beside B6's
+bound on its arrays.
 It exits nonzero, without a result line, when there is
 no CUDA card or any check fails.  The last line of standard output is
 ``{"ok": true, "device": {...}}``.
@@ -103,6 +106,7 @@ from hispmv_tpu_torch.ops.spmv_block import (
 from hispmv_tpu_torch.ops.spmv_chunked import (
     chunk_for,
     chunked_batched_grid,
+    chunked_paneled_grid,
     pack_chunks_paneled,
     spmv_chunked,
     spmv_chunked_batched,
@@ -813,26 +817,35 @@ def sharded_cases(kernel_args, handles):
     sh = to_device(plan, mesh)[0]
     per = plan.ncb_per_shard * 128
     x0 = torch.nn.functional.pad(xd, (0, 4 * per - xd.shape[0]))[:per]
+    nch = plan.data5.shape[2]
     cases.append(("spmv_chunked_paneled",
                   f"TSOPF_RS_b2383 ring shard 0 step 0, bh {plan.block_h}, "
-                  f"{plan.data5.shape[2]} chunks of {plan.chunk}",
+                  f"{nch} chunks of {plan.chunk}, "
+                  f"{b3_shape(nch, plan.chunk, plan.block_h)}",
                   (sh["data"][0], sh["meta"][0], sh["panels"],
                    x0.reshape(-1, 128), plan.nrb_max, plan.block_h,
                    plan.chunk, plan.ncb_per_shard)))
     h, xd = handles["TSOPF_RS_b2383 block"]
     p = h.plan
-    data3d, meta, panels, _ = pack_chunks_paneled(p, h._chunk, PANEL_NCB)
+    data3d, meta, panels, nch = pack_chunks_paneled(p, h._chunk, PANEL_NCB)
     npanels = -(-p.num_col_blocks // PANEL_NCB)
     x = torch.nn.functional.pad(xd, (0, npanels * PANEL_NCB * 128
                                      - xd.shape[0]))
     cases.append(("spmv_chunked_paneled",
                   f"TSOPF_RS_b2383 in {npanels} x panels of {PANEL_NCB} "
-                  f"col blocks, bh {p.block_h}",
+                  f"col blocks, bh {p.block_h}, {nch} chunks of {h._chunk}, "
+                  f"{b3_shape(nch, h._chunk, p.block_h)}",
                   (torch.from_numpy(data3d).cuda(),
                    torch.from_numpy(meta).cuda(),
                    torch.from_numpy(panels).cuda(), x.reshape(-1, 128),
                    p.num_row_blocks, p.block_h, h._chunk, PANEL_NCB)))
     return cases
+
+
+def b3_shape(nchunks, chunk, block_h):
+    """B3's launch shape as its labels name it."""
+    V, slices, ctas = chunked_paneled_grid(nchunks, chunk, block_h)
+    return f"V {V}, {slices} row slices, {ctas} CTAs"
 
 
 def ops_entry(handles, fixtures, counts, failures):
@@ -995,14 +1008,31 @@ def _large_linear(label, h, coo, a, B, rng, counts, failures):
     lib_ms = median_ms(lambda: a @ xt)
     batch_mb = sum(v.nbytes for v in h._batch_d.values()) / 2**20
     gflops = 2.0 * B * (coo.nnz + R) / (ms * 1e-3) / 1e9
+    bound_ms, bound_by = b6_bound(h, xbd)
     log(f"  {label} linear B {B}: max abs err {st.max_abs_error:.3e} "
         f"({st.num_mismatches} past rtol {RTOL} + atol {atol:.2e}); first "
         f"call {first_s:.2f} s (uploads {batch_mb:.1f} MB of per-block "
         f"arrays); launches {used}, median linear {ms:.4f} ms (device busy "
-        f"{_ms(busy)}), {gflops:.2f} GFLOP/s, CSR A @ X {lib_ms:.4f} ms")
+        f"{_ms(busy)}), {gflops:.2f} GFLOP/s, CSR A @ X {lib_ms:.4f} ms; "
+        f"B6 bound {bound_ms:.4f} ms ({bound_by})")
     return {"batch": B, "linear_ms": ms, "device_busy_ms": busy,
             "gflops": gflops, "library_ms": lib_ms, "batch_arrays_mb":
-            batch_mb, "launches": used}
+            batch_mb, "launches": used, "b6_bound_ms": bound_ms,
+            "b6_bound_by": bound_by}
+
+
+def b6_bound(h, xbd):
+    """``kernel_bound`` of the B6 launch the handle's ``linear`` makes on
+    the batch ``xbd`` [B, C]: its per-block arrays, x [ncb, 128, B] and y
+    [nrb, bh, B] as ``_block_matmat`` passes them."""
+    plan, bd, B = h._block_plan_meta, h._batch_d, xbd.shape[0]
+    xt = h._pad_x(xbd).T.reshape(-1, 128, B)
+    y = torch.empty((plan.num_row_blocks, plan.block_h, B),
+                    device=xbd.device)
+    args = (bd["data"], bd["rows"], bd["cols"], bd["firsts"], bd["lasts"],
+            xt, plan.num_row_blocks)
+    return kernel_bound("spmv_block_batched", args, {"starts": bd["starts"]},
+                        y)
 
 
 def gathered_path(counts, failures):
@@ -1107,8 +1137,10 @@ def large_block_cases(large):
                            x2d, npy, pnrb, p.block_h, h._chunk,
                            h._PANEL_NCB)))
         else:
+            nch = d["data"].shape[0]
             cases.append(("spmv_chunked_paneled",
-                          f"{shape}, x panels of {h._PANEL_NCB} col blocks",
+                          f"{shape}, x panels of {h._PANEL_NCB} col blocks, "
+                          f"{b3_shape(nch, h._chunk, p.block_h)}",
                           (d["data"], d["meta"], d["panels"], x2d,
                            p.num_row_blocks, p.block_h, h._chunk,
                            h._PANEL_NCB)))

@@ -1,19 +1,19 @@
-// Shared device code of the one-CTA-a-chunk block streams
-// (spmv_chunked_paneled.cu: B3, spmv_chunked_tiled.cu: B4) and the tile
-// flush of spmv_block.cu (B5); its constants and to_f32 also serve
-// block_vec.cuh (B1, B2, B7, B8) and block_stream_batched.cuh (B6).
+// Shared device code of the one-CTA-a-chunk block stream of
+// spmv_chunked_tiled.cu (B4) and the tile flush of spmv_block.cu (B5); its
+// constants and to_f32 also serve block_vec.cuh (B1, B2, B3, B7, B8) and
+// block_stream_batched.cuh (B6).
 //
-// They consume the packed arrays of the JAX package unchanged:
+// B4 consumes the packed arrays of the JAX package unchanged:
 //   data       [nchunks, chunk*BH, 128] f32 or bf16 block payloads
 //   meta       [nchunks, 2, chunk]      i32: meta[c,0,j] = row_block*2 +
-//                                           last, meta[c,1,j] = col block
-//                                           local to the x panel; B4's rows
-//                                           are local to the y panel
-//   panel_ids  [nchunks]                i32 x panel of each chunk
-//   ypanel_ids [nchunks]                i32 y panel of each chunk (B4 only)
-//   x2d        [npanels*panel_ncb, 128] f32
-//   y          [nrb, BH] (B4: [npanels_y*panel_nrb, BH]) f32, zeroed by the
-//              caller; the kernel only adds to it.
+//                                           last, local to the y panel;
+//                                           meta[c,1,j] = col block local
+//                                           to the x panel
+//   xpanel_ids [nchunks]                i32 x panel of each chunk
+//   ypanel_ids [nchunks]                i32 y panel of each chunk
+//   x2d        [npanels_x*panel_ncb, 128] f32
+//   y          [npanels_y*panel_nrb, BH] f32, zeroed by the caller; the
+//              kernel only adds to it.
 //
 // Design.  One CTA per chunk, one thread per lane (128 threads), BH fp32
 // accumulators in registers per thread: thread l holds column l of the
@@ -81,16 +81,15 @@ __device__ __forceinline__ void flush_tile(float (&acc)[BH],
   __syncthreads();  // red is reused by the next flush
 }
 
-// One CTA streams one chunk of `chunk` blocks; lane l of block j reads
-// x2d[cb, l] of chunk c's x panel, from row panel_ids[c] * panel_ncb of
-// x2d on (B3).  TILED (B4): chunk c also adds into y from row-block
-// ypanel_ids[c] * panel_nrb on.  TILED is a template flag: a runtime
-// branch on the panel offset slowed this kernel by 65%.
-template <typename T, int BH, bool TILED>
+// One CTA streams one chunk of `chunk` blocks: lane l of block j reads
+// x2d[cb, l] of chunk c's x panel, from row xpanel_ids[c] * panel_ncb of
+// x2d on, and chunk c adds into y from row-block ypanel_ids[c] * panel_nrb
+// on.
+template <typename T, int BH>
 __global__ void __launch_bounds__(kLanes)
     block_stream_kernel(const T* __restrict__ data,
                         const int* __restrict__ meta,
-                        const int* __restrict__ panel_ids,
+                        const int* __restrict__ xpanel_ids,
                         const int* __restrict__ ypanel_ids,
                         const float* __restrict__ x2d,
                         float* __restrict__ y, int chunk, int panel_ncb,
@@ -101,10 +100,8 @@ __global__ void __launch_bounds__(kLanes)
   const int* rows = meta + c * 2 * chunk;  // row_block*2 + last
   const int* cols = rows + chunk;          // col block in the panel
   const T* a = data + c * chunk * BH * kLanes + l;
-  x2d += static_cast<size_t>(panel_ids[c]) * panel_ncb * kLanes;
-  if constexpr (TILED) {
-    y += static_cast<size_t>(ypanel_ids[c]) * panel_nrb * BH;
-  }
+  x2d += static_cast<size_t>(xpanel_ids[c]) * panel_ncb * kLanes;
+  y += static_cast<size_t>(ypanel_ids[c]) * panel_nrb * BH;
 
   float acc[BH];
 #pragma unroll
@@ -131,19 +128,21 @@ __global__ void __launch_bounds__(kLanes)
   }
 }
 
-template <typename T, bool TILED>
+template <typename T>
 int launch_block_stream(const void* data, const int* meta,
-                        const int* panel_ids, const float* x2d, float* y,
-                        int nchunks, int chunk, int bh, int panel_ncb,
-                        cudaStream_t stream, const int* ypanel_ids = nullptr,
-                        int panel_nrb = 0) {
-  if (nchunks <= 0 || chunk <= 0) return static_cast<int>(cudaErrorInvalidValue);
+                        const int* xpanel_ids, const int* ypanel_ids,
+                        const float* x2d, float* y, int nchunks, int chunk,
+                        int bh, int panel_ncb, int panel_nrb,
+                        cudaStream_t stream) {
+  if (nchunks <= 0 || chunk <= 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const T* d = static_cast<const T*>(data);
   const dim3 grid(nchunks), block(kLanes);
 #define HISPMV_LAUNCH(BHV)                                                 \
   case BHV:                                                                \
-    block_stream_kernel<T, BHV, TILED><<<grid, block, 0, stream>>>(        \
-        d, meta, panel_ids, ypanel_ids, x2d, y, chunk, panel_ncb,          \
+    block_stream_kernel<T, BHV><<<grid, block, 0, stream>>>(               \
+        d, meta, xpanel_ids, ypanel_ids, x2d, y, chunk, panel_ncb,         \
         panel_nrb);                                                        \
     break;
   switch (bh) {

@@ -1,17 +1,19 @@
 // Shared device code of the block streams (spmv_chunked.cu: B1,
-// spmv_chunked_batched.cu: B2, spmv_windowed.cu: B7,
-// spmv_windowed_batched.cu: B8) on Hopper (sm_90a).  B1 and B7 are B2 and
-// B8 at one vector: x2d [ncb, 128] is xt [ncb, 128, 1] and y [nrb, bh] is
-// y [nrb, bh, 1], in the same memory.
+// spmv_chunked_batched.cu: B2, spmv_chunked_paneled.cu: B3,
+// spmv_windowed.cu: B7, spmv_windowed_batched.cu: B8) on Hopper (sm_90a).
+// B1, B3 and B7 run at one vector: x2d [n, 128] is xt [n, 128, 1] and y
+// [nrb, bh] is y [nrb, bh, 1], in the same memory.
 //
 // Arrays: data [nchunks, chunk*bh, 128] f32 or bf16, meta [nchunks, 2,
 // chunk] i32 (row_block*2 + last, col block or window), y [nrb, bh, B] f32
-// zeroed by the caller, and x vector-minor: x row s, lane l of vector b at
-// x[(s*128 + l)*B + b].  Block k's x row for lane l is its col block
-// (B1, B2), or with kWindowed window*8 + subidx[k*128 + l] (B7, B8: subidx
-// [nchunks, chunk, 128] i32, one word a lane, coalesced).  kWindowed is a
-// template parameter, never a runtime branch (one in a shared template
-// once slowed B1 by 65%).
+// zeroed by the caller (B3: added into), and x vector-minor: x row s, lane
+// l of vector b at x[(s*128 + l)*B + b].  Block k's x row for lane l is
+// set by the x-row mode XRow, a template parameter, never a runtime branch
+// (one in a shared template once slowed B1 by 65%): kCol, its col block
+// (B1, B2); kWindow, window*8 + subidx[k*128 + l] (B7, B8: subidx
+// [nchunks, chunk, 128] i32, one word a lane, coalesced); kPanel, its col
+// block plus panel_ids[k / chunk] * panel_ncb, the first x row of its
+// chunk's column panel (B3, at V 1 only: panel_ids [nchunks] i32).
 //
 // Design: a lane-per-thread stream with V vectors a thread.  A CTA has 128
 // threads and thread l owns lane l; it holds acc[R][V] in registers, R =
@@ -20,22 +22,28 @@
 // coalesced) and the V contiguous values of its x row (two 16-byte loads
 // when B % 4 == 0 and x is 16-byte aligned, else masked 4-byte loads),
 // then does R*V fp32 FMAs.  There is no shared memory and no barrier per
-// block, and the next block's loads (and the meta words, and with
-// kWindowed the subidx word, of the block after it) are issued before the
-// current block's FMAs, so an x load never waits on a fresh index load.
+// block, and the next block's loads (and the meta words, and with kWindow
+// the subidx word, of the block after it) are issued before the current
+// block's FMAs, so an x load never waits on a fresh index load.  The meta
+// cursor runs two blocks ahead of the FMAs, so with kPanel it holds the
+// panel offset of its own chunk (loaded at the range's first chunk and at
+// every chunk it enters) and each block carries its own x row.
 //
 // Grid: (ranges of blocks) x (bh/R row slices) x (ceil(B/V) vector groups),
 // the vector group fastest so that the groups reading one range of A run
 // side by side and all but one read it from L2.  The stream is cut into
-// equal ranges of the whole block sequence (a range may cross chunks: the
-// blocks are contiguous) until the grid holds one full wave: the kernel's
-// resident CTAs per SM, which its register count sets (the launcher asks
-// the occupancy API once per instance), times the SMs.  Blocks are sorted
-// by row-block and every row-block ends with a last-flagged block, so the
-// partial still open at a range's end is added into the row-block of its
-// last block and the next range adds the rest; padding blocks (zero
-// payload, col 0, subidx 0, no last flag) read a valid x row, add zeros
-// and never flush.
+// equal ranges of the whole block sequence (a range may cross chunks, and
+// with kPanel panels: the blocks are contiguous) until the grid holds one
+// full wave: the kernel's resident CTAs per SM, which its register count
+// sets (the launcher asks the occupancy API once per instance), times the
+// SMs.  Blocks are sorted by row-block (with kPanel, by panel, then
+// row-block) and every run of a row-block (within a panel) ends with a
+// last-flagged block, so the partial still open at a range's end is added
+// into the row-block of its last block and the next range adds the rest,
+// and acc is zero wherever the stream enters a new panel.  Padding blocks
+// (zero payload, col 0, subidx 0, no last flag; with kPanel at the end of
+// every panel's segment, carrying its last row-block) read a valid x row
+// and add zeros; they never flush, save at a range's end, with zeros.
 //
 // Flush (a last-flagged block, and a range's end): the R*V values are
 // reduced across the warp by recursive halving (each shuffle step a thread
@@ -64,9 +72,12 @@ namespace hispmv {
 constexpr int kMaxRows = 8;  // R at most: 64 accumulators at V 8
 // __launch_bounds__ min CTAs an SM: 128 registers a thread at 4.  The
 // windowed R 8, V 8 instance fits it without spills too (123-128), and a
-// bound of 3 for kWindowed was no faster on an H100 SXM
+// bound of 3 for kWindow was no faster on an H100 SXM
 constexpr int kMinCtas = 4;
 constexpr int kSegs = 8;  // column segments per 1024-column window (B7, B8)
+
+// How a block's x row is found (see the file comment).
+enum class XRow { kCol, kWindow, kPanel };
 
 // The V values x[.., b0 : b0 + V] at src (zeros past the batch).
 template <int V, bool kVec4>
@@ -163,15 +174,17 @@ __device__ __forceinline__ void flush_vec(float (&acc)[R * V],
 
 // One CTA runs blocks k0 .. k1-1 (a range of the whole stream) for rows
 // r0 .. r0+R-1 of each block and vectors b0 .. b0+V-1; see the file
-// comment.  subidx is read only with kWindowed.
-template <typename T, int R, int V, bool kVec4, bool kWindowed>
+// comment.  subidx is read only with kWindow, panel_ids and panel_ncb only
+// with kPanel.
+template <typename T, int R, int V, bool kVec4, XRow kX>
 __global__ void __launch_bounds__(kLanes, kMinCtas)
     chunked_vec_kernel(const T* __restrict__ data,
                        const int* __restrict__ subidx,
                        const int* __restrict__ meta,
+                       const int* __restrict__ panel_ids,
                        const float* __restrict__ xt, float* __restrict__ y,
                        int nblocks, int chunk, int bh, int span, int nslice,
-                       int ngroups, int batch) {
+                       int ngroups, int batch, int panel_ncb) {
   constexpr int N = R * V;
   __shared__ float red[2][kWarps][N];
   const int l = threadIdx.x;
@@ -193,19 +206,30 @@ __global__ void __launch_bounds__(kLanes, kMinCtas)
   const size_t y_step = static_cast<size_t>(bh) * batch;  // per row-block
 
   // meta cursor: block k of the stream is column k % chunk of chunk k/chunk
-  int mj = k0 % chunk;
-  const int* mrow = meta + static_cast<size_t>(k0 / chunk) * 2 * chunk;
+  int mc = k0 / chunk, mj = k0 % chunk;
+  const int* mrow = meta + static_cast<size_t>(mc) * 2 * chunk;
+  // with kPanel: the first x row of the panel of the cursor's chunk mc
+  int pbase = 0;
+  if constexpr (kX == XRow::kPanel) pbase = __ldg(panel_ids + mc) * panel_ncb;
   // block k's rb2 = row_block*2 + last and xrow = its x row for this lane
-  // (with kWindowed: window*8 + subidx[k*128 + l]); the cursor is at k
+  // (kWindow: window*8 + subidx[k*128 + l]; kPanel: pbase + col block);
+  // the cursor is at k
   auto next_meta = [&](int k, int& rb2, int& xrow) {
     rb2 = __ldg(mrow + mj);
     xrow = __ldg(mrow + chunk + mj);
-    if constexpr (kWindowed) {
+    if constexpr (kX == XRow::kWindow) {
       xrow = xrow * kSegs + __ldg(subidx + static_cast<size_t>(k) * kLanes + l);
+    } else if constexpr (kX == XRow::kPanel) {
+      xrow += pbase;
     }
     if (++mj == chunk) {
       mj = 0;
       mrow += 2 * chunk;
+      if constexpr (kX == XRow::kPanel) {
+        // the next chunk's panel, when the range reads on into it
+        ++mc;
+        if (k + 1 < k1) pbase = __ldg(panel_ids + mc) * panel_ncb;
+      }
     }
   };
   auto load_a = [&](int k, float (&a)[R]) {
@@ -292,7 +316,7 @@ struct Grid {
 };
 
 // The launch shape on a card of sms SMs.
-template <typename T, int R, int V, bool kVec4, bool kWindowed>
+template <typename T, int R, int V, bool kVec4, XRow kX>
 cudaError_t grid_for(int nblocks, int bh, int batch, int sms, Grid* gr) {
   // resident CTAs an SM, asked once per kernel (the query costs host time
   // on every launch otherwise)
@@ -300,7 +324,7 @@ cudaError_t grid_for(int nblocks, int bh, int batch, int sms, Grid* gr) {
   int occ = resident.load(std::memory_order_relaxed);
   if (occ == 0) {
     const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &occ, chunked_vec_kernel<T, R, V, kVec4, kWindowed>, kLanes, 0);
+        &occ, chunked_vec_kernel<T, R, V, kVec4, kX>, kLanes, 0);
     if (e != cudaSuccess) return e;
     resident.store(occ, std::memory_order_relaxed);
   }
@@ -318,43 +342,45 @@ cudaError_t grid_for(int nblocks, int bh, int batch, int sms, Grid* gr) {
   return cudaSuccess;
 }
 
-// The arguments of one launch; data, subidx, meta, xt and y are null for a
-// shape query.
+// The arguments of one launch; data, subidx, meta, panel_ids, xt and y
+// are null for a shape query.
 struct VecArgs {
   const void* data;
   const int* subidx;
   const int* meta;
+  const int* panel_ids;
   const float* xt;
   float* y;
-  int nblocks, chunk, bh, batch, sms;
+  int nblocks, chunk, bh, batch, panel_ncb, sms;
 };
 
-template <typename T, int R, int V, bool kVec4, bool kWindowed>
+template <typename T, int R, int V, bool kVec4, XRow kX>
 int launch_vec(const VecArgs& p, Grid* out, cudaStream_t stream) {
   Grid gr;
   const cudaError_t e =
-      grid_for<T, R, V, kVec4, kWindowed>(p.nblocks, p.bh, p.batch, p.sms,
-                                          &gr);
+      grid_for<T, R, V, kVec4, kX>(p.nblocks, p.bh, p.batch, p.sms, &gr);
   if (e != cudaSuccess) return static_cast<int>(e);
   if (out != nullptr) {  // the shape only, no launch
     *out = gr;
     return 0;
   }
-  chunked_vec_kernel<T, R, V, kVec4, kWindowed>
-      <<<gr.ctas, kLanes, 0, stream>>>(
-          static_cast<const T*>(p.data), p.subidx, p.meta, p.xt, p.y,
-          p.nblocks, p.chunk, p.bh, gr.span, gr.nslice, gr.ngroups, p.batch);
+  chunked_vec_kernel<T, R, V, kVec4, kX><<<gr.ctas, kLanes, 0, stream>>>(
+      static_cast<const T*>(p.data), p.subidx, p.meta, p.panel_ids, p.xt,
+      p.y, p.nblocks, p.chunk, p.bh, gr.span, gr.nslice, gr.ngroups,
+      p.batch, p.panel_ncb);
   return static_cast<int>(cudaGetLastError());
 }
 
 // vec4: 16-byte x loads (batch % 4 == 0 and xt 16-byte aligned; taken at
 // V 4 and 8).  With out, computes the launch shape into it and launches
-// nothing.
-template <typename T, bool kWindowed>
+// nothing.  panel_ids and panel_ncb are read with kPanel only, which runs
+// at V 1 only (B3 takes one vector).
+template <typename T, XRow kX>
 int launch_vec_stream(const void* data, const int* subidx, const int* meta,
                       const float* xt, float* y, int nchunks, int chunk,
                       int bh, int batch, int vpt, bool vec4, Grid* out,
-                      cudaStream_t stream) {
+                      cudaStream_t stream, const int* panel_ids = nullptr,
+                      int panel_ncb = 0) {
   const long long nb = static_cast<long long>(nchunks) * chunk;
   if (nchunks <= 0 || chunk <= 0 || batch <= 0 || !bh_ok(bh) ||
       nb > INT_MAX) {
@@ -366,8 +392,8 @@ int launch_vec_stream(const void* data, const int* subidx, const int* meta,
     e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   }
   if (e != cudaSuccess) return static_cast<int>(e);
-  const VecArgs p{data, subidx, meta, xt, y, static_cast<int>(nb), chunk,
-                  bh, batch, sms};
+  const VecArgs p{data, subidx, meta, panel_ids, xt, y, static_cast<int>(nb),
+                  chunk, bh, batch, panel_ncb, sms};
   const int R = rows_per_slice(bh);
   const int V = pick_v(batch, nb, bh / R, vpt, sms);
   if (V == 0) return static_cast<int>(cudaErrorInvalidValue);
@@ -375,22 +401,23 @@ int launch_vec_stream(const void* data, const int* subidx, const int* meta,
 #define HISPMV_VEC_LAUNCH(RV, VV)                                            \
   if (R == RV && V == VV) {                                                  \
     constexpr bool kCan4 = VV % 4 == 0;                                      \
-    return vec4 && kCan4                                                     \
-               ? launch_vec<T, RV, VV, kCan4, kWindowed>(p, out, stream)     \
-               : launch_vec<T, RV, VV, false, kWindowed>(p, out, stream);    \
+    return vec4 && kCan4 ? launch_vec<T, RV, VV, kCan4, kX>(p, out, stream)  \
+                         : launch_vec<T, RV, VV, false, kX>(p, out, stream); \
   }
   HISPMV_VEC_LAUNCH(1, 1)
-  HISPMV_VEC_LAUNCH(1, 4)
-  HISPMV_VEC_LAUNCH(1, 8)
   HISPMV_VEC_LAUNCH(2, 1)
-  HISPMV_VEC_LAUNCH(2, 4)
-  HISPMV_VEC_LAUNCH(2, 8)
   HISPMV_VEC_LAUNCH(4, 1)
-  HISPMV_VEC_LAUNCH(4, 4)
-  HISPMV_VEC_LAUNCH(4, 8)
   HISPMV_VEC_LAUNCH(8, 1)
-  HISPMV_VEC_LAUNCH(8, 4)
-  HISPMV_VEC_LAUNCH(8, 8)
+  if constexpr (kX != XRow::kPanel) {
+    HISPMV_VEC_LAUNCH(1, 4)
+    HISPMV_VEC_LAUNCH(1, 8)
+    HISPMV_VEC_LAUNCH(2, 4)
+    HISPMV_VEC_LAUNCH(2, 8)
+    HISPMV_VEC_LAUNCH(4, 4)
+    HISPMV_VEC_LAUNCH(4, 8)
+    HISPMV_VEC_LAUNCH(8, 4)
+    HISPMV_VEC_LAUNCH(8, 8)
+  }
 #undef HISPMV_VEC_LAUNCH
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -398,11 +425,11 @@ int launch_vec_stream(const void* data, const int* subidx, const int* meta,
 // The launch shape for these sizes (f32 payload, 16-byte x loads when
 // batch % 4 == 0): out = {V, row slices, CTAs}.  Returns a cudaError_t code
 // (cudaErrorInvalidValue for what the launcher refuses).
-template <bool kWindowed>
+template <XRow kX>
 int vec_stream_grid(int nchunks, int chunk, int bh, int batch, int vpt,
                     int* out) {
   Grid gr;
-  const int rc = launch_vec_stream<float, kWindowed>(
+  const int rc = launch_vec_stream<float, kX>(
       nullptr, nullptr, nullptr, nullptr, nullptr, nchunks, chunk, bh, batch,
       vpt, batch % 4 == 0, &gr, nullptr);
   if (rc == 0) {

@@ -8,7 +8,7 @@
 //
 // Design: B2 at one vector.  x2d [ncb, 128] is B2's xb [ncb, 128, 1] and y
 // [nrb, bh] is its y [nrb, bh, 1], so B1 launches block_vec.cuh's
-// chunked_vec_kernel with kWindowed false at batch 1 and V 1 (acc[R][1]):
+// chunked_vec_kernel in x-row mode kCol at batch 1 and V 1 (acc[R][1]):
 // a thread owns a lane and R = min(bh, 8) rows of each block, the stream
 // is cut into equal ranges of blocks (crossing chunks) until the grid
 // holds one wave of resident CTAs, and a flush reduces R values across the
@@ -35,11 +35,11 @@ int hispmv_spmv_chunked(const void* data, int data_is_bf16, const int* meta,
                         const float* x2d, float* y, int nchunks, int chunk,
                         int bh, int vpt, cudaStream_t stream) {
   if (data_is_bf16) {
-    return hispmv::launch_vec_stream<__nv_bfloat16, false>(
+    return hispmv::launch_vec_stream<__nv_bfloat16, hispmv::XRow::kCol>(
         data, nullptr, meta, x2d, y, nchunks, chunk, bh, 1, vpt, false,
         nullptr, stream);
   }
-  return hispmv::launch_vec_stream<float, false>(
+  return hispmv::launch_vec_stream<float, hispmv::XRow::kCol>(
       data, nullptr, meta, x2d, y, nchunks, chunk, bh, 1, vpt, false,
       nullptr, stream);
 }

@@ -10,7 +10,7 @@
 // It runs the block format's linear() within the budget, the ELLX overflow
 // of linear() and the row-granular ELLX residual of a routed linear().
 //
-// Design: block_vec.cuh's chunked_vec_kernel with kWindowed false (lane l
+// Design: block_vec.cuh's chunked_vec_kernel in x-row mode kCol (lane l
 // of block k reads x row cb), which B1 runs at one vector: V vectors a
 // thread, acc[R][V] in registers, no shared-memory staging, a grid of equal
 // block ranges x row slices x vector groups filling one wave, and a flush
@@ -44,11 +44,11 @@ int hispmv_spmv_chunked_batched(const void* data, int data_is_bf16,
   const bool vec4 =
       batch % 4 == 0 && reinterpret_cast<uintptr_t>(xb) % 16 == 0;
   if (data_is_bf16) {
-    return hispmv::launch_vec_stream<__nv_bfloat16, false>(
+    return hispmv::launch_vec_stream<__nv_bfloat16, hispmv::XRow::kCol>(
         data, nullptr, meta, xb, y, nchunks, chunk, bh, batch, vpt, vec4,
         nullptr, stream);
   }
-  return hispmv::launch_vec_stream<float, false>(
+  return hispmv::launch_vec_stream<float, hispmv::XRow::kCol>(
       data, nullptr, meta, xb, y, nchunks, chunk, bh, batch, vpt, vec4,
       nullptr, stream);
 }
@@ -59,7 +59,8 @@ int hispmv_spmv_chunked_batched(const void* data, int data_is_bf16,
 // launcher refuses).
 int hispmv_spmv_chunked_batched_grid(int nchunks, int chunk, int bh,
                                      int batch, int vpt, int* out) {
-  return hispmv::vec_stream_grid<false>(nchunks, chunk, bh, batch, vpt, out);
+  return hispmv::vec_stream_grid<hispmv::XRow::kCol>(nchunks, chunk, bh,
+      batch, vpt, out);
 }
 
 }  // extern "C"

@@ -11,9 +11,11 @@
 //
 // The TPU needs the panels because neither vector fits in VMEM; on the card
 // both are read from device memory, so each panel is only an offset:
-// block_stream.cuh's one-CTA-a-chunk kernel with x2d moved by
-// xpanel_ids[c] * panel_ncb rows and y by ypanel_ids[c] * panel_nrb
-// row-blocks (TILED, a compile-time flag).
+// block_stream.cuh's one-CTA-a-chunk kernel, which serves B4 alone, with
+// x2d moved by xpanel_ids[c] * panel_ncb rows and y by ypanel_ids[c] *
+// panel_nrb row-blocks.  B1, B2, B3, B7 and B8 run block_vec.cuh's
+// lane-per-thread grid instead; B4, already near its byte bound on an H100
+// SXM with one CTA a chunk, stays here.
 // The TPU zeroes a y panel at its first chunk (yfirst) because its grid
 // runs in order; here chunks of one row panel run in parallel, so zeroing
 // inside the kernel would race with other CTAs' adds.  The caller zeroes
@@ -43,13 +45,13 @@ int hispmv_spmv_chunked_tiled(const void* data, int data_is_bf16,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (data_is_bf16) {
-    return hispmv::launch_block_stream<__nv_bfloat16, true>(
-        data, meta, xpanel_ids, x2d, y, nchunks, chunk, bh,
-        panel_ncb, stream, ypanel_ids, panel_nrb);
+    return hispmv::launch_block_stream<__nv_bfloat16>(
+        data, meta, xpanel_ids, ypanel_ids, x2d, y, nchunks, chunk, bh,
+        panel_ncb, panel_nrb, stream);
   }
-  return hispmv::launch_block_stream<float, true>(
-      data, meta, xpanel_ids, x2d, y, nchunks, chunk, bh, panel_ncb,
-      stream, ypanel_ids, panel_nrb);
+  return hispmv::launch_block_stream<float>(
+      data, meta, xpanel_ids, ypanel_ids, x2d, y, nchunks, chunk, bh,
+      panel_ncb, panel_nrb, stream);
 }
 
 }  // extern "C"

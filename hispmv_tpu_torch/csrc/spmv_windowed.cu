@@ -8,7 +8,7 @@
 //
 // Design: B8 at one vector, as B1 is B2 at one vector.  x2d [nwin*8, 128]
 // is B8's xt [nwin*8, 128, 1], so B7 launches block_vec.cuh's
-// chunked_vec_kernel with kWindowed true at batch 1 and V 1: a grid of
+// chunked_vec_kernel in x-row mode kWindow at batch 1 and V 1: a grid of
 // equal block ranges filling one wave, block k+2's subidx word fetched
 // with its meta words before block k's FMAs, and a flush of R values by
 // recursive halving across the warp.  The design it replaces ran one CTA a
@@ -35,11 +35,11 @@ int hispmv_spmv_windowed(const void* data, int data_is_bf16,
                          const float* x2d, float* y, int nchunks, int chunk,
                          int bh, int vpt, cudaStream_t stream) {
   if (data_is_bf16) {
-    return hispmv::launch_vec_stream<__nv_bfloat16, true>(
+    return hispmv::launch_vec_stream<__nv_bfloat16, hispmv::XRow::kWindow>(
         data, subidx, meta, x2d, y, nchunks, chunk, bh, 1, vpt, false,
         nullptr, stream);
   }
-  return hispmv::launch_vec_stream<float, true>(
+  return hispmv::launch_vec_stream<float, hispmv::XRow::kWindow>(
       data, subidx, meta, x2d, y, nchunks, chunk, bh, 1, vpt, false, nullptr,
       stream);
 }

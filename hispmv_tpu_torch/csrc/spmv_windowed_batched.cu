@@ -12,8 +12,8 @@
 // It runs the window format's linear(), which is the MLP's fc3 at full
 // width.
 //
-// Design: B2's kernel, block_vec.cuh's chunked_vec_kernel with kWindowed
-// true: the same stream, grid and flush, with lane l's x row taken from
+// Design: B2's kernel, block_vec.cuh's chunked_vec_kernel in x-row
+// mode kWindow: the same stream, grid and flush, with lane l's x row taken from
 // its subidx word.  The word of block k+2 is loaded with block k+2's meta
 // words, before block k's FMAs, so block k+1's x loads never wait on it.
 // A lane reads V contiguous floats of its row (16-byte loads at B % 4 ==
@@ -48,11 +48,11 @@ int hispmv_spmv_windowed_batched(const void* data, int data_is_bf16,
   const bool vec4 =
       batch % 4 == 0 && reinterpret_cast<uintptr_t>(xt) % 16 == 0;
   if (data_is_bf16) {
-    return hispmv::launch_vec_stream<__nv_bfloat16, true>(
+    return hispmv::launch_vec_stream<__nv_bfloat16, hispmv::XRow::kWindow>(
         data, subidx, meta, xt, y, nchunks, chunk, bh, batch, vpt, vec4,
         nullptr, stream);
   }
-  return hispmv::launch_vec_stream<float, true>(
+  return hispmv::launch_vec_stream<float, hispmv::XRow::kWindow>(
       data, subidx, meta, xt, y, nchunks, chunk, bh, batch, vpt, vec4,
       nullptr, stream);
 }
@@ -63,7 +63,8 @@ int hispmv_spmv_windowed_batched(const void* data, int data_is_bf16,
 // launcher refuses).
 int hispmv_spmv_windowed_batched_grid(int nchunks, int chunk, int bh,
                                       int batch, int vpt, int* out) {
-  return hispmv::vec_stream_grid<true>(nchunks, chunk, bh, batch, vpt, out);
+  return hispmv::vec_stream_grid<hispmv::XRow::kWindow>(nchunks, chunk, bh,
+      batch, vpt, out);
 }
 
 }  // extern "C"

@@ -166,6 +166,10 @@ def get_lib() -> ctypes.CDLL:
             lib.hispmv_spmv_chunked_paneled.argtypes = [
                 ptr, i32, ptr, ptr, ptr, ptr, i32, i32, i32, i32, ptr,
             ]
+            lib.hispmv_spmv_chunked_paneled_grid.restype = i32
+            lib.hispmv_spmv_chunked_paneled_grid.argtypes = [
+                i32, i32, i32, ptr,
+            ]
             lib.hispmv_spmv_chunked_tiled.restype = i32
             lib.hispmv_spmv_chunked_tiled.argtypes = [
                 ptr, i32, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32,
@@ -192,6 +196,15 @@ def get_lib() -> ctypes.CDLL:
             lib.hispmv_error_string.argtypes = [i32]
             _lib = lib
         return _lib
+
+
+def launch_shape(fn: str, *args) -> tuple:
+    """(V, row slices, CTAs) from the library's shape query ``fn`` (a
+    ``hispmv_*_grid`` function of ``args`` and an out array of three
+    ints); raises for sizes its launcher refuses."""
+    out = (ctypes.c_int * 3)()
+    check(getattr(get_lib(), fn)(*args, ctypes.addressof(out)), fn)
+    return tuple(out)
 
 
 def check(rc: int, name: str) -> None:

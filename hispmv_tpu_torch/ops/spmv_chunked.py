@@ -16,8 +16,6 @@ packages can be fed identical inputs.
 
 from __future__ import annotations
 
-import ctypes
-
 import numpy as np
 import torch
 
@@ -260,11 +258,8 @@ def chunked_batched_grid(batch, nchunks, chunk, block_h, vpt=0):
     V the vectors a thread that its launcher takes for ``vpt``.  Needs the
     built library and a card (the CTA count follows the kernel's
     occupancy)."""
-    out = (ctypes.c_int * 3)()
-    rc = cuda_build.get_lib().hispmv_spmv_chunked_batched_grid(
-        nchunks, chunk, block_h, batch, vpt, ctypes.addressof(out))
-    cuda_build.check(rc, "chunked_batched_grid")
-    return tuple(out)
+    return cuda_build.launch_shape("hispmv_spmv_chunked_batched_grid",
+                                   nchunks, chunk, block_h, batch, vpt)
 
 
 def pack_chunks_paneled(plan: BlockPlan, chunk: int, panel_ncb: int):
@@ -361,8 +356,11 @@ def spmv_chunked_paneled(data3d, meta, panel_ids, x2d, num_row_blocks,
     (or one ring step of a sharded chunked plan, with all panel ids zero),
     ``x2d`` f32 [npanels*panel_ncb, 128].  With ``out`` (f32
     [num_row_blocks, block_h]) the stream adds into it and returns it, so
-    the steps of a ring sum into one y.  CPU tensors take the plain PyTorch
-    version; CUDA tensors launch the CUDA kernel
+    the steps of a ring sum into one y.  The kernel is B1's at one vector
+    with each chunk's panel offset added to its x rows: a grid of block
+    ranges x row slices that fills one wave, whose shape is
+    ``chunked_paneled_grid(nchunks, chunk, block_h)``.  CPU tensors take
+    the plain PyTorch version; CUDA tensors launch the CUDA kernel
     (csrc/spmv_chunked_paneled.cu) or raise."""
     name = "spmv_chunked_paneled"
     check_stream_args(name, data3d, meta, x2d, block_h, chunk)
@@ -390,6 +388,14 @@ def spmv_chunked_paneled(data3d, meta, panel_ids, x2d, num_row_blocks,
 
 
 spmv_chunked_paneled.launches = 0  # kernel launches, for the smoke run's check
+
+
+def chunked_paneled_grid(nchunks, chunk, block_h):
+    """B3's launch shape on ``nchunks`` chunks of ``chunk`` blocks of
+    height ``block_h``: (V, row slices, CTAs); V is 1.  Needs the built
+    library and a card (the CTA count follows the kernel's occupancy)."""
+    return cuda_build.launch_shape("hispmv_spmv_chunked_paneled_grid",
+                                   nchunks, chunk, block_h)
 
 
 def pack_chunks_tiled(plan: BlockPlan, chunk: int, panel_ncb: int,

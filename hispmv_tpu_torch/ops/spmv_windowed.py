@@ -14,8 +14,6 @@ takes x packed [nwin*8, B*128] (the JAX package's ``pack_batch_x``).
 
 from __future__ import annotations
 
-import ctypes
-
 import numpy as np
 import torch
 
@@ -192,8 +190,5 @@ def windowed_batched_grid(batch, nchunks, chunk, block_h, vpt=0):
     :func:`~hispmv_tpu_torch.ops.spmv_chunked.chunked_batched_grid` gives
     B2's.  Needs the built library and a card (the CTA count follows the
     kernel's occupancy)."""
-    out = (ctypes.c_int * 3)()
-    rc = cuda_build.get_lib().hispmv_spmv_windowed_batched_grid(
-        nchunks, chunk, block_h, batch, vpt, ctypes.addressof(out))
-    cuda_build.check(rc, "windowed_batched_grid")
-    return tuple(out)
+    return cuda_build.launch_shape("hispmv_spmv_windowed_batched_grid",
+                                   nchunks, chunk, block_h, batch, vpt)

@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Times the block streams on the vec kernel (``csrc/block_vec.cuh``): B1
-(``spmv_chunked``), B7 (``spmv_windowed``), B2 (``spmv_chunked_batched``)
-and B8 (``spmv_windowed_batched``), on their cases of ``chip_smoke.py`` in
-the checkout it runs from, so that two trees can be compared on one card in
-one run: copy this file to the root of each checkout and run it there, the
-trees in turns (parent, change, change, parent).
+(``spmv_chunked``), B7 (``spmv_windowed``), B3 (``spmv_chunked_paneled``),
+B2 (``spmv_chunked_batched``) and B8 (``spmv_windowed_batched``), on their
+cases of ``chip_smoke.py`` in the checkout it runs from, so that two trees
+can be compared on one card in one run: copy this file to the root of each
+checkout and run it there, the trees in turns (parent, change, change,
+parent).
 
     python3 kernel_compare.py LABEL
 
@@ -13,6 +14,12 @@ overflow.  B7's: crystk03's window handle (format auto, bh 8), crystk03 as
 window at bh 64, and TSOPF_RS_b2383 as window at bh 8 (its stream is
 larger than the card's 50 MB L2, so repeated calls read it from HBM).  For
 each of these the handle's ``run`` (alpha 1.5, beta -0.5) is timed too.
+B3's: ring shard 0 step 0 of TSOPF_RS_b2383's sharded chunked plan at D 4
+(with the D 4 ring call, on a mesh that repeats the card, as its ``run``),
+TSOPF_RS_b2383 packed in x panels of 64 col blocks, and the x-paneled
+200,000 x 5,120,000 block matrix of phase 3f (with its handle's ``run``);
+then the sharded chunked calls on TSOPF_RS_b2383 (ring and replicated at
+D 4, ring at D 1).
 B2's cases: TSOPF_RS_b2383's block handle at B 8 and 64 and trans5's ELLX
 overflow at B 8.  B8's: crystk03's window handle (format auto) at B 64 and
 the MLP's fc3 (the full-width model of ``chip_smoke.py``, seed 0) on fc2's
@@ -21,11 +28,13 @@ at scale 1.0, seed 0; x from a seeded generator.  B8 takes x vector-minor,
 ``xt [nwin*8, 128, B]``, or in a checkout that still has ``pack_batch_x``,
 x packed [nwin*8, B*128]; the script passes whichever the checkout's
 wrapper takes.  Per case it prints the kernel's device busy time
-(torch.profiler, over 20 calls), its bound, and its agreement with the
-plain version; where the wrapper takes ``vpt``, also the time at each V
+(torch.profiler, over 20 calls), its bound, its agreement with the plain
+version and the library call's (cuSPARSE) wall and device busy time on the
+same arrays; where the wrapper takes ``vpt``, also the time at each V
 (B1, B7: 1 and 4; B2, B8: 4 and 8; five readings each, the V values
 alternating: median [min-max]) and the launch shape (V, row slices,
-CTAs).  Exits 1 when a case disagrees, 2 without a CUDA card."""
+CTAs; B3's from ``chunked_paneled_grid`` where the checkout has it).
+Exits 1 when a case disagrees, 2 without a CUDA card."""
 
 import inspect
 import sys
@@ -35,7 +44,8 @@ import torch
 
 import chip_smoke as cs
 from hispmv_tpu_torch import Accelerator, SpmvConfig, prepare
-from hispmv_tpu_torch.formats.synth import suite_matrix
+from hispmv_tpu_torch.dist import make_mesh, spmv_sharded_chunked, to_device
+from hispmv_tpu_torch.formats.synth import blocked_coo, suite_matrix
 from hispmv_tpu_torch.models import AcceleratorLayerManager, ThreeLayerFCModel
 from hispmv_tpu_torch.ops import spmv_chunked as sc
 from hispmv_tpu_torch.ops import spmv_windowed as sw
@@ -97,6 +107,70 @@ def b1_b7_cases(rng):
                       kern, args,
                       lambda h=h, x=x, y=y_in: h.run(x, y, 1.5, -0.5)))
     return cases
+
+
+def b3_cases(rng):
+    """(label, kernel name, args, run) of B3's three cases, and the
+    sharded chunked calls on TSOPF_RS_b2383 as (label, call)."""
+    coo = suite_matrix("TSOPF_RS_b2383", 1.0, seed=cs.SEED)
+    xd = torch.from_numpy(rng.standard_normal(coo.num_cols).astype(
+        np.float32)).cuda()
+    grid = getattr(sc, "chunked_paneled_grid", None)
+
+    def tag(label, nch, chunk, bh):
+        t = f"{label}, bh {bh}, {nch} chunks of {chunk}"
+        if grid is not None:
+            V, slices, ctas = grid(nch, chunk, bh)
+            t += f", V {V}, {slices} row slices, {ctas} CTAs"
+        return f"B3 [{t}]"
+
+    cases, calls = [], []
+    for D in (4, 1):
+        plan = cs.SHARD_KINDS["chunked"][0](coo, D)
+        mesh = make_mesh(devices=["cuda:0"] * D)
+        modes = ("ring", "replicated") if D == 4 else ("ring",)
+        calls += [(f"TSOPF_RS_b2383 chunked {m}, D {D} on one card",
+                   lambda p=plan, m=m, mesh=mesh: spmv_sharded_chunked(
+                       p, xd, mesh, x_mode=m)) for m in modes]
+        if D == 4:
+            sh = to_device(plan, mesh)[0]
+            per = plan.ncb_per_shard * 128
+            x0 = torch.nn.functional.pad(xd, (0, 4 * per - xd.shape[0]))
+            nch = plan.data5.shape[2]
+            cases.append((
+                tag("TSOPF_RS_b2383 ring shard 0 step 0", nch, plan.chunk,
+                    plan.block_h), "spmv_chunked_paneled",
+                (sh["data"][0], sh["meta"][0], sh["panels"],
+                 x0[:per].reshape(-1, 128), plan.nrb_max, plan.block_h,
+                 plan.chunk, plan.ncb_per_shard), calls[0][1]))
+    h = handle("TSOPF_RS_b2383", 8, "block")
+    p = h.plan
+    data3d, meta, panels, nch = sc.pack_chunks_paneled(p, h._chunk,
+                                                       cs.PANEL_NCB)
+    npanels = -(-p.num_col_blocks // cs.PANEL_NCB)
+    x = torch.nn.functional.pad(xd, (0, npanels * cs.PANEL_NCB * 128
+                                     - xd.shape[0]))
+    cases.append((
+        tag(f"TSOPF_RS_b2383 in {npanels} x panels of {cs.PANEL_NCB}", nch,
+            h._chunk, p.block_h), "spmv_chunked_paneled",
+        (torch.from_numpy(data3d).cuda(), torch.from_numpy(meta).cuda(),
+         torch.from_numpy(panels).cuda(), x.reshape(-1, 128),
+         p.num_row_blocks, p.block_h, h._chunk, cs.PANEL_NCB), None))
+    label, R, C, nnz, layout, *_ = cs.LARGE_BLOCK_RUNS[1]
+    h = prepare(blocked_coo(R, C, nnz, seed=cs.SEED, spread_frac=0.4),
+                SpmvConfig(), "block")
+    if not h._paneled:
+        raise SystemExit(f"kernel_compare: {label} is not {layout}")
+    x = torch.from_numpy(rng.standard_normal(C).astype(np.float32)).cuda()
+    y_in = torch.from_numpy(rng.standard_normal(R).astype(np.float32)).cuda()
+    d = h._d
+    cases.append((
+        tag(label, d["data"].shape[0], h._chunk, h.plan.block_h),
+        "spmv_chunked_paneled",
+        (d["data"], d["meta"], d["panels"], h._pad_x(x).reshape(-1, 128),
+         h.plan.num_row_blocks, h.plan.block_h, h._chunk, h._PANEL_NCB),
+        lambda: h.run(x, y_in, 1.5, -0.5)))
+    return cases, calls
 
 
 def b2_cases(rng):
@@ -184,7 +258,8 @@ def main(label: str) -> int:
         return 2
     rng = np.random.default_rng(cs.SEED)
     ok = True
-    for tag, name, args, run in (b1_b7_cases(rng) + b2_cases(rng)
+    b3, calls = b3_cases(rng)
+    for tag, name, args, run in (b1_b7_cases(rng) + b3 + b2_cases(rng)
                                  + b8_cases(rng)):
         kern, plain = cs.KERNELS[name]["wrapper"], cs.PLAIN[name]
         y = kern(*args)
@@ -194,12 +269,19 @@ def main(label: str) -> int:
         busy = cs.device_ms(lambda: kern(*args))
         msg = (f"{label} {tag}: device busy {cs._ms(busy)}, bound "
                f"{bound:.4f} ms ({by}), {line}, {'ok' if agree else 'FAIL'}")
+        lib = cs.library_call(name, args)
+        if lib is not None:
+            msg += (f"; CSR wall {cs.median_ms(lib):.4f} ms, device busy "
+                    f"{cs._ms(cs.device_ms(lib))}")
         if _takes_vpt(kern):
             msg += "; " + v_sweep(kern, args, SWEEP[name])
         if run is not None:
             msg += (f"; handle run wall {cs.median_ms(run):.4f} ms, device "
                     f"busy {cs._ms(cs.device_ms(run))}")
         print(msg, flush=True)
+    for tag, call in calls:
+        print(f"{label} {tag}: wall {cs.median_ms(call):.4f} ms, device busy "
+              f"{cs._ms(cs.device_ms(call))}", flush=True)
     print(f"{label} {cs.gpu_line()}", flush=True)
     return 0 if ok else 1
 

@@ -61,6 +61,7 @@ from hispmv_tpu_torch.ops.spmv_block import (
 from hispmv_tpu_torch.ops.spmv_chunked import (
     chunk_for,
     chunked_batched_grid,
+    chunked_paneled_grid,
     pack_chunks,
     pack_chunks_paneled,
     pack_chunks_tiled,
@@ -880,7 +881,7 @@ def test_b6_kernel_matches_plain(dev, name, bh, B):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("bh", [1, 8, 64])
+@pytest.mark.parametrize("bh", [1, 2, 4, 8, 16, 64])
 @pytest.mark.parametrize("name", ["random", "blocked"])
 def test_b3_kernel_matches_plain(dev, name, bh, dtype):
     plan = build_block_plan(MATRICES[name](), bh)
@@ -901,6 +902,92 @@ def test_b3_kernel_matches_plain(dev, name, bh, dtype):
     out = torch.ones_like(y)
     assert spmv_chunked_paneled(*args, out=out) is out
     assert_close(out, want + 1.0)
+
+
+def _b3_run(plan, data3d, meta, panels, panel_ncb, chunk, dtype, dev):
+    npanels = -(-plan.num_col_blocks // panel_ncb)
+    args = (torch.from_numpy(data3d).to(dev, dtype),
+            torch.from_numpy(meta).to(dev), torch.from_numpy(panels).to(dev),
+            _x2d(plan.shape[1], npanels * panel_ncb * 128, dev, seed=4),
+            plan.num_row_blocks, plan.block_h, chunk, panel_ncb)
+    before = spmv_chunked_paneled.launches
+    y = spmv_chunked_paneled(*args)
+    torch.cuda.synchronize()
+    assert spmv_chunked_paneled.launches == before + 1
+    assert_close(y, spmv_chunked_paneled_plain(*args))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_b3_kernel_row_block_across_ranges_and_panels(dev, dtype):
+    """B1's case in panels: the dense row-block has a run of 8 blocks in
+    each of 98 panels, each run spanning ranges of the grid, and the grid
+    cuts ranges across chunk and panel boundaries."""
+    plan = build_block_plan(_heavy_rows_coo(), 8)
+    panel_ncb = 8
+    data3d, meta, panels, nch = pack_chunks_paneled(plan, 16, panel_ncb)
+    rows = meta[:, 0, :] >> 1
+    heavy = np.bincount(rows.reshape(-1)).argmax()
+    assert len(np.unique(panels[(rows == heavy).any(1)])) > 90
+    V, slices, ctas = chunked_paneled_grid(nch, 16, 8)
+    assert (V, slices) == (1, 1) and ctas > nch
+    assert -(-nch * 16 // ctas) < 16  # ranges shorter than a chunk
+    _b3_run(plan, data3d, meta, panels, panel_ncb, 16, dtype, dev)
+
+
+@pytest.mark.parametrize("bh", [1, 8, 64])
+def test_b3_kernel_on_padding_between_panels(dev, bh):
+    """A chunk that divides no panel's block count: every panel's segment
+    ends in padding blocks (zero payload, its last row-block, no last
+    flag) that sit between two segments, so ranges begin and end in
+    them."""
+    plan = build_block_plan(MATRICES["random"](), bh)
+    panel_ncb = 4
+    counts = np.bincount(plan.block_cols // panel_ncb)
+    chunk = next(c for c in range(8, 64, 8) if (counts % c).all())
+    data3d, meta, panels, _ = pack_chunks_paneled(plan, chunk, panel_ncb)
+    pad = ~data3d.reshape(-1, bh * 128).any(1)
+    seg_end = np.r_[panels[1:] != panels[:-1], True]
+    assert pad.reshape(-1, chunk)[:, -1][seg_end].all()  # every panel pads
+    assert (meta[:, 0, :].reshape(-1)[pad] & 1 == 0).all()
+    _b3_run(plan, data3d, meta, panels, panel_ncb, chunk, torch.float32, dev)
+
+
+def test_b3_kernel_empty_ring_segment_adds_nothing(dev):
+    """An empty ring segment (all zeros: row-block 0, no last flag) leaves
+    the y it adds into as it was, bit for bit; a full one adds its
+    product."""
+    coo = random_coo(4000, 40, 3000, seed=5)  # one col block: shards 1-3
+    plan = build_sharded_chunked_plan(coo, 4, chunk=16)
+    nch, bh, per = plan.data5.shape[2], plan.block_h, plan.ncb_per_shard
+    panels = torch.zeros(nch, dtype=torch.int32, device=dev)
+    x2d = _x2d(40, per * 128, dev)
+    for step in range(4):
+        data3d, meta = plan.data5[0, step], plan.meta5[0, step]
+        args = (torch.from_numpy(data3d).to(dev),
+                torch.from_numpy(meta).to(dev), panels, x2d, plan.nrb_max,
+                bh, 16, per)
+        out = torch.full((plan.nrb_max, bh), 0.5, device=dev)
+        y = spmv_chunked_paneled(*args, out=out.clone())
+        torch.cuda.synchronize()
+        if data3d.any():
+            assert_close(y, spmv_chunked_paneled_plain(*args, out=out))
+        else:
+            assert torch.equal(y, out)
+    assert not plan.data5[0, 1:].any()
+
+
+def test_b3_launch_shape(dev):
+    """B3 runs at V 1; row slices of 8 rows past bh 8; a grid of one wave
+    of resident CTAs on this card's SMs, more CTAs than chunks (the design
+    it replaces ran one a chunk); B1's shape, one instance per mode."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for bh, slices in ((1, 1), (2, 1), (8, 1), (16, 2), (64, 8)):
+        V, s, ctas = chunked_paneled_grid(200, 128, bh)
+        assert (V, s) == (1, slices)
+        assert ctas % slices == 0 and ctas >= sms and ctas > 200
+    assert chunked_paneled_grid(1, 8, 8) == (1, 1, 8)
+    with pytest.raises(RuntimeError, match="chunked_paneled_grid"):
+        chunked_paneled_grid(8, 16, 3)
 
 
 def test_one_shot_spmv_block_on_card(dev):
