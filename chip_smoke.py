@@ -53,7 +53,8 @@ likewise on crystk03's window handle and the MLP's fc3 at B 64.  B1 and B7
 their cases, and their lines name V, the row slices and the CTAs, as B3's
 (the same kernel at V 1 with each chunk's x panel offset) do.  The B 64
 ``linear`` of the Flan_1565-sized matrix (B6) is logged beside B6's
-bound on its arrays.
+bound on its arrays; B6's lines name its launch shape (warps a CTA, row
+slices, CTAs) and its longest run.
 It exits nonzero, without a result line, when there is
 no CUDA card or any check fails.  The last line of standard output is
 ``{"ok": true, "device": {...}}``.
@@ -97,6 +98,7 @@ from hispmv_tpu_torch.ops.permute import (
     permute_stage_plain,
 )
 from hispmv_tpu_torch.ops.spmv_block import (
+    block_batched_grid,
     spmv_block_batched,
     spmv_block_batched_plain,
     spmv_block_stream,
@@ -848,6 +850,15 @@ def b3_shape(nchunks, chunk, block_h):
     return f"V {V}, {slices} row slices, {ctas} CTAs"
 
 
+def b6_shape(starts, nblocks, block_h, batch):
+    """B6's launch shape and its longest run, as its labels name them."""
+    warps, slices, ctas = block_batched_grid(starts.numel(), block_h, batch)
+    ends = torch.cat([starts[1:].long(), starts.new_tensor([nblocks]).long()])
+    longest = int((ends - starts.long()).max())
+    return (f"{warps} warps a CTA, {slices} row slices, {ctas} CTAs, "
+            f"longest run {longest} blocks")
+
+
 def ops_entry(handles, fixtures, counts, failures):
     """The ``ops`` entry on TSOPF_RS_b2383: the one-shot ``spmv_block``
     (B5) with alpha, beta and y_in against the golden, then B5 on resident
@@ -920,7 +931,8 @@ def ops_entry(handles, fixtures, counts, failures):
         ("spmv_block", f"TSOPF_RS_b2383, bh {plan.block_h}, "
          f"{plan.num_blocks} blocks", stream + (x1, nrb),
          {"starts": d["starts"]}),
-        ("spmv_block_batched", f"TSOPF_RS_b2383, bh {plan.block_h}, B {B}",
+        ("spmv_block_batched", f"TSOPF_RS_b2383, bh {plan.block_h}, B {B}, "
+         f"{b6_shape(d['starts'], plan.num_blocks, plan.block_h, B)}",
          stream + (xt, nrb), {"starts": d["starts"]}),
     ]
     return row, cases
@@ -1009,7 +1021,10 @@ def _large_linear(label, h, coo, a, B, rng, counts, failures):
     batch_mb = sum(v.nbytes for v in h._batch_d.values()) / 2**20
     gflops = 2.0 * B * (coo.nnz + R) / (ms * 1e-3) / 1e9
     bound_ms, bound_by = b6_bound(h, xbd)
-    log(f"  {label} linear B {B}: max abs err {st.max_abs_error:.3e} "
+    bd = h._batch_d
+    shape = b6_shape(bd["starts"], bd["data"].shape[0], h.plan.block_h, B)
+    log(f"  {label} linear B {B} [B6: {shape}]: max abs err "
+        f"{st.max_abs_error:.3e} "
         f"({st.num_mismatches} past rtol {RTOL} + atol {atol:.2e}); first "
         f"call {first_s:.2f} s (uploads {batch_mb:.1f} MB of per-block "
         f"arrays); launches {used}, median linear {ms:.4f} ms (device busy "
@@ -1018,7 +1033,7 @@ def _large_linear(label, h, coo, a, B, rng, counts, failures):
     return {"batch": B, "linear_ms": ms, "device_busy_ms": busy,
             "gflops": gflops, "library_ms": lib_ms, "batch_arrays_mb":
             batch_mb, "launches": used, "b6_bound_ms": bound_ms,
-            "b6_bound_by": bound_by}
+            "b6_bound_by": bound_by, "b6_shape": shape}
 
 
 def b6_bound(h, xbd):

@@ -1,7 +1,7 @@
 // Shared device code of the one-CTA-a-chunk block stream of
 // spmv_chunked_tiled.cu (B4) and the tile flush of spmv_block.cu (B5); its
 // constants and to_f32 also serve block_vec.cuh (B1, B2, B3, B7, B8) and
-// block_stream_batched.cuh (B6).
+// B6 (spmv_block.cu).
 //
 // B4 consumes the packed arrays of the JAX package unchanged:
 //   data       [nchunks, chunk*BH, 128] f32 or bf16 block payloads

@@ -184,6 +184,8 @@ def get_lib() -> ctypes.CDLL:
                 ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32,
                 ptr,
             ]
+            lib.hispmv_spmv_block_batched_grid.restype = i32
+            lib.hispmv_spmv_block_batched_grid.argtypes = [i32, i32, i32, ptr]
             lib.hispmv_permute_stage.restype = i32
             lib.hispmv_permute_stage.argtypes = [ptr, ptr, ptr, i32, ptr]
             lib.hispmv_s1_gather.restype = i32
@@ -199,9 +201,10 @@ def get_lib() -> ctypes.CDLL:
 
 
 def launch_shape(fn: str, *args) -> tuple:
-    """(V, row slices, CTAs) from the library's shape query ``fn`` (a
+    """The three ints of the library's shape query ``fn`` (a
     ``hispmv_*_grid`` function of ``args`` and an out array of three
-    ints); raises for sizes its launcher refuses."""
+    ints): (V, row slices, CTAs) of the vec streams, (warps a CTA, row
+    slices, CTAs) of B6; raises for sizes its launcher refuses."""
     out = (ctypes.c_int * 3)()
     check(getattr(get_lib(), fn)(*args, ctypes.addressof(out)), fn)
     return tuple(out)

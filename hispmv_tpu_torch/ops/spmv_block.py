@@ -150,10 +150,12 @@ def spmv_block_batched(data, rows, cols, firsts, lasts, x_blocks,
                        num_row_blocks, starts=None):
     """Run the per-block stream against B vectors; returns y f32
     [num_row_blocks, block_h, B].  Arrays as for :func:`spmv_block_stream`,
-    ``x_blocks`` f32 [ncb, 128, B] (the JAX layout).  The kernel covers the
-    batch in panels of at most 64 vectors in one launch.  CPU tensors take
-    the plain PyTorch version; CUDA tensors launch the CUDA kernel
-    (csrc/spmv_block.cu) or raise."""
+    ``x_blocks`` f32 [ncb, 128, B] (the JAX layout).  The kernel runs one
+    warp per (run, 8-row slice, 16-vector group), each block's product on
+    the fp64 tensor cores, in one launch; its shape is
+    ``block_batched_grid(nruns, block_h, B)``.  Repeated calls give the
+    same bits.  CPU tensors take the plain PyTorch version; CUDA tensors
+    launch the CUDA kernel (csrc/spmv_block.cu) or raise."""
     name = "spmv_block_batched"
     _check_block_args(name, data, (rows, cols, firsts, lasts), x_blocks)
     if x_blocks.ndim != 3 or x_blocks.shape[1] != LANES or \
@@ -184,6 +186,14 @@ def spmv_block_batched(data, rows, cols, firsts, lasts, x_blocks,
 
 
 spmv_block_batched.launches = 0  # kernel launches, for the smoke run's check
+
+
+def block_batched_grid(nruns, block_h, batch):
+    """B6's launch shape for ``nruns`` runs of height ``block_h`` at a
+    batch of ``batch``: (warps a CTA, row slices, CTAs).  Needs the built
+    library; raises for sizes its launcher refuses."""
+    return cuda_build.launch_shape("hispmv_spmv_block_batched_grid", nruns,
+                                   block_h, batch)
 
 
 def upload_block_plan(plan: BlockPlan, device) -> dict:

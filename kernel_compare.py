@@ -1,11 +1,11 @@
 #!/usr/bin/env python3
 """Times the block streams on the vec kernel (``csrc/block_vec.cuh``): B1
 (``spmv_chunked``), B7 (``spmv_windowed``), B3 (``spmv_chunked_paneled``),
-B2 (``spmv_chunked_batched``) and B8 (``spmv_windowed_batched``), on their
-cases of ``chip_smoke.py`` in the checkout it runs from, so that two trees
-can be compared on one card in one run: copy this file to the root of each
-checkout and run it there, the trees in turns (parent, change, change,
-parent).
+B2 (``spmv_chunked_batched``) and B8 (``spmv_windowed_batched``), and B6
+(``spmv_block_batched``), on their cases of ``chip_smoke.py`` in the
+checkout it runs from, so that two trees can be compared on one card in
+one run: copy this file to the root of each checkout and run it there, the
+trees in turns (parent, change, change, parent).
 
     python3 kernel_compare.py LABEL
 
@@ -24,7 +24,13 @@ B2's cases: TSOPF_RS_b2383's block handle at B 8 and 64 and trans5's ELLX
 overflow at B 8.  B8's: crystk03's window handle (format auto) at B 64 and
 the MLP's fc3 (the full-width model of ``chip_smoke.py``, seed 0) on fc2's
 activations at B 64 and on the first of them alone (B 1).  Suite stand-ins
-at scale 1.0, seed 0; x from a seeded generator.  B8 takes x vector-minor,
+at scale 1.0, seed 0; x from a seeded generator.  B6's: TSOPF_RS_b2383 at
+B 64 on ``upload_block_plan`` arrays and the Flan_1565-sized block matrix
+of phase 3f (generated here, tiled) at B 64 on its handle's per-block
+arrays, each beside the handle's ``linear``; its lines name the runs, the
+longest run and, where the checkout has ``block_batched_grid``, the launch
+shape (warps a CTA, row slices, CTAs).  B2 also runs on the Flan-sized
+matrix's chunked arrays (``pack_chunks``) at B 64.  B8 takes x vector-minor,
 ``xt [nwin*8, 128, B]``, or in a checkout that still has ``pack_batch_x``,
 x packed [nwin*8, B*128]; the script passes whichever the checkout's
 wrapper takes.  Per case it prints the kernel's device busy time
@@ -36,6 +42,7 @@ alternating: median [min-max]) and the launch shape (V, row slices,
 CTAs; B3's from ``chunked_paneled_grid`` where the checkout has it).
 Exits 1 when a case disagrees, 2 without a CUDA card."""
 
+import importlib
 import inspect
 import sys
 
@@ -49,6 +56,9 @@ from hispmv_tpu_torch.formats.synth import blocked_coo, suite_matrix
 from hispmv_tpu_torch.models import AcceleratorLayerManager, ThreeLayerFCModel
 from hispmv_tpu_torch.ops import spmv_chunked as sc
 from hispmv_tpu_torch.ops import spmv_windowed as sw
+
+# the module: the ops package's function spmv_block shadows its name
+sb = importlib.import_module("hispmv_tpu_torch.ops.spmv_block")
 
 
 def _takes_vpt(fn):
@@ -193,6 +203,58 @@ def b2_cases(rng):
     return cases
 
 
+def b6_cases(rng):
+    """(label, kernel name, args, run, kwargs) of B6's two cases at B 64,
+    TSOPF_RS_b2383 on ``upload_block_plan`` arrays and the Flan_1565-sized
+    matrix of phase 3f on the handle's own per-block arrays, each with its
+    handle's ``linear``; and B2 on the Flan-sized matrix's chunked arrays
+    at B 64 (``pack_chunks``), which the handle's ``linear`` never runs."""
+    B = cs.BATCH
+    grid = getattr(sb, "block_batched_grid", None)
+    h = handle("TSOPF_RS_b2383", 8, "block")
+    xb = torch.from_numpy(rng.standard_normal((B, h.shape[1])).astype(
+        np.float32)).cuda()
+    d = sb.upload_block_plan(h.plan, "cuda")
+    runs = [("TSOPF_RS_b2383", h, d, xb)]
+    label, R, C, nnz, layout, *_ = cs.LARGE_BLOCK_RUNS[0]
+    fh = prepare(blocked_coo(R, C, nnz, seed=cs.SEED, spread_frac=0.4),
+                 SpmvConfig(), "block")
+    if not getattr(fh, "_" + layout):
+        raise SystemExit(f"kernel_compare: {label} is not {layout}")
+    fxb = torch.from_numpy(rng.standard_normal((B, C)).astype(
+        np.float32)).cuda()
+    fh.linear(fxb)  # uploads the per-block arrays
+    runs.append((label, fh, fh._batch_d, fxb))
+    cases = []
+    for label, h, d, xb in runs:
+        p = h.plan
+        starts = d["starts"]
+        ends = torch.cat([starts[1:].long(),
+                          starts.new_tensor([p.num_blocks]).long()])
+        tag = (f"{label}, bh {p.block_h}, B {B}, {starts.numel()} runs, "
+               f"longest {int((ends - starts.long()).max())} blocks")
+        if grid is not None:
+            warps, slices, ctas = grid(starts.numel(), p.block_h, B)
+            tag += f", {warps} warps a CTA, {slices} row slices, {ctas} CTAs"
+        cases.append((
+            f"B6 [{tag}]", "spmv_block_batched",
+            (d["data"], d["rows"], d["cols"], d["firsts"], d["lasts"],
+             h._pad_x(xb).T.reshape(-1, 128, B).contiguous(),
+             p.num_row_blocks),
+            lambda h=h, xb=xb: h.linear(xb), {"starts": starts}))
+    data3d, meta, nch = sc.pack_chunks(fh.plan, fh._chunk)
+    xt = fh._pad_x(fxb).T.reshape(-1, 128, B).contiguous()
+    V, slices, ctas = sc.chunked_batched_grid(B, nch, fh._chunk,
+                                              fh.plan.block_h)
+    cases.append((
+        f"B2 [{label} chunked, bh {fh.plan.block_h}, B {B}, {nch} chunks of "
+        f"{fh._chunk}, V {V}, {slices} row slices, {ctas} CTAs]",
+        "spmv_chunked_batched",
+        (torch.from_numpy(data3d).cuda(), torch.from_numpy(meta).cuda(), xt,
+         fh.plan.num_row_blocks, fh.plan.block_h, fh._chunk), None))
+    return cases
+
+
 def b8_x(xb, num_windows):
     """The checkout's B8 x for the padded batch ``xb`` [B, nwin*1024]."""
     if hasattr(sw, "pack_batch_x"):  # x packed [nwin*8, B*128]
@@ -259,14 +321,15 @@ def main(label: str) -> int:
     rng = np.random.default_rng(cs.SEED)
     ok = True
     b3, calls = b3_cases(rng)
-    for tag, name, args, run in (b1_b7_cases(rng) + b3 + b2_cases(rng)
-                                 + b8_cases(rng)):
+    for tag, name, args, run, *kw in (b1_b7_cases(rng) + b3 + b2_cases(rng)
+                                      + b8_cases(rng) + b6_cases(rng)):
+        kw = kw[0] if kw else {}
         kern, plain = cs.KERNELS[name]["wrapper"], cs.PLAIN[name]
-        y = kern(*args)
+        y = kern(*args, **kw)
         agree, _, line = cs._agree(name, y, plain(*args))
         ok &= agree
-        bound, by = cs.kernel_bound(name, args, {}, y)
-        busy = cs.device_ms(lambda: kern(*args))
+        bound, by = cs.kernel_bound(name, args, kw, y)
+        busy = cs.device_ms(lambda: kern(*args, **kw))
         msg = (f"{label} {tag}: device busy {cs._ms(busy)}, bound "
                f"{bound:.4f} ms ({by}), {line}, {'ok' if agree else 'FAIL'}")
         lib = cs.library_call(name, args)

@@ -97,24 +97,36 @@ def test_plain_b5_matches_pallas(name, bh):
     assert_close(y.reshape(-1)[: coo.num_rows], golden(coo, x), rtol=1e-3)
 
 
-@pytest.mark.parametrize("B", [1, 7, 64])
+def _b6_both(arrays, xb, nrb):
+    """B6's plain version and the Pallas kernel (interpret mode) on the
+    same stream arrays and x [ncb, 128, B]."""
+    y = spmv_block_batched_plain(*(torch.from_numpy(a) for a in arrays),
+                                 torch.from_numpy(xb), nrb)
+    jy = spmv_block_batched_pallas(*(jnp.asarray(a) for a in arrays),
+                                   jnp.asarray(xb), nrb, interpret=True)
+    return y.numpy(), np.asarray(jy)
+
+
+# (B, bh): bh 8 at B 1, 7, 64 keeps its first ids
+B6_SHAPES = [pytest.param(B, 8, id=str(B)) for B in (1, 7, 64)] + [
+    pytest.param(B, bh, id=f"{B}-bh{bh}")
+    for B, bh in ((9, 8), (130, 8), (1, 16), (9, 16), (130, 16))]
+
+
+@pytest.mark.parametrize("B,bh", B6_SHAPES)
 @pytest.mark.parametrize("name", ["banded", "random", "powerlaw", "wide",
                                   "tiny", "single_dense_row"])
-def test_plain_b6_matches_pallas(name, B):
+def test_plain_b6_matches_pallas(name, B, bh):
     coo = _case(name)
-    plan = build_block_plan(coo, 8)
+    plan = build_block_plan(coo, bh)
     xb = _x_blocks(plan, seed=B, batch=B)
-    arrays, tarrays = _stream(plan)
-    y = spmv_block_batched_plain(*tarrays, torch.from_numpy(xb),
-                                 plan.num_row_blocks)
-    jy = spmv_block_batched_pallas(*(jnp.asarray(a) for a in arrays),
-                                   jnp.asarray(xb), plan.num_row_blocks,
-                                   interpret=True)
-    assert y.shape == (plan.num_row_blocks, 8, B)
-    assert_close(y.numpy(), np.asarray(jy))
+    arrays, _ = _stream(plan)
+    y, jy = _b6_both(arrays, xb, plan.num_row_blocks)
+    assert y.shape == (plan.num_row_blocks, bh, B)
+    assert_close(y, jy)
     # vector b of the batch against the golden
     want = golden(coo, xb.reshape(-1, B)[: coo.num_cols])
-    got = y.numpy().reshape(-1, B)[: coo.num_rows]
+    got = y.reshape(-1, B)[: coo.num_rows]
     assert_close(got, want, rtol=1e-3)
 
 
@@ -204,6 +216,41 @@ def test_b5_empty_shard_block_stores_zero():
                                   (data, rows, cols, firsts, lasts)),
                                 torch.from_numpy(xb), 2)
     assert y.shape == (2, 1, 8) and not y.any()
+
+
+@pytest.mark.parametrize("B", [1, 9])
+def test_b6_skips_blocks_after_the_last_flag(B):
+    plan, arrays = _padded_stream()
+    xb = _x_blocks(plan, batch=B)
+    y, jy = _b6_both(arrays, xb, plan.num_row_blocks)
+    assert_close(y, jy)
+    plain, _ = _b6_both(_stream(plan)[0], xb, plan.num_row_blocks)
+    np.testing.assert_array_equal(y, plain)
+
+
+@pytest.mark.parametrize("B", [1, 9])
+def test_b6_run_without_last_flag_stores_nothing(B):
+    # as B5's: row-block 0's run loses its last flag and y[0] stays zero
+    plan = build_block_plan(_case("banded"), 8)
+    lasts = plan.block_lasts.copy()
+    lasts[int(np.flatnonzero(lasts)[0])] = 0
+    arrays = (plan.data, plan.block_rows, plan.block_cols, plan.block_firsts,
+              lasts)
+    y, jy = _b6_both(arrays, _x_blocks(plan, batch=B), plan.num_row_blocks)
+    assert not y[0].any() and y[1:].any()
+    assert_close(y[1:], jy[1:])
+
+
+def test_b6_empty_shard_block_stores_zero():
+    # the sharded planner's empty shard: one zero block on row-block 0,
+    # which the TPU grid stores as zeros
+    data = np.zeros((3, 8, 128), np.float32)
+    index = np.zeros(3, np.int32)
+    flags = np.array([1, 0, 0], np.int32)
+    xb = np.ones((1, 128, 5), np.float32)
+    y, jy = _b6_both((data, index, index, flags, flags), xb, 2)
+    assert y.shape == (2, 8, 5) and not y.any()
+    np.testing.assert_array_equal(y[0], jy[0])
 
 
 def test_run_starts():

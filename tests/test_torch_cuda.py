@@ -51,6 +51,7 @@ from hispmv_tpu_torch.dist import (
 )
 from hispmv_tpu_torch.dist.dryrun import dryrun_multichip
 from hispmv_tpu_torch.ops.spmv_block import (
+    block_batched_grid,
     run_starts,
     spmv_block,
     spmv_block_batched,
@@ -864,20 +865,114 @@ def test_b5_kernel_on_sharded_streams(dev, D):
             assert_close(y, spmv_block_stream_plain(*arrays, xb, sp.nrb_max))
 
 
-@pytest.mark.parametrize("B", [1, 7, 64, 130])
-@pytest.mark.parametrize("bh", [1, 8, 64])
+# B6 against its plain version: the kernel widens the fp32 inputs exactly
+# and sums in fp64 (DMMA), the plain version sums fp32 products in fp32, so
+# the two differ by the plain version's rounding: assert_close's rtol 1e-5
+# and atol 1e-5*max(1, max|y|).  The kernel's sum has a fixed order: a
+# second call gives the same bits.
+
+
+def _b6_call(arrays, xb, nrb, starts=None):
+    before = spmv_block_batched.launches
+    y = spmv_block_batched(*arrays, xb, nrb, starts=starts)
+    torch.cuda.synchronize()
+    assert spmv_block_batched.launches == before + 1
+    assert y.shape == (nrb, arrays[0].shape[1], xb.shape[2])
+    assert_close(y, spmv_block_batched_plain(*arrays, xb, nrb))
+    assert torch.equal(y, spmv_block_batched(*arrays, xb, nrb, starts=starts))
+    return y
+
+
+def _b6_x(ncb, B, dev, seed=0):
+    return torch.from_numpy(np.random.default_rng(seed).standard_normal(
+        (ncb, 128, B)).astype(np.float32)).to(dev)
+
+
+@pytest.mark.parametrize("B", [1, 7, 16, 64, 130])
+@pytest.mark.parametrize("bh", [1, 2, 4, 8, 16, 32, 64])
 @pytest.mark.parametrize("name", ["random", "blocked"])
 def test_b6_kernel_matches_plain(dev, name, bh, B):
     plan, arrays, starts = _b5_arrays(name, bh, dev)
     xb = _batch(B, plan.num_col_blocks * 128, dev, seed=B).T.reshape(
         -1, 128, B).contiguous()
-    before = spmv_block_batched.launches
-    y = spmv_block_batched(*arrays, xb, plan.num_row_blocks, starts=starts)
-    torch.cuda.synchronize()
-    assert spmv_block_batched.launches == before + 1
-    assert y.shape == (plan.num_row_blocks, bh, B)
-    assert_close(y, spmv_block_batched_plain(*arrays, xb,
+    _b6_call(arrays, xb, plan.num_row_blocks, starts)
+
+
+@pytest.mark.parametrize("B", [7, 64])
+@pytest.mark.parametrize("D", [3, 8])
+def test_b6_kernel_on_sharded_streams(dev, D, B):
+    """Padding blocks after a shard's last run, and (D 8 on a 16-row
+    matrix) empty shards: one zero block storing y[0] = 0."""
+    for coo in (MATRICES["random"](), random_coo(16, 200, 100, seed=5)):
+        sp = build_sharded_block_plan(coo, D)
+        xb = _b6_x(sp.num_col_blocks, B, dev, seed=D)
+        for d in range(D):
+            arrays = tuple(torch.from_numpy(a[d]).to(dev) for a in (
+                sp.data, sp.block_rows, sp.block_cols, sp.block_firsts,
+                sp.block_lasts))
+            _b6_call(arrays, xb, sp.nrb_max)
+
+
+@pytest.mark.parametrize("B", [1, 64])
+def test_b6_kernel_run_without_last_flag_stores_nothing(dev, B):
+    plan, arrays, _ = _b5_arrays("banded", 8, dev)
+    lasts = arrays[4].clone()
+    lasts[int(torch.nonzero(lasts)[0])] = 0
+    arrays = arrays[:4] + (lasts,)
+    y = _b6_call(arrays, _b6_x(plan.num_col_blocks, B, dev),
+                 plan.num_row_blocks)
+    assert not y[0].any() and y[1:].any()
+
+
+@pytest.mark.parametrize("B", [16, 130])
+def test_b6_kernel_one_row_block_of_hundreds_of_blocks(dev, B):
+    coo = random_coo(20, 400 * 128, 60_000, seed=17)
+    plan = build_block_plan(coo, 8)
+    runs = np.diff(np.append(np.flatnonzero(plan.block_firsts),
+                             plan.num_blocks))
+    assert runs.max() >= 300
+    arrays = tuple(torch.from_numpy(a).to(dev) for a in (
+        plan.data, plan.block_rows, plan.block_cols, plan.block_firsts,
+        plan.block_lasts))
+    _b6_call(arrays, _b6_x(plan.num_col_blocks, B, dev), plan.num_row_blocks)
+
+
+def test_b6_kernel_skips_padding_between_runs(dev):
+    """Blocks after a run's last flag and before the next first flag (with
+    a nonzero payload here) are never read."""
+    plan = build_block_plan(MATRICES["banded"](), 8)
+    ends = np.flatnonzero(plan.block_lasts)
+    pad = np.ones((1, 8, 128), np.float32)
+    data, rows, cols, firsts, lasts = [], [], [], [], []
+    prev = 0
+    for e in ends:
+        data += [plan.data[prev:e + 1], pad]
+        rows += [plan.block_rows[prev:e + 1], plan.block_rows[e:e + 1]]
+        cols += [plan.block_cols[prev:e + 1], np.zeros(1, np.int32)]
+        firsts += [plan.block_firsts[prev:e + 1], np.zeros(1, np.int32)]
+        lasts += [plan.block_lasts[prev:e + 1], np.zeros(1, np.int32)]
+        prev = e + 1
+    arrays = tuple(torch.from_numpy(np.concatenate(a)).to(dev)
+                   for a in (data, rows, cols, firsts, lasts))
+    assert arrays[0].shape[0] == plan.num_blocks + len(ends)
+    xb = _b6_x(plan.num_col_blocks, 64, dev)
+    y = _b6_call(arrays, xb, plan.num_row_blocks)
+    _, plain_arrays, _ = _b5_arrays("banded", 8, dev)
+    assert_close(y, spmv_block_batched_plain(*plain_arrays, xb,
                                              plan.num_row_blocks))
+
+
+def test_b6_launch_shape(dev):
+    """One warp per (run, 8-row slice, 16-vector group), at most four
+    groups (64 vectors) a CTA, the batch's panels of 64 on grid z."""
+    for bh, slices in ((1, 1), (8, 1), (16, 2), (64, 8)):
+        assert block_batched_grid(100, bh, 64) == (4, slices, 100 * slices)
+    assert block_batched_grid(100, 8, 1) == (1, 1, 100)
+    assert block_batched_grid(100, 8, 20) == (2, 1, 100)
+    assert block_batched_grid(100, 8, 130) == (4, 1, 300)
+    for bad in ((0, 8, 64), (100, 3, 64), (100, 8, 0)):
+        with pytest.raises(RuntimeError, match="block_batched_grid"):
+            block_batched_grid(*bad)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
