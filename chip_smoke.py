@@ -26,9 +26,10 @@ counts zeroed just before it and read just after:
 - the ``ops`` entry: the one-shot ``spmv_block`` (B5) and B6 at a batch of
   64 on TSOPF_RS_b2383, beside the handle's ``run`` (B1) and ``linear``;
 - block matrices past the chunked layout's budget: a Flan_1565-sized one
-  in the x- and y-paneled layout (``run`` through B4, ``linear`` at B 64
-  through B6) and a 200,000 x 5,120,000 one in the x-paneled layout
-  (``run`` through B3);
+  in the x- and y-paneled layout (``run`` through B4, which reads only the
+  sectors its handle's sector mask marks live, ``linear`` at B 64 through
+  B6) and a 200,000 x 5,120,000 one in the x-paneled layout (``run``
+  through B3);
 - the routed format's gathered side-plan on the analytics stand-in, with
   the gathered executor's modelled cost lowered so that the planner diverts
   its scattered tiles: ``run`` through B12, B11 twice, B13 and B9, and
@@ -54,7 +55,11 @@ their cases, and their lines name V, the row slices and the CTAs, as B3's
 (the same kernel at V 1 with each chunk's x panel offset) do.  The B 64
 ``linear`` of the Flan_1565-sized matrix (B6) is logged beside B6's
 bound on its arrays; B6's lines name its launch shape (warps a CTA, row
-slices, CTAs) and its longest run.
+slices, CTAs) and its longest run.  B4 runs with its handle's sector mask
+and is held both to its plain version with that mask and to the plain
+version without one (the true product, so a wrong mask shows); its bound
+is the must-read one (the live sectors the mask marks, the mask, meta, x
+and y), and its line gives the bound of its arrays as packed beside it.
 It exits nonzero, without a result line, when there is
 no CUDA card or any check fails.  The last line of standard output is
 ``{"ok": true, "device": {...}}``.
@@ -109,6 +114,7 @@ from hispmv_tpu_torch.ops.spmv_chunked import (
     chunk_for,
     chunked_batched_grid,
     chunked_paneled_grid,
+    chunked_tiled_grid,
     pack_chunks_paneled,
     spmv_chunked,
     spmv_chunked_batched,
@@ -844,9 +850,10 @@ def sharded_cases(kernel_args, handles):
     return cases
 
 
-def b3_shape(nchunks, chunk, block_h):
-    """B3's launch shape as its labels name it."""
-    V, slices, ctas = chunked_paneled_grid(nchunks, chunk, block_h)
+def b3_shape(nchunks, chunk, block_h, grid=chunked_paneled_grid):
+    """B3's launch shape (B4's with ``grid=chunked_tiled_grid``) as its
+    labels name it."""
+    V, slices, ctas = grid(nchunks, chunk, block_h)
     return f"V {V}, {slices} row slices, {ctas} CTAs"
 
 
@@ -1147,10 +1154,12 @@ def large_block_cases(large):
             pnrb = h._panel_nrb(p.block_h)
             npy = -(-p.num_row_blocks // pnrb)
             cases.append(("spmv_chunked_tiled",
-                          f"{shape}, {npy} y panels of {pnrb} row blocks",
+                          f"{shape}, {npy} y panels of {pnrb} row blocks, "
+                          + b3_shape(d["data"].shape[0], h._chunk,
+                                     p.block_h, chunked_tiled_grid),
                           (d["data"], d["meta"], d["xpanels"], d["ypanels"],
                            x2d, npy, pnrb, p.block_h, h._chunk,
-                           h._PANEL_NCB)))
+                           h._PANEL_NCB, h._sector_mask)))
         else:
             nch = d["data"].shape[0]
             cases.append(("spmv_chunked_paneled",
@@ -1223,10 +1232,25 @@ def kernel_checks(handles, linear_x, accel, extra_cases, failures):
         yp = PLAIN[name](*args)
         torch.cuda.synchronize()
         ok, err, line = _agree(name, yk, yp)
+        if name == "spmv_chunked_tiled":
+            # the plain version without the mask: the true product, so a
+            # mask that drops a live granule shows here
+            full_ok, _, full_line = _agree(name, yk, PLAIN[name](*args[:10]))
+            line += f"; without the mask {full_line}"
+            if not full_ok:
+                failures.append(f"{name} [{shape}] with its sector mask "
+                                "disagrees with the unmasked product")
         ms = median_ms(lambda: kern(*args, **kw))
         busy = device_ms(lambda: kern(*args, **kw))
         plain_ms = median_ms(lambda: PLAIN[name](*args))
         bound_ms, bound_by = kernel_bound(name, args, kw, yk)
+        extra = {}
+        if name == "spmv_chunked_tiled":
+            # B4 reads only the live sectors: its bound is the must-read one
+            extra["packed_bound_ms"] = bound_ms
+            bound_ms, bound_by, must_mb = b4_must_read(args, yk)
+            line += (f", must-read {must_mb:.1f} MB, packed bound "
+                     f"{extra['packed_bound_ms']:.4f} ms")
         lib = library_call(name, args)
         lib_ms = None
         if lib is not None:
@@ -1247,7 +1271,7 @@ def kernel_checks(handles, linear_x, accel, extra_cases, failures):
         results.append({"name": name, "shape": shape, "max_abs_err": err,
                         "ms": ms, "device_busy_ms": busy,
                         "plain_ms": plain_ms, "bound_ms": bound_ms,
-                        "bound_by": bound_by, "library_ms": lib_ms})
+                        "bound_by": bound_by, "library_ms": lib_ms, **extra})
     return results
 
 
@@ -1310,6 +1334,23 @@ def kernel_bound(name, args, kw, y):
                                        else "operations")
 
 
+def b4_must_read(args, y):
+    """(ms, "bytes" or "operations", MB): B4's must-read bound on an H100
+    SXM, the larger of the bytes it cannot skip over the HBM rate (the
+    payload's live sectors: 8 lanes a set bit of the sector mask, 32 B at
+    f32, 16 B at bf16; the mask, meta, the panel ids, x and y, each read or
+    written once) and its fp32 operations over the FMA rate."""
+    data3d, mask = args[0], args[10]
+    words = mask.to(torch.int32) & 0xFFFF
+    live = sum(int(((words >> g) & 1).sum()) for g in range(16))
+    nbytes = (live * 8 * data3d.element_size() + mask.nbytes + y.nbytes
+              + sum(t.nbytes for t in args[1:5]))
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = 2.0 * int(torch.count_nonzero(data3d)) / FP32_FLOPS
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations", nbytes / 1e6)
+
+
 def _block_csr(blocks, rb, col, nrows, ncols):
     """CSR of a block stream on the card: ``blocks`` [nb, bh, 128], ``rb``
     [nb] row-block of each block, ``col(j, l)`` the column of lane l of
@@ -1333,7 +1374,7 @@ def library_call(name, args):
             data3d, meta, panels, x, nrb, bh, chunk, panel_ncb = args
         elif name == "spmv_chunked_tiled":
             (data3d, meta, panels, ypanels, x, npy, panel_nrb, bh, chunk,
-             panel_ncb) = args
+             panel_ncb) = args[:10]
             nrb = npy * panel_nrb
         else:
             data3d, meta, x, nrb, bh, chunk = args
@@ -1754,6 +1795,8 @@ def main() -> int:
         "ms": r["ms"], "device_busy_ms": r["device_busy_ms"],
         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+        **({"packed_bound_ms": r["packed_bound_ms"]}
+           if "packed_bound_ms" in r else {}),
     } for r in results]
     log(json.dumps({"runs": runs, "linear": linear_runs, "mlp": mlp_runs,
                     "sharded": shard_runs, "dryrun": dry, "ops": ops_row,

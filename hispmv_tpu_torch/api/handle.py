@@ -55,6 +55,7 @@ from hispmv_tpu_torch.ops.spmv_chunked import (
     spmv_chunked_batched,
     spmv_chunked_paneled,
     spmv_chunked_tiled,
+    tiled_sector_mask,
 )
 from hispmv_tpu_torch.ops.spmv_ellx import (
     EllxPlan,
@@ -401,13 +402,17 @@ class SpmvHandle:
         """Dispatch a BlockPlan to the chunked (B1), x-paneled (B3) or x-
         and y-paneled (B4) layout by the budget above, as the JAX handle
         does, with its device dict keys; plus the identity-extended x
-        permutation when the plan is column-reordered."""
+        permutation when the plan is column-reordered.  The tiled layout
+        also holds B4's sector mask of the uploaded payload, outside the
+        device dict (which stays the JAX handle's) and counted in
+        ``device_bytes``."""
         self._block_plan_meta = plan
         self._chunked = self._block_fits_chunked(plan)
         self._paneled = not self._chunked and self._block_fits_paneled(plan)
         self._tiled = not self._chunked and not self._paneled
         self._chunk = chunk_for(plan.block_h)
         self._batch_d = None  # B6's per-block arrays, uploaded at first use
+        self._sector_mask = None  # B4's, tiled layout only
         vdt = self._value_dtype()
         if self._chunked:
             data3d, meta, _ = pack_chunks(plan, self._chunk)
@@ -428,6 +433,7 @@ class SpmvHandle:
                  "xpanels": self._upload(xp),
                  "ypanels": self._upload(yp),
                  "yfirst": self._upload(yf)}
+            self._sector_mask = tiled_sector_mask(d["data"], plan.block_h)
         del data3d
         if plan.col_perm is not None:
             # to the full padded width: the paneled layouts pad x to whole
@@ -436,6 +442,8 @@ class SpmvHandle:
                 plan.col_perm, num_cols, self._block_padded_cols()
             ))
         self._set_device_dict(d, plan.fill)
+        if self._sector_mask is not None:
+            self.device_bytes += int(self._sector_mask.nbytes)
 
     def _block_padded_cols(self) -> int:
         ncb = self._block_plan_meta.num_col_blocks
@@ -716,7 +724,7 @@ class SpmvHandle:
         return spmv_chunked_tiled(d["data"], d["meta"], d["xpanels"],
                                   d["ypanels"], x2d, -(-nrb // panel_nrb),
                                   panel_nrb, bh, self._chunk,
-                                  self._PANEL_NCB)
+                                  self._PANEL_NCB, self._sector_mask)
 
     def _block_uses_b2(self, batch: int) -> bool:
         """The JAX handle's ``linear`` rule: B2 when the handle is chunked

@@ -31,9 +31,8 @@
 // TPU keeps the later run.
 //
 // B5 reads each payload byte once for one multiply-add, so it is bound by
-// the bytes of the A stream, as B1 (as block_stream.cuh's kernel: a warp
-// reads 128 B of a block row, BH accumulators a thread in registers, one
-// shuffle reduction a run).
+// the bytes of the A stream, as B1 (a warp reads 128 B of a block row, BH
+// accumulators a thread in registers, one shuffle reduction a run).
 //
 // B6 puts each block's 128-lane reduction in the K dimension of the fp64
 // tensor cores: per block a warp forms Y^T[16 vectors x 8 rows] += X^T[16 x

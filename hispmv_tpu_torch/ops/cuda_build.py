@@ -172,8 +172,12 @@ def get_lib() -> ctypes.CDLL:
             ]
             lib.hispmv_spmv_chunked_tiled.restype = i32
             lib.hispmv_spmv_chunked_tiled.argtypes = [
-                ptr, i32, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32,
-                ptr,
+                ptr, i32, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32,
+                i32, ptr,
+            ]
+            lib.hispmv_spmv_chunked_tiled_grid.restype = i32
+            lib.hispmv_spmv_chunked_tiled_grid.argtypes = [
+                i32, i32, i32, ptr,
             ]
             lib.hispmv_spmv_block.restype = i32
             lib.hispmv_spmv_block.argtypes = [

@@ -11,7 +11,8 @@ Port of ``hispmv_tpu/ops/spmv_chunked.py`` (``chunk_for``, ``pack_chunks``,
 (B1), ``csrc/spmv_chunked_batched.cu`` (B2),
 ``csrc/spmv_chunked_paneled.cu`` (B3) and ``csrc/spmv_chunked_tiled.cu``
 (B4); they consume the same packed arrays as the TPU kernels, so both
-packages can be fed identical inputs.
+packages can be fed identical inputs.  B4 also takes a sector mask derived
+from its payload at upload (:func:`tiled_sector_mask`).
 """
 
 from __future__ import annotations
@@ -31,6 +32,9 @@ SUPPORTED_BLOCK_H = (1, 2, 4, 8, 16, 32, 64)
 VPT_CHOICES = (0, 1, 4, 8)
 
 _VALUE_DTYPES = (torch.float32, torch.bfloat16)
+
+# Lanes a bit of B4's sector mask covers: 32 bytes of an f32 payload row.
+SECTOR_LANES = 8
 
 
 def chunk_for(block_h: int, target_bytes: int = 1 << 20) -> int:
@@ -465,6 +469,38 @@ def pack_chunks_tiled(plan: BlockPlan, chunk: int, panel_ncb: int,
             nchunks)
 
 
+def tiled_sector_mask(data3d, block_h):
+    """B4's sector mask of the payload ``data3d`` f32 or bf16 [nchunks,
+    chunk*block_h, 128]: int16 [nchunks, chunk*block_h], one word a payload
+    row, bit g set when lanes 8g .. 8g+7 of the row hold a nonzero (16
+    bits a row; a 32-byte sector of an f32 row, 16 bytes of a bf16 one).
+    Padding rows get 0.  Computed with torch on the tensor's own device;
+    pass the uploaded payload, so that a value a bf16 cast flushed to zero
+    leaves its bit clear.  0.39% of an f32 payload's bytes, 0.78% of a
+    bf16 one's."""
+    if data3d.ndim != 3 or data3d.shape[2] != LANES or \
+            data3d.shape[1] % block_h:
+        raise ValueError(f"tiled_sector_mask: data shape "
+                         f"{tuple(data3d.shape)} is not [nchunks, "
+                         f"chunk*{block_h}, {LANES}]")
+    nch, rows, _ = data3d.shape
+    groups = LANES // SECTOR_LANES
+    live = (data3d != 0).reshape(nch, rows, groups, SECTOR_LANES).any(-1)
+    weights = torch.ones(groups, dtype=torch.int32, device=data3d.device) \
+        << torch.arange(groups, dtype=torch.int32, device=data3d.device)
+    words = (live.to(torch.int32) * weights).sum(-1, dtype=torch.int32)
+    # bit 15 as the sign of an int16, without an out-of-range cast
+    return (words - ((words >> 15) << 16)).to(torch.int16)
+
+
+def _check_sector_mask(name, sector_mask, data3d):
+    if sector_mask.dtype != torch.int16 or \
+            sector_mask.shape != data3d.shape[:2]:
+        raise ValueError(f"{name}: sector_mask must be int16 "
+                         f"{list(data3d.shape[:2])}, got {sector_mask.dtype} "
+                         f"{list(sector_mask.shape)}")
+
+
 def _check_tiled(name, meta, xpanel_ids, ypanel_ids, panel_ncb, panel_nrb,
                  num_row_panels):
     nch = meta.shape[0]
@@ -474,17 +510,26 @@ def _check_tiled(name, meta, xpanel_ids, ypanel_ids, panel_ncb, panel_nrb,
     if panel_ncb < 1 or panel_nrb < 1 or num_row_panels < 1:
         raise ValueError(f"{name}: panel_ncb, panel_nrb and num_row_panels "
                          "must be >= 1")
+    if num_row_panels * panel_nrb * 2 >= 2**31:
+        raise ValueError(f"{name}: {num_row_panels * panel_nrb} row blocks "
+                         "do not fit the kernel's int32 row words")
 
 
 def spmv_chunked_tiled_plain(data3d, meta, xpanel_ids, ypanel_ids, x2d,
                              num_row_panels, panel_nrb, block_h, chunk,
-                             panel_ncb):
+                             panel_ncb, sector_mask=None):
     """Plain PyTorch version of B4 on the same arrays: B1's, with block j
     of chunk c reading x row ``xpanel_ids[c] * panel_ncb + cb`` and adding
-    into row-block ``ypanel_ids[c] * panel_nrb + rb``.  Row panels no chunk
-    visits stay zero."""
+    into row-block ``ypanel_ids[c] * panel_nrb + rb``.  With
+    ``sector_mask`` (:func:`tiled_sector_mask`) the lanes of every granule
+    whose bit is clear are taken as 0, as the kernel takes them.  Row
+    panels no chunk visits stay zero."""
     nb = data3d.shape[0] * chunk
     a = data3d.reshape(nb, block_h, LANES).float()
+    if sector_mask is not None:
+        bit = torch.arange(LANES, device=a.device) // SECTOR_LANES
+        keep = (sector_mask.to(torch.int32)[..., None] >> bit) & 1
+        a = torch.where(keep.reshape(a.shape).bool(), a, 0.0)
     rb = ((meta[:, 0, :] >> 1) + ypanel_ids[:, None] * panel_nrb).reshape(-1)
     cb = (meta[:, 1, :] + xpanel_ids[:, None] * panel_ncb).reshape(-1)
     contrib = (a * x2d.index_select(0, cb)[:, None, :]).sum(-1)
@@ -494,33 +539,55 @@ def spmv_chunked_tiled_plain(data3d, meta, xpanel_ids, ypanel_ids, x2d,
 
 
 def spmv_chunked_tiled(data3d, meta, xpanel_ids, ypanel_ids, x2d,
-                       num_row_panels, panel_nrb, block_h, chunk, panel_ncb):
+                       num_row_panels, panel_nrb, block_h, chunk, panel_ncb,
+                       sector_mask=None):
     """Run the x- and y-paneled chunked stream; returns y tiles f32
     [num_row_panels*panel_nrb, block_h].
 
     ``data3d`` / ``meta`` / ``xpanel_ids`` / ``ypanel_ids`` from
     :func:`pack_chunks_tiled` (its ``yfirst`` is not needed: y is zeroed
-    once before the launch), ``x2d`` f32 [npanels_x*panel_ncb, 128].  CPU
-    tensors take the plain PyTorch version; CUDA tensors launch the CUDA
-    kernel (csrc/spmv_chunked_tiled.cu) or raise."""
+    once before the launch), ``x2d`` f32 [npanels_x*panel_ncb, 128],
+    ``sector_mask`` int16 [nchunks, chunk*block_h] from
+    :func:`tiled_sector_mask` of the same payload (the handle makes it once
+    at upload).  The kernel is B3's at one vector with each chunk's row
+    panel offset added to its row blocks too, and it loads a payload value
+    only where the mask's bit of its 8-lane granule is set, taking 0
+    elsewhere: the result is the product with the clear granules' lanes
+    zeroed, which the helper's mask leaves equal to the unmasked product
+    (those lanes hold zeros, and 0 * x is still formed, so a non-finite x
+    gives NaN there as in the TPU kernel).  Its grid of block ranges x row
+    slices fills one wave; its shape is ``chunked_tiled_grid(nchunks,
+    chunk, block_h)``.  CPU tensors take the plain PyTorch version (with
+    the mask applied when one is given); CUDA tensors launch the CUDA
+    kernel (csrc/spmv_chunked_tiled.cu), which needs the mask, or raise."""
     name = "spmv_chunked_tiled"
     check_stream_args(name, data3d, meta, x2d, block_h, chunk)
     _check_tiled(name, meta, xpanel_ids, ypanel_ids, panel_ncb, panel_nrb,
                  num_row_panels)
+    if sector_mask is not None:
+        _check_sector_mask(name, sector_mask, data3d)
     if data3d.device.type == "cpu":
         return spmv_chunked_tiled_plain(data3d, meta, xpanel_ids, ypanel_ids,
                                         x2d, num_row_panels, panel_nrb,
-                                        block_h, chunk, panel_ncb)
+                                        block_h, chunk, panel_ncb,
+                                        sector_mask)
     check_cuda_args(name, block_h, data3d, meta, xpanel_ids, ypanel_ids, x2d)
+    if sector_mask is None:
+        raise ValueError(f"{name}: the CUDA kernel needs the payload's "
+                         "sector_mask (tiled_sector_mask)")
+    check_cuda_tensors(name, data3d, sector_mask)
+    if sector_mask.data_ptr() % 16:
+        raise ValueError(f"{name}: sector_mask must be 16-byte aligned")
     lib = cuda_build.get_lib()
     y = torch.zeros((num_row_panels * panel_nrb, block_h),
                     dtype=torch.float32, device=x2d.device)
     with torch.cuda.device(x2d.device):
         rc = lib.hispmv_spmv_chunked_tiled(
             data3d.data_ptr(), int(data3d.dtype == torch.bfloat16),
-            meta.data_ptr(), xpanel_ids.data_ptr(), ypanel_ids.data_ptr(),
-            x2d.data_ptr(), y.data_ptr(), data3d.shape[0], chunk, block_h,
-            panel_ncb, panel_nrb, torch.cuda.current_stream().cuda_stream,
+            sector_mask.data_ptr(), meta.data_ptr(), xpanel_ids.data_ptr(),
+            ypanel_ids.data_ptr(), x2d.data_ptr(), y.data_ptr(),
+            data3d.shape[0], chunk, block_h, panel_ncb, panel_nrb,
+            torch.cuda.current_stream().cuda_stream,
         )
     cuda_build.check(rc, name)
     spmv_chunked_tiled.launches += 1
@@ -528,3 +595,11 @@ def spmv_chunked_tiled(data3d, meta, xpanel_ids, ypanel_ids, x2d,
 
 
 spmv_chunked_tiled.launches = 0  # kernel launches, for the smoke run's check
+
+
+def chunked_tiled_grid(nchunks, chunk, block_h):
+    """B4's launch shape on ``nchunks`` chunks of ``chunk`` blocks of
+    height ``block_h``: (V, row slices, CTAs); V is 1.  Needs the built
+    library and a card (the CTA count follows the kernel's occupancy)."""
+    return cuda_build.launch_shape("hispmv_spmv_chunked_tiled_grid",
+                                   nchunks, chunk, block_h)

@@ -1,13 +1,16 @@
 #!/usr/bin/env python3
 """Times the block streams on the vec kernel (``csrc/block_vec.cuh``): B1
 (``spmv_chunked``), B7 (``spmv_windowed``), B3 (``spmv_chunked_paneled``),
-B2 (``spmv_chunked_batched``) and B8 (``spmv_windowed_batched``), and B6
-(``spmv_block_batched``), on their cases of ``chip_smoke.py`` in the
-checkout it runs from, so that two trees can be compared on one card in
-one run: copy this file to the root of each checkout and run it there, the
-trees in turns (parent, change, change, parent).
+B4 (``spmv_chunked_tiled``), B2 (``spmv_chunked_batched``) and B8
+(``spmv_windowed_batched``), and B6 (``spmv_block_batched``), on their
+cases of ``chip_smoke.py`` in the checkout it runs from, so that two trees
+can be compared on one card in one run: copy this file to the root of each
+checkout and run it there, the trees in turns (parent, change, change,
+parent).
 
-    python3 kernel_compare.py LABEL
+    python3 kernel_compare.py LABEL [GROUP ...]
+
+GROUPs (all when none is named): b1b7, b3, b2, b8, b6, b4.
 
 B1's cases, at one vector: TSOPF_RS_b2383's block handle and trans5's ELLX
 overflow.  B7's: crystk03's window handle (format auto, bh 8), crystk03 as
@@ -29,7 +32,20 @@ B 64 on ``upload_block_plan`` arrays and the Flan_1565-sized block matrix
 of phase 3f (generated here, tiled) at B 64 on its handle's per-block
 arrays, each beside the handle's ``linear``; its lines name the runs, the
 longest run and, where the checkout has ``block_batched_grid``, the launch
-shape (warps a CTA, row slices, CTAs).  B2 also runs on the Flan-sized
+shape (warps a CTA, row slices, CTAs).  B4's: the Flan_1565-sized
+matrix's tiled handle (beside its ``run``) and TSOPF_RS_b2383 packed tiled
+in 5 x panels of 64 col blocks and 5 y panels of 1,024 row blocks; each
+passes the sector mask (the handle's, or ``tiled_sector_mask`` of the
+payload) only where the checkout's wrapper takes one, and its line gives
+the payload's shares of nonzero lanes and of 32-, 64- and 128-byte
+granules with a nonzero, the must-read bound (the live 32-byte sectors,
+the mask, meta, x and y over 3.35 TB/s) and the launch shape from
+``chunked_tiled_grid`` where the checkout has it.  With the mask the
+Flan-sized case is also timed under three masks that do not fit the
+payload (all sectors; every other 32-byte sector; every other 64-byte
+pair), whose times tell the granularity at which the card reads HBM; and
+the registers of ``csrc/spmv_chunked_tiled.cu``'s kernels are read from
+``nvcc -Xptxas -v``.  B2 also runs on the Flan-sized
 matrix's chunked arrays (``pack_chunks``) at B 64.  B8 takes x vector-minor,
 ``xt [nwin*8, 128, B]``, or in a checkout that still has ``pack_batch_x``,
 x packed [nwin*8, B*128]; the script passes whichever the checkout's
@@ -44,7 +60,12 @@ Exits 1 when a case disagrees, 2 without a CUDA card."""
 
 import importlib
 import inspect
+import os
+import re
+import shutil
+import subprocess
 import sys
+import tempfile
 
 import numpy as np
 import torch
@@ -54,6 +75,7 @@ from hispmv_tpu_torch import Accelerator, SpmvConfig, prepare
 from hispmv_tpu_torch.dist import make_mesh, spmv_sharded_chunked, to_device
 from hispmv_tpu_torch.formats.synth import blocked_coo, suite_matrix
 from hispmv_tpu_torch.models import AcceleratorLayerManager, ThreeLayerFCModel
+from hispmv_tpu_torch.ops import cuda_build
 from hispmv_tpu_torch.ops import spmv_chunked as sc
 from hispmv_tpu_torch.ops import spmv_windowed as sw
 
@@ -76,6 +98,22 @@ def handle(name, block_h, fmt):
         _HANDLES[key] = prepare(suite_matrix(name, 1.0, seed=cs.SEED),
                                 SpmvConfig(block_h=block_h), fmt)
     return _HANDLES[key]
+
+
+_FLAN = {}
+
+
+def flan_handle():
+    """The Flan_1565-sized matrix of phase 3f (generated here, ~1 min) and
+    its tiled handle, prepared once."""
+    if not _FLAN:
+        label, R, C, nnz, layout, *_ = cs.LARGE_BLOCK_RUNS[0]
+        coo = blocked_coo(R, C, nnz, seed=cs.SEED, spread_frac=0.4)
+        h = prepare(coo, SpmvConfig(), "block")
+        if not getattr(h, "_" + layout):
+            raise SystemExit(f"kernel_compare: {label} is not {layout}")
+        _FLAN.update(label=label, handle=h)
+    return _FLAN["label"], _FLAN["handle"]
 
 
 def b1_b7_cases(rng):
@@ -216,12 +254,8 @@ def b6_cases(rng):
         np.float32)).cuda()
     d = sb.upload_block_plan(h.plan, "cuda")
     runs = [("TSOPF_RS_b2383", h, d, xb)]
-    label, R, C, nnz, layout, *_ = cs.LARGE_BLOCK_RUNS[0]
-    fh = prepare(blocked_coo(R, C, nnz, seed=cs.SEED, spread_frac=0.4),
-                 SpmvConfig(), "block")
-    if not getattr(fh, "_" + layout):
-        raise SystemExit(f"kernel_compare: {label} is not {layout}")
-    fxb = torch.from_numpy(rng.standard_normal((B, C)).astype(
+    label, fh = flan_handle()
+    fxb = torch.from_numpy(rng.standard_normal((B, fh.shape[1])).astype(
         np.float32)).cuda()
     fh.linear(fxb)  # uploads the per-block arrays
     runs.append((label, fh, fh._batch_d, fxb))
@@ -253,6 +287,129 @@ def b6_cases(rng):
         (torch.from_numpy(data3d).cuda(), torch.from_numpy(meta).cuda(), xt,
          fh.plan.num_row_blocks, fh.plan.block_h, fh._chunk), None))
     return cases
+
+
+def _takes_mask():
+    return "sector_mask" in inspect.signature(sc.spmv_chunked_tiled).parameters
+
+
+def sector_shares(data3d):
+    """The shares of the payload's lanes that are nonzero and of its 32-,
+    64- and 128-byte granules (8, 16 and 32 f32 lanes) that hold a
+    nonzero, padding included."""
+    nz = data3d != 0
+    out = [f"lanes {float(nz.float().mean()):.3f}"]
+    for lanes in (8, 16, 32):
+        g = nz.reshape(-1, lanes).any(1).float().mean()
+        out.append(f"{lanes * 4} B {float(g):.3f}")
+    return ", ".join(out)
+
+
+def must_read_ms(args, y):
+    """B4's must-read bound: the payload's live 32-byte sectors (8 lanes:
+    32 B at f32, 16 B at bf16), its sector mask (2 B a row), meta, the
+    panel ids, x and y over the HBM rate; (ms, MB)."""
+    data3d = args[0]
+    live = int((data3d != 0).reshape(-1, 8).any(1).sum())
+    nbytes = (live * 8 * data3d.element_size() + data3d.shape[0]
+              * data3d.shape[1] * 2 + y.nbytes
+              + sum(t.nbytes for t in args[1:5]))
+    return 1e3 * nbytes / cs.HBM_BYTES_PER_S, nbytes / 1e6
+
+
+def b4_cases(rng):
+    """(label, kernel name, args, run) of B4's two cases: the Flan-sized
+    tiled handle (beside its ``run``) and TSOPF_RS_b2383 packed tiled in
+    small panels; the sector mask last where the wrapper takes one."""
+    grid = getattr(sc, "chunked_tiled_grid", None)
+    mask = _takes_mask()
+    cases = []
+    label, h = flan_handle()
+    p, d = h.plan, h._d
+    x = torch.from_numpy(rng.standard_normal(h.shape[1]).astype(
+        np.float32)).cuda()
+    y_in = torch.from_numpy(rng.standard_normal(h.shape[0]).astype(
+        np.float32)).cuda()
+    pnrb = h._panel_nrb(p.block_h)
+    args = (d["data"], d["meta"], d["xpanels"], d["ypanels"],
+            h._pad_x(x).reshape(-1, 128), -(-p.num_row_blocks // pnrb),
+            pnrb, p.block_h, h._chunk, h._PANEL_NCB)
+    runs = [(label, args + ((h._sector_mask,) if mask else ()),
+             lambda: h.run(x, y_in, 1.5, -0.5))]
+    th = handle("TSOPF_RS_b2383", 8, "block")
+    tp = th.plan
+    pnrb = 1024
+    data3d, meta, xp, yp, _, nch = sc.pack_chunks_tiled(
+        tp, th._chunk, cs.PANEL_NCB, pnrb)
+    npx = -(-tp.num_col_blocks // cs.PANEL_NCB)
+    tx = torch.from_numpy(rng.standard_normal(npx * cs.PANEL_NCB * 128)
+                          .astype(np.float32)).cuda()
+    data = torch.from_numpy(data3d).cuda()
+    args = (data, torch.from_numpy(meta).cuda(), torch.from_numpy(xp).cuda(),
+            torch.from_numpy(yp).cuda(), tx.reshape(-1, 128),
+            -(-tp.num_row_blocks // pnrb), pnrb, tp.block_h, th._chunk,
+            cs.PANEL_NCB)
+    runs.append((f"TSOPF_RS_b2383 in {npx} x panels of {cs.PANEL_NCB} and "
+                 f"{args[5]} y panels of {pnrb}",
+                 args + ((sc.tiled_sector_mask(data, 8),) if mask else ()),
+                 None))
+    for label, args, run in runs:
+        nch, chunk, bh = args[0].shape[0], args[8], args[7]
+        tag = f"{label}, bh {bh}, {nch} chunks of {chunk}"
+        if grid is not None:
+            V, slices, ctas = grid(nch, chunk, bh)
+            tag += f", V {V}, {slices} row slices, {ctas} CTAs"
+        tag += f"; payload shares: {sector_shares(args[0])}"
+        cases.append((f"B4 [{tag}]", "spmv_chunked_tiled", args, run))
+    return cases
+
+
+def granularity_probe(args):
+    """Device busy of B4 on the Flan-sized arrays under three masks that do
+    not fit the payload: every sector, every other 32-byte sector, every
+    other pair of sectors (the answers are not checked)."""
+    kern = sc.spmv_chunked_tiled
+    out = []
+    for name, word in (("all sectors", 0xFFFF), ("every other 32 B", 0x5555),
+                       ("every other 64 B", 0x3333)):
+        m = torch.full_like(args[10], word - (1 << 16) if word >> 15 else
+                            word)
+        out.append(f"{name} "
+                   f"{cs._ms(cs.device_ms(lambda: kern(*args[:10], m)))}")
+    return "; ".join(out)
+
+
+def ptxas_registers(src="spmv_chunked_tiled.cu"):
+    """The registers and spills of the kernels of ``src`` (``nvcc -Xptxas
+    -v``, the build's flags), one "name: N registers, S B spilled" each."""
+    tmp = tempfile.mkdtemp()
+    try:
+        proc = subprocess.run(
+            [cuda_build._nvcc(), "-Xptxas", "-v", *cuda_build.NVCC_FLAGS,
+             "-c", "-o", os.path.join(tmp, "k.o"),
+             os.path.join(cuda_build.CSRC_DIR, src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    finally:
+        shutil.rmtree(tmp)
+    entry, spill, out = None, 0, []
+    for line in proc.stdout.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            entry = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            spill = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry:
+            out.append((entry, int(m.group(1)), spill))
+            entry = None
+    filt = shutil.which("cu++filt") or "/usr/local/cuda/bin/cu++filt"
+    names = [e for e, _, _ in out]
+    if names and os.path.exists(filt):
+        names = subprocess.run([filt, *names], stdout=subprocess.PIPE,
+                               text=True).stdout.splitlines()
+    return [f"{n}: {r} registers, {sp} B spilled"
+            for n, (_, r, sp) in zip(names, out)]
 
 
 def b8_x(xb, num_windows):
@@ -314,15 +471,29 @@ def v_sweep(kern, args, vpts):
     return "; ".join(out)
 
 
-def main(label: str) -> int:
+# the case groups, in the order they run (and draw from the generator)
+GROUPS = {"b1b7": b1_b7_cases, "b3": b3_cases, "b2": b2_cases,
+          "b8": b8_cases, "b6": b6_cases, "b4": b4_cases}
+
+
+def main(label: str, groups=()) -> int:
     if not torch.cuda.is_available():
         print("kernel_compare: needs a CUDA card", file=sys.stderr)
         return 2
     rng = np.random.default_rng(cs.SEED)
     ok = True
-    b3, calls = b3_cases(rng)
-    for tag, name, args, run, *kw in (b1_b7_cases(rng) + b3 + b2_cases(rng)
-                                      + b8_cases(rng) + b6_cases(rng)):
+    groups = set(groups) or set(GROUPS)
+    if groups - set(GROUPS):
+        raise SystemExit(f"kernel_compare: groups are {list(GROUPS)}, not "
+                         f"{sorted(groups - set(GROUPS))}")
+    cases, calls = [], []
+    for g in GROUPS:  # in this order, each group's rng draws as before
+        if g in groups:
+            got = GROUPS[g](rng)
+            if g == "b3":
+                got, calls = got
+            cases += got
+    for tag, name, args, run, *kw in cases:
         kw = kw[0] if kw else {}
         kern, plain = cs.KERNELS[name]["wrapper"], cs.PLAIN[name]
         y = kern(*args, **kw)
@@ -338,6 +509,11 @@ def main(label: str) -> int:
                     f"{cs._ms(cs.device_ms(lib))}")
         if _takes_vpt(kern):
             msg += "; " + v_sweep(kern, args, SWEEP[name])
+        if name == "spmv_chunked_tiled":
+            mr, mb = must_read_ms(args, y)
+            msg += f"; must-read bound {mr:.4f} ms ({mb:.1f} MB)"
+            if len(args) > 10 and run is not None:
+                msg += f"; granularity probe: {granularity_probe(args)}"
         if run is not None:
             msg += (f"; handle run wall {cs.median_ms(run):.4f} ms, device "
                     f"busy {cs._ms(cs.device_ms(run))}")
@@ -345,9 +521,13 @@ def main(label: str) -> int:
     for tag, call in calls:
         print(f"{label} {tag}: wall {cs.median_ms(call):.4f} ms, device busy "
               f"{cs._ms(cs.device_ms(call))}", flush=True)
+    if "b4" in groups:
+        for line in ptxas_registers():
+            print(f"{label} ptxas {line}", flush=True)
     print(f"{label} {cs.gpu_line()}", flush=True)
     return 0 if ok else 1
 
 
 if __name__ == "__main__":
-    sys.exit(main(sys.argv[1] if len(sys.argv) > 1 else "tree"))
+    sys.exit(main(sys.argv[1] if len(sys.argv) > 1 else "tree",
+                  sys.argv[2:]))

@@ -72,8 +72,10 @@ from hispmv_tpu_torch.ops.spmv_chunked import (
     spmv_chunked_paneled,
     spmv_chunked_paneled_plain,
     spmv_chunked_plain,
+    chunked_tiled_grid,
     spmv_chunked_tiled,
     spmv_chunked_tiled_plain,
+    tiled_sector_mask,
 )
 from hispmv_tpu_torch.ops.spmv_gathered import (
     gathered_gather_apply,
@@ -101,7 +103,7 @@ from hispmv_tpu_torch.ops.spmv_routed import (
     spmv_routed_stream_plain,
 )
 from hispmv_tpu_torch.plan import gathered as G
-from hispmv_tpu_torch.plan.blocks import build_block_plan
+from hispmv_tpu_torch.plan.blocks import build_block_plan, degree_column_perm
 from hispmv_tpu_torch.plan.permute import build_permute_plan
 from hispmv_tpu_torch.plan.routed import build_routed_plan
 from hispmv_tpu_torch.plan.windows import SEGS, build_window_plan
@@ -1179,17 +1181,145 @@ def test_b4_kernel_matches_plain(dev, name, bh, dtype):
     npx = -(-plan.num_col_blocks // panel_ncb)
     npy = -(-plan.num_row_blocks // panel_nrb)
     assert len(np.unique(xp)) > 1 and len(np.unique(yp)) > 1
-    args = (torch.from_numpy(data3d).to(dev, dtype),
-            torch.from_numpy(meta).to(dev), torch.from_numpy(xp).to(dev),
-            torch.from_numpy(yp).to(dev),
+    data = torch.from_numpy(data3d).to(dev, dtype)
+    args = (data, torch.from_numpy(meta).to(dev),
+            torch.from_numpy(xp).to(dev), torch.from_numpy(yp).to(dev),
             _x2d(plan.shape[1], npx * panel_ncb * 128, dev), npy, panel_nrb,
-            bh, 8, panel_ncb)
+            bh, 8, panel_ncb, tiled_sector_mask(data, bh))
     before = spmv_chunked_tiled.launches
     y = spmv_chunked_tiled(*args)
     torch.cuda.synchronize()
     assert spmv_chunked_tiled.launches == before + 1
     assert y.shape == (npy * panel_nrb, bh)
     assert_close(y, spmv_chunked_tiled_plain(*args))
+    # and the true product: the plain version without the mask
+    assert_close(y, spmv_chunked_tiled_plain(*args[:10]))
+
+
+def _b4_args(plan, chunk, panel_ncb, panel_nrb, dtype, dev, seed=4):
+    """B4's arguments, the helper's sector mask last, and the chunk count."""
+    data3d, meta, xp, yp, _, nch = pack_chunks_tiled(plan, chunk, panel_ncb,
+                                                     panel_nrb)
+    npx = -(-plan.num_col_blocks // panel_ncb)
+    data = torch.from_numpy(data3d).to(dev, dtype)
+    return (data, torch.from_numpy(meta).to(dev),
+            torch.from_numpy(xp).to(dev), torch.from_numpy(yp).to(dev),
+            _x2d(plan.shape[1], npx * panel_ncb * 128, dev, seed=seed),
+            -(-plan.num_row_blocks // panel_nrb), panel_nrb, plan.block_h,
+            chunk, panel_ncb, tiled_sector_mask(data, plan.block_h)), nch
+
+
+def _b4_run(args, true_mask=True):
+    """One launch of B4, held to the plain version with the same mask and,
+    where the mask is the helper's (``true_mask``), to the plain version
+    without one: the true product, so a mask built wrong on the card
+    shows."""
+    before = spmv_chunked_tiled.launches
+    y = spmv_chunked_tiled(*args)
+    torch.cuda.synchronize()
+    assert spmv_chunked_tiled.launches == before + 1
+    assert_close(y, spmv_chunked_tiled_plain(*args))
+    if true_mask:
+        assert_close(y, spmv_chunked_tiled_plain(*args[:10]))
+    return y
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bh", [1, 8, 64])
+@pytest.mark.parametrize("col_reorder", [False, True])
+def test_b4_kernel_with_sector_mask_on_blocked(dev, col_reorder, bh, dtype):
+    """The blocked matrix (dense windows, sectors both live and clear in
+    most blocks), its columns degree-reordered or not."""
+    coo = MATRICES["blocked"]()
+    perm = degree_column_perm(coo) if col_reorder else None
+    plan = build_block_plan(coo, bh, col_perm=perm)
+    args, _ = _b4_args(plan, 8, 2, 4, dtype, dev)
+    live = tiled_sector_mask(args[0], bh).cpu().numpy().view(np.uint16)
+    assert 0 < np.unpackbits(live.view(np.uint8)).mean() < 1
+    _b4_run(args)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_b4_kernel_row_block_across_ranges_and_panels(dev, dtype):
+    """B3's case in row panels too: the dense row-block's runs (one in each
+    of 8 col panels) span ranges of the grid, and the grid cuts ranges
+    across chunk and y-panel boundaries (a chunk of 17 blocks, so that
+    ranges do not all start on chunk boundaries)."""
+    plan = build_block_plan(_heavy_rows_coo(), 8)
+    args, nch = _b4_args(plan, 17, 100, 32, dtype, dev)
+    yp = args[3].cpu().numpy()
+    assert len(np.unique(yp)) > 8
+    V, slices, ctas = chunked_tiled_grid(nch, 17, 8)
+    assert (V, slices) == (1, 1) and ctas > nch
+    nb = nch * 17
+    span = -(-nb // ctas)
+    assert span < 17  # ranges shorter than a chunk
+    k0 = np.arange(0, nb, span)
+    k1 = np.minimum(k0 + span, nb) - 1
+    assert (yp[k0 // 17] != yp[k1 // 17]).any()
+    _b4_run(args)
+
+
+@pytest.mark.parametrize("bh", [1, 8, 64])
+def test_b4_kernel_on_padding_between_panels(dev, bh):
+    """A chunk that divides no segment's block count: every (row panel,
+    col panel) segment ends in padding blocks (zero payload, sector mask
+    0, its last row-block, no last flag) that sit between two segments, so
+    ranges begin and end in them."""
+    plan = build_block_plan(MATRICES["random"](), bh)
+    panel_ncb, panel_nrb = 8, 256 // bh  # 3 x 3 segments
+    key = (plan.block_rows // panel_nrb) * 10**6 + plan.block_cols // panel_ncb
+    counts = np.unique(key, return_counts=True)[1]
+    chunk = next(c for c in range(8, 64, 8) if (counts % c).all())
+    args, _ = _b4_args(plan, chunk, panel_ncb, panel_nrb, torch.float32, dev)
+    xp, yp = args[2].cpu().numpy(), args[3].cpu().numpy()
+    seg_end = np.r_[(xp[1:] != xp[:-1]) | (yp[1:] != yp[:-1]), True]
+    pad = ~args[0].reshape(-1, bh * 128).any(1).cpu().numpy()
+    assert pad.reshape(-1, chunk)[:, -1][seg_end].all()  # every segment pads
+    assert not args[10].cpu().numpy().reshape(-1, bh)[pad].any()
+    _b4_run(args)
+
+
+def test_b4_kernel_needs_sector_mask(dev):
+    plan = build_block_plan(MATRICES["banded"](), 8)
+    args, _ = _b4_args(plan, 8, 4, 8, torch.float32, dev)
+    with pytest.raises(ValueError, match="sector_mask"):
+        spmv_chunked_tiled(*args[:10])
+    with pytest.raises(ValueError, match="sector_mask"):
+        spmv_chunked_tiled(*args[:10], args[10].to(torch.int32))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_b4_kernel_skips_by_sector_mask(dev, dtype):
+    """With one needed bit cleared in every row of a block, the kernel
+    gives the plain version's answer under that mask, not the full
+    product: it reads the payload by the mask."""
+    plan = build_block_plan(MATRICES["blocked"](), 8)
+    args, _ = _b4_args(plan, 8, 4, 8, dtype, dev)
+    mask = args[10]
+    words = mask.to(torch.int32) & 0xFFFF
+    low = words & -words  # each row's lowest set bit
+    cleared = words - low
+    cleared = torch.where(cleared >= 1 << 15, cleared - (1 << 16),
+                          cleared).to(torch.int16)
+    cut = (*args[:10], cleared)
+    y = _b4_run(cut, true_mask=False)
+    full = spmv_chunked_tiled_plain(*args)
+    assert (y - full).abs().max() > 1e-3 * full.abs().max()
+
+
+def test_b4_launch_shape(dev):
+    """B4 runs at V 1; row slices of 8 rows past bh 8; a grid of one wave
+    of resident CTAs on this card's SMs, more CTAs than chunks (the design
+    it replaces ran one a chunk)."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for bh, slices in ((1, 1), (2, 1), (8, 1), (16, 2), (64, 8)):
+        V, s, ctas = chunked_tiled_grid(200, 128, bh)
+        assert (V, s) == (1, slices)
+        assert ctas % slices == 0 and ctas >= sms and ctas > 200
+    assert chunked_tiled_grid(1, 8, 8) == (1, 1, 8)
+    with pytest.raises(RuntimeError, match="chunked_tiled_grid"):
+        chunked_tiled_grid(8, 16, 3)
 
 
 # class constants that give each layout on banded_coo(5000, 20000, 60000)

@@ -36,6 +36,7 @@ from hispmv_tpu_torch.ops.spmv_chunked import (
     pack_chunks_tiled,
     spmv_chunked_tiled,
     spmv_chunked_tiled_plain,
+    tiled_sector_mask,
 )
 from hispmv_tpu_torch.plan.blocks import build_block_plan
 
@@ -344,3 +345,187 @@ def test_random_matrix_packs_alike_in_both_layouts(monkeypatch):
     h = SpmvHandle(coo, format="block", device="cpu")
     assert h._tiled
     assert_close(h.run(x).numpy(), y_chunked.numpy())
+
+
+# ---------------------------------------------------------------------------
+# B4's sector mask: one 16-bit word a payload row, bit g for lanes 8g..8g+7
+# ---------------------------------------------------------------------------
+
+
+def _mask_numpy(payload):
+    """The sector mask of ``payload`` f32 [nchunks, rows, 128], bit by bit
+    in numpy, as int16."""
+    nz = (payload != 0).reshape(*payload.shape[:2], 16, 8).any(-1)
+    words = np.zeros(payload.shape[:2], np.uint16)
+    for g in range(16):
+        words |= nz[..., g].astype(np.uint16) << np.uint16(g)
+    return words.view(np.int16)
+
+
+def _payload(name, dtype, panels=(4, 16)):
+    """(plan, packed arrays, uploaded payload tensor) of case ``name``."""
+    _, plan, _ = _plans(name)
+    arrays = pack_chunks_tiled(plan, CHUNK, *panels)
+    tdata = torch.from_numpy(arrays[0])
+    if dtype == "bfloat16":
+        tdata = tdata.to(torch.bfloat16)
+    return plan, arrays, tdata
+
+
+def _lane_live(mask):
+    """bool [.., 128]: the lanes whose granule's bit is set."""
+    words = mask.astype(np.int32) & 0xFFFF
+    return ((words[..., None] >> (np.arange(128) // 8)) & 1).astype(bool)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", CASES + ["banded_big"])
+def test_tiled_sector_mask_equals_numpy(name, dtype):
+    _, arrays, tdata = _payload(name, dtype)
+    got = tiled_sector_mask(tdata, 8)
+    assert got.dtype == torch.int16
+    assert got.shape == tdata.shape[:2]
+    np.testing.assert_array_equal(got.numpy(),
+                                  _mask_numpy(tdata.float().numpy()))
+    # under 1% of the payload's bytes
+    assert got.nbytes * 100 < tdata.nbytes
+
+
+@pytest.mark.parametrize("name", CASES + ["empty_row_panel", "banded_big"])
+def test_sector_mask_covers_every_nonzero_and_no_padding(name):
+    _, plan, _ = _plans(name)
+    panel_ncb, panel_nrb = 4, 16
+    data3d, *_ = pack_chunks_tiled(plan, CHUNK, panel_ncb, panel_nrb)
+    mask = tiled_sector_mask(torch.from_numpy(data3d), 8).numpy()
+    live = _lane_live(mask)
+    assert live[data3d != 0].all()  # every nonzero lane is read
+    assert (data3d[live].reshape(-1) != 0).any()
+    # padding: the blocks past each (row panel, col panel) segment's count
+    key = (plan.block_rows // panel_nrb).astype(np.int64) * 10**6 \
+        + plan.block_cols // panel_ncb
+    counts = np.unique(key, return_counts=True)[1]
+    pad = np.concatenate([np.arange(-(-n // CHUNK) * CHUNK) >= n
+                          for n in counts])
+    assert pad.size == data3d.shape[0] * CHUNK
+    block_mask = mask.reshape(-1, 8)
+    assert not block_mask[pad].any()
+    if name == "banded_big":
+        assert pad.any()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", ["banded_big", "empty_row_panel", "wide",
+                                  "single_dense_row"])
+def test_plain_b4_with_sector_mask_equals_unmasked_and_pallas(name, dtype):
+    panel_ncb, panel_nrb = 4, 16
+    _, plan, jplan = _plans(name)
+    _, arrays, tdata = _payload(name, dtype, (panel_ncb, panel_nrb))
+    _, meta, xp, yp, _, _ = arrays
+    npy = -(-plan.num_row_blocks // panel_nrb)
+    x2d = _x2d(plan, panel_ncb, seed=1)
+    args = (tdata, torch.from_numpy(meta), torch.from_numpy(xp),
+            torch.from_numpy(yp), torch.from_numpy(x2d), npy, panel_nrb, 8,
+            CHUNK, panel_ncb)
+    mask = tiled_sector_mask(tdata, 8)
+    y = spmv_chunked_tiled_plain(*args, mask)
+    torch.testing.assert_close(y, spmv_chunked_tiled_plain(*args), rtol=0,
+                               atol=0)
+    jarrays = jpack_chunks_tiled(jplan, CHUNK, panel_ncb, panel_nrb,
+                                 dtype=dtype)
+    jy = spmv_chunked_tiled_pallas(
+        *(jnp.asarray(a) for a in jarrays[:5]), jnp.asarray(x2d), npy,
+        panel_nrb, 8, CHUNK, panel_ncb, interpret=True)
+    rows = np.repeat(np.isin(np.arange(npy), yp), panel_nrb)
+    assert_close(y.numpy()[rows], np.asarray(jy)[rows])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_plain_b4_skips_a_cleared_granule(dtype):
+    """With one needed bit cleared, the plain B4 gives exactly its answer
+    on the payload with that granule zeroed."""
+    data, *rest = _tensors()
+    data = data.to(dtype)
+    mask = tiled_sector_mask(data, 8)
+    c, r = (int(v[0]) for v in torch.nonzero(mask, as_tuple=True))
+    word = int(mask[c, r]) & 0xFFFF
+    g = (word & -word).bit_length() - 1  # its lowest set bit
+    assert data[c, r, 8 * g: 8 * g + 8].any()  # the bit is needed
+    word &= ~(1 << g)
+    cleared = mask.clone()
+    cleared[c, r] = word - (1 << 16) if word >= 1 << 15 else word
+    zeroed = data.clone()
+    zeroed[c, r, 8 * g: 8 * g + 8] = 0
+    y = spmv_chunked_tiled_plain(data, *rest, cleared)
+    torch.testing.assert_close(
+        y, spmv_chunked_tiled_plain(zeroed, *rest,
+                                    tiled_sector_mask(zeroed, 8)),
+        rtol=0, atol=0)
+    torch.testing.assert_close(y, spmv_chunked_tiled_plain(zeroed, *rest),
+                               rtol=0, atol=0)
+    assert not torch.equal(y, spmv_chunked_tiled_plain(data, *rest, mask))
+
+
+def test_wrapper_on_cpu_with_sector_mask_takes_plain_version():
+    args = _tensors()
+    mask = tiled_sector_mask(args[0], 8)
+    before = spmv_chunked_tiled.launches
+    torch.testing.assert_close(spmv_chunked_tiled(*args, sector_mask=mask),
+                               spmv_chunked_tiled_plain(*args, mask),
+                               rtol=0, atol=0)
+    assert spmv_chunked_tiled.launches == before
+
+
+@pytest.mark.parametrize("bad", ["dtype", "rows", "flat", "chunks"])
+def test_wrapper_rejects_bad_sector_mask(bad):
+    args = _tensors()
+    mask = tiled_sector_mask(args[0], 8)
+    wrong = {"dtype": mask.to(torch.int32), "rows": mask[:, 1:],
+             "flat": mask.reshape(-1), "chunks": mask[1:]}[bad]
+    with pytest.raises(ValueError, match="sector_mask"):
+        spmv_chunked_tiled(*args, sector_mask=wrong)
+
+
+def test_sector_mask_rejects_a_payload_of_another_block_height():
+    with pytest.raises(ValueError, match="tiled_sector_mask"):
+        tiled_sector_mask(torch.zeros(2, 12, 128), 8)
+
+
+@pytest.mark.parametrize("col_reorder", [False, True])
+@pytest.mark.parametrize("layout", list(LAYOUTS))
+def test_handle_holds_sector_mask_of_tiled_layout_only(layout, col_reorder,
+                                                       monkeypatch):
+    """The tiled handle keeps B4's mask outside its device dict, which stays
+    the JAX handle's, counts its bytes in ``device_bytes`` and passes it to
+    B4 on every ``run``; the other layouts hold none."""
+    coo = _handle_coo()
+    _patch(monkeypatch, LAYOUTS[layout])
+    h = SpmvHandle(coo, SpmvConfig(col_reorder=col_reorder), "block",
+                   device="cpu")
+    jh = JSpmvHandle(coo, JSpmvConfig(col_reorder=col_reorder), "block",
+                     interpret=True)
+    assert sorted(h._d) == sorted(jh._d)
+    extra = 0
+    if layout == "tiled":
+        m = h._sector_mask
+        assert m.dtype == torch.int16
+        assert m.shape == h._d["data"].shape[:2]
+        torch.testing.assert_close(m, tiled_sector_mask(h._d["data"], 8),
+                                   rtol=0, atol=0)
+        extra = m.nbytes
+    else:
+        assert h._sector_mask is None
+    assert h.device_bytes == jh.device_bytes + extra
+    assert h.stats.device_bytes == h.device_bytes
+    seen = []
+
+    def rec(*a, **kw):
+        seen.append(a[10] if len(a) > 10 else kw.get("sector_mask"))
+        return spmv_chunked_tiled(*a, **kw)
+    monkeypatch.setattr(handle_mod, "spmv_chunked_tiled", rec)
+    x = np.random.default_rng(58).standard_normal(coo.num_cols).astype(
+        np.float32)
+    y = h.run(x).numpy()
+    assert len(seen) == (layout == "tiled")
+    if seen:
+        assert seen[0] is h._sector_mask
+    assert_close(y, coo.matvec(x.astype(np.float64)), rtol=1e-3)
