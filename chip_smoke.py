@@ -42,8 +42,14 @@ fp32 operations over the FMA rate, whichever is larger) and, where one
 PyTorch call computes the same function (a CSR product, ``index_select``),
 that call; the rank-space permutation is timed beside a direct
 ``index_select`` and the gathered executor's chain (B12, B11, B11, B13)
-beside a CSR product of the nonzeros it takes.  B10 (the routed stream
-against a batch) is also timed at each V it is built for (vectors a
+beside a CSR product of the nonzeros it takes.  B9 (every stream of a
+routed part in one launch) is held on each stream of trans5 and ford2
+alone and on the whole routed part of trans5, ford2, language (rank
+space) and analytics (gathered), against the plain sum of its streams,
+beside its must-read bound (each tile's live boundary rows, by the plan's
+lt; its packed bound beside it) and a CSR product of exactly the nonzeros
+it covers (the matrix less its residual and its gathered side-plan, in
+the launch's coordinates).  B10 (the routed stream against a batch) is also timed at each V it is built for (vectors a
 thread: 4, 8), with x = 0 (no atomic issued) and beside the zeroing of
 its y, and each routed ``linear`` line carries the sum of B10's device
 time over the handle's streams beside cuSPARSE SpMM of the whole matrix.
@@ -98,6 +104,7 @@ from hispmv_tpu_torch.models import (
 from hispmv_tpu_torch.ops import cuda_build
 from hispmv_tpu_torch.ops.permute import (
     clos_gather,
+    panel_permute_apply_from,
     permute_apply,
     permute_stage,
     permute_stage_plain,
@@ -138,6 +145,10 @@ from hispmv_tpu_torch.ops.spmv_routed import (
     spmv_routed_stream_batched_plain,
     routed_batched_v,
     spmv_routed_stream_plain,
+    RoutedTable,
+    routed_table,
+    spmv_routed_streams,
+    spmv_routed_streams_plain,
     stream_array_names,
 )
 from hispmv_tpu_torch.ops.spmv_windowed import (
@@ -260,8 +271,8 @@ KERNELS = {
         "source": "hispmv_tpu_torch/csrc/spmv_windowed.cu",
         "replaces": "hispmv_tpu/ops/spmv_windowed.py:60",
     },
-    "spmv_routed": {
-        "wrapper": spmv_routed_stream,
+    "spmv_routed": {  # B9: every stream of a routed part in one launch
+        "wrapper": spmv_routed_streams,
         "source": "hispmv_tpu_torch/csrc/spmv_routed.cu",
         "replaces": "hispmv_tpu/ops/spmv_routed.py:301",
     },
@@ -316,9 +327,16 @@ KERNELS = {
         "replaces": "hispmv_tpu/ops/spmv_gathered.py:179",
     },
 }
+# phase 4's cases that call a kernel of KERNELS through another entry
+# point: B9 on one stream (a one-entry table, every layer) and on a whole
+# routed part
+CASE_KERNEL = {"spmv_routed_part": "spmv_routed"}
+CALL = {"spmv_routed": spmv_routed_stream,
+        "spmv_routed_part": spmv_routed_streams}
 PLAIN = {"spmv_chunked": spmv_chunked_plain,
          "spmv_windowed": spmv_windowed_plain,
          "spmv_routed": spmv_routed_stream_plain,
+         "spmv_routed_part": spmv_routed_streams_plain,
          "permute_stage": permute_stage_plain,
          "spmv_chunked_batched": spmv_chunked_batched_plain,
          "spmv_windowed_batched": spmv_windowed_batched_plain,
@@ -427,9 +445,9 @@ def routed_checks(label, h, once, failures):
         f"residual {len(h.plan.residual_vals)} nnz "
         f"({'COO' if meta['res_coo'] else 'ELLX' if meta['res'] else 'none'}"
         f"), launches of one run {once}")
-    if once["spmv_routed"] != nstreams:
+    if once["spmv_routed"] != 1:  # one launch runs every stream
         failures.append(f"{label}: {once['spmv_routed']} B9 launches for "
-                        f"{nstreams} streams")
+                        f"{nstreams} streams, want 1")
     if label.startswith("trans5") and not meta["res_coo"]:
         failures.append(f"{label}: no COO residual")
     if label.startswith("ford2") and any(s.l1 != 1 for s in h.plan.streams):
@@ -541,14 +559,14 @@ def csr_of(name, coo):
 
 def linear_checks(label, h, B, once, failures):
     """Launch counts of ONE linear call: B10 once per stream for the whole
-    batch; B9 per stream and B11 six times per vector in rank space."""
+    batch; B9 once and B11 six times per vector in rank space."""
     if h.format != "routed":
         return
     nstreams = len(h.plan.streams)
     want = {"spmv_routed_batched": nstreams, "spmv_routed": 0,
             "permute_stage": 0}
     if h.config.rank_sort:
-        want = {"spmv_routed_batched": 0, "spmv_routed": B * nstreams,
+        want = {"spmv_routed_batched": 0, "spmv_routed": B,
                 "permute_stage": B * 6}
     for n, c in want.items():
         if once[n] != c:
@@ -1098,7 +1116,7 @@ def gathered_path(counts, failures):
     want = ALPHA * coo.matvec(x.astype(np.float64)) + BETA * y_in
     check_run(label, y, want, h, failures)
     per_run = {"s1_gather": 1, "permute_stage": 2, "spmv_gathered": 1,
-               "spmv_routed": nstreams}
+               "spmv_routed": 1}
     if any(once[n] != c for n, c in per_run.items()):
         failures.append(f"{label}: launches of one run {once}, want "
                         f"{per_run}")
@@ -1194,12 +1212,44 @@ def gathered_cases(gath):
     ]
 
 
+def routed_part_x2d(h, xd):
+    """The x2d that a routed handle's B9 launch reads for the x ``xd``, as
+    ``_run_routed_part`` makes it: padded, permuted into rank space (B11)
+    when the plan is ranked, padded to whole windows."""
+    meta = h._routed_meta
+    x = h._pad_x(xd)
+    if meta["xperm"] is not None:
+        x = panel_permute_apply_from(h._d, meta["xperm"], "xp", x)
+    need = meta["nwin"] * 1024
+    x = torch.nn.functional.pad(x, (0, max(need - x.shape[0], 0)))
+    return x.reshape(-1, 128)
+
+
+def routed_part_cases(handles, gath):
+    """B9 on the whole routed part (every stream, one launch) of trans5,
+    ford2, language in rank space and analytics with its gathered
+    side-plan, on the x each run gave it."""
+    runs = [(SPARSE_NAME[k], handles[k]) for k in (
+        "trans5 routed", "ford2 routed", "language routed rank")]
+    runs += [(GATHERED_FIXTURE, gath)] if gath is not None else []
+    cases = []
+    for name, (h, xd) in runs:
+        table = h._routed_meta["table"]
+        dims = [d for _, d, _ in table.streams]
+        cases.append(("spmv_routed_part",
+                      f"{name} routed part: {len(dims)} streams, "
+                      f"{table.num_tiles} tiles, lmax "
+                      f"{[d[4] for d in dims]}",
+                      (table, routed_part_x2d(h, xd))))
+    return cases
+
+
 def kernel_checks(handles, linear_x, accel, extra_cases, failures):
     """Each kernel against its plain PyTorch version on the arrays and x
     that the paths gave it (the batched kernels on the batches of the
     linear runs and on the MLP's fc3 activations; ``extra_cases`` from the
-    sharded paths and the ops entry), timed beside its bound and its
-    library call; launches here are not counted."""
+    sharded paths, the ops entry and the routed parts), timed beside its
+    bound and its library call; launches here are not counted."""
     cases = b1_b7_cases(handles)
     for label in ("trans5 routed", "ford2 routed"):
         h, xd = handles[label]
@@ -1227,7 +1277,7 @@ def kernel_checks(handles, linear_x, accel, extra_cases, failures):
     results = []
     for name, shape, args, *kw in cases:
         kw = kw[0] if kw else {}
-        kern = KERNELS[name]["wrapper"]
+        kern = CALL[name] if name in CALL else KERNELS[name]["wrapper"]
         yk = kern(*args, **kw)
         yp = PLAIN[name](*args)
         torch.cuda.synchronize()
@@ -1251,6 +1301,12 @@ def kernel_checks(handles, linear_x, accel, extra_cases, failures):
             bound_ms, bound_by, must_mb = b4_must_read(args, yk)
             line += (f", must-read {must_mb:.1f} MB, packed bound "
                      f"{extra['packed_bound_ms']:.4f} ms")
+        if name == "spmv_routed_part":
+            # B9 reads only the live layers' boundary rows
+            extra["packed_bound_ms"] = bound_ms
+            bound_ms, bound_by, must_mb = b9_must_read(args, yk)
+            line += (f", must-read {must_mb:.2f} MB, packed bound "
+                     f"{extra['packed_bound_ms']:.4f} ms")
         lib = library_call(name, args)
         lib_ms = None
         if lib is not None:
@@ -1268,7 +1324,8 @@ def kernel_checks(handles, linear_x, accel, extra_cases, failures):
         if not ok:
             failures.append(f"{name} [{shape}] disagrees with its plain "
                             "version")
-        results.append({"name": name, "shape": shape, "max_abs_err": err,
+        results.append({"name": CASE_KERNEL.get(name, name), "shape": shape,
+                        "max_abs_err": err,
                         "ms": ms, "device_busy_ms": busy,
                         "plain_ms": plain_ms, "bound_ms": bound_ms,
                         "bound_by": bound_by, "library_ms": lib_ms, **extra})
@@ -1297,6 +1354,8 @@ def _tensors_in(obj):
     elif isinstance(obj, (tuple, list)):
         for o in obj:
             yield from _tensors_in(o)
+    elif isinstance(obj, RoutedTable):
+        yield from _tensors_in(obj.streams)
 
 
 # per kernel: (payload tensor, vectors) from its arguments, for the
@@ -1307,6 +1366,8 @@ _WORK = {
     "spmv_windowed": lambda a: (a[0], 1),
     "spmv_block": lambda a: (a[0], 1),
     "spmv_routed": lambda a: (a[0][0], 1),
+    "spmv_routed_part": lambda a: (torch.cat(
+        [p[0].reshape(-1) for p, _, _ in a[0].streams]), 1),
     "spmv_chunked_batched": lambda a: (a[0], a[2].shape[2]),
     "spmv_block_batched": lambda a: (a[0], a[5].shape[2]),
     "spmv_windowed_batched": lambda a: (a[0], a[3].shape[2]),
@@ -1351,6 +1412,30 @@ def b4_must_read(args, y):
             "bytes" if t_bytes >= t_ops else "operations", nbytes / 1e6)
 
 
+def b9_must_read(args, y):
+    """(ms, "bytes" or "operations", MB): the bound of a B9 table's launch on
+    an H100 SXM, the larger of the bytes it cannot skip over the HBM rate
+    (each stream's vals, slot, gsub, base, byt and lt, the bl and bs rows
+    of each tile's live layers, x and y, each read or written once) and
+    its fp32 operations over the FMA rate."""
+    table, x2d = args
+    nbytes, nnz = x2d.nbytes + y.nbytes, 0
+    for packed, dims, lt in table.streams:
+        lmax = dims[4]
+        nbytes += sum(t.nbytes for t in packed[:3] + packed[-2:])
+        layers = (lt.long() if lt is not None else torch.full(
+            (dims[0] * dims[1],), lmax, device=x2d.device))
+        if lt is not None:
+            nbytes += lt.nbytes
+        rows = ((layers > 0).long() if lmax == 1
+                else (layers + 1) // 2 + (layers + 3) // 4)
+        nbytes += int(rows.sum()) * 4096
+        nnz += int(torch.count_nonzero(packed[0]))
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, 2.0 * nnz / FP32_FLOPS
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations", nbytes / 1e6)
+
+
 def _block_csr(blocks, rb, col, nrows, ncols):
     """CSR of a block stream on the card: ``blocks`` [nb, bh, 128], ``rb``
     [nb] row-block of each block, ``col(j, l)`` the column of lane l of
@@ -1366,8 +1451,9 @@ def _block_csr(blocks, rb, col, nrows, ncols):
 def library_call(name, args):
     """A callable running one PyTorch call that computes the kernel's
     function on the same inputs (a CSR product for the block streams,
-    ``index_select`` for B11), or None where none does (B9, B10: one
-    routed stream is a share of the matrix no single call computes)."""
+    ``index_select`` for B11, the CSR product of the nonzeros that a B9
+    stream or routed part covers), or None where none does (B10: its
+    lines are per stream and per batch)."""
     if name in ("spmv_chunked", "spmv_chunked_batched",
                 "spmv_chunked_paneled", "spmv_chunked_tiled"):
         if name == "spmv_chunked_paneled":
@@ -1425,6 +1511,11 @@ def library_call(name, args):
             P, K).reshape(-1).long()  # exact: K*1024 < 2**24
         flat = x.reshape(-1)
         return lambda: flat.index_select(0, idx)
+    if name == "spmv_routed":
+        packed, dims, x2d, nyt = args
+        return routed_csr_call(routed_table([(packed, dims, None)], nyt), x2d)
+    if name == "spmv_routed_part":
+        return routed_csr_call(*args)
     if name == "spmv_gathered":
         vals3, word3, byt, xg, nyt, nch, tchunk = args
         rows, slots, v = gathered_tile_coo(vals3, word3, byt, nyt)
@@ -1461,6 +1552,77 @@ def gathered_tile_coo(vals3, word3, byt, num_ytiles):
     inside = (start[k] <= s) & (s <= end[k])
     s, k = s[inside], k[inside]
     return byt.long()[t[k]] * 1024 + c[k], s, v[s]
+
+
+def routed_tile_coo(table, x_rows):
+    """(y row, x2d flat column, value) of every nonzero slot that the
+    streams of a B9 table multiply: slot f of tile t reads x2d column
+    row*128 + L of its x gather, and sums into y row byt[t, k]*1024 + c of
+    the boundary layer k and cell c whose prefix difference P[end] -
+    P[start] spans it (slots start+1 .. end of the tile's flat order)."""
+    out = []
+    for packed, dims, _ in table.streams:
+        nch, tchunk, W, l1, lmax = dims
+        if lmax == 1:
+            vals, slot, gsub, bm, base, byt = packed
+        else:
+            vals, slot, gsub, bl, bs, base, byt = packed
+        Tp, dev = nch * tchunk, vals.device
+        slot3, gsub3 = slot.reshape(Tp, 8, 128), gsub.reshape(Tp, 8, 128)
+        lane = (slot3 & 127).long()
+        rank = (slot3 >> 7) & 7
+        col = torch.full((Tp, 8, 128), -1, dtype=torch.long, device=dev)
+        for layer in range(l1):  # the x gather of _routed_plain
+            word = gsub3 if layer < 3 else slot3
+            shift = 9 * layer if layer < 3 else 10 + 9 * (layer - 3)
+            field = torch.gather((word >> shift) & 511, 2, lane)
+            vid = (field >> 3).long()
+            row = (base.long().view(Tp, 1, 1) + vid) * 8 + (field & 7).long()
+            c = torch.where((vid < W) & (row < x_rows), row * 128 + lane, -1)
+            col = c if l1 == 1 else torch.where(rank == layer, c, col)
+        byt2 = byt.reshape(Tp, lmax).long()
+        cell = torch.arange(1024, device=dev).view(1, 8, 128)
+        tile = torch.arange(Tp, device=dev).view(Tp, 1, 1) * 1024
+        lo, hi, yrow = [], [], []
+        for k in range(lmax):
+            if lmax == 1:
+                raw = bm.reshape(Tp, 8, 128)
+                q = ((raw >> 14) & 7) | (((raw >> 17) & 7) << 4)
+            else:
+                raw = bl.reshape(Tp, -1, 8, 128)[:, k // 2] >> (14 * (k % 2))
+                q = bs.reshape(Tp, -1, 8, 128)[:, k // 4] >> (8 * (k % 4))
+            a, b = (raw & 127).long(), ((raw >> 7) & 127).long()
+            end = (torch.gather(q, 2, a) & 7).long() * 128 + a
+            start = ((torch.gather(q, 2, b) >> 4) & 7).long() * 128 + b
+            yt = byt2[:, k].view(Tp, 1, 1).expand(Tp, 8, 128)
+            run = (end > start) & (yt < table.num_ytiles)
+            lo.append((tile + start + 1)[run])
+            hi.append((tile + end)[run])
+            yrow.append((yt * 1024 + cell)[run])
+        lo, hi, yrow = torch.cat(lo), torch.cat(hi), torch.cat(yrow)
+        if hi.numel() == 0:
+            continue
+        order = torch.argsort(hi)
+        lo, hi, yrow = lo[order], hi[order], yrow[order]
+        v, col = vals.reshape(-1), col.reshape(-1)
+        f = ((v != 0) & (col >= 0)).nonzero().squeeze(1)
+        k = torch.searchsorted(hi, f).clamp(max=hi.numel() - 1)
+        inside = (lo[k] <= f) & (f <= hi[k])
+        f, k = f[inside], k[inside]
+        out.append((yrow[k], col[f], v[f]))
+    return [torch.cat(t) for t in zip(*out)]
+
+
+def routed_csr_call(table, x2d):
+    """cuSPARSE's CSR product of exactly the nonzeros a B9 table covers
+    (the matrix less its residual and its gathered side-plan, in the
+    coordinates the launch reads and writes), as a callable on x2d."""
+    rows, cols, v = routed_tile_coo(table, x2d.shape[0])
+    a = torch.sparse_coo_tensor(
+        torch.stack([rows, cols]), v,
+        (table.num_ytiles * 1024, x2d.numel())).coalesce().to_sparse_csr()
+    xs = x2d.reshape(-1)
+    return lambda: a @ xs
 
 
 def gathered_chain(gath, failures):
@@ -1773,6 +1935,7 @@ def main() -> int:
              + large_block_cases(large))
     if gath is not None:
         extra += gathered_cases(gath)
+    extra += routed_part_cases(handles, gath)
     results = kernel_checks(handles, linear_x, accel, extra, failures)
     sweep = b10_v_sweep(handles, linear_x)
     b2_sweep = v_sweep(b2_cases(handles, linear_x), "spmv_chunked_batched",

@@ -71,8 +71,9 @@ from hispmv_tpu_torch.ops.spmv_gathered import (
 )
 from hispmv_tpu_torch.ops.spmv_routed import (
     pack_stream,
-    spmv_routed_stream,
+    routed_table,
     spmv_routed_stream_batched,
+    spmv_routed_streams,
     stream_array_names,
 )
 from hispmv_tpu_torch.ops.spmv_windowed import (
@@ -133,9 +134,10 @@ def _residual_dict(d, prefix):
 def _run_routed_part(d, x, R, meta, prefix):
     """Execute a routed plan (+ its residual) from device dict ``d`` under
     key ``prefix``; returns y[:R].  The gathered side-plan (when there is
-    one) runs first, then each cost-class stream its own B9 launch, and
-    their y tiles are summed.  A banded meta dispatches to the cell grid; a
-    rank-space meta permutes x in and y out through B11."""
+    one) runs first, then one B9 launch runs every cost-class stream of the
+    part's table, adding into the side-plan's y tiles (or zeros).  A banded
+    meta dispatches to the cell grid; a rank-space meta permutes x in and y
+    out through B11."""
     if meta.get("cells") is not None:
         return _run_routed_banded(d, x, R, meta, prefix)
     if meta["xperm"] is not None:
@@ -154,10 +156,8 @@ def _run_routed_part(d, x, R, meta, prefix):
         y2d = spmv_gathered_tiles(d[prefix + "g_vals"], d[prefix + "g_word"],
                                   d[prefix + "g_byt"], xg, meta["nyt"],
                                   gm["nch"], gm["tchunk"])
-    for i, dims in enumerate(meta["streams"]):
-        ys = spmv_routed_stream(_stream_packed(d, prefix, i, dims), dims,
-                                x2d, meta["nyt"])
-        y2d = ys if y2d is None else y2d + ys
+    if meta["table"] is not None:
+        y2d = spmv_routed_streams(meta["table"], x2d, y2d)
     if y2d is None:
         y = x.new_zeros(R)
     else:
@@ -512,16 +512,22 @@ class SpmvHandle:
         under ``prefix``; returns the static meta the runner needs.  Each
         stream is packed exactly (``bucket=False``, one tile per chunk): x
         is padded to ``num_windows*1024`` and y to ``num_ytiles*1024``,
-        not to powers of two."""
-        streams = []
+        not to powers of two.  The meta's ``table`` (None without tiles)
+        holds B9's stream table over these arrays and each stream's ``lt``,
+        uploaded outside ``d`` (which keeps the JAX handle's keys)."""
+        streams, parts = [], []
         for i, s in enumerate(plan.streams):
             ((packed, dims),) = pack_stream(s, tchunk=1, bucket=False)
             names = stream_array_names(dims[4]) + ("base", "byt")
             for n, a in zip(names, packed):
                 d[prefix + f"s{i}_" + n] = self._upload(a)
             streams.append(dims)
+            parts.append((_stream_packed(d, prefix, i, dims), dims,
+                          self._upload(s.lt.astype(np.int32))))
         meta = {
             "streams": streams,
+            "table": (routed_table(parts, plan.num_ytiles) if parts
+                      else None),
             "nwin": plan.num_windows,
             "nyt": plan.num_ytiles,
             "res": None,
@@ -629,13 +635,20 @@ class SpmvHandle:
         self._build_routed_arrays(plan)
 
     def _build_routed_arrays(self, plan):
+        """The device dict and the metas, rebuilt together: each part's B9
+        table points into ``d``, and its ``lt`` arrays count in
+        ``device_bytes``."""
         self._routed_plan_meta = plan
         d = {}
         if isinstance(plan, BandedRoutedPlan):
             self._routed_meta = self._routed_pack_banded_into(d, plan)
+            parts = [c["meta"] for c in self._routed_meta["cells"]]
         else:
             self._routed_meta = self._routed_pack_into(d, plan, plan.shape)
+            parts = [self._routed_meta]
         self._set_device_dict(d, plan.fill)
+        self.device_bytes += sum(m["table"].lt_nbytes for m in parts
+                                 if m["table"] is not None)
 
     # -- execution --------------------------------------------------------
 

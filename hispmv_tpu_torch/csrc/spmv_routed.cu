@@ -10,8 +10,11 @@
 //   bl [Tp, ceil(lmax/2), 8, 128] i32 and bs [Tp, ceil(lmax/4), 8, 128] i32,
 //   or, when lmax == 1, the merged word bm [Tp, 8, 128] in place of bl
 //   (bs unused), base [Tp] i32, byt [Tp, lmax] i32,
-//   x2d [x_rows, 128] f32, y [y_tiles*8, 128] f32 zeroed by the caller
-//   (B10: xt and y as below).
+//   x2d [x_rows, 128] f32, y [y_tiles*8, 128] f32 that the kernel adds
+//   into (B10: xt and y as below, y zeroed by the caller).
+// B9 also takes the plan's lt [Tp] i32 (RoutedStream.lt): the boundary
+// layers tile t uses; layers k >= lt[t] are padding (zero bl / bs words,
+// byt 0) and add P[0][0] - P[0][0] = 0, so skipping them changes nothing.
 //
 // What it computes, per tile t, cell (s, j) = sublane s, lane j, all shifts
 // logical:
@@ -22,7 +25,7 @@
 //      is >= l1, or the row lies past x).
 //   2. p = vals * xg; P = inclusive fp32 prefix over the 1024 slots in flat
 //      order s*128 + j.  The reserved lane-0 slots make P[0][0] == 0.
-//   3. For each boundary layer k < lmax: raw = bl[t, k/2] >> 14(k%2) and
+//   3. For each boundary layer k: raw = bl[t, k/2] >> 14(k%2) and
 //      q = bs[t, k/4] >> 8(k%4) (both from bm when lmax == 1); a = raw &
 //      127, b = (raw >> 7) & 127; y[byt[t,k]][s][j] += P[q[s,a] & 7][a] -
 //      P[(q[s,b] >> 4) & 7][b].  The sub fields are read at the GATHERED
@@ -31,24 +34,42 @@
 // The TPU builds the x gather from a select tree over the W windows of the
 // tile's span and the prefix from triangular MXU matmuls (in a bf16x3
 // split); a GPU thread can index x and shared memory directly, so neither
-// is carried over.
+// is carried over.  The TPU runs one pallas_call per stream (W, l1 and
+// lmax are compile-time shapes there) and every lmax layer of every tile
+// (a predicated layer cost it as much as a live one); neither holds here.
 //
-// Design.  One CTA of 1024 threads per tile, one thread per slot.  The
-// tile's slot and gsub words go to shared memory (the gather reads them at
-// (s, L)), the prefix is a warp-shuffle scan plus a scan of the 32 warp
-// totals, and the boundary subs of each group of four layers are staged in
-// shared memory (read at gathered lanes).  Many tiles and layers add into
-// the same y tile, so each nonzero difference is an atomicAdd into a zeroed
-// y; the order of those additions varies from run to run, so results agree
-// with the plain version to fp32 rounding, not bit for bit.  A zero
-// difference (every padded layer reads P[0][0] - P[0][0]) is skipped.
-//
-// Bound: the stream (vals, slot, gsub, bl, bs: 3 + ceil(lmax/2) +
-// ceil(lmax/4) words per slot) is read once and coalesced; x reads are
-// scattered 4-byte loads that mostly hit L2, and every layer costs one
-// atomic per nonzero difference.  The kernel is latency-bound at one tile
-// per CTA; batching tiles per CTA, prefetching the next tile's stream and
-// merging a tile's layers that target the same y tile are later work.
+// B9 design.  One launch runs every stream of a routed plan: the streams'
+// arrays and dims come as a table in the kernel's parameters (StreamTable,
+// at most kMaxStreams entries), the grid covers the streams' tiles end to
+// end (ops/spmv_routed.py::routed_table lays them out by descending lmax,
+// so the longest layer loops start first), and a CTA finds its stream
+// from the table's first tiles.  One CTA of 1024 threads per tile, one
+// thread per slot.
+// - Prologue: thread 0 reads lt[t] and issues the tile's live boundary
+//   words as two bulk copies (cp.async.bulk) into shared memory, completing
+//   on one mbarrier with the expected byte count: the first ceil(lt/2) bl
+//   rows (the bm row at lmax 1) and the first ceil(lt/4) bs rows, 4 KB
+//   each.  Every thread loads its slot, gsub and vals words and the byt row
+//   goes to shared memory.  The copies' latency overlaps the x gather and
+//   the prefix, where the parent loaded each layer's words behind it.
+// - Gather and prefix: the slot and gsub words in shared memory (the
+//   gather reads them at (s, L)); tile_prefix.cuh's warp-shuffle scan.
+// - Layers: after the prefix's barrier and the mbarrier's wait, each
+//   thread runs k < lt[t] with no barrier (every word it reads is staged).
+//   Consecutive layers with the same y tile are summed in a register and
+//   added by one atomicAdd when the y tile changes or the loop ends; a
+//   zero sum is skipped.  Many tiles add into one y tile, so the order of
+//   the additions varies from run to run: results agree with the plain
+//   version to fp32 rounding, not bit for bit.
+// Bound: the stream's words that the live layers need (vals, slot, gsub
+// and the live bl / bs rows) are read once and coalesced; x reads are
+// scattered 4-byte loads that mostly hit L2, and y is touched by one
+// atomic per run of equal y tiles and nonzero sum.  __launch_bounds__(1024,
+// 2) keeps two CTAs on an SM (32 registers a thread); the staged words take
+// at most 96 KB of dynamic shared memory a CTA (lmax 32), so two still fit.
+// On an H100 SXM a lmax-32 tile is held by its layer loop (dependent
+// shared-memory reads, one CTA on an SM), the others by the latency of
+// their loads, x gather and prefix (ablations in PERF.md).
 //
 // B10 runs the same tile against B vectors.  x comes vector-minor, as
 // xt [x_rows, 128, B] (B2's convention): the B values of one (row, lane)
@@ -123,89 +144,188 @@ __device__ __forceinline__ long long gather_row(int i, const unsigned* s_slot,
   return (vid < W && row < x_rows) ? row : -1;
 }
 
-// Boundary layers of tile t: adds P[end] - P[start-1] into the y tiles
-// byt[t, k] of y (y_tiles tiles).  At lmax 1 the caller has put the merged
-// bm word into s_q; above, the bs words are staged into s_q here.  All
-// threads call it together.
-__device__ __forceinline__ void boundary_layers(
-    size_t t, const int* __restrict__ bl, const int* __restrict__ bs,
-    const int* __restrict__ byt, int lmax, unsigned* s_q, const float* s_pf,
-    float* __restrict__ y, int y_tiles) {
-  const int i = threadIdx.x;
-  const int s = i >> 7;
-  const int npair = (lmax + 1) / 2;
-  const int nquad = (lmax + 3) / 4;
-  for (int k = 0; k < lmax; ++k) {
-    unsigned raw;
-    if (lmax == 1) {
-      raw = s_q[i];
-    } else {
-      raw = static_cast<unsigned>(bl[(t * npair + k / 2) * kTile + i]) >>
-            (14 * (k & 1));
-      if ((k & 3) == 0) {
-        __syncthreads();  // every read of the previous group is done
-        s_q[i] = static_cast<unsigned>(bs[(t * nquad + k / 4) * kTile + i]);
-      }
-    }
-    __syncthreads();  // s_q (and s_pf, on the first layer) complete
-    const int a = raw & 127;
-    const int b = (raw >> 7) & 127;
-    const unsigned qa = s_q[(s << 7) + a];
-    const unsigned qb = s_q[(s << 7) + b];
-    int sub_a, sub_b;
-    if (lmax == 1) {
-      sub_a = (qa >> 14) & 7;
-      sub_b = (qb >> 17) & 7;
-    } else {
-      const int sh = 8 * (k & 3);
-      sub_a = (qa >> sh) & 7;
-      sub_b = (qb >> (sh + 4)) & 7;
-    }
-    const float diff = s_pf[(sub_a << 7) + a] - s_pf[(sub_b << 7) + b];
-    if (diff != 0.f) {
-      const int yt = byt[t * lmax + k];
-      if (yt >= 0 && yt < y_tiles) {
-        atomicAdd(y + static_cast<size_t>(yt) * kTile + i, diff);
-      }
-    }
+// --- B9 -------------------------------------------------------------------
+
+constexpr int kMaxStreams = 8;  // a routed plan has at most six
+constexpr int kLmax = 32;       // the plan's layer cap (plan/routed.py)
+
+// One stream of a B9 launch: its packed arrays, dims and first tile in the
+// launch's grid.  lt may be null: every tile then runs all lmax layers.
+struct RoutedStream {
+  const float* vals;
+  const int* slot;
+  const int* gsub;
+  const int* bl;  // bm when lmax == 1
+  const int* bs;  // null when lmax == 1
+  const int* base;
+  const int* byt;
+  const int* lt;
+  int W, l1, lmax, first;
+};
+
+struct StreamTable {
+  RoutedStream s[kMaxStreams];
+  int n;
+};
+
+// Boundary rows (4 KB each) of one stream's tile in the staging area: bl
+// rows (or the bm row), then bs rows.
+__device__ __forceinline__ int pair_rows(int lmax, int layers) {
+  return lmax == 1 ? layers : (layers + 1) / 2;
+}
+
+__device__ __forceinline__ int quad_rows(int lmax, int layers) {
+  return lmax == 1 ? 0 : (layers + 3) / 4;
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// bytes from global src to shared dst, completing on the mbarrier at bar
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          unsigned bytes, unsigned bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// Thread 0: the tile's live layers, and the bulk copies of their boundary
+// rows into s_rows on the mbarrier at bar.  Returns the live layer count.
+__device__ __forceinline__ int stage_rows(const RoutedStream& st, size_t t,
+                                          unsigned* s_rows, unsigned bar) {
+  const int lmax = st.lmax;
+  const int lt = st.lt == nullptr ? lmax : min(max(st.lt[t], 0), lmax);
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar)
+               : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  if (lt == 0) return 0;
+  const int np = pair_rows(lmax, lt);
+  const int nq = quad_rows(lmax, lt);
+  const unsigned row = kTile * sizeof(unsigned);
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"((np + nq) * row)
+      : "memory");
+  bulk_copy(s_rows, st.bl + t * pair_rows(lmax, lmax) * kTile, np * row, bar);
+  if (nq > 0) {
+    bulk_copy(s_rows + np * kTile, st.bs + t * quad_rows(lmax, lmax) * kTile,
+              nq * row, bar);
+  }
+  return lt;
+}
+
+__device__ __forceinline__ void wait_rows(unsigned bar) {
+  unsigned done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], 0;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar)
+        : "memory");
   }
 }
 
-__global__ void __launch_bounds__(kTile)
-    routed_tile_kernel(const float* __restrict__ vals,
-                       const int* __restrict__ slot,
-                       const int* __restrict__ gsub,
-                       const int* __restrict__ bl,
-                       const int* __restrict__ bs,
-                       const int* __restrict__ base,
-                       const int* __restrict__ byt,
+// The live boundary layers of one tile: per layer the prefix difference of
+// cell i, summed while consecutive layers name the same y tile, one
+// atomicAdd a run.  s_rows holds the staged bl (or bm) rows, then the bs
+// rows.
+__device__ __forceinline__ void boundary_layers(int lmax, int lt,
+                                                const unsigned* s_rows,
+                                                const int* s_byt,
+                                                const float* s_pf,
+                                                float* __restrict__ y,
+                                                int y_tiles) {
+  const int i = threadIdx.x;
+  const int s = i >> 7;
+  const unsigned* s_bs = s_rows + pair_rows(lmax, lt) * kTile;
+  float sum = 0.f;
+  int yt = s_byt[0];
+  for (int k = 0; k < lt; ++k) {
+    unsigned raw, qa, qb;
+    int sub_a, sub_b;
+    if (lmax == 1) {
+      raw = s_rows[i];
+    } else {
+      raw = s_rows[(k >> 1) * kTile + i] >> (14 * (k & 1));
+    }
+    const int a = raw & 127;
+    const int b = (raw >> 7) & 127;
+    if (lmax == 1) {
+      qa = s_rows[(s << 7) + a];
+      qb = s_rows[(s << 7) + b];
+      sub_a = (qa >> 14) & 7;
+      sub_b = (qb >> 17) & 7;
+    } else {
+      const unsigned* q = s_bs + (k >> 2) * kTile + (s << 7);
+      const int sh = 8 * (k & 3);
+      sub_a = (q[a] >> sh) & 7;
+      sub_b = (q[b] >> (sh + 4)) & 7;
+    }
+    const int to = s_byt[k];
+    if (to != yt) {  // a new y tile: add the run so far
+      if (sum != 0.f && yt >= 0 && yt < y_tiles) {
+        atomicAdd(y + static_cast<size_t>(yt) * kTile + i, sum);
+      }
+      sum = 0.f;
+      yt = to;
+    }
+    sum += s_pf[(sub_a << 7) + a] - s_pf[(sub_b << 7) + b];
+  }
+  if (sum != 0.f && yt >= 0 && yt < y_tiles) {
+    atomicAdd(y + static_cast<size_t>(yt) * kTile + i, sum);
+  }
+}
+
+// B9: CTA b runs tile b - first of the table's stream whose tiles hold b;
+// see the file comment.
+__global__ void __launch_bounds__(kTile, 2)
+    routed_tile_kernel(const __grid_constant__ StreamTable tab,
                        const float* __restrict__ x2d, long long x_rows,
-                       float* __restrict__ y, int y_tiles, int W, int l1,
-                       int lmax) {
+                       float* __restrict__ y, int y_tiles) {
+  extern __shared__ __align__(128) unsigned s_rows[];  // staged bl/bm, bs
   __shared__ unsigned s_slot[kTile];
   __shared__ unsigned s_gsub[kTile];
-  __shared__ unsigned s_q[kTile];  // boundary subs of the current layers
-  __shared__ float s_pf[kTile];    // the tile's inclusive prefix
+  __shared__ float s_pf[kTile];  // the tile's inclusive prefix
   __shared__ float s_warp[32];
+  __shared__ int s_byt[kLmax];
+  __shared__ int s_lt;
+  __shared__ __align__(8) unsigned long long s_bar;
 
+  int k = 0;
+  while (k + 1 < tab.n && static_cast<int>(blockIdx.x) >= tab.s[k + 1].first) {
+    ++k;
+  }
+  const RoutedStream& st = tab.s[k];
   const int i = threadIdx.x;
-  const size_t t = blockIdx.x;
+  const size_t t = blockIdx.x - st.first;
+  const unsigned bar = smem_addr(&s_bar);
+  if (i == 0) s_lt = stage_rows(st, t, s_rows, bar);
   const size_t off = t * kTile + i;
-  s_slot[i] = static_cast<unsigned>(slot[off]);
-  s_gsub[i] = static_cast<unsigned>(gsub[off]);
-  const float v = vals[off];
-  if (lmax == 1) s_q[i] = static_cast<unsigned>(bl[off]);
+  s_slot[i] = static_cast<unsigned>(st.slot[off]);
+  s_gsub[i] = static_cast<unsigned>(st.gsub[off]);
+  const float v = st.vals[off];
+  if (i < st.lmax) s_byt[i] = st.byt[t * st.lmax + i];
   __syncthreads();
+  const int lt = s_lt;
+  if (lt == 0) return;  // a padding tile: no layer adds anything
 
   // 1. x gather
   int L;
   const long long row =
-      gather_row(i, s_slot, s_gsub, base[t], W, l1, x_rows, &L);
+      gather_row(i, s_slot, s_gsub, st.base[t], st.W, st.l1, x_rows, &L);
   const float xg = row >= 0 ? x2d[row * kLanes + L] : 0.f;
   // 2. inclusive prefix of p over the tile's flat slot order
   hispmv::tile_prefix(v * xg, s_warp, s_pf);
-  // 3. boundary layers
-  boundary_layers(t, bl, bs, byt, lmax, s_q, s_pf, y, y_tiles);
+  __syncthreads();  // s_pf complete
+  // 3. the live boundary layers, once their staged rows have landed
+  wait_rows(bar);
+  boundary_layers(st.lmax, lt, s_rows, s_byt, s_pf, y, y_tiles);
 }
 
 // --- B10 ------------------------------------------------------------------
@@ -502,19 +622,56 @@ bool dims_ok(int num_tiles, int W, int l1, int lmax, const int* bs) {
 
 extern "C" {
 
-// See the file comment for the arrays; bs may be null when lmax == 1.
-// Returns a cudaError_t code (0 on success).
-int hispmv_spmv_routed(const float* vals, const int* slot, const int* gsub,
-                       const int* bl, const int* bs, const int* base,
-                       const int* byt, const float* x2d, long long x_rows,
-                       float* y, int y_tiles, int num_tiles, int W, int l1,
-                       int lmax, cudaStream_t stream) {
-  if (!dims_ok(num_tiles, W, l1, lmax, bs)) {
+// B9 on every stream of a table: table holds num_streams rows of
+// kTableWords int64 words (vals, slot, gsub, bl or bm, bs or 0, base, byt,
+// lt or 0, W, l1, lmax, tiles, first tile), the streams' tiles end to end
+// in the grid; y [y_tiles*8, 128] is added into.  bl and bs must be 16-byte
+// aligned (the bulk copies).  Returns a cudaError_t code (0 on success).
+int hispmv_spmv_routed_streams(const long long* table, int num_streams,
+                               const float* x2d, long long x_rows, float* y,
+                               int y_tiles, cudaStream_t stream) {
+  constexpr int kTableWords = 13;
+  if (num_streams < 1 || num_streams > kMaxStreams || y_tiles < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  routed_tile_kernel<<<num_tiles, kTile, 0, stream>>>(
-      vals, slot, gsub, bl, bs, base, byt, x2d, x_rows, y, y_tiles, W, l1,
-      lmax);
+  StreamTable tab{};
+  tab.n = num_streams;
+  long long tiles = 0;
+  int rows = 0;  // staged rows a CTA: the table's largest lmax
+  for (int k = 0; k < num_streams; ++k) {
+    const long long* w = table + k * kTableWords;
+    RoutedStream& st = tab.s[k];
+    st.vals = reinterpret_cast<const float*>(w[0]);
+    st.slot = reinterpret_cast<const int*>(w[1]);
+    st.gsub = reinterpret_cast<const int*>(w[2]);
+    st.bl = reinterpret_cast<const int*>(w[3]);
+    st.bs = reinterpret_cast<const int*>(w[4]);
+    st.base = reinterpret_cast<const int*>(w[5]);
+    st.byt = reinterpret_cast<const int*>(w[6]);
+    st.lt = reinterpret_cast<const int*>(w[7]);
+    st.W = static_cast<int>(w[8]);
+    st.l1 = static_cast<int>(w[9]);
+    st.lmax = static_cast<int>(w[10]);
+    st.first = static_cast<int>(w[12]);
+    if (!dims_ok(static_cast<int>(w[11]), st.W, st.l1, st.lmax, st.bs) ||
+        w[12] != tiles || (w[3] | w[4]) % 16 != 0) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    tiles += w[11];
+    const int r = st.lmax == 1 ? 1 : (st.lmax + 1) / 2 + (st.lmax + 3) / 4;
+    rows = r > rows ? r : rows;
+  }
+  if (tiles > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
+  const int smem = rows * kTile * static_cast<int>(sizeof(unsigned));
+  // past 32 KB the 12.6 KB of static shared memory make more than 48 KB
+  if (smem > 32 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        routed_tile_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  routed_tile_kernel<<<static_cast<unsigned>(tiles), kTile, smem, stream>>>(
+      tab, x2d, x_rows, y, y_tiles);
   return static_cast<int>(cudaGetLastError());
 }
 

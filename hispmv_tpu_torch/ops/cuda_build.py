@@ -134,10 +134,9 @@ def get_lib() -> ctypes.CDLL:
             lib.hispmv_spmv_windowed.argtypes = [
                 ptr, i32, ptr, ptr, ptr, ptr, i32, i32, i32, i32, ptr,
             ]
-            lib.hispmv_spmv_routed.restype = i32
-            lib.hispmv_spmv_routed.argtypes = [
-                ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ctypes.c_longlong,
-                ptr, i32, i32, i32, i32, i32, ptr,
+            lib.hispmv_spmv_routed_streams.restype = i32
+            lib.hispmv_spmv_routed_streams.argtypes = [
+                ptr, i32, ptr, ctypes.c_longlong, ptr, i32, ptr,
             ]
             lib.hispmv_spmv_chunked_batched.restype = i32
             lib.hispmv_spmv_chunked_batched.argtypes = [

@@ -1,14 +1,18 @@
 """B9 and B10, the routed-stream SpMV against one vector and against B
-vectors: packer, CUDA kernel wrappers and plain PyTorch versions.
+vectors: packer, stream table, CUDA kernel wrappers and plain PyTorch
+versions.
 
 Port of ``hispmv_tpu/ops/spmv_routed.py`` (``chunk_for_stream``,
 ``_chunk_terms``, ``_segment_terms``, ``stream_array_names``,
 ``pack_stream``, ``_routed_kernel`` / ``spmv_routed_stream_pallas``,
 ``_routed_kernel_batched`` / ``spmv_routed_stream_batched_pallas``).  Both
 kernels are in ``csrc/spmv_routed.cu``; they consume the packed arrays of
-the TPU kernels, so both packages can be fed identical inputs.  B10 runs
-B9's tile against B vectors given vector-minor, as xt [nwin*8, 128, B],
-on a grid of tiles x groups of V vectors.
+the TPU kernels, so both packages can be fed identical inputs.  B9 runs
+every stream of a routed plan in one launch: :func:`routed_table` checks
+the streams' arrays once and lays them out for the kernel, and
+:func:`spmv_routed_streams` adds their product into one y.  B10 runs B9's
+tile against B vectors given vector-minor, as xt [nwin*8, 128, B], on a
+grid of tiles x groups of V vectors, one launch a stream.
 
 Per (8,128) tile of 1024 slots, cell (s, j) being sublane s and lane j:
 
@@ -23,16 +27,20 @@ Per (8,128) tile of 1024 slots, cell (s, j) being sublane s and lane j:
 3. Per boundary layer k < lmax: raw (bl word, or the merged bm word when
    lmax == 1) gives end lane a and start lane b, the sub fields are read at
    the gathered lanes, and P[sub_a, a] - P[sub_b, b] is added into y tile
-   byt[t, k] at (s, j).
+   byt[t, k] at (s, j).  Layers k >= lt[t] (the plan's ``RoutedStream.lt``)
+   are padding that adds P[0, 0] - P[0, 0] = 0: B9 on the card skips them,
+   the plain versions run every layer.
 
 Left out of the port on purpose: the TPU's bf16x3 prefix split (the port's
-prefix is a plain fp32 scan) and the unused ``lt`` prefetch table.  The
-pow-2 bucketing of W, lmax and the segment grids is kept only behind
-``pack_stream(bucket=True)``, so tests can feed both packages identical
-arrays; the handle packs with ``bucket=False`` and one tile per chunk.
+prefix is a plain fp32 scan).  The pow-2 bucketing of W, lmax and the
+segment grids is kept only behind ``pack_stream(bucket=True)``, so tests
+can feed both packages identical arrays; the handle packs with
+``bucket=False`` and one tile per chunk.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -230,16 +238,15 @@ def _unpack(packed, dims):
     return packed
 
 
-def check_stream_args(packed, dims, x, num_ytiles):
-    """Validate one packed segment and the dtype of its x before any
-    launch (each wrapper checks the shape of its own x)."""
+def _check_packed(packed, dims):
+    """Validate one packed segment against its dims."""
     nch, tchunk, W, l1, lmax = dims
     vals, slot, gsub, bl, bs, base, byt = _unpack(packed, dims)
     if not (1 <= W <= W_CAP and 1 <= l1 <= L1_CAP and 1 <= lmax <= L_CAP):
         raise ValueError(f"spmv_routed: dims W={W}, l1={l1}, lmax={lmax} "
                          f"outside the caps ({W_CAP}, {L1_CAP}, {L_CAP})")
-    if vals.dtype != torch.float32 or x.dtype != torch.float32:
-        raise TypeError("spmv_routed: vals and x must be float32")
+    if vals.dtype != torch.float32:
+        raise TypeError("spmv_routed: vals must be float32")
     words = [slot, gsub, bl, base, byt] + ([bs] if bs is not None else [])
     if any(a.dtype != torch.int32 for a in words):
         raise TypeError("spmv_routed: routing words must be int32")
@@ -256,8 +263,98 @@ def check_stream_args(packed, dims, x, num_ytiles):
         if tuple(a.shape) != shape:
             raise ValueError(f"spmv_routed: array of shape {tuple(a.shape)}"
                              f" where {shape} is needed for dims {dims}")
+
+
+def check_stream_args(packed, dims, x, num_ytiles):
+    """Validate one packed segment and the dtype of its x before any
+    launch (each wrapper checks the shape of its own x)."""
+    _check_packed(packed, dims)
+    if x.dtype != torch.float32:
+        raise TypeError("spmv_routed: vals and x must be float32")
     if num_ytiles < 1:
         raise ValueError("spmv_routed: num_ytiles must be >= 1")
+
+
+MAX_STREAMS = 8  # streams a B9 launch takes (a routed plan has at most 6)
+_TABLE_WORDS = 13  # per stream: 8 array addresses, W, l1, lmax, tiles, first
+
+
+@dataclasses.dataclass
+class RoutedTable:
+    """The streams of one B9 launch, checked once (see :func:`routed_table`).
+    ``streams``: ``(packed, dims, lt)`` each, ``lt`` i32 [Tp] or None (then
+    every tile runs all lmax layers); ``words``: their int64 rows for the
+    kernel (``csrc/spmv_routed.cu::hispmv_spmv_routed_streams``), on the
+    host."""
+
+    streams: list
+    num_ytiles: int
+    num_tiles: int
+    device: torch.device
+    words: torch.Tensor
+
+    @property
+    def lt_nbytes(self) -> int:
+        return sum(int(lt.nbytes) for _, _, lt in self.streams
+                   if lt is not None)
+
+
+def routed_table(streams, num_ytiles) -> RoutedTable:
+    """Check the streams of one B9 launch and lay them out end to end in its
+    grid, the largest lmax first: the card starts CTAs in grid order, so
+    the tiles with the longest layer loops start first and overlap the
+    rest.  ``streams``: ``(packed, dims, lt)`` each, ``packed``/``dims`` as
+    :func:`pack_stream` gives them, ``lt`` i32 [nch*tchunk] (the plan's
+    live boundary layers a tile, 0 on padding tiles) or None.  Raises on a
+    wrong dtype or shape, dims outside the caps, tensors on more than one
+    device or not contiguous, and (on the card) a boundary array that is not
+    16-byte aligned."""
+    streams = sorted(streams, key=lambda e: -e[1][4])
+    if not 1 <= len(streams) <= MAX_STREAMS:
+        raise ValueError(f"spmv_routed: {len(streams)} streams, want 1 to "
+                         f"{MAX_STREAMS}")
+    if num_ytiles < 1:
+        raise ValueError("spmv_routed: num_ytiles must be >= 1")
+    device = streams[0][0][0].device
+    rows, first = [], 0
+    for packed, dims, lt in streams:
+        _check_packed(packed, dims)
+        nch, tchunk, W, l1, lmax = dims
+        tiles = nch * tchunk
+        if lt is not None and (lt.dtype != torch.int32
+                               or tuple(lt.shape) != (tiles,)):
+            raise ValueError(f"spmv_routed: lt must be int32 [{tiles}]")
+        arrays = list(packed) + ([lt] if lt is not None else [])
+        for t in arrays:
+            if t.device != device:
+                raise ValueError(f"spmv_routed: tensors on {t.device} and "
+                                 f"{device}")
+            if not t.is_contiguous():
+                raise ValueError("spmv_routed: tensors must be contiguous")
+        vals, slot, gsub, bl, bs, base, byt = _unpack(packed, dims)
+        if device.type == "cuda" and any(
+                t.data_ptr() % 16 for t in (bl, bs) if t is not None):
+            raise ValueError("spmv_routed: bl and bs must be 16-byte aligned")
+        ptrs = [t.data_ptr() if t is not None else 0
+                for t in (vals, slot, gsub, bl, bs, base, byt, lt)]
+        rows.append(ptrs + [W, l1, lmax, tiles, first])
+        first += tiles
+    words = torch.tensor(rows, dtype=torch.int64)
+    return RoutedTable(streams, num_ytiles, first, device, words)
+
+
+def segment_lts(s: RoutedStream, segments) -> list:
+    """The lt array of each :func:`pack_stream` segment of stream ``s``: the
+    plan's live boundary layers a tile, 0 on padding tiles (the JAX
+    packer's ``lt`` table, split as the segments are)."""
+    out, off = [], 0
+    for _, (nch, tchunk, *_) in segments:
+        lt = np.zeros(nch * tchunk, np.int32)
+        part = s.lt[off: off + nch * tchunk]
+        lt[: len(part)] = part
+        out.append(lt)
+        off += nch * tchunk
+    return out
 
 
 def _routed_plain(packed, dims, x3, num_ytiles):
@@ -340,37 +437,79 @@ def spmv_routed_stream_batched_plain(packed, dims, xt, num_ytiles):
     return y.reshape(-1, LANES)
 
 
-def spmv_routed_stream(packed, dims, x2d, num_ytiles):
-    """Run one packed routed-stream segment; returns y f32 [num_ytiles*8,
-    128].  ``packed``/``dims`` come from :func:`pack_stream`, ``x2d`` is
-    f32 [nwin*8, 128].  CPU tensors take the plain PyTorch version; CUDA
-    tensors launch the CUDA kernel (csrc/spmv_routed.cu) or raise."""
-    check_stream_args(packed, dims, x2d, num_ytiles)
+def _check_x(name, x2d, device):
     if x2d.ndim != 2 or x2d.shape[1] != LANES:
-        raise ValueError(f"spmv_routed: x must be [n, {LANES}], got "
+        raise ValueError(f"{name}: x must be [n, {LANES}], got "
                          f"{tuple(x2d.shape)}")
-    if x2d.device.type == "cpu":
-        return spmv_routed_stream_plain(packed, dims, x2d, num_ytiles)
-    nch, tchunk, W, l1, lmax = dims
-    vals, slot, gsub, bl, bs, base, byt = _unpack(packed, dims)
-    check_cuda_tensors("spmv_routed", x2d, *(a for a in packed))
-    lib = cuda_build.get_lib()
-    y = torch.zeros((num_ytiles * 8, LANES), dtype=torch.float32,
-                    device=x2d.device)
-    with torch.cuda.device(x2d.device):
-        rc = lib.hispmv_spmv_routed(
-            vals.data_ptr(), slot.data_ptr(), gsub.data_ptr(),
-            bl.data_ptr(), 0 if bs is None else bs.data_ptr(),
-            base.data_ptr(), byt.data_ptr(), x2d.data_ptr(),
-            x2d.shape[0], y.data_ptr(), num_ytiles, nch * tchunk,
-            W, l1, lmax, torch.cuda.current_stream().cuda_stream,
-        )
-    cuda_build.check(rc, "spmv_routed")
-    spmv_routed_stream.launches += 1
+    if x2d.dtype != torch.float32:
+        raise TypeError(f"{name}: x must be float32")
+    if x2d.device != device:
+        raise ValueError(f"{name}: x on {x2d.device}, the streams on "
+                         f"{device}")
+
+
+def spmv_routed_streams_plain(table: RoutedTable, x2d, y=None):
+    """Plain PyTorch version of B9 on a table: each stream's product (see
+    :func:`_routed_plain`, every layer run) added into ``y`` f32
+    [num_ytiles*8, 128] in place, or into zeros when ``y`` is None;
+    returns it."""
+    nyt = table.num_ytiles
+    if y is None:
+        y = torch.zeros((nyt * 8, LANES), dtype=torch.float32,
+                        device=x2d.device)
+    for packed, dims, _ in table.streams:
+        y += _routed_plain(packed, dims, x2d[None], nyt).reshape(-1, LANES)
     return y
 
 
-spmv_routed_stream.launches = 0  # kernel launches, for the smoke run's check
+def spmv_routed_streams(table: RoutedTable, x2d, y=None):
+    """Run every stream of ``table`` (from :func:`routed_table`) against
+    ``x2d`` f32 [nwin*8, 128] in one B9 launch, adding into ``y`` f32
+    [num_ytiles*8, 128] in place (into zeros when ``y`` is None); returns
+    y.  The streams' arrays were checked when the table was built: this
+    checks x and y.  CPU tensors take the plain PyTorch version; CUDA
+    tensors launch the CUDA kernel (csrc/spmv_routed.cu) or raise."""
+    _check_x("spmv_routed", x2d, table.device)
+    shape = (table.num_ytiles * 8, LANES)
+    if y is not None and (tuple(y.shape) != shape or y.dtype != torch.float32
+                          or y.device != table.device
+                          or not y.is_contiguous()):
+        raise ValueError(f"spmv_routed: y must be a contiguous float32 "
+                         f"{list(shape)} on {table.device}")
+    if x2d.device.type == "cpu":
+        return spmv_routed_streams_plain(table, x2d, y)
+    check_cuda_tensors("spmv_routed", x2d)
+    lib = cuda_build.get_lib()
+    if y is None:
+        y = torch.zeros(shape, dtype=torch.float32, device=x2d.device)
+    with torch.cuda.device(x2d.device):
+        rc = lib.hispmv_spmv_routed_streams(
+            table.words.data_ptr(), len(table.streams), x2d.data_ptr(),
+            x2d.shape[0], y.data_ptr(), table.num_ytiles,
+            torch.cuda.current_stream().cuda_stream,
+        )
+    cuda_build.check(rc, "spmv_routed")
+    spmv_routed_streams.launches += 1
+    return y
+
+
+spmv_routed_streams.launches = 0  # B9 launches, for the smoke run's check
+
+
+def spmv_routed_stream(packed, dims, x2d, num_ytiles):
+    """Run one packed routed-stream segment; returns y f32 [num_ytiles*8,
+    128].  ``packed``/``dims`` come from :func:`pack_stream`, ``x2d`` is
+    f32 [nwin*8, 128].  B9 on a one-entry table, every layer run (counted
+    in ``spmv_routed_streams.launches``).  CPU tensors take the plain
+    PyTorch version; CUDA tensors launch the CUDA kernel
+    (csrc/spmv_routed.cu) or raise."""
+    check_stream_args(packed, dims, x2d, num_ytiles)
+    _check_x("spmv_routed", x2d, x2d.device)
+    if x2d.device.type == "cpu":
+        return spmv_routed_stream_plain(packed, dims, x2d, num_ytiles)
+    check_cuda_tensors("spmv_routed", x2d, *packed)
+    return spmv_routed_streams(
+        routed_table([(packed, dims, None)], num_ytiles), x2d)
 
 
 def spmv_routed_stream_batched(packed, dims, xt, num_ytiles, vpt=0):

@@ -10,7 +10,7 @@ parent).
 
     python3 kernel_compare.py LABEL [GROUP ...]
 
-GROUPs (all when none is named): b1b7, b3, b2, b8, b6, b4.
+GROUPs (all when none is named): b1b7, b3, b2, b8, b6, b4, b9.
 
 B1's cases, at one vector: TSOPF_RS_b2383's block handle and trans5's ELLX
 overflow.  B7's: crystk03's window handle (format auto, bh 8), crystk03 as
@@ -56,6 +56,20 @@ same arrays; where the wrapper takes ``vpt``, also the time at each V
 (B1, B7: 1 and 4; B2, B8: 4 and 8; five readings each, the V values
 alternating: median [min-max]) and the launch shape (V, row slices,
 CTAs; B3's from ``chunked_paneled_grid`` where the checkout has it).
+B9's group (``b9``): routed handles of trans5, ford2, language in rank
+space and analytics with its gathered side-plan (planned under
+``chip_smoke.py``'s lowered gathered costs): each stream of trans5 and
+ford2 alone (``spmv_routed_stream``); the whole routed part, as the
+checkout's ``run`` launches it (one launch on the handle's stream table,
+or one a stream with the y tiles summed), with its launches a call, its
+device busy time and B9's own (the profiler's ``routed_tile_kernel``
+events), its must-read bound (each tile's live boundary rows, by the
+plan's lt) and packed bound, its agreement with the sum of the plain
+versions and, where the checkout's ``chip_smoke.py`` has
+``routed_csr_call``, cuSPARSE's CSR product of the nonzeros it covers;
+each handle's ``run``; language's rank-space ``linear`` at B 64 (wall over
+5 calls); and the ``-Xptxas -v`` registers of ``csrc/spmv_routed.cu`` and
+``csrc/spmv_gathered.cu``.
 Exits 1 when a case disagrees, 2 without a CUDA card."""
 
 import importlib
@@ -77,7 +91,10 @@ from hispmv_tpu_torch.formats.synth import blocked_coo, suite_matrix
 from hispmv_tpu_torch.models import AcceleratorLayerManager, ThreeLayerFCModel
 from hispmv_tpu_torch.ops import cuda_build
 from hispmv_tpu_torch.ops import spmv_chunked as sc
+from hispmv_tpu_torch.ops import spmv_routed as sr
 from hispmv_tpu_torch.ops import spmv_windowed as sw
+from hispmv_tpu_torch.ops.permute import panel_permute_apply_from
+from hispmv_tpu_torch.plan import gathered as gp
 
 # the module: the ops package's function spmv_block shadows its name
 sb = importlib.import_module("hispmv_tpu_torch.ops.spmv_block")
@@ -471,9 +488,175 @@ def v_sweep(kern, args, vpts):
     return "; ".join(out)
 
 
+# the routed runs of B9's group: (label, fixture, rank space, gathered)
+B9_RUNS = [("trans5", "trans5", False, False),
+           ("ford2", "ford2", False, False),
+           ("language rank", "language", True, False),
+           ("analytics gathered", cs.GATHERED_FIXTURE, False, True)]
+
+
+def routed_handle(name, rank, gathered):
+    """A routed handle of suite stand-in ``name`` (scale 1.0, seed 0); with
+    ``gathered``, planned under ``chip_smoke.py``'s lowered gathered
+    costs, so that it diverts tiles to the side-plan as phase 3g does."""
+    saved = {k: getattr(gp, k) for k in cs.GATHERED_COSTS}
+    try:
+        if gathered:
+            for k, v in cs.GATHERED_COSTS.items():
+                setattr(gp, k, v)
+        return prepare(suite_matrix(name, 1.0, seed=cs.SEED),
+                       SpmvConfig(rank_sort=rank), "routed")
+    finally:
+        for k, v in saved.items():
+            setattr(gp, k, v)
+
+
+def b9_part(h, xd):
+    """(x2d, [(packed, dims)], call) of a routed handle's B9 work on x
+    ``xd``, as its ``run`` makes x2d: ``call`` is one launch over every
+    stream where the checkout's handle has a stream table, else one launch
+    a stream with the y tiles summed (the parent's executor)."""
+    meta, d = h._routed_meta, h._d
+    x = h._pad_x(xd)
+    if meta["xperm"] is not None:
+        x = panel_permute_apply_from(d, meta["xperm"], "xp", x)
+    x = torch.nn.functional.pad(x, (0, max(meta["nwin"] * 1024
+                                           - x.shape[0], 0)))
+    x2d, nyt = x.reshape(-1, 128), meta["nyt"]
+    streams = [(tuple(d[f"s{i}_" + n] for n in sr.stream_array_names(
+        dims[4])) + (d[f"s{i}_base"], d[f"s{i}_byt"]), dims)
+        for i, dims in enumerate(meta["streams"])]
+    if meta.get("table") is not None:
+        table = meta["table"]
+        return x2d, streams, lambda: sr.spmv_routed_streams(table, x2d)
+
+    def call():
+        y = None
+        for packed, dims in streams:
+            ys = sr.spmv_routed_stream(packed, dims, x2d, nyt)
+            y = ys if y is None else y + ys
+        return y
+    return x2d, streams, call
+
+
+def b9_bounds(h, x2d):
+    """(must-read ms, packed ms): B9's bytes over 3.35 TB/s on the whole
+    part, x and y once; must-read counts each tile's live bl / bs rows
+    (the plan's lt) and lt, packed every row."""
+    nyt = h._routed_meta["nyt"]
+    must = packed = x2d.nbytes + nyt * 4096
+    for s in h.plan.streams:
+        T, lmax = s.num_tiles, s.lmax
+        fixed = T * (3 * 4096 + 4 + 4 * lmax)
+        lt = s.lt.astype(np.int64)
+        live = ((lt > 0) if lmax == 1 else (lt + 1) // 2 + (lt + 3) // 4)
+        rows = 1 if lmax == 1 else -(-lmax // 2) + -(-lmax // 4)
+        must += fixed + 4 * T + int(live.sum()) * 4096
+        packed += fixed + T * rows * 4096
+    return 1e3 * must / cs.HBM_BYTES_PER_S, 1e3 * packed / cs.HBM_BYTES_PER_S
+
+
+def kernel_ms(fn, key="routed_tile_kernel", runs=cs.TIMED_RUNS):
+    """Device time per call of the kernels whose name holds ``key``
+    (torch.profiler, over ``runs`` calls), or None."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if key in e.key)
+    return us / runs / 1e3 if us > 0 else None
+
+
+def b9_report(label, rng):
+    """B9's lines: each stream of trans5 and ford2 alone, the whole routed
+    part of every B9_RUNS handle (launches a call, device busy, B9's own
+    device time, bounds, agreement with the plain sum, cuSPARSE on the
+    nonzeros the part covers where the checkout's chip_smoke.py builds
+    it), the handles' ``run`` and language's rank-space ``linear`` at B
+    64, wall and device busy.  Returns False when a case disagrees."""
+    ok = True
+    b9 = cs.KERNELS["spmv_routed"]["wrapper"]
+    csr = getattr(cs, "routed_csr_call", None)
+    for tag, name, rank, gathered in B9_RUNS:
+        h = routed_handle(name, rank, gathered)
+        R, C = h.shape
+        xd = torch.from_numpy(rng.standard_normal(C).astype(np.float32)).cuda()
+        y_in = torch.from_numpy(rng.standard_normal(R).astype(
+            np.float32)).cuda()
+        x2d, streams, call = b9_part(h, xd)
+        nyt = h._routed_meta["nyt"]
+        if tag in ("trans5", "ford2"):
+            for i, (packed, dims) in enumerate(streams):
+                args = (packed, dims, x2d, nyt)
+                agree, _, line = cs._agree(
+                    "spmv_routed", sr.spmv_routed_stream(*args),
+                    sr.spmv_routed_stream_plain(*args))
+                ok &= agree
+                bound, _ = cs.kernel_bound("spmv_routed", args, {},
+                                           sr.spmv_routed_stream_plain(*args))
+                print(f"{label} B9 stream [{tag} s{i}: {dims[0]} tiles, W "
+                      f"{dims[2]}, l1 {dims[3]}, lmax {dims[4]}]: device busy "
+                      f"{cs._ms(cs.device_ms(lambda a=args: sr.spmv_routed_stream(*a)))}"
+                      f", B9 {cs._ms(kernel_ms(lambda a=args: sr.spmv_routed_stream(*a)))}"
+                      f", bound {bound:.4f} ms, {line}, "
+                      f"{'ok' if agree else 'FAIL'}", flush=True)
+        want = None
+        for packed, dims in streams:
+            yp = sr.spmv_routed_stream_plain(packed, dims, x2d, nyt)
+            want = yp if want is None else want + yp
+        before = b9.launches
+        y = call()
+        torch.cuda.synchronize()
+        n = b9.launches - before
+        agree, _, line = cs._agree("spmv_routed", y, want)
+        ok &= agree
+        must, packed_ms = b9_bounds(h, x2d)
+        msg = (f"{label} B9 part [{tag}: {len(streams)} streams, "
+               f"{sum(d[0] for _, d in streams)} tiles, lmax "
+               f"{[d[4] for _, d in streams]}]: {n} launches a call, device "
+               f"busy {cs._ms(cs.device_ms(call))}, B9 "
+               f"{cs._ms(kernel_ms(call))}, must-read bound {must:.4f} ms, "
+               f"packed bound {packed_ms:.4f} ms, {line}, "
+               f"{'ok' if agree else 'FAIL'}")
+        if csr is not None and h._routed_meta.get("table") is not None:
+            lib = csr(h._routed_meta["table"], x2d)
+            lib_ok, _, _ = cs._agree("spmv_routed", lib().reshape(y.shape),
+                                     want)
+            ok &= lib_ok
+            msg += (f"; CSR of its nonzeros wall {cs.median_ms(lib):.4f} ms, "
+                    f"device busy {cs._ms(cs.device_ms(lib))}"
+                    f"{'' if lib_ok else ' (FAIL: another function)'}")
+        run = lambda h=h, x=xd, y=y_in: h.run(x, y, 1.5, -0.5)  # noqa: E731
+        msg += (f"; handle run wall {cs.median_ms(run):.4f} ms, device busy "
+                f"{cs._ms(cs.device_ms(run))}")
+        print(msg, flush=True)
+        if rank:
+            xb = torch.from_numpy(rng.standard_normal(
+                (cs.BATCH, C)).astype(np.float32)).cuda()
+            lin = lambda h=h, xb=xb: h.linear(xb)  # noqa: E731
+            before = b9.launches
+            lin()
+            torch.cuda.synchronize()
+            n = b9.launches - before
+            print(f"{label} routed linear [{tag}, B {cs.BATCH}]: {n} B9 "
+                  f"launches a call, wall {cs.median_ms(lin, runs=5, warmup=1):.4f} "
+                  f"ms, device busy {cs._ms(cs.device_ms(lin, runs=5))}",
+                  flush=True)
+    for src in ("spmv_routed.cu", "spmv_gathered.cu"):
+        for line in ptxas_registers(src):
+            print(f"{label} ptxas {src} {line}", flush=True)
+    return ok
+
+
 # the case groups, in the order they run (and draw from the generator)
 GROUPS = {"b1b7": b1_b7_cases, "b3": b3_cases, "b2": b2_cases,
           "b8": b8_cases, "b6": b6_cases, "b4": b4_cases}
+REPORTS = {"b9": b9_report}  # groups that print their own lines, last
 
 
 def main(label: str, groups=()) -> int:
@@ -482,10 +665,11 @@ def main(label: str, groups=()) -> int:
         return 2
     rng = np.random.default_rng(cs.SEED)
     ok = True
-    groups = set(groups) or set(GROUPS)
-    if groups - set(GROUPS):
-        raise SystemExit(f"kernel_compare: groups are {list(GROUPS)}, not "
-                         f"{sorted(groups - set(GROUPS))}")
+    known = list(GROUPS) + list(REPORTS)
+    groups = set(groups) or set(known)
+    if groups - set(known):
+        raise SystemExit(f"kernel_compare: groups are {known}, not "
+                         f"{sorted(groups - set(known))}")
     cases, calls = [], []
     for g in GROUPS:  # in this order, each group's rng draws as before
         if g in groups:
@@ -524,6 +708,9 @@ def main(label: str, groups=()) -> int:
     if "b4" in groups:
         for line in ptxas_registers():
             print(f"{label} ptxas {line}", flush=True)
+    for g, report in REPORTS.items():
+        if g in groups:
+            ok &= report(label, rng)
     print(f"{label} {cs.gpu_line()}", flush=True)
     return 0 if ok else 1
 

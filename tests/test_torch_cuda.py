@@ -95,12 +95,17 @@ from hispmv_tpu_torch.ops.spmv_windowed import (
     windowed_batched_grid,
 )
 from hispmv_tpu_torch.ops.spmv_routed import (
+    MAX_STREAMS,
     pack_stream,
     routed_batched_v,
+    routed_table,
+    segment_lts,
     spmv_routed_stream,
     spmv_routed_stream_batched,
     spmv_routed_stream_batched_plain,
     spmv_routed_stream_plain,
+    spmv_routed_streams,
+    spmv_routed_streams_plain,
 )
 from hispmv_tpu_torch.plan import gathered as G
 from hispmv_tpu_torch.plan.blocks import build_block_plan, degree_column_perm
@@ -404,12 +409,96 @@ def test_b9_kernel_matches_plain(dev, name, bucket):
         tchunk = 4 if bucket else 1
         for arrays, dims in pack_stream(s, tchunk, bucket=bucket):
             packed = tuple(torch.from_numpy(a).to(dev) for a in arrays)
-            before = spmv_routed_stream.launches
+            before = spmv_routed_streams.launches
             y = spmv_routed_stream(packed, dims, x2d, plan.num_ytiles)
             torch.cuda.synchronize()
-            assert spmv_routed_stream.launches == before + 1
+            assert spmv_routed_streams.launches == before + 1
             assert_close(y, spmv_routed_stream_plain(packed, dims, x2d,
                                                      plan.num_ytiles))
+
+
+# streams for B9's tables: lmax 1, 2, 4, 8, 16 and 32, l1 1 to 5
+TABLE_MATRICES = dict(
+    {n: f for n, (f, _) in ROUTED.items()},
+    random900=lambda: random_coo(900, 700, 8_000, seed=9),
+    tall_lmax8=lambda: random_coo(20_000, 512, 6_000, seed=2),
+    powerlaw4000=lambda: powerlaw_coo(4000, 4000, 60_000, seed=7),
+)
+
+
+def _table_streams(bucket):
+    """Every stream of TABLE_MATRICES with its lt, packed one tile a chunk
+    (``bucket=False``) or bucketed three tiles a chunk, whose padding tiles
+    have lt 0; the first stream's W raised to 64, as the pow-2 bucketing
+    does for a span of 33 to 64 windows.  Returns the entries, the x rows
+    and the y tiles that cover them all."""
+    entries, nwin, nyt = [], 1, 1
+    for f in TABLE_MATRICES.values():
+        plan = build_routed_plan(f())
+        nwin, nyt = max(nwin, plan.num_windows), max(nyt, plan.num_ytiles)
+        for s in plan.streams:
+            segs = pack_stream(s, 3 if bucket else 1, bucket=bucket)
+            for (arrays, dims), lt in zip(segs, segment_lts(s, segs)):
+                entries.append((arrays, dims, lt))
+    arrays, dims, lt = entries[0]
+    entries[0] = (arrays, dims[:2] + (64,) + dims[3:], lt)
+    return entries, nwin * 8, nyt
+
+
+@pytest.mark.parametrize("bucket", [False, True])
+def test_b9_table_kernel_matches_plain(dev, bucket):
+    """One B9 launch a table of up to MAX_STREAMS streams mixing lmax 1 to
+    32, l1 1 to 5 and W up to 64, adding into a y that already holds
+    values, against the plain version (every layer run; the kernel runs
+    only k < lt)."""
+    entries, x_rows, nyt = _table_streams(bucket)
+    seen = {d[4] for _, d, _ in entries}
+    assert {1, 2, 4, 8, 16, 32} <= seen and max(d[2] for _, d, _ in entries) \
+        == 64 and {d[3] for _, d, _ in entries} >= {1, 4, 5}
+    if bucket:  # bucketed segments end in padding tiles of lt 0
+        assert any((lt == 0).any() for _, _, lt in entries)
+    rng = np.random.default_rng(2)
+    x2d = torch.from_numpy(rng.standard_normal((x_rows, 128)).astype(
+        np.float32)).to(dev)
+    y0 = torch.from_numpy(rng.standard_normal((nyt * 8, 128)).astype(
+        np.float32)).to(dev)
+    order = rng.permutation(len(entries))  # mix the lmax within a table
+    for i in range(0, len(entries), MAX_STREAMS):
+        part = [entries[j] for j in order[i: i + MAX_STREAMS]]
+        table = routed_table([
+            (tuple(torch.from_numpy(a).to(dev) for a in arrays), dims,
+             torch.from_numpy(lt).to(dev)) for arrays, dims, lt in part],
+            nyt)
+        before = spmv_routed_streams.launches
+        y = spmv_routed_streams(table, x2d, y0.clone())
+        torch.cuda.synchronize()
+        assert spmv_routed_streams.launches == before + 1
+        assert_close(y, spmv_routed_streams_plain(table, x2d, y0.clone()))
+
+
+def test_b9_one_entry_table_is_the_stream_call(dev):
+    """A one-entry table (with lt) gives what ``spmv_routed_stream`` (the
+    same kernel on a one-entry table without lt: every layer) gives."""
+    entries, x_rows, nyt = _table_streams(False)
+    x2d = _x2d(x_rows * 128, x_rows * 128, dev, seed=5)
+    for arrays, dims, lt in entries:
+        packed = tuple(torch.from_numpy(a).to(dev) for a in arrays)
+        table = routed_table([(packed, dims, torch.from_numpy(lt).to(dev))],
+                             nyt)
+        assert_close(spmv_routed_streams(table, x2d),
+                     spmv_routed_stream(packed, dims, x2d, nyt))
+
+
+def test_b9_table_rejects_unaligned_boundary_words(dev):
+    entries, _, nyt = _table_streams(False)
+    arrays, dims, lt = next(e for e in entries if e[1][4] > 1)
+    packed = [torch.from_numpy(a).to(dev) for a in arrays]
+    flat = torch.zeros(packed[3].numel() + 1, dtype=torch.int32, device=dev)
+    packed[3] = flat[1:].view(packed[3].shape)
+    packed[3].copy_(torch.from_numpy(arrays[3]))
+    with pytest.raises(ValueError, match="aligned"):
+        routed_table([(tuple(packed), dims, torch.from_numpy(lt).to(dev))],
+                     nyt)
 
 
 @pytest.mark.parametrize("n", [700, 9000, 400_000])
@@ -463,13 +552,17 @@ def test_routed_handle_runs_on_card(dev, name, rank_sort):
     rng = np.random.default_rng(4)
     x = rng.standard_normal(coo.num_cols).astype(np.float32)
     y_in = rng.standard_normal(coo.num_rows).astype(np.float32)
-    b9, b11 = spmv_routed_stream.launches, permute_stage.launches
+    b9, b11 = spmv_routed_streams.launches, permute_stage.launches
     y = h.run(torch.from_numpy(x).to(dev), torch.from_numpy(y_in).to(dev),
               1.5, -0.5)
     torch.cuda.synchronize()
     want = 1.5 * coo.matvec(x.astype(np.float64)) - 0.5 * y_in
     assert error_stats(y.cpu().numpy(), want, rtol=1e-3).ok
-    assert (spmv_routed_stream.launches > b9) == (h.plan.num_tiles > 0)
+    # one B9 launch a routed part with tiles: the plan, or each banded cell
+    metas = ([c["meta"] for c in h._routed_meta["cells"]]
+             if name == "banded_grid" else [h._routed_meta])
+    assert spmv_routed_streams.launches - b9 == sum(
+        m["table"] is not None for m in metas)
     assert (permute_stage.launches > b11) == rank_sort
     assert h.verify().ok
 
@@ -1429,7 +1522,7 @@ def test_b13_kernel_matches_plain(dev, pad):
 
 def test_gathered_routed_handle_on_card(dev, monkeypatch):
     """Cheap gathered constants divert this matrix's tiles to the side-plan:
-    one run is B12, B11 twice, B13 and one B9 per stream."""
+    one run is B12, B11 twice, B13 and one B9 launch for every stream."""
     monkeypatch.setattr(G, "GATH_TILE_NS", 1.0)
     monkeypatch.setattr(G, "GATH_STAGE_NS", 1.0)
     monkeypatch.setattr(G, "GATH_LAUNCH_NS", 0.0)
@@ -1439,12 +1532,12 @@ def test_gathered_routed_handle_on_card(dev, monkeypatch):
     rng = np.random.default_rng(5)
     x = rng.standard_normal(coo.num_cols).astype(np.float32)
     counts = (s1_gather, permute_stage, spmv_gathered_tiles,
-              spmv_routed_stream)
+              spmv_routed_streams)
     before = [k.launches for k in counts]
     y = h.run(torch.from_numpy(x).to(dev))
     torch.cuda.synchronize()
-    assert [k.launches - b for k, b in zip(counts, before)] == [
-        1, 2, 1, len(h.plan.streams)]
+    assert len(h.plan.streams) > 0
+    assert [k.launches - b for k, b in zip(counts, before)] == [1, 2, 1, 1]
     assert error_stats(y.cpu().numpy(), coo.matvec(x.astype(np.float64)),
                        rtol=1e-3).ok
     xb = rng.standard_normal((3, coo.num_cols)).astype(np.float32)

@@ -27,6 +27,8 @@ import pytest
 import torch
 from conftest import small_matrix_cases
 
+from hispmv_tpu.api.handle import SpmvHandle as JSpmvHandle
+from hispmv_tpu.config import SpmvConfig as JSpmvConfig
 from hispmv_tpu.ops.spmv_routed import pack_stream as jpack_stream
 from hispmv_tpu.ops.spmv_routed import spmv_routed_stream_pallas
 from hispmv_tpu.plan import routed as JR
@@ -39,9 +41,14 @@ from hispmv_tpu_torch.formats.synth import (
     rmat_coo,
 )
 from hispmv_tpu_torch.ops.spmv_routed import (
+    MAX_STREAMS,
     pack_stream,
+    routed_table,
+    segment_lts,
     spmv_routed_stream,
     spmv_routed_stream_plain,
+    spmv_routed_streams,
+    spmv_routed_streams_plain,
 )
 from hispmv_tpu_torch.plan import routed as R
 from hispmv_tpu_torch.plan.convert import plan_from_reference
@@ -331,11 +338,11 @@ def _b9_args(name="random900"):
 
 def test_b9_wrapper_on_cpu_takes_plain_version():
     args = _b9_args()
-    before = spmv_routed_stream.launches
+    before = spmv_routed_streams.launches
     torch.testing.assert_close(spmv_routed_stream(*args),
                                spmv_routed_stream_plain(*args), rtol=0,
                                atol=0)
-    assert spmv_routed_stream.launches == before
+    assert spmv_routed_streams.launches == before
 
 
 def test_b9_wrapper_rejects_bad_arguments():
@@ -358,6 +365,149 @@ def test_b9_wrapper_off_cpu_never_takes_plain_version():
     with pytest.raises(ValueError, match="no kernel"):
         spmv_routed_stream(tuple(t.to("meta") for t in packed), dims,
                            x2d.to("meta"), nyt)
+
+
+# ---------------------------------------------------------------------------
+# B9 on a stream table: every stream of a plan in one launch
+# ---------------------------------------------------------------------------
+
+
+def _tables(entries, nyt):
+    """``entries`` as tables of at most MAX_STREAMS streams each."""
+    return [routed_table(entries[i: i + MAX_STREAMS], nyt)
+            for i in range(0, len(entries), MAX_STREAMS)]
+
+
+@pytest.mark.parametrize("name", list(small_matrix_cases()))
+def test_plain_b9_table_equals_pallas_sum(name):
+    """The plain B9 on a table of every packed segment of a plan equals the
+    sum of the Pallas kernel (interpret mode) over the same segments, fed
+    the JAX packer's arrays, its lt table included: rtol 1e-5 (fp32 both,
+    other summation orders); and the float64 golden at rtol 1e-3."""
+    coo = _case(name)
+    plan = R.build_routed_plan(coo)
+    x, x2d = _x2d(plan, coo.num_cols)
+    nyt = plan.num_ytiles
+    entries = []
+    jy = np.zeros(nyt * R.WINDOW, np.float64)
+    for s in plan.streams:
+        segs = jpack_stream(s, tchunk=4)
+        for (arrays, dims), lt in zip(segs, segment_lts(s, segs)):
+            np.testing.assert_array_equal(lt, arrays[-1])  # the JAX lt
+            entries.append((tuple(map(torch.from_numpy, arrays[:-1])), dims,
+                            torch.from_numpy(arrays[-1])))
+            jy += np.asarray(spmv_routed_stream_pallas(
+                tuple(map(jnp.asarray, arrays)), dims, jnp.asarray(x2d), nyt,
+                interpret=True)).reshape(-1)
+    y = torch.zeros((nyt * 8, 128))
+    for table in _tables(entries, nyt):
+        assert spmv_routed_streams(table, torch.from_numpy(x2d), y) is y
+    assert_close(y.numpy().reshape(-1), jy)
+    got = y.numpy().reshape(-1)[: coo.num_rows].astype(np.float64)
+    np.add.at(got, plan.residual_rows,
+              plan.residual_vals.astype(np.float64) * x[plan.residual_cols])
+    assert error_stats(got, golden(coo, x), rtol=1e-3).ok
+
+
+@pytest.mark.parametrize("ranked", [False, True])
+@pytest.mark.parametrize("bucket", [True, False])
+@pytest.mark.parametrize("name", list(small_matrix_cases()))
+def test_layers_past_lt_are_padding(name, bucket, ranked):
+    """B9 on the card runs only the layers k < lt[t]: every layer past them
+    must be all-zero boundary words with byt 0, so that it adds P[0][0] -
+    P[0][0] = 0 and the skip is exact (padding tiles: lt 0, all zero)."""
+    coo = _case(name)
+    plan = (R.build_ranked_routed_plan if ranked else R.build_routed_plan)(
+        coo)
+    for s in plan.streams:
+        segs = pack_stream(s, 4 if bucket else 1, bucket=bucket)
+        for (arrays, dims), lt in zip(segs, segment_lts(s, segs)):
+            nch, tchunk, _, _, lmax = dims
+            Tp = nch * tchunk
+            assert lt.shape == (Tp,) and (lt <= s.lmax).all()
+            byt = arrays[-1].reshape(Tp, lmax)
+            k = np.arange(lmax)
+            dead = k[None, :] >= lt[:, None]  # [Tp, lmax]
+            assert (byt[dead] == 0).all()
+            if lmax == 1:
+                bm = arrays[3].reshape(Tp, -1)
+                assert (bm[lt == 0] == 0).all()
+                continue
+            bl = arrays[3].reshape(Tp, -(-lmax // 2), 1024).view(np.uint32)
+            bs = arrays[4].reshape(Tp, -(-lmax // 4), 1024).view(np.uint32)
+            for kk in range(lmax):
+                lanes = (bl[:, kk // 2] >> np.uint32(14 * (kk % 2))) \
+                    & np.uint32(0x3FFF)
+                subs = (bs[:, kk // 4] >> np.uint32(8 * (kk % 4))) \
+                    & np.uint32(0xFF)
+                rows = dead[:, kk]
+                assert (lanes[rows] == 0).all() and (subs[rows] == 0).all()
+
+
+def _table_entries(name="random900"):
+    coo = _case(name)
+    plan = R.build_routed_plan(coo)
+    _, x2d = _x2d(plan, coo.num_cols)
+    entries = []
+    for s in plan.streams:
+        ((arrays, dims),) = pack_stream(s, tchunk=1, bucket=False)
+        entries.append((tuple(map(torch.from_numpy, arrays)), dims,
+                        torch.from_numpy(s.lt.astype(np.int32))))
+    return entries, torch.from_numpy(x2d), plan.num_ytiles
+
+
+def test_b9_table_adds_into_y_and_equals_the_streams():
+    """The table's y is the sum of the single-stream calls, added into the
+    y it is given; the first tiles run end to end."""
+    entries, x2d, nyt = _table_entries()
+    table = routed_table(entries, nyt)
+    lmax = [d[4] for _, d, _ in table.streams]
+    assert lmax == sorted(lmax, reverse=True)  # the longest loops first
+    assert table.words[:, 12].tolist() == np.cumsum(
+        [0] + [d[0] * d[1] for _, d, _ in table.streams])[:-1].tolist()
+    assert table.num_tiles == sum(d[0] * d[1] for _, d, _ in entries)
+    y0 = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (nyt * 8, 128)).astype(np.float32))
+    want = y0.clone()
+    for packed, dims, _ in entries:
+        want += spmv_routed_stream(packed, dims, x2d, nyt)
+    before = spmv_routed_streams.launches
+    got = spmv_routed_streams(table, x2d, y0.clone())
+    assert spmv_routed_streams.launches == before
+    assert_close(got.numpy(), want.numpy())
+    assert_close(spmv_routed_streams_plain(table, x2d).numpy(),
+                 (want - y0).numpy())
+
+
+def test_b9_table_rejects_bad_arguments():
+    entries, x2d, nyt = _table_entries()
+    packed, dims, lt = entries[0]
+    with pytest.raises(TypeError):  # a wrong dtype
+        routed_table([((packed[0].double(),) + packed[1:], dims, lt)], nyt)
+    with pytest.raises(ValueError, match="lt must be int32"):
+        routed_table([(packed, dims, lt.long())], nyt)
+    with pytest.raises(ValueError, match="caps"):  # dims outside the caps
+        routed_table([(packed, dims[:2] + (65,) + dims[3:], lt)], nyt)
+    with pytest.raises(ValueError, match="caps"):
+        routed_table([(packed, dims[:4] + (33,), lt)], nyt)
+    with pytest.raises(ValueError, match="tensors on"):  # a mixed device
+        routed_table([(packed[:-1] + (packed[-1].to("meta"),), dims, lt)],
+                     nyt)
+    with pytest.raises(ValueError, match="tensors on"):
+        routed_table([(packed, dims, lt.to("meta"))], nyt)
+    with pytest.raises(ValueError, match="streams"):
+        routed_table([entries[0]] * (MAX_STREAMS + 1), nyt)
+    with pytest.raises(ValueError, match="num_ytiles"):
+        routed_table(entries, 0)
+    table = routed_table(entries, nyt)
+    with pytest.raises(ValueError):  # each call checks x and y
+        spmv_routed_streams(table, x2d.reshape(-1, 64))
+    with pytest.raises(TypeError):
+        spmv_routed_streams(table, x2d.double())
+    with pytest.raises(ValueError):
+        spmv_routed_streams(table, x2d.to("meta"))
+    with pytest.raises(ValueError, match="y must be"):
+        spmv_routed_streams(table, x2d, torch.zeros((nyt * 8 + 8, 128)))
 
 
 # ---------------------------------------------------------------------------
@@ -444,3 +594,26 @@ def test_banded_routed_handle_matches_golden(rank_sort):
     jplan = JR.build_banded_routed_plan(coo, rank_sort=rank_sort)
     h2 = SpmvHandle.from_plan(plan_from_reference(jplan), device="cpu")
     assert_close(h2.run(x).numpy(), h.run(x).numpy())
+
+
+@pytest.mark.parametrize("kind", ["original", "rank", "banded",
+                                  "banded_rank"])
+def test_routed_handle_run_matches_jax_handle(kind):
+    """One B9 launch a routed part (a table over every stream) gives the
+    JAX handle's ``run`` (interpret mode, one kernel a stream segment) at
+    rtol 1e-5, in original space, rank space and on the banded grid."""
+    rank = kind.endswith("rank")
+    coo = _banded_matrix() if kind.startswith("banded") else _case("powerlaw")
+    h = SpmvHandle(coo, SpmvConfig(rank_sort=rank), "routed", device="cpu")
+    jh = JSpmvHandle(coo, JSpmvConfig(rank_sort=rank), "routed",
+                     interpret=True)
+    metas = ([c["meta"] for c in h._routed_meta["cells"]]
+             if kind.startswith("banded") else [h._routed_meta])
+    assert all(m["table"] is not None for m in metas)
+    assert h.device_bytes == sum(int(t.nbytes) for t in h._d.values()) + sum(
+        m["table"].lt_nbytes for m in metas)
+    x = np.random.default_rng(7).standard_normal(coo.num_cols).astype(
+        np.float32)
+    y = h.run(x).numpy()
+    assert_close(y, np.asarray(jh.run(x))[: coo.num_rows])
+    assert error_stats(y, golden(coo, x), rtol=1e-3).ok
