@@ -6,7 +6,7 @@ Run from the root of a checkout, with no arguments:
     python3 chip_smoke.py
 
 It builds the hand-written CUDA kernels from ``hispmv_tpu_torch/csrc/``
-(B1-B13), then drives seven paths of the port, each run with the launch
+(B1-B13), then drives eight paths of the port, each run with the launch
 counts zeroed just before it and read just after:
 
 - ``prepare`` -> ``SpmvHandle.run`` and ``Accelerator`` (formats window,
@@ -34,13 +34,21 @@ counts zeroed just before it and read just after:
   the gathered executor's modelled cost lowered so that the planner diverts
   its scattered tiles: ``run`` through B12, B11 twice, B13 and B9, and
   ``linear`` at B 8 vector by vector.
+- the tuned entry: the ``split`` format on trans5 with its routed body
+  (``run`` through one B9 launch, ``linear`` at B 64 vector by vector)
+  and with an ELLX body (``run`` through the base product and B1,
+  ``linear`` at B 8 through B2), each timed beside the routed handle and
+  the CSR product; the CLI in process (``@trans5 --format tune --measure
+  3``: the shortlist timed on the card, the winner verified and timed
+  beside trans5's ``auto`` handle); and the model-only tuner's pick on
+  every fixture beside ``choose_format``'s.
 
 Every result is held to a float64 golden at rtol 1e-3.  Then each kernel
 is compared with its plain PyTorch version on the arrays the paths gave it
 and both are timed beside the kernel's bound (bytes over the HBM rate or
 fp32 operations over the FMA rate, whichever is larger) and, where one
 PyTorch call computes the same function (a CSR product, ``index_select``),
-that call; the rank-space permutation is timed beside a direct
+that call (its wall and its device busy time); the rank-space permutation is timed beside a direct
 ``index_select`` and the gathered executor's chain (B12, B11, B11, B13)
 beside a CSR product of the nonzeros it takes.  B9 (every stream of a
 routed part in one launch) is held on each stream of trans5 and ford2
@@ -74,15 +82,19 @@ no CUDA card or any check fails.  The last line of standard output is
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
 import hispmv_tpu_torch.ops as ops
-from hispmv_tpu_torch import Accelerator, SpmvConfig, prepare
+from hispmv_tpu_torch import Accelerator, SpmvConfig, SpmvHandle, cli, \
+    prepare
+from hispmv_tpu_torch.api.handle import choose_format
 from hispmv_tpu_torch.dist import (
     build_sharded_block_plan,
     build_sharded_chunked_plan,
@@ -158,8 +170,18 @@ from hispmv_tpu_torch.ops.spmv_windowed import (
     spmv_windowed_plain,
     windowed_batched_grid,
 )
+from hispmv_tpu_torch.ops.spmv_ellx import EllxPlan
 from hispmv_tpu_torch.plan import gathered as gathered_plan
+from hispmv_tpu_torch.plan.routed import RoutedPlan
+from hispmv_tpu_torch.plan.split import build_split_plan
+from hispmv_tpu_torch.tune import DSE, tune
+from hispmv_tpu_torch.tune.dse import measured_shortlist
+from hispmv_tpu_torch.tune.cost import V5E
 from hispmv_tpu_torch.utils.errors import error_stats
+from hispmv_tpu_torch.utils.metrics import read_metrics
+# the port's timing harness: the median of TIMED_RUNS calls between CUDA
+# events recorded around each, after a warm-up
+from hispmv_tpu_torch.utils.timing import TIMED_RUNS, bench_spmv, median_ms
 
 SEED = 0
 ALPHA, BETA = 1.5, -0.5
@@ -170,7 +192,6 @@ KERNEL_RTOL = 1e-5  # kernel vs plain: fp32 both, only the summation order
 # ~eps*sqrt(K) of the output's scale, and among a batch's millions of
 # outputs some cancel to near zero
 GOLDEN_ATOL = 1e-5
-TIMED_RUNS = 20
 
 # (label, fixture, config, format asked, format expected, kernels expected)
 SPARSE_RUNS = [
@@ -256,9 +277,11 @@ GATHERED_COSTS = {"GATH_TILE_NS": 1.0, "GATH_STAGE_NS": 1.0}
 GATHERED_BATCH = 8
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet): HBM bandwidth and
-# fp32 rate outside the tensor cores (an FMA counts as two operations).
+# the fp32 and fp64 rates outside the tensor cores (an FMA counts as two
+# operations).
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
+FP64_FLOPS = 34e12
 
 KERNELS = {
     "spmv_chunked": {
@@ -369,24 +392,6 @@ def launches() -> dict:
 def zero_launches() -> None:
     for k in KERNELS.values():
         k["wrapper"].launches = 0
-
-
-def median_ms(fn, runs: int = TIMED_RUNS, warmup: int = 3) -> float:
-    """Median over ``runs`` calls of the device time between CUDA events
-    recorded around each call (host gaps included when the host lags)."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    events = []
-    for _ in range(runs):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        events.append((start, end))
-    torch.cuda.synchronize()
-    return float(np.median([s.elapsed_time(e) for s, e in events]))
 
 
 def device_ms(fn, runs: int = TIMED_RUNS, tries: int = 3):
@@ -1159,6 +1164,255 @@ def gathered_path(counts, failures):
     return row, (h, xd)
 
 
+# phase 3h: the tuned entry
+SPLIT_FIXTURE = "trans5"
+SPLIT_RUNS = [  # (label, body, linear batch)
+    ("trans5 split", "routed", BATCH),
+    ("trans5 split ellx body", "ellx", 8),
+]
+SPLIT_ALPHA, SPLIT_BETA = 2.0, 0.5
+CLI_MEASURE = 3
+
+
+def split_launches(h, B=None):
+    """The launches of one split ``run`` (B None) or one ``linear`` at
+    batch B: a routed body runs B9 once a vector (plus B1 for an ELLX
+    residual with overflow, and B12, B11 twice and B13 for a gathered
+    side-plan); an ELLX body runs B1 on its overflow, B2 once a batch."""
+    want = dict.fromkeys(KERNELS, 0)
+    d, v = h._d, 1 if B is None else B
+    meta = h._split_body_routed_meta
+    if meta is not None:
+        want["spmv_routed"] = v if meta["table"] is not None else 0
+        want["spmv_chunked"] = v if "b_r_odata" in d else 0
+        if meta["gathered"] is not None:
+            want.update(s1_gather=v, permute_stage=2 * v, spmv_gathered=v)
+    elif "odata" in d:
+        want["spmv_chunked" if B is None else "spmv_chunked_batched"] = 1
+    return want
+
+
+def _busy_line(ms, busy):
+    return f"{ms:.4f} ms (device busy {_ms(busy)})"
+
+
+def split_path(fixtures, handles, counts, failures):
+    """Phase 3h, part 1: the split format on trans5, with the planner's
+    routed body (``prepare(coo, format="split")``) and with an ELLX body
+    (``build_split_plan(body_format="ellx")`` then ``from_plan``): ``run``
+    at alpha 2, beta 0.5 and ``linear`` with a bias, each held to the
+    float64 golden and its launches checked; timed beside trans5's routed
+    handle and the CSR product on the same inputs.  Counts zeroed before
+    each run and read after."""
+    coo = fixtures[SPLIT_FIXTURE]
+    a = csr_of(SPLIT_FIXTURE, coo)
+    hr, _ = handles["trans5 routed"]
+    rng = np.random.default_rng(SEED + 16)
+    rows_out = []
+    for label, body, B in SPLIT_RUNS:
+        zero_launches()
+        t0 = time.perf_counter()
+        if body == "routed":
+            h = prepare(coo, format="split")
+        else:
+            h = SpmvHandle.from_plan(build_split_plan(coo,
+                                                      body_format="ellx"))
+        torch.cuda.synchronize()
+        prep_s = time.perf_counter() - t0
+        st = h.plan.stats
+        want_body = RoutedPlan if body == "routed" else EllxPlan
+        if h.format != "split" or not isinstance(h.plan.body, want_body):
+            failures.append(f"{label}: format {h.format}, body {st}")
+            continue
+        x, y_in = inputs(*coo.shape, rng)
+        xd, yd = torch.from_numpy(x).cuda(), torch.from_numpy(y_in).cuda()
+        zero_launches()
+        y = h.run(xd, yd, SPLIT_ALPHA, SPLIT_BETA)
+        torch.cuda.synchronize()
+        once = launches()
+        want = (SPLIT_ALPHA * coo.matvec(x.astype(np.float64))
+                + SPLIT_BETA * y_in)
+        # check_run's bound; a handle from a plan has no host matrix for
+        # verify()
+        es = error_stats(y.cpu().numpy(), want, rtol=RTOL)
+        log(f"  {label}: axpby max abs err {es.max_abs_error:.3e}, max rel "
+            f"err {es.max_rel_error:.3e} ({es.num_mismatches} past rtol "
+            f"{RTOL} + atol 1e-05)")
+        if not es.ok or y.shape != want.shape or not torch.isfinite(y).all():
+            failures.append(f"{label}: run off the golden")
+        if h.coo is not None and not h.verify(rtol=RTOL).ok:
+            failures.append(f"{label}: verify() failed")
+        key = "spmv_routed" if body == "routed" else "spmv_chunked"
+        if once != split_launches(h) or once[key] != 1:
+            failures.append(f"{label}: launches of one run {once}, want "
+                            f"{split_launches(h)} with one {key}")
+
+        def run():
+            return h.run(xd, yd, SPLIT_ALPHA, SPLIT_BETA)
+        ms = median_ms(run)
+        busy = device_ms(run)
+        used = launches()
+        for n, c in used.items():
+            counts[n] += c
+        # beside the routed handle and the CSR product (not counted)
+        routed_ms, routed_busy = (median_ms(lambda: hr.run(xd)),
+                                  device_ms(lambda: hr.run(xd)))
+        csr_ms, csr_busy = median_ms(lambda: a @ xd), device_ms(lambda: a @ xd)
+        desc = (f"{st['kc']} hub columns, {st['kr']} hub rows, body "
+                f"{st['body_fmt']} of {st['body_nnz']} nonzeros")
+        if body == "ellx":
+            desc += (f" (k_base {st['body_k']}, overflow "
+                     f"{st['body_overflow']} blocks)")
+        else:
+            desc += f" ({len(h.plan.body.streams)} streams)"
+        log(f"  {label}: {desc}; launches of one run {once}")
+        row = _row(label, h, coo.nnz, coo.shape[0], prep_s, ms, used, csr_ms)
+        log(f"  {label}: run {_busy_line(ms, busy)}; trans5 routed run "
+            f"{_busy_line(routed_ms, routed_busy)}; CSR A @ x "
+            f"{_busy_line(csr_ms, csr_busy)}")
+        row.update(device_busy_ms=busy, routed_ms=routed_ms,
+                   routed_busy_ms=routed_busy, csr_ms=csr_ms,
+                   csr_busy_ms=csr_busy, stats=st)
+
+        xb = rng.standard_normal((B, coo.shape[1])).astype(np.float32)
+        bias = rng.standard_normal(coo.shape[0]).astype(np.float32)
+        xbd, bd = torch.from_numpy(xb).cuda(), torch.from_numpy(bias).cuda()
+        zero_launches()
+        yb = h.linear(xbd, bd)
+        torch.cuda.synchronize()
+        once = launches()
+        wantb = (coo.to_scipy() @ xb.astype(np.float64).T).T + bias
+        atol = GOLDEN_ATOL * float(np.abs(wantb).max())
+        es = error_stats(yb.cpu().numpy(), wantb, rtol=RTOL, atol=atol)
+        if not es.ok or yb.shape != (B, coo.shape[0]) \
+                or not torch.isfinite(yb).all():
+            failures.append(f"{label} linear B {B}: off the golden")
+        key, n = (("spmv_routed", B) if body == "routed"
+                  else ("spmv_chunked_batched", 1))
+        if once != split_launches(h, B) or once[key] != n:
+            failures.append(f"{label} linear B {B}: launches of one call "
+                            f"{once}, want {split_launches(h, B)} with {n} "
+                            f"of {key}")
+
+        def lin():
+            return h.linear(xbd, bd)
+        lin_ms, lin_busy = median_ms(lin), device_ms(lin)
+        used = launches()
+        for n, c in used.items():
+            counts[n] += c
+        xt = xbd.T.contiguous()
+        rl_ms, rl_busy = (median_ms(lambda: hr.linear(xbd, bd)),
+                          device_ms(lambda: hr.linear(xbd, bd)))
+        csrb_ms, csrb_busy = (median_ms(lambda: a @ xt),
+                              device_ms(lambda: a @ xt))
+        log(f"  {label} linear B {B}: max abs err {es.max_abs_error:.3e} "
+            f"({es.num_mismatches} past rtol {RTOL} + atol {atol:.2e}), "
+            f"launches of one call {once}; linear "
+            f"{_busy_line(lin_ms, lin_busy)}; trans5 routed linear "
+            f"{_busy_line(rl_ms, rl_busy)}; CSR A @ X "
+            f"{_busy_line(csrb_ms, csrb_busy)}")
+        row["linear"] = {"batch": B, "linear_ms": lin_ms,
+                         "device_busy_ms": lin_busy, "launches": used,
+                         "routed_linear_ms": rl_ms,
+                         "routed_linear_busy_ms": rl_busy,
+                         "csr_ms": csrb_ms, "csr_busy_ms": csrb_busy}
+        rows_out.append(row)
+        del h
+    return rows_out
+
+
+def cli_path(fixtures, handles, runs, counts, failures):
+    """Phase 3h, part 2: the CLI in process, ``@trans5 --format tune
+    --measure 3`` with a metrics CSV and a tune cache in a temporary
+    directory; the model's ranking (the TPU v5e profile's estimates), the
+    time on the card of each shortlisted candidate, and the winner's run
+    beside trans5 auto's (ELLX).  Counts zeroed before, read after."""
+    coo = fixtures[SPLIT_FIXTURE]
+    model = DSE().explore(coo)
+    log(f"  model ranking ({V5E.name} estimates, not times): "
+        f"{[(lbl, round(s * 1e6, 1)) for lbl, s in model.candidates[:6]]}")
+    with tempfile.TemporaryDirectory() as tmp:
+        csv = os.path.join(tmp, "metrics.csv")
+        cache = os.path.join(tmp, "tune.json")
+        argv = [f"@{SPLIT_FIXTURE}", "--format", "tune", "--measure",
+                str(CLI_MEASURE), "--metrics-csv", csv, "--tune-cache", cache]
+        log(f"  cli.main({argv[:5]} ...)")
+        zero_launches()
+        t0 = time.perf_counter()
+        rc = cli.main(argv)
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t0
+        used = launches()
+        (row,) = read_metrics(csv)
+        with open(cache) as f:
+            (entry,) = json.load(f).values()
+        with open(cache + ".measured") as f:
+            measured = {k.split(":", 1)[1]: v for k, v in json.load(f).items()}
+    for n, c in used.items():
+        counts[n] += c
+    if rc != 0 or row["verified"] != "True":
+        failures.append(f"cli @{SPLIT_FIXTURE} tune: exit {rc}, verified "
+                        f"{row['verified']}")
+    if not entry["measured"] or sum(used.values()) == 0:
+        failures.append(f"cli @{SPLIT_FIXTURE} tune: nothing measured on the "
+                        "card")
+    # every candidate the tuner shortlists is built, run and timed on the
+    # card and passes its accuracy guard
+    short = [lbl for lbl, *_ in measured_shortlist(model, CLI_MEASURE)]
+    for lbl in dict.fromkeys(short + list(measured)):
+        v = measured.get(lbl)
+        if v is None or v.get("t") is None:
+            failures.append(f"cli @{SPLIT_FIXTURE} tune: candidate {lbl} "
+                            f"has no time on the card: {v}")
+    auto_ms = next(r["run_ms"] for r in runs if r["run"] == "trans5 auto")
+    ha, xa = handles["trans5 auto"]
+    auto_s, _ = bench_spmv(ha, xa)
+    times = [(lbl, round(v["t"] * 1e3, 4) if v["t"] else v.get("err"))
+             for lbl, v in measured.items()]
+    log(f"  shortlist measured on the card (run, ms): {times}")
+    log(f"  winner {entry['format']} (block_h {entry['config']['block_h']}, "
+        f"rank_sort {entry['config']['rank_sort']}): run "
+        f"{float(row['kernel_s']) * 1e3:.4f} ms on the card (bench_spmv), "
+        f"{row['format']} handle of {int(row['device_bytes']) / 2**20:.1f} "
+        f"MB; trans5 auto (ellx, {ha.device_bytes / 2**20:.1f} MB) "
+        f"{auto_s * 1e3:.4f} ms by bench_spmv, {auto_ms:.4f} ms as phase 3 "
+        f"ran it (alpha, beta); cli {cli_s:.1f} s, launches {used}")
+    return {"rc": rc, "metrics": row, "model_candidates": model.candidates,
+            "measured": measured, "winner": entry["format"],
+            "winner_config": entry["config"], "cli_s": cli_s,
+            "launches": used, "auto_bench_ms": auto_s * 1e3,
+            "auto_run_ms": auto_ms}
+
+
+def model_tune_picks(fixtures, failures):
+    """Phase 3h, part 3: model-only ``tune`` (no handle, no device) on
+    every phase-3 fixture, beside ``choose_format``'s pick."""
+    picks = {}
+    for name, coo in fixtures.items():
+        t0 = time.perf_counter()
+        res = tune(coo)
+        dt = time.perf_counter() - t0
+        cf = choose_format(coo, SpmvConfig())
+        log(f"  {name}: tune -> {res.format} (block_h "
+            f"{res.config.block_h}, rank_sort {res.config.rank_sort}; model "
+            f"est ({V5E.name}) {res.est_seconds * 1e6:.1f} us), "
+            f"choose_format -> {cf}; {dt:.1f} s")
+        if res.measured:
+            failures.append(f"{name}: a model-only tune came back measured")
+        picks[name] = {"tune": res.format, "block_h": res.config.block_h,
+                       "choose_format": cf, "seconds": dt}
+    return picks
+
+
+def tuned_entry(fixtures, handles, runs, counts, failures):
+    """Phase 3h: the split format, the CLI's measured tune and model-only
+    tune picks."""
+    split_rows = split_path(fixtures, handles, counts, failures)
+    cli_row = cli_path(fixtures, handles, runs, counts, failures)
+    picks = model_tune_picks(fixtures, failures)
+    return {"split": split_rows, "cli": cli_row, "tune_picks": picks}
+
+
 def large_block_cases(large):
     """B4 and B3 on the arrays and x of phase 3f's handles."""
     cases = []
@@ -1308,10 +1562,11 @@ def kernel_checks(handles, linear_x, accel, extra_cases, failures):
             line += (f", must-read {must_mb:.2f} MB, packed bound "
                      f"{extra['packed_bound_ms']:.4f} ms")
         lib = library_call(name, args)
-        lib_ms = None
+        lib_ms = lib_busy = None
         if lib is not None:
             lib_ok, _, lib_line = _agree(name, lib().reshape(yp.shape), yp)
             lib_ms = median_ms(lib)
+            lib_busy = device_ms(lib)
             line += f"; library {lib_line}"
             if not lib_ok:
                 failures.append(f"{name} [{shape}]: the library call "
@@ -1319,7 +1574,8 @@ def kernel_checks(handles, linear_x, accel, extra_cases, failures):
         log(f"  {name} [{shape}]: {line}, kernel {ms:.4f} ms (device busy "
             f"{_ms(busy)}), plain "
             f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
-            f"library {'-' if lib_ms is None else f'{lib_ms:.4f} ms'}, "
+            f"library {'-' if lib_ms is None else f'{lib_ms:.4f} ms'}"
+            f"{'' if lib is None else f' (device busy {_ms(lib_busy)})'}, "
             f"{'ok' if ok else 'FAIL'}")
         if not ok:
             failures.append(f"{name} [{shape}] disagrees with its plain "
@@ -1328,7 +1584,8 @@ def kernel_checks(handles, linear_x, accel, extra_cases, failures):
                         "max_abs_err": err,
                         "ms": ms, "device_busy_ms": busy,
                         "plain_ms": plain_ms, "bound_ms": bound_ms,
-                        "bound_by": bound_by, "library_ms": lib_ms, **extra})
+                        "bound_by": bound_by, "library_ms": lib_ms,
+                        "library_device_busy_ms": lib_busy, **extra})
     return results
 
 
@@ -1377,20 +1634,24 @@ _WORK = {
     "s1_gather": lambda a: (None, 0),
     "spmv_gathered": lambda a: (a[0], 1),
 }
+# the kernels whose products and prefix run in fp64 (B9, B13); the others'
+# operations are fp32
+_FP64_WORK = {"spmv_routed", "spmv_routed_part", "spmv_gathered"}
 
 
 def kernel_bound(name, args, kw, y):
     """(ms, "bytes" or "operations"): the least time of the call on an H100
     SXM, the larger of its inputs' and output's bytes (as packed, each read
-    or written once) over the HBM rate and its fp32 operations over the FMA
-    rate."""
+    or written once) over the HBM rate and its operations over the FMA
+    rate of their type."""
     nbytes = sum(t.nbytes for t in _tensors_in((args, tuple(kw.values()))))
     nbytes += y.nbytes
     payload, vectors = _WORK[name](args)
     flops = 0.0
     if payload is not None:
         flops = 2.0 * int(torch.count_nonzero(payload)) * vectors
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS
+    rate = FP64_FLOPS if name in _FP64_WORK else FP32_FLOPS
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / rate
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -1417,7 +1678,7 @@ def b9_must_read(args, y):
     an H100 SXM, the larger of the bytes it cannot skip over the HBM rate
     (each stream's vals, slot, gsub, base, byt and lt, the bl and bs rows
     of each tile's live layers, x and y, each read or written once) and
-    its fp32 operations over the FMA rate."""
+    its fp64 operations over the FMA rate."""
     table, x2d = args
     nbytes, nnz = x2d.nbytes + y.nbytes, 0
     for packed, dims, lt in table.streams:
@@ -1431,7 +1692,7 @@ def b9_must_read(args, y):
                 else (layers + 1) // 2 + (layers + 3) // 4)
         nbytes += int(rows.sum()) * 4096
         nnz += int(torch.count_nonzero(packed[0]))
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, 2.0 * nnz / FP32_FLOPS
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, 2.0 * nnz / FP64_FLOPS
     return (1e3 * max(t_bytes, t_ops),
             "bytes" if t_bytes >= t_ops else "operations", nbytes / 1e6)
 
@@ -1922,7 +2183,10 @@ def main() -> int:
     log(f"phase 3g: the gathered side-plan of routed ({GATHERED_FIXTURE}, "
         f"modelled costs {GATHERED_COSTS} for this phase)")
     gath_row, gath = gathered_path(counts, failures)
-    log(f"  launches on the seven paths: {counts}")
+    log("phase 3h: the tuned entry (split on trans5, the CLI's measured tune, "
+        "model-only tune picks)")
+    tuned = tuned_entry(fixtures, handles, runs, counts, failures)
+    log(f"  launches on the eight paths: {counts}")
     for n, c in counts.items():
         if c == 0:
             failures.append(f"the paths never launched {n}")
@@ -1958,12 +2222,14 @@ def main() -> int:
         "ms": r["ms"], "device_busy_ms": r["device_busy_ms"],
         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+        "library_device_busy_ms": r["library_device_busy_ms"],
         **({"packed_bound_ms": r["packed_bound_ms"]}
            if "packed_bound_ms" in r else {}),
     } for r in results]
     log(json.dumps({"runs": runs, "linear": linear_runs, "mlp": mlp_runs,
                     "sharded": shard_runs, "dryrun": dry, "ops": ops_row,
                     "large_block": large_runs, "gathered": gath_row,
+                    "tuned": tuned,
                     "gathered_chain": chain, "permutation": perm_times,
                     "b10_v_sweep": sweep, "b2_v_sweep": b2_sweep,
                     "b8_v_sweep": b8_sweep, "b1_v_sweep": b1_sweep,

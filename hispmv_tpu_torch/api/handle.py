@@ -1,9 +1,10 @@
 """Prepare-once / run-many execution handles on PyTorch.
 
-Port of ``hispmv_tpu/api/handle.py`` for the formats ``auto``, ``dense``,
-``block``, ``window``, ``ellx``, ``stream`` and ``routed`` (original space,
-rank space with ``SpmvConfig(rank_sort=True)``, and the banded cell grid
-for matrices that fail ``routed_vmem_ok``):
+Port of ``hispmv_tpu/api/handle.py`` for every format: ``auto``,
+``dense``, ``block``, ``window``, ``ellx``, ``stream``, ``routed``
+(original space, rank space with ``SpmvConfig(rank_sort=True)``, and the
+banded cell grid for matrices that fail ``routed_vmem_ok``) and ``split``
+(hub columns and rows as dense fp32 panels, the body routed or ELLX):
 
 - :class:`SpmvHandle` holds one prepared matrix as device tensors in
   ``_d`` (same key names as the JAX package) and runs
@@ -99,6 +100,7 @@ from hispmv_tpu_torch.plan.routed import (
     build_routed_plan,
     routed_vmem_ok,
 )
+from hispmv_tpu_torch.plan.split import SplitPlan, build_split_plan
 from hispmv_tpu_torch.plan.windows import SEGS, WindowPlan, build_window_plan
 from hispmv_tpu_torch.utils.device import resolve_device
 from hispmv_tpu_torch.utils.errors import error_stats
@@ -174,6 +176,13 @@ def _run_routed_part(d, x, R, meta, prefix):
     if meta["yperm"] is not None:
         y = panel_permute_apply_from(d, meta["yperm"], prefix + "yp", y)
     return y
+
+
+def _run_routed_vectors(d, xb, R, meta, prefix):
+    """``linear`` of a routed part one vector at a time: ``xb`` [B, C'] ->
+    y [B, R], one :func:`_run_routed_part` a vector."""
+    return torch.stack([_run_routed_part(d, xb[b], R, meta, prefix)
+                        for b in range(xb.shape[0])])
 
 
 def _run_routed_batched(d, xb, R, meta):
@@ -273,9 +282,7 @@ class SpmvHandle:
             elif fmt == "routed":
                 self._prepare_routed(matrix)
             elif fmt == "split":
-                raise NotImplementedError(
-                    f"format {fmt!r} is not ported yet (see ROADMAP.md)"
-                )
+                self._prepare_split(matrix)
             else:
                 raise ValueError(f"unknown format: {fmt}")
         self.format = fmt
@@ -306,6 +313,12 @@ class SpmvHandle:
             )
             self._build_ellx_arrays(plan, self.shape[1])
             fmt = "ellx"
+        elif isinstance(plan, SplitPlan):
+            self.config = dataclasses.replace(
+                self.config, block_h=plan.block_h
+            )
+            self._build_split_arrays(plan)
+            fmt = "split"
         elif isinstance(plan, BlockPlan):
             self.config = dataclasses.replace(
                 self.config, block_h=plan.block_h
@@ -461,24 +474,71 @@ class SpmvHandle:
                                 col_perm=perm)
         self._build_ellx_arrays(build_ellx_plan(plan), coo.num_cols)
 
-    def _build_ellx_arrays(self, eplan: EllxPlan, num_cols: int):
-        self._ellx_plan_meta = eplan
-        d = {
-            "base_data": self._upload(eplan.base_data, self._value_dtype()),
-            "base_cols": self._upload(eplan.base_cols),
-        }
+    def _ellx_pack_into(self, d, eplan: EllxPlan):
+        """Upload an ELLX plan's base and B1 overflow into ``d`` under the
+        ELLX format's keys; sets the overflow's chunk (None without)."""
+        vdt = self._value_dtype()
+        d["base_data"] = self._upload(eplan.base_data, vdt)
+        d["base_cols"] = self._upload(eplan.base_cols)
         self._chunk = None
         if eplan.overflow is not None:
             self._chunk = chunk_for(eplan.block_h)
             odata, ometa, _ = pack_chunks(eplan.overflow, self._chunk)
-            d["odata"] = self._upload(odata, self._value_dtype())
+            d["odata"] = self._upload(odata, vdt)
             d["ometa"] = self._upload(ometa)
             d["ov_expand"] = self._upload(eplan.ov_expand)
+
+    def _ellx_args(self, eplan: EllxPlan):
+        """(row blocks, block_h, chunk, overflow row blocks): what
+        ``ellx_matvec`` and ``ellx_matvec_batched`` take after x."""
+        ov_nrb = (eplan.overflow.num_row_blocks
+                  if eplan.overflow is not None else 0)
+        return eplan.num_row_blocks, eplan.block_h, self._chunk, ov_nrb
+
+    def _build_ellx_arrays(self, eplan: EllxPlan, num_cols: int):
+        self._ellx_plan_meta = eplan
+        d = {}
+        self._ellx_pack_into(d, eplan)
         if eplan.col_perm is not None:
             d["perm"] = self._upload(_extend_perm(
                 eplan.col_perm, num_cols, eplan.num_col_blocks * LANES
             ))
         self._set_device_dict(d, eplan.fill)
+
+    def _prepare_split(self, coo: COOMatrix):
+        """Hub split (plan/split.py): dense hub columns and rows, the body
+        routed or ELLX as the planner picks it."""
+        self._build_split_arrays(
+            build_split_plan(coo, block_h=self.config.block_h)
+        )
+
+    def _build_split_arrays(self, plan: SplitPlan):
+        """The JAX handle's keys: ``hc``/``hc_idx`` and ``hr``/``hr_idx``
+        for the hub panels; a routed body packed under ``b_`` with its own
+        B9 table (its ``lt`` arrays counted in ``device_bytes``), or an
+        ELLX body under the ELLX format's keys."""
+        self._split_plan_meta = plan
+        vdt = self._value_dtype()
+        d = {}
+        if plan.hub_col_dense is not None:
+            d["hc"] = self._upload(plan.hub_col_dense, vdt)
+            d["hc_idx"] = self._upload(plan.hub_col_idx)
+        if plan.hub_row_dense is not None:
+            d["hr"] = self._upload(plan.hub_row_dense, vdt)
+            d["hr_idx"] = self._upload(plan.hub_row_idx)
+        self._split_body_routed_meta = None
+        self._chunk = None
+        if isinstance(plan.body, RoutedPlan):
+            self._split_body_routed_meta = self._routed_pack_into(
+                d, plan.body, plan.shape, prefix="b_"
+            )
+        elif plan.body is not None:
+            self._ellx_pack_into(d, plan.body)
+        self._set_device_dict(d, plan.nnz / max(plan.device_bytes / 4.0,
+                                                1.0))
+        bmeta = self._split_body_routed_meta
+        if bmeta is not None and bmeta["table"] is not None:
+            self.device_bytes += bmeta["table"].lt_nbytes
 
     def _prepare_window(self, coo: COOMatrix):
         self._build_window_arrays(
@@ -657,8 +717,8 @@ class SpmvHandle:
         """The prepared plan object for this handle's format (reloadable
         with :meth:`from_plan`); ``None`` for the dense overlay."""
         for attr in (
-            "_routed_plan_meta", "_window_plan_meta", "_stream_plan_meta",
-            "_ellx_plan_meta", "_block_plan_meta",
+            "_split_plan_meta", "_routed_plan_meta", "_window_plan_meta",
+            "_stream_plan_meta", "_ellx_plan_meta", "_block_plan_meta",
         ):
             p = getattr(self, attr, None)
             if p is not None:
@@ -673,6 +733,8 @@ class SpmvHandle:
             return self._block_padded_cols()
         if self.format == "ellx":
             return self._ellx_plan_meta.num_col_blocks * LANES
+        if self.format == "split":
+            return -(-self.shape[1] // LANES) * LANES
         if self.format == "window":
             return self._window_plan_meta.num_windows * SEGS * LANES
         if self.format == "routed" and "cells" not in self._routed_meta:
@@ -703,17 +765,15 @@ class SpmvHandle:
                             d["seg_rows"], plan.num_rounds, R, x)
         if self.format == "routed":
             return _run_routed_part(d, x, R, self._routed_meta, "")
+        if self.format == "split":
+            return self._split_matvec(x)
         if "perm" in d:
             x = x.index_select(0, d["perm"])
         x2d = x.reshape(-1, LANES)
         if self.format == "block":
             y = self._block_matvec(x2d)
         elif self.format == "ellx":
-            eplan = self._ellx_plan_meta
-            ov_nrb = (eplan.overflow.num_row_blocks
-                      if eplan.overflow is not None else 0)
-            y = ellx_matvec(d, x2d, eplan.num_row_blocks, eplan.block_h,
-                            self._chunk, ov_nrb)
+            y = ellx_matvec(d, x2d, *self._ellx_args(self._ellx_plan_meta))
         else:  # window
             plan = self._window_plan_meta
             y = spmv_windowed(d["data"], d["subidx"], d["meta"], x2d,
@@ -738,6 +798,57 @@ class SpmvHandle:
                                   d["ypanels"], x2d, -(-nrb // panel_nrb),
                                   panel_nrb, bh, self._chunk,
                                   self._PANEL_NCB, self._sector_mask)
+
+    def _split_hubs(self, y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+        """``y`` plus the hub panels' products against the padded ``x``
+        ([Cp], or [B, Cp] with y [B, R]): the hub columns' panel against
+        the gathered hub entries of x, the hub rows' panel against x, both
+        fp32 matmuls with TF32 off (the JAX handle's HIGHEST-precision
+        dots); the hub rows are unique, so their scatter is exact."""
+        d, R = self._d, self.shape[0]
+        if "hc" in d:
+            xh = x.index_select(-1, d["hc_idx"])
+            xh = torch.nn.functional.pad(
+                xh, (0, d["hc"].shape[1] - xh.shape[-1]))
+            y = y + gemv(d["hc"].float(), xh)[..., :R]
+        if "hr" in d:
+            kr = len(self._split_plan_meta.hub_row_idx)
+            yr = gemv(d["hr"].float(), x)[..., :kr]
+            y = y.index_add(y.ndim - 1, d["hr_idx"], yr)
+        return y
+
+    def _split_matvec(self, x: torch.Tensor) -> torch.Tensor:
+        """A @ x [R] of the split format: the body (one B9 launch, or the
+        ELLX base product plus B1), then the hub panels."""
+        R, d = self.shape[0], self._d
+        if self._split_body_routed_meta is not None:
+            y = _run_routed_part(d, x, R, self._split_body_routed_meta, "b_")
+        elif "base_data" in d:
+            y = ellx_matvec(d, x.reshape(-1, LANES),
+                            *self._ellx_args(self._split_plan_meta.body))
+            y = y.reshape(-1)[:R]
+        else:
+            y = x.new_zeros(R)
+        return self._split_hubs(y, x)
+
+    def _split_matmat(self, xb: torch.Tensor) -> torch.Tensor:
+        """x @ A.T [B, R] of the split format from the padded batch: a
+        routed body vector by vector (one B9 launch each, as the JAX
+        handle does), an ELLX body as the grouped base product plus B2;
+        then the hub panels."""
+        R, d = self.shape[0], self._d
+        B = xb.shape[0]
+        bmeta = self._split_body_routed_meta
+        if bmeta is not None:
+            y = _run_routed_vectors(d, xb, R, bmeta, "b_")
+        elif "base_data" in d:
+            xt = xb.T.reshape(-1, LANES, B).contiguous()
+            y = ellx_matvec_batched(
+                d, xt, *self._ellx_args(self._split_plan_meta.body))
+            y = y.reshape(-1, B)[:R].T
+        else:
+            y = xb.new_zeros((B, R))
+        return self._split_hubs(y, xb)
 
     def _block_uses_b2(self, batch: int) -> bool:
         """The JAX handle's ``linear`` rule: B2 when the handle is chunked
@@ -806,9 +917,10 @@ class SpmvHandle:
                 # vector (B11) and a gathered side-plan gathers each
                 # vector (B12, B11): one vector at a time, as the JAX
                 # package does
-                return torch.stack([_run_routed_part(d, xb[b], R, meta, "")
-                                    for b in range(B)])
+                return _run_routed_vectors(d, xb, R, meta, "")
             return _run_routed_batched(d, xb, R, meta)
+        if self.format == "split":
+            return self._split_matmat(xb)
         if self.format == "block":
             return self._block_matmat(xb).reshape(-1, B)[:R].T
         if "perm" in d:
@@ -821,11 +933,7 @@ class SpmvHandle:
                                       plan.num_row_blocks, plan.block_h,
                                       self._wchunk)
             return y.reshape(-1, B)[:R].T
-        eplan = self._ellx_plan_meta
-        ov_nrb = (eplan.overflow.num_row_blocks
-                  if eplan.overflow is not None else 0)
-        y = ellx_matvec_batched(d, xt, eplan.num_row_blocks, eplan.block_h,
-                                self._chunk, ov_nrb)
+        y = ellx_matvec_batched(d, xt, *self._ellx_args(self._ellx_plan_meta))
         return y.reshape(-1, B)[:R].T
 
     def linear(self, x_batch, bias=None) -> torch.Tensor:
@@ -837,7 +945,8 @@ class SpmvHandle:
         B2 overflow; window through B8; stream as the batched reference;
         routed in original space through B10 (one launch per stream for
         the whole batch), and vector by vector (B9, B11) in rank space and
-        on the banded grid."""
+        on the banded grid; split as its hub panels plus its body (B2 for
+        an ELLX body, B9 vector by vector for a routed one)."""
         xb = torch.as_tensor(x_batch, dtype=torch.float32,
                              device=self.device)
         squeeze = xb.ndim == 1

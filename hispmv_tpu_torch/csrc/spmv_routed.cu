@@ -23,8 +23,9 @@
 //      slot >> (10 + 9(l-3)) for l = 3, 4); sub = field & 7, vid = field >>
 //      3, xg = x2d[(base[t] + vid)*8 + sub][L] (0 when vid >= W, the layer
 //      is >= l1, or the row lies past x).
-//   2. p = vals * xg; P = inclusive fp32 prefix over the 1024 slots in flat
-//      order s*128 + j.  The reserved lane-0 slots make P[0][0] == 0.
+//   2. p = vals * xg; P = inclusive prefix over the 1024 slots in flat
+//      order s*128 + j (B9 in fp64, B10 in fp32).  The reserved lane-0
+//      slots make P[0][0] == 0.
 //   3. For each boundary layer k: raw = bl[t, k/2] >> 14(k%2) and
 //      q = bs[t, k/4] >> 8(k%4) (both from bm when lmax == 1); a = raw &
 //      127, b = (raw >> 7) & 127; y[byt[t,k]][s][j] += P[q[s,a] & 7][a] -
@@ -53,12 +54,17 @@
 //   goes to shared memory.  The copies' latency overlaps the x gather and
 //   the prefix, where the parent loaded each layer's words behind it.
 // - Gather and prefix: the slot and gsub words in shared memory (the
-//   gather reads them at (s, L)); tile_prefix.cuh's warp-shuffle scan.
+//   gather reads them at (s, L)); tile_prefix.cuh's warp-shuffle scan, in
+//   fp64 as B13's: a row's sum is the difference of two prefixes of the
+//   whole tile, so an fp32 prefix errs by ulps of the tile's running sum
+//   and cancels a small row away (in fp32, one row of the trans5
+//   stand-in's split body missed the float64 golden at rtol 1e-3, atol
+//   1e-5 on an H100).  The product of two floats is exact in fp64.
 // - Layers: after the prefix's barrier and the mbarrier's wait, each
 //   thread runs k < lt[t] with no barrier (every word it reads is staged).
-//   Consecutive layers with the same y tile are summed in a register and
-//   added by one atomicAdd when the y tile changes or the loop ends; a
-//   zero sum is skipped.  Many tiles add into one y tile, so the order of
+//   Consecutive layers with the same y tile are summed in an fp64 register
+//   and added, rounded to fp32 once, by one atomicAdd when the y tile
+//   changes or the loop ends; a zero sum is skipped.  Many tiles add into one y tile, so the order of
 //   the additions varies from run to run: results agree with the plain
 //   version to fp32 rounding, not bit for bit.
 // Bound: the stream's words that the live layers need (vals, slot, gsub
@@ -66,7 +72,8 @@
 // scattered 4-byte loads that mostly hit L2, and y is touched by one
 // atomic per run of equal y tiles and nonzero sum.  __launch_bounds__(1024,
 // 2) keeps two CTAs on an SM (32 registers a thread); the staged words take
-// at most 96 KB of dynamic shared memory a CTA (lmax 32), so two still fit.
+// at most 96 KB of dynamic shared memory a CTA (lmax 32), beside 16.4 KB of
+// static, so two still fit in the SM's 228 KB.
 // On an H100 SXM a lmax-32 tile is held by its layer loop (dependent
 // shared-memory reads, one CTA on an SM), the others by the latency of
 // their loads, x gather and prefix (ablations in PERF.md).
@@ -238,13 +245,13 @@ __device__ __forceinline__ void wait_rows(unsigned bar) {
 __device__ __forceinline__ void boundary_layers(int lmax, int lt,
                                                 const unsigned* s_rows,
                                                 const int* s_byt,
-                                                const float* s_pf,
+                                                const double* s_pf,
                                                 float* __restrict__ y,
                                                 int y_tiles) {
   const int i = threadIdx.x;
   const int s = i >> 7;
   const unsigned* s_bs = s_rows + pair_rows(lmax, lt) * kTile;
-  float sum = 0.f;
+  double sum = 0.0;
   int yt = s_byt[0];
   for (int k = 0; k < lt; ++k) {
     unsigned raw, qa, qb;
@@ -269,16 +276,18 @@ __device__ __forceinline__ void boundary_layers(int lmax, int lt,
     }
     const int to = s_byt[k];
     if (to != yt) {  // a new y tile: add the run so far
-      if (sum != 0.f && yt >= 0 && yt < y_tiles) {
-        atomicAdd(y + static_cast<size_t>(yt) * kTile + i, sum);
+      if (sum != 0.0 && yt >= 0 && yt < y_tiles) {
+        atomicAdd(y + static_cast<size_t>(yt) * kTile + i,
+                  static_cast<float>(sum));
       }
-      sum = 0.f;
+      sum = 0.0;
       yt = to;
     }
     sum += s_pf[(sub_a << 7) + a] - s_pf[(sub_b << 7) + b];
   }
-  if (sum != 0.f && yt >= 0 && yt < y_tiles) {
-    atomicAdd(y + static_cast<size_t>(yt) * kTile + i, sum);
+  if (sum != 0.0 && yt >= 0 && yt < y_tiles) {
+    atomicAdd(y + static_cast<size_t>(yt) * kTile + i,
+              static_cast<float>(sum));
   }
 }
 
@@ -291,8 +300,8 @@ __global__ void __launch_bounds__(kTile, 2)
   extern __shared__ __align__(128) unsigned s_rows[];  // staged bl/bm, bs
   __shared__ unsigned s_slot[kTile];
   __shared__ unsigned s_gsub[kTile];
-  __shared__ float s_pf[kTile];  // the tile's inclusive prefix
-  __shared__ float s_warp[32];
+  __shared__ double s_pf[kTile];  // the tile's inclusive prefix, fp64
+  __shared__ double s_warp[32];
   __shared__ int s_byt[kLmax];
   __shared__ int s_lt;
   __shared__ __align__(8) unsigned long long s_bar;
@@ -321,7 +330,7 @@ __global__ void __launch_bounds__(kTile, 2)
       gather_row(i, s_slot, s_gsub, st.base[t], st.W, st.l1, x_rows, &L);
   const float xg = row >= 0 ? x2d[row * kLanes + L] : 0.f;
   // 2. inclusive prefix of p over the tile's flat slot order
-  hispmv::tile_prefix(v * xg, s_warp, s_pf);
+  hispmv::tile_prefix(static_cast<double>(v) * xg, s_warp, s_pf);
   __syncthreads();  // s_pf complete
   // 3. the live boundary layers, once their staged rows have landed
   wait_rows(bar);
@@ -663,8 +672,8 @@ int hispmv_spmv_routed_streams(const long long* table, int num_streams,
   }
   if (tiles > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
   const int smem = rows * kTile * static_cast<int>(sizeof(unsigned));
-  // past 32 KB the 12.6 KB of static shared memory make more than 48 KB
-  if (smem > 32 * 1024) {
+  // past 28 KB the 16.4 KB of static shared memory make more than 48 KB
+  if (smem > 28 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         routed_tile_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         smem);

@@ -1,6 +1,6 @@
 // Shared device code of the tile kernels that take run sums as prefix
-// differences (spmv_routed.cu: B9, B10, in fp32; spmv_gathered.cu: B13, in
-// fp64): the inclusive prefix of one value per thread over a CTA of 1024
+// differences (spmv_routed.cu: B9 in fp64, B10 in fp32; spmv_gathered.cu:
+// B13, in fp64): the inclusive prefix of one value per thread over a CTA of 1024
 // threads, in thread order (the tile's flat slot order s*128 + j).
 //
 // The TPU builds this prefix from triangular MXU matmuls (in a bf16x3

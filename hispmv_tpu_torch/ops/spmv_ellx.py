@@ -248,3 +248,30 @@ def ellx_matvec_batched(d: dict, xb, num_row_blocks: int, block_h: int,
         padded = torch.cat([y_ov.new_zeros((1,) + y_ov.shape[1:]), y_ov])
         y = y + padded.index_select(0, d["ov_expand"])
     return y
+
+
+def ellx_matvec_numpy(plan: EllxPlan, x: np.ndarray) -> np.ndarray:
+    """Golden numpy executor of an ELLX plan (float64 sums, float32 out),
+    for tests and ``plan.split.split_matvec_numpy``."""
+    ncb = plan.num_col_blocks
+    xp = x if plan.col_perm is None else x[plan.col_perm]
+    x_pad = np.zeros(ncb * LANES, np.float64)
+    x_pad[: len(xp)] = xp
+    x2d = x_pad.reshape(ncb, LANES)
+    xr = x2d[plan.base_cols.reshape(-1)].reshape(
+        plan.num_row_blocks, plan.k_base, LANES
+    )
+    y = np.einsum("rkbl,rkl->rb", plan.base_data.astype(np.float64), xr)
+    if plan.overflow is not None:
+        ovp = plan.overflow
+        contrib = np.einsum(
+            "bij,bj->bi", ovp.data.astype(np.float64), x2d[ovp.block_cols]
+        )  # [nov, bh]
+        y_ov = np.zeros((ovp.num_row_blocks, plan.block_h), np.float64)
+        np.add.at(y_ov, ovp.block_rows, contrib)
+        padded = np.concatenate(
+            [np.zeros((1, plan.block_h), np.float64), y_ov]
+        )
+        y = y + padded[plan.ov_expand]
+    R = plan.shape[0]
+    return y.reshape(-1)[:R].astype(np.float32)

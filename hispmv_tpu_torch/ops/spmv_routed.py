@@ -22,8 +22,10 @@ Per (8,128) tile of 1024 slots, cell (s, j) being sublane s and lane j:
    9(l-3)) for l = 3, 4.  sub = field & 7, vid = field >> 3, and
    xg = x2d[(base[t] + vid)*8 + sub, L] (0 when vid >= W or the layer is
    >= l1).
-2. p = vals * xg; P = inclusive fp32 prefix over the tile's 1024 slots in
-   flat order s*128 + j (the reserved lane-0 slots make P[0, 0] == 0).
+2. p = vals * xg; P = inclusive prefix over the tile's 1024 slots in flat
+   order s*128 + j (the reserved lane-0 slots make P[0, 0] == 0): fp64 in
+   B9, so that a small row's difference of two large prefixes keeps its
+   digits (as B13's), fp32 in B10.
 3. Per boundary layer k < lmax: raw (bl word, or the merged bm word when
    lmax == 1) gives end lane a and start lane b, the sub fields are read at
    the gathered lanes, and P[sub_a, a] - P[sub_b, b] is added into y tile
@@ -32,7 +34,7 @@ Per (8,128) tile of 1024 slots, cell (s, j) being sublane s and lane j:
    the plain versions run every layer.
 
 Left out of the port on purpose: the TPU's bf16x3 prefix split (the port's
-prefix is a plain fp32 scan).  The pow-2 bucketing of W, lmax and the
+prefix is a plain scan).  The pow-2 bucketing of W, lmax and the
 segment grids is kept only behind ``pack_stream(bucket=True)``, so tests
 can feed both packages identical arrays; the handle packs with
 ``bucket=False`` and one tile per chunk.
@@ -357,11 +359,12 @@ def segment_lts(s: RoutedStream, segments) -> list:
     return out
 
 
-def _routed_plain(packed, dims, x3, num_ytiles):
+def _routed_plain(packed, dims, x3, num_ytiles, acc=torch.float32):
     """B9's arithmetic on a batch: ``x3`` f32 [B, x_rows, 128] -> y f32
     [B, num_ytiles*1024].  Gathers and advanced indexing for the x gather,
-    ``cumsum`` over the 1024 flat slots of each tile, ``index_add_`` over
-    ``byt``.  Every shift is masked, so torch's arithmetic ``>>`` on int32
+    ``cumsum`` over the 1024 flat slots of each tile in ``acc`` (float64
+    for B9, float32 for B10), ``index_add_`` over ``byt`` in ``acc``, one
+    rounding to f32 at the end.  Every shift is masked, so torch's arithmetic ``>>`` on int32
     reads the same bits as the kernel's logical one (no field reaches bit
     31)."""
     nch, tchunk, W, l1, lmax = dims
@@ -393,11 +396,11 @@ def _routed_plain(packed, dims, x3, num_ytiles):
         xg = g if l1 == 1 else torch.where(rank == layer, g, xg)
 
     # 2. products and the flat inclusive prefix of each tile
-    pf = torch.cumsum((vals * xg).reshape(B, Tp, TILE), dim=2).reshape(
-        B, Tp, 8, LANES)
+    p = vals.to(acc) * xg.to(acc)
+    pf = torch.cumsum(p.reshape(B, Tp, TILE), dim=2).reshape(B, Tp, 8, LANES)
 
     # 3. boundary layers into the y tiles
-    y = torch.zeros((B, num_ytiles * TILE), dtype=torch.float32, device=dev)
+    y = torch.zeros((B, num_ytiles * TILE), dtype=acc, device=dev)
     byt = byt.reshape(Tp, lmax).long()
     if lmax == 1:
         bm = bl.reshape(Tp, 8, LANES)
@@ -419,19 +422,20 @@ def _routed_plain(packed, dims, x3, num_ytiles):
         ok = byt[:, k] < num_ytiles
         dest = (byt[:, k].view(Tp, 1, 1) * TILE + s_idx * LANES + j_idx)
         y.index_add_(1, dest[ok].reshape(-1), diff[:, ok].reshape(B, -1))
-    return y
+    return y.float()
 
 
 def spmv_routed_stream_plain(packed, dims, x2d, num_ytiles):
     """Plain PyTorch version of B9 on the same arrays (see
-    :func:`_routed_plain`); returns y f32 [num_ytiles*8, 128]."""
-    y = _routed_plain(packed, dims, x2d[None], num_ytiles)
+    :func:`_routed_plain`, fp64 prefix); returns y f32 [num_ytiles*8,
+    128]."""
+    y = _routed_plain(packed, dims, x2d[None], num_ytiles, torch.float64)
     return y.reshape(num_ytiles * 8, LANES)
 
 
 def spmv_routed_stream_batched_plain(packed, dims, xt, num_ytiles):
     """Plain PyTorch version of B10: B9's plain version with the batch as a
-    leading dimension.  ``xt`` f32 [nwin*8, 128, B] (vector-minor) -> y f32
+    leading dimension and an fp32 prefix.  ``xt`` f32 [nwin*8, 128, B] (vector-minor) -> y f32
     [B*num_ytiles*8, 128]."""
     y = _routed_plain(packed, dims, xt.permute(2, 0, 1), num_ytiles)
     return y.reshape(-1, LANES)
@@ -458,7 +462,8 @@ def spmv_routed_streams_plain(table: RoutedTable, x2d, y=None):
         y = torch.zeros((nyt * 8, LANES), dtype=torch.float32,
                         device=x2d.device)
     for packed, dims, _ in table.streams:
-        y += _routed_plain(packed, dims, x2d[None], nyt).reshape(-1, LANES)
+        y += _routed_plain(packed, dims, x2d[None], nyt,
+                           torch.float64).reshape(-1, LANES)
     return y
 
 

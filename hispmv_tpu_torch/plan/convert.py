@@ -2,9 +2,9 @@
 
 :func:`plan_from_reference` reads a ``hispmv_tpu`` plan object
 (``BlockPlan``, ``WindowPlan``, ``EllxPlan``, ``StreamPlan``,
-``RoutedPlan`` with its gathered side-plan, or ``BandedRoutedPlan``)
-field by field, duck-typed, and returns the port's plan of the same
-kind.  With ``SpmvHandle.from_plan`` both packages then run the same
+``RoutedPlan`` with its gathered side-plan, ``BandedRoutedPlan``, or
+``SplitPlan`` with its routed or ELLX body) field by field, duck-typed,
+and returns the port's plan of the same kind.  With ``SpmvHandle.from_plan`` both packages then run the same
 prepared matrix.
 Nothing here imports ``hispmv_tpu``: the object only has to carry the
 fields by name.
@@ -25,6 +25,7 @@ from hispmv_tpu_torch.plan.routed import (
     RoutedPlan,
     RoutedStream,
 )
+from hispmv_tpu_torch.plan.split import SplitPlan
 from hispmv_tpu_torch.plan.windows import WindowPlan
 
 
@@ -47,6 +48,9 @@ def _routed(obj):
 
 def plan_from_reference(obj):
     """The port's plan holding the same arrays as ``obj``."""
+    if hasattr(obj, "hub_col_idx"):
+        body = None if obj.body is None else plan_from_reference(obj.body)
+        return _copy(SplitPlan, obj, body=body)
     if hasattr(obj, "cells"):
         return _copy(BandedRoutedPlan, obj, cells=[
             _copy(RoutedCell, c, plan=_routed(c.plan)) for c in obj.cells
@@ -67,5 +71,5 @@ def plan_from_reference(obj):
         return _copy(StreamPlan, obj, config=_copy(SpmvConfig, obj.config))
     raise TypeError(
         f"no port of plan type {type(obj).__name__} (block, window, ellx, "
-        "stream and routed plans are ported)"
+        "stream, routed and split plans are ported)"
     )

@@ -9,10 +9,11 @@ neither jax nor hispmv_tpu, so the conftest is left out):
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
-Tolerance, kernel against plain version: both fp32 with the same products,
-only the order of summation differs (atomics, run to run; B9's prefix is a
-block scan on the card and a sequential cumsum in the plain version):
-rtol=1e-5, atol=1e-5*max(1, max|y|).  B11 does no arithmetic and is held
+Tolerance, kernel against plain version: both with the same products and
+precision (fp32; B9's and B13's tile prefixes fp64), only the order of
+summation differs (atomics, run to run; B9's prefix is a block scan on
+the card and a sequential cumsum in the plain version): rtol=1e-5,
+atol=1e-5*max(1, max|y|).  B11 does no arithmetic and is held
 to its plain version and to ``x[perm]`` exactly, B12 and the full gathered
 x gather likewise.  Handles are held to the float64 golden at rtol=1e-3."""
 
@@ -27,6 +28,7 @@ from hispmv_tpu_torch.formats.synth import (
     powerlaw_coo,
     random_coo,
     rmat_coo,
+    suite_matrix,
 )
 from hispmv_tpu_torch.ops.permute import (
     pack_permute_plan,
@@ -112,7 +114,9 @@ from hispmv_tpu_torch.plan.blocks import build_block_plan, degree_column_perm
 from hispmv_tpu_torch.plan.permute import build_permute_plan
 from hispmv_tpu_torch.plan.routed import build_routed_plan
 from hispmv_tpu_torch.plan.windows import SEGS, build_window_plan
+from hispmv_tpu_torch.plan.split import build_split_plan
 from hispmv_tpu_torch.utils.errors import error_stats
+from hispmv_tpu_torch.utils.timing import bench_spmv, median_ms
 
 pytestmark = pytest.mark.cuda
 
@@ -487,6 +491,34 @@ def test_b9_one_entry_table_is_the_stream_call(dev):
                              nyt)
         assert_close(spmv_routed_streams(table, x2d),
                      spmv_routed_stream(packed, dims, x2d, nyt))
+
+
+def test_b9_small_rows_keep_their_digits(dev):
+    """B9's fp64 tile prefix: in random900 with every seventh row scaled to
+    1e-3 and the others to 1e3, each small row's run (a difference of two
+    prefixes ~1e4 times its sum) errs by under 1e-6 of the sum of its
+    terms' magnitudes against the float64 golden."""
+    coo = TABLE_MATRICES["random900"]()
+    small = coo.rows % 7 == 0
+    vals = np.where(small, 1e-3, 1e3).astype(np.float32) * coo.values
+    coo = COOMatrix(coo.shape, coo.rows, coo.cols, vals)
+    plan = build_routed_plan(coo)
+    x2d = _x2d(coo.num_cols, plan.num_windows * 1024, dev, seed=33)
+    y = torch.zeros(plan.num_ytiles * 1024, dtype=torch.float64)
+    for s in plan.streams:
+        ((arrays, dims),) = pack_stream(s, tchunk=1, bucket=False)
+        packed = tuple(torch.from_numpy(a).to(dev) for a in arrays)
+        y += spmv_routed_stream(packed, dims, x2d,
+                                plan.num_ytiles).cpu().reshape(-1)
+    x = x2d.cpu().numpy().reshape(-1)[:coo.num_cols].astype(np.float64)
+    got = y.numpy()[:coo.num_rows]
+    np.add.at(got, plan.residual_rows,
+              plan.residual_vals.astype(np.float64) * x[plan.residual_cols])
+    terms = np.zeros(coo.num_rows)
+    np.add.at(terms, coo.rows, np.abs(vals.astype(np.float64) * x[coo.cols]))
+    rows = np.unique(coo.rows[small])
+    rel = np.abs(got - coo.matvec(x))[rows] / terms[rows]
+    assert rel.max() < 1e-6
 
 
 def test_b9_table_rejects_unaligned_boundary_words(dev):
@@ -1544,3 +1576,59 @@ def test_gathered_routed_handle_on_card(dev, monkeypatch):
     yb = h.linear(torch.from_numpy(xb).to(dev))
     assert error_stats(yb.cpu().numpy(), _golden_linear(coo, xb, 0.0),
                        rtol=1e-3).ok
+
+
+# --- the split format and the timing harness ---------------------------------
+
+
+@pytest.mark.parametrize("body", ["auto", "ellx"])
+def test_split_handle_runs_on_card(dev, body):
+    """trans5 at scale 0.05: 12 hub columns and 11 hub rows.  The routed
+    body (``auto``) is one B9 launch a run and one a vector of a linear;
+    the ELLX body runs B1 on its overflow, B2 once a linear."""
+    coo = suite_matrix("trans5", 0.05, seed=0)
+    if body == "auto":
+        h = SpmvHandle(coo, format="split")
+        kern, per_run = spmv_routed_streams, 1
+    else:
+        h = SpmvHandle.from_plan(build_split_plan(coo, body_format="ellx"))
+        assert h._split_plan_meta.body.overflow is not None
+        kern, per_run = spmv_chunked, 1
+    assert h.format == "split" and h.plan.stats["kc"] > 0
+    assert all(t.device.type == "cuda" for t in h._d.values())
+    rng = np.random.default_rng(6)
+    x = rng.standard_normal(coo.num_cols).astype(np.float32)
+    y_in = rng.standard_normal(coo.num_rows).astype(np.float32)
+    before = kern.launches
+    y = h.run(torch.from_numpy(x).to(dev), torch.from_numpy(y_in).to(dev),
+              2.0, 0.5)
+    torch.cuda.synchronize()
+    assert kern.launches - before == per_run
+    want = 2.0 * coo.matvec(x.astype(np.float64)) + 0.5 * y_in
+    assert error_stats(y.cpu().numpy(), want, rtol=1e-3).ok
+    B = 8
+    xb = rng.standard_normal((B, coo.num_cols)).astype(np.float32)
+    bias = rng.standard_normal(coo.num_rows).astype(np.float32)
+    lin = spmv_routed_streams if body == "auto" else spmv_chunked_batched
+    before = lin.launches
+    yb = h.linear(torch.from_numpy(xb).to(dev), torch.from_numpy(bias).to(dev))
+    torch.cuda.synchronize()
+    assert lin.launches - before == (B if body == "auto" else 1)
+    assert error_stats(yb.cpu().numpy(), _golden_linear(coo, xb, bias),
+                       rtol=1e-3).ok
+
+
+def test_bench_spmv_on_card(dev):
+    """CUDA-event timing of a handle's run: a positive median, the result
+    of the timed call, and the kernel launched by every timed call."""
+    coo = suite_matrix("trans5", 0.05, seed=0)
+    h = SpmvHandle(coo, format="ellx")
+    x = np.random.default_rng(7).standard_normal(coo.num_cols).astype(
+        np.float32)
+    before = spmv_chunked.launches
+    t, y = bench_spmv(h, x, runs=5, warmup=2)
+    assert spmv_chunked.launches - before == 1 + 5 + 2
+    assert 0 < t < 1.0
+    assert error_stats(y, coo.matvec(x.astype(np.float64)), rtol=1e-3).ok
+    xd = torch.from_numpy(x).to(dev)
+    assert median_ms(lambda: h.run(xd), runs=3, warmup=1, device=dev) > 0

@@ -165,8 +165,6 @@ def test_dense_array_handle_and_run_without_y_in():
 
 def test_unported_and_unknown_formats_raise():
     coo = _case("random")
-    with pytest.raises(NotImplementedError):
-        SpmvHandle(coo, format="split", device="cpu")
     with pytest.raises(ValueError):
         SpmvHandle(coo, format="nope", device="cpu")
 

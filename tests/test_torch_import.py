@@ -71,11 +71,40 @@ def test_public_names():
                                "spmv_sharded_window", "spmv_sharded_chunked",
                                "to_device")),
     ("hispmv_tpu_torch.dist.dryrun", ("dryrun_multichip",)),
+    ("hispmv_tpu_torch.tune", ("tune", "DSE", "TuneResult", "CostModel",
+                               "DeviceProfile")),
+    ("hispmv_tpu_torch.tune.dse", ("measure_candidates", "matrix_fingerprint",
+                                   "estimate_stream_steps", "count_blocks",
+                                   "count_window_blocks")),
+    ("hispmv_tpu_torch.plan.split", ("build_split_plan", "split_matvec_numpy",
+                                     "SplitPlan")),
+    ("hispmv_tpu_torch.utils.timing", ("median_ms", "bench_spmv")),
+    ("hispmv_tpu_torch.utils.metrics", ("MetricsRow", "append_metrics",
+                                        "read_metrics")),
+    ("hispmv_tpu_torch.cli", ("main", "build_parser", "load_matrix")),
 ])
 def test_package_exports(module, names):
     mod = importlib.import_module(module)
     for name in names:
         assert callable(getattr(mod, name)), name
+
+
+def test_tune_is_reached_lazily_from_the_package():
+    code = textwrap.dedent("""
+        import sys
+        import hispmv_tpu_torch
+        assert "hispmv_tpu_torch.tune" not in sys.modules
+        tune = hispmv_tpu_torch.tune
+        assert "hispmv_tpu_torch.tune" in sys.modules
+        from hispmv_tpu_torch.tune import tune as t
+        assert tune is t
+        print("ok")
+    """)
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
 
 
 def test_import_builds_no_kernel():

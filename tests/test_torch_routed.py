@@ -9,8 +9,10 @@
 - The plain PyTorch version of B9 matches ``spmv_routed_stream_pallas`` in
   interpret mode on identical packed arrays (``tchunk=4``, as
   ``tests/test_routed.py`` runs it): rtol=1e-5, atol=1e-5*max(1, max|y|)
-  (both fp32; the prefix sums and the y additions run in other orders).
-  Both are also held to the float64 golden at rtol=1e-3.
+  (the port's prefix is fp64, the TPU's fp32; the prefix sums and the y
+  additions run in other orders).  Both are also held to the float64
+  golden at rtol=1e-3.  A small row behind a large prefix keeps its
+  digits in the port (where an fp32 prefix loses them).
 - ``SpmvHandle(format="routed")`` matches the float64 golden (``error_stats``
   at rtol=1e-3, the reference's acceptance) in original space, rank space,
   with a COO and an ELLX residual, and on the banded cell grid; a plan
@@ -46,6 +48,7 @@ from hispmv_tpu_torch.ops.spmv_routed import (
     routed_table,
     segment_lts,
     spmv_routed_stream,
+    spmv_routed_stream_batched_plain,
     spmv_routed_stream_plain,
     spmv_routed_streams,
     spmv_routed_streams_plain,
@@ -325,6 +328,53 @@ def test_plain_b9_on_unbucketed_single_tile_chunks():
             tuple(map(torch.from_numpy, jarrays[:-1])), jdims, xt,
             plan.num_ytiles)
         assert_close(y.numpy(), yb.numpy())
+
+
+def _small_rows_case():
+    """random900 with every seventh row scaled to 1e-3 and the others to
+    1e3: small rows share their tiles with large ones, so the tile prefix
+    at a small row's run is ~1e4 times its sum."""
+    coo = _case("random900")
+    small = coo.rows % 7 == 0
+    vals = np.where(small, 1e-3, 1e3).astype(np.float32) * coo.values
+    return (COOMatrix(coo.shape, coo.rows, coo.cols, vals),
+            np.unique(coo.rows[small]))
+
+
+def small_row_errors(plan, coo, x, xt, b9):
+    """|y - golden| / sum |a_rj x_j| on the small rows (tiles by ``b9``
+    on each stream's arrays, the residual in float64)."""
+    coo, small = coo
+    y = np.zeros(plan.num_ytiles * R.WINDOW)
+    for s in plan.streams:
+        ((arrays, dims),) = pack_stream(s, tchunk=1, bucket=False)
+        packed = tuple(torch.as_tensor(a, device=xt.device) for a in arrays)
+        y += b9(packed, dims, xt, plan.num_ytiles).cpu().numpy().reshape(-1)
+    y = y[: coo.num_rows]
+    np.add.at(y, plan.residual_rows,
+              plan.residual_vals.astype(np.float64) * x[plan.residual_cols])
+    terms = np.zeros(coo.num_rows)
+    np.add.at(terms, coo.rows, np.abs(coo.values.astype(np.float64)
+                                      * x[coo.cols]))
+    return (np.abs(y - golden(coo, x)) / np.maximum(terms, 1e-30))[small]
+
+
+def test_plain_b9_small_rows_keep_their_digits():
+    """B9's plain version sums each tile's prefix in fp64: a small row's
+    run, the difference of two prefixes ~1e4 times larger, errs by a few
+    fp32 roundings of its own terms.  The same arithmetic with an fp32
+    prefix (B10's plain version at one vector) misses by orders more."""
+    case = _small_rows_case()
+    plan = R.build_routed_plan(case[0])
+    x, x2d = _x2d(plan, case[0].num_cols)
+    xt = torch.from_numpy(x2d)
+    rel = small_row_errors(plan, case, x, xt, spmv_routed_stream_plain)
+    assert rel.max() < 1e-6
+
+    def fp32_prefix(packed, dims, x2d, nyt):
+        return spmv_routed_stream_batched_plain(packed, dims,
+                                                x2d[:, :, None], nyt)
+    assert small_row_errors(plan, case, x, xt, fp32_prefix).max() > 1e-3
 
 
 def _b9_args(name="random900"):
