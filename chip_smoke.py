@@ -47,8 +47,10 @@ Every result is held to a float64 golden at rtol 1e-3.  Then each kernel
 is compared with its plain PyTorch version on the arrays the paths gave it
 and both are timed beside the kernel's bound (bytes over the HBM rate or
 fp32 operations over the FMA rate, whichever is larger) and, where one
-PyTorch call computes the same function (a CSR product, ``index_select``),
-that call (its wall and its device busy time); the rank-space permutation is timed beside a direct
+PyTorch call computes the same function (a CSR product, ``index_select``;
+for B10 the CSR product of each stream's nonzeros against the batch),
+that call (its wall and its device busy time); B11's and B12's lines name
+their launch shape; the rank-space permutation is timed beside a direct
 ``index_select`` and the gathered executor's chain (B12, B11, B11, B13)
 beside a CSR product of the nonzeros it takes.  B9 (every stream of a
 routed part in one launch) is held on each stream of trans5 and ford2
@@ -119,6 +121,7 @@ from hispmv_tpu_torch.ops.permute import (
     panel_permute_apply_from,
     permute_apply,
     permute_stage,
+    permute_stage_grid,
     permute_stage_plain,
 )
 from hispmv_tpu_torch.ops.spmv_block import (
@@ -147,6 +150,7 @@ from hispmv_tpu_torch.ops.spmv_chunked import (
 from hispmv_tpu_torch.ops.spmv_gathered import (
     gathered_gather_apply,
     s1_gather,
+    s1_gather_grid,
     s1_gather_plain,
     spmv_gathered_tiles,
     spmv_gathered_tiles_plain,
@@ -1457,9 +1461,11 @@ def gathered_cases(gath):
     d, gm, nyt = h._d, h._routed_meta["gathered"], h._routed_meta["nyt"]
     x2d = _gathered_x(h, xd).reshape(-1, 128)
     xg = gathered_gather_apply(d, gm, "g_", x2d)
+    warps, rows, ctas = s1_gather_grid(gm["P"], gm["K"])
     return [
         ("s1_gather", f"{GATHERED_FIXTURE}: P {gm['P']} x K {gm['K']} "
-         "windows", (d["g_s1"], x2d, gm["P"], gm["K"])),
+         f"windows, {rows} rows, {warps} warps a CTA, {ctas} CTAs",
+         (d["g_s1"], x2d, gm["P"], gm["K"])),
         ("spmv_gathered", f"{GATHERED_FIXTURE}: {gm['T']} tiles, {nyt} y "
          "tiles", (d["g_vals"], d["g_word"], d["g_byt"], xg, nyt, gm["nch"],
                    gm["tchunk"])),
@@ -1523,8 +1529,10 @@ def kernel_checks(handles, linear_x, accel, extra_cases, failures):
     for si, dims in enumerate(xmeta["dims"]):
         a = torch.from_numpy(rng.standard_normal(
             (dims[0] * dims[1] * 8, 128)).astype(np.float32)).to(xd.device)
+        wins, threads, ctas = permute_stage_grid(dims[0] * dims[1])
         cases.append(("permute_stage",
-                      f"language x S{si + 1}: {dims[0] * dims[1]} windows",
+                      f"language x S{si + 1}: {dims[0] * dims[1]} windows, "
+                      f"{wins} a CTA of {threads} threads, {ctas} CTAs",
                       ((h._d[f"xp0_a{si}_0"],), dims, a)))
     cases += batched_cases(handles, linear_x, accel)
     cases += extra_cases
@@ -1712,9 +1720,9 @@ def _block_csr(blocks, rb, col, nrows, ncols):
 def library_call(name, args):
     """A callable running one PyTorch call that computes the kernel's
     function on the same inputs (a CSR product for the block streams,
-    ``index_select`` for B11, the CSR product of the nonzeros that a B9
-    stream or routed part covers), or None where none does (B10: its
-    lines are per stream and per batch)."""
+    ``index_select`` for B11 and B12, the CSR product of the nonzeros that
+    a B9 or B10 stream or a routed part covers, against the batch for
+    B10), or None where none does."""
     if name in ("spmv_chunked", "spmv_chunked_batched",
                 "spmv_chunked_paneled", "spmv_chunked_tiled"):
         if name == "spmv_chunked_paneled":
@@ -1777,6 +1785,14 @@ def library_call(name, args):
         return routed_csr_call(routed_table([(packed, dims, None)], nyt), x2d)
     if name == "spmv_routed_part":
         return routed_csr_call(*args)
+    if name == "spmv_routed_batched":  # y vector-major [B*nyt*8, 128]
+        packed, dims, xt, nyt = args
+        table = routed_table([(packed, dims, None)], nyt)
+        rows, cols, v = routed_tile_coo(table, xt.shape[0])
+        a = torch.sparse_coo_tensor(torch.stack([rows, cols]), v, (
+            nyt * 1024, xt.shape[0] * 128)).coalesce().to_sparse_csr()
+        xs = xt.reshape(-1, xt.shape[2])
+        return lambda: (a @ xs).T
     if name == "spmv_gathered":
         vals3, word3, byt, xg, nyt, nch, tchunk = args
         rows, slots, v = gathered_tile_coo(vals3, word3, byt, nyt)

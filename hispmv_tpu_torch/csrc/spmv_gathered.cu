@@ -13,10 +13,17 @@
 // take_along_axis calls read it; the TPU selects among S1_CAP = 4 layers by
 // rank, a GPU thread reads its own layer's field directly.  A gather does
 // no arithmetic, so the result equals the plain version bit for bit.
-// Design: one CTA of 1024 threads per window; the window's words go to
-// shared memory (each thread reads one other cell there), the x read is
-// one scattered 4-byte load that mostly hits L2 (the K x windows are
-// re-read by every panel).  Bound: bytes, 12 per slot (word, x, out).
+// Design: a cell reads the sub field only in its own row (s), so a row of
+// 128 words is all that its cells need and no CTA-wide barrier is.  A
+// warp takes a row, each lane four consecutive slots: one 16-byte load of
+// its words, the row made visible to the warp through 512 bytes of shared
+// memory between two __syncwarp, four scattered 4-byte x loads (the K x
+// windows, re-read by every panel, stay in L2) and one 16-byte store.
+// CTAs of 8 warps, one wave of them (the SM count times the resident CTAs
+// an SM, asked of the card); each warp walks rows by grid stride and
+// issues the next row's word load before the current row's x loads.  The
+// words must be 16-byte aligned (the wrapper checks).  Bound: bytes, the
+// words and out once (8 per slot) and x once.
 //
 // B13 replaces the TPU kernel hispmv_tpu/ops/spmv_gathered.py::
 // _gathered_kernel (wrapper spmv_gathered_tiles_pallas).  Arrays: vals f32
@@ -46,31 +53,82 @@
 
 #include <cuda_runtime.h>
 
+#include <atomic>
 #include <cstddef>
+#include <cstdint>
 
 #include "tile_prefix.cuh"
 
 namespace {
 
-constexpr int kTile = 1024;  // slots per window or tile == threads per CTA
+constexpr int kTile = 1024;  // slots per tile == threads per CTA (B13)
 constexpr int kLanes = 128;
+constexpr int kS1Warps = 8;  // B12: warps a CTA, a row each at a time
+constexpr int kS1Threads = kS1Warps * 32;
 
-__global__ void __launch_bounds__(kTile)
-    s1_gather_kernel(const int* __restrict__ words,
-                     const float* __restrict__ x2d, float* __restrict__ out,
-                     int K) {
-  __shared__ unsigned s_w[kTile];
-  const int i = threadIdx.x;
-  const size_t w = blockIdx.x;
-  const size_t off = w * kTile + i;
-  const unsigned wd = static_cast<unsigned>(words[off]);
-  s_w[i] = wd;
-  __syncthreads();
-  const int L = wd & 127;
-  const int rank = (wd >> 7) & 3;
-  const int sub = (s_w[((i >> 7) << 7) + L] >> (16 + 3 * rank)) & 7;
-  const size_t k = w % K;
-  out[off] = x2d[(k * 8 + sub) * kLanes + L];
+// B12's cell of word wd in a row whose words are in row: x window xw's
+// element [sub][L].
+__device__ __forceinline__ float s1_cell(const unsigned* row, int wd,
+                                         const float* __restrict__ xw) {
+  const unsigned w = static_cast<unsigned>(wd);
+  const int L = w & 127;
+  const int rank = (w >> 7) & 3;
+  const int sub = (row[L] >> (16 + 3 * rank)) & 7;
+  return xw[sub * kLanes + L];
+}
+
+__global__ void __launch_bounds__(kS1Threads)
+    s1_gather_kernel(const int4* __restrict__ words,
+                     const float* __restrict__ x2d, float4* __restrict__ out,
+                     long long rows, int K) {
+  __shared__ __align__(16) unsigned s_row[kS1Warps][kLanes];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  unsigned* row = s_row[warp];
+  const long long stride = static_cast<long long>(gridDim.x) * kS1Warps;
+  long long r = static_cast<long long>(blockIdx.x) * kS1Warps + warp;
+  int4 cur = make_int4(0, 0, 0, 0);
+  if (r < rows) cur = words[r * 32 + lane];
+  for (; r < rows; r += stride) {  // r is the same across the warp
+    int4 next = cur;
+    if (r + stride < rows) next = words[(r + stride) * 32 + lane];
+    __syncwarp();  // the warp's reads of the previous row are done
+    reinterpret_cast<int4*>(row)[lane] = cur;
+    __syncwarp();
+    const float* xw = x2d + ((r >> 3) % K) * (8 * kLanes);
+    float4 o;
+    o.x = s1_cell(row, cur.x, xw);
+    o.y = s1_cell(row, cur.y, xw);
+    o.z = s1_cell(row, cur.z, xw);
+    o.w = s1_cell(row, cur.w, xw);
+    out[r * 32 + lane] = o;
+    cur = next;
+  }
+}
+
+// B12's CTAs for rows rows: one for every 8 rows, or one wave of
+// resident CTAs, whichever is fewer.
+cudaError_t s1_ctas(long long rows, int* ctas) {
+  // resident CTAs an SM, asked once (the query costs host time)
+  static std::atomic<int> resident{0};
+  int occ = resident.load(std::memory_order_relaxed);
+  if (occ == 0) {
+    const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &occ, s1_gather_kernel, kS1Threads, 0);
+    if (e != cudaSuccess) return e;
+    occ = occ > 0 ? occ : 1;
+    resident.store(occ, std::memory_order_relaxed);
+  }
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) {
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  if (e != cudaSuccess) return e;
+  const long long need = (rows + kS1Warps - 1) / kS1Warps;
+  const long long wave = static_cast<long long>(occ) * sms;
+  *ctas = static_cast<int>(need < wave ? need : wave);
+  return cudaSuccess;
 }
 
 // The flat slot that clos(route, .) brings to slot i, for the route held
@@ -115,13 +173,35 @@ extern "C" {
 
 // B12: words i32 [num_windows, 8, 128] with num_windows = P*K, x2d f32
 // [K*8, 128], out f32 [num_windows, 8, 128].  Returns a cudaError_t code.
+// words must be 16-byte aligned.  Returns a cudaError_t code.
 int hispmv_s1_gather(const int* words, const float* x2d, float* out,
                      int num_windows, int K, cudaStream_t stream) {
-  if (num_windows <= 0 || K <= 0 || num_windows % K != 0) {
+  if (num_windows <= 0 || K <= 0 || num_windows % K != 0 ||
+      reinterpret_cast<uintptr_t>(words) % 16 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  s1_gather_kernel<<<num_windows, kTile, 0, stream>>>(words, x2d, out, K);
+  const long long rows = static_cast<long long>(num_windows) * 8;
+  int ctas = 0;
+  const cudaError_t e = s1_ctas(rows, &ctas);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  s1_gather_kernel<<<ctas, kS1Threads, 0, stream>>>(
+      reinterpret_cast<const int4*>(words), x2d,
+      reinterpret_cast<float4*>(out), rows, K);
   return static_cast<int>(cudaGetLastError());
+}
+
+// B12's launch shape for num_windows windows into out[3]: (warps a CTA,
+// rows, CTAs).  Returns a cudaError_t code.
+int hispmv_s1_gather_grid(int num_windows, int* out) {
+  if (num_windows <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const long long rows = static_cast<long long>(num_windows) * 8;
+  int ctas = 0;
+  const cudaError_t e = s1_ctas(rows, &ctas);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  out[0] = kS1Warps;
+  out[1] = static_cast<int>(rows);
+  out[2] = ctas;
+  return 0;
 }
 
 // B13: see the file comment for the arrays.  Returns a cudaError_t code.

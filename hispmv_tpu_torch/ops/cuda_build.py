@@ -118,6 +118,20 @@ def build(verbose: bool = False) -> float:
     return time.perf_counter() - t0
 
 
+def build_alone(source: str, defines: dict, path: str) -> ctypes.CDLL:
+    """One source of ``csrc/`` built alone into the library ``path`` with
+    the build's flags and ``-D`` name=value for each entry of ``defines``,
+    then loaded (the caller sets argtypes): tests and measurements of a
+    compile-time parameter use it.  Raises with the compiler's output."""
+    cmd = [_nvcc(), *NVCC_FLAGS, "-shared",
+           *(f"-D{k}={v}" for k, v in defines.items()), "-o", path,
+           os.path.join(CSRC_DIR, source)]
+    proc = subprocess.run(cmd, stdout=subprocess.PIPE,
+                          stderr=subprocess.STDOUT, text=True)
+    _check_nvcc([(cmd, proc.returncode, proc.stdout)], False)
+    return ctypes.CDLL(path)
+
+
 def get_lib() -> ctypes.CDLL:
     """The loaded kernel library, built first if needed."""
     global _lib
@@ -191,8 +205,12 @@ def get_lib() -> ctypes.CDLL:
             lib.hispmv_spmv_block_batched_grid.argtypes = [i32, i32, i32, ptr]
             lib.hispmv_permute_stage.restype = i32
             lib.hispmv_permute_stage.argtypes = [ptr, ptr, ptr, i32, ptr]
+            lib.hispmv_permute_stage_grid.restype = i32
+            lib.hispmv_permute_stage_grid.argtypes = [i32, ptr]
             lib.hispmv_s1_gather.restype = i32
             lib.hispmv_s1_gather.argtypes = [ptr, ptr, ptr, i32, i32, ptr]
+            lib.hispmv_s1_gather_grid.restype = i32
+            lib.hispmv_s1_gather_grid.argtypes = [i32, ptr]
             lib.hispmv_spmv_gathered.restype = i32
             lib.hispmv_spmv_gathered.argtypes = [
                 ptr, ptr, ptr, ptr, ctypes.c_longlong, ptr, i32, i32, ptr,
@@ -207,7 +225,8 @@ def launch_shape(fn: str, *args) -> tuple:
     """The three ints of the library's shape query ``fn`` (a
     ``hispmv_*_grid`` function of ``args`` and an out array of three
     ints): (V, row slices, CTAs) of the vec streams, (warps a CTA, row
-    slices, CTAs) of B6; raises for sizes its launcher refuses."""
+    slices, CTAs) of B6, (warps a CTA, rows, CTAs) of B12, (windows a CTA,
+    threads a CTA, CTAs) of B11; raises for sizes its launcher refuses."""
     out = (ctypes.c_int * 3)()
     check(getattr(get_lib(), fn)(*args, ctypes.addressof(out)), fn)
     return tuple(out)

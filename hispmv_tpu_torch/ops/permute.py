@@ -23,7 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from hispmv_tpu_torch.ops import cuda_build
-from hispmv_tpu_torch.ops.spmv_chunked import check_cuda_tensors
+from hispmv_tpu_torch.ops.spmv_chunked import check_aligned, check_cuda_tensors
 from hispmv_tpu_torch.plan.permute import WINDOW, PermutePlan, WindowStage
 from hispmv_tpu_torch.utils.device import resolve_device
 
@@ -95,11 +95,13 @@ def permute_stage(arrays, dims, a):
     """Apply one within-window stage to ``a`` f32 [Wp*8, 128] (Wp from
     ``dims``); returns the permuted array of the same shape.  CPU tensors
     take the plain PyTorch version; CUDA tensors launch the CUDA kernel
-    (csrc/permute.cu) or raise."""
+    (csrc/permute.cu) or raise, also when the route or ``a`` (read by
+    16-byte loads) is not 16-byte aligned."""
     route = _check_stage_args(arrays, dims, a)
     if a.device.type == "cpu":
         return permute_stage_plain(arrays, dims, a)
     check_cuda_tensors("permute_stage", a, route)
+    check_aligned("permute_stage", route, a)
     lib = cuda_build.get_lib()
     out = torch.empty_like(a)
     with torch.cuda.device(a.device):
@@ -113,6 +115,12 @@ def permute_stage(arrays, dims, a):
 
 
 permute_stage.launches = 0  # kernel launches, for the smoke run's check
+
+
+def permute_stage_grid(nwin):
+    """B11's launch shape on ``nwin`` windows: (windows a CTA, threads a
+    CTA, CTAs).  Needs the built library."""
+    return cuda_build.launch_shape("hispmv_permute_stage_grid", nwin)
 
 
 def pack_permute_plan(plan: PermutePlan, device="cuda") -> dict:
@@ -178,6 +186,8 @@ def permute_apply(meta: dict, arrays, x):
     Wp1 = d1[0] * d1[1]
     need = Wp1 * WINDOW
     x = F.pad(x, (0, need - x.shape[0])) if x.shape[0] < need else x[:need]
+    if x.data_ptr() % 16:  # a view into a batch row: B11 reads by 16 bytes
+        x = x.clone()
     a = permute_stage(arrays[0], d1, x.reshape(Wp1 * 8, LANES))
     # transpose to (1024, Wp1), pad cols to the S2 width (always 1024)
     at = a.reshape(Wp1, WINDOW).T

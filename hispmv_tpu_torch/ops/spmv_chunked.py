@@ -117,6 +117,15 @@ def check_cuda_tensors(name, *tensors):
             raise ValueError(f"{name}: tensors must be contiguous")
 
 
+def check_aligned(name, *tensors):
+    """Raise unless every tensor starts on a 16-byte boundary: the kernels
+    that read it by 16-byte vectors have no scalar path."""
+    for t in tensors:
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: tensors read by 16-byte loads must be "
+                             "16-byte aligned")
+
+
 def check_cuda_args(name, block_h, *tensors):
     """On the card: :func:`check_cuda_tensors`, and a block height the
     kernel is instantiated for."""

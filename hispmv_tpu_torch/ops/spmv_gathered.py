@@ -31,7 +31,7 @@ import torch
 
 from hispmv_tpu_torch.ops import cuda_build
 from hispmv_tpu_torch.ops.permute import clos_gather, permute_stage
-from hispmv_tpu_torch.ops.spmv_chunked import check_cuda_tensors
+from hispmv_tpu_torch.ops.spmv_chunked import check_aligned, check_cuda_tensors
 from hispmv_tpu_torch.plan.gathered import GatheredPlan
 
 LANES = 128
@@ -112,11 +112,13 @@ def s1_gather(s1_words, x2d, P, K):
     """S1 of the gathered x gather: ``s1_words`` i32 [P*K*8, 128], ``x2d``
     f32 [K*8, 128] -> f32 [P*K*8, 128], panel p's window w gathered from x
     window w.  CPU tensors take the plain PyTorch version; CUDA tensors
-    launch the CUDA kernel (csrc/spmv_gathered.cu) or raise."""
+    launch the CUDA kernel (csrc/spmv_gathered.cu) or raise, also when
+    ``s1_words`` (read by 16-byte loads) is not 16-byte aligned."""
     _check_s1(s1_words, x2d, P, K)
     if x2d.device.type == "cpu":
         return s1_gather_plain(s1_words, x2d, P, K)
     check_cuda_tensors("s1_gather", x2d, s1_words)
+    check_aligned("s1_gather", s1_words)
     lib = cuda_build.get_lib()
     out = torch.empty((P * K * 8, LANES), dtype=torch.float32,
                       device=x2d.device)
@@ -131,6 +133,13 @@ def s1_gather(s1_words, x2d, P, K):
 
 
 s1_gather.launches = 0  # kernel launches, for the smoke run's check
+
+
+def s1_gather_grid(P, K):
+    """B12's launch shape on P x K windows: (warps a CTA, rows, CTAs), a
+    warp a row at a time, the CTAs one wave of the card's resident CTAs
+    or fewer.  Needs the built library and a card."""
+    return cuda_build.launch_shape("hispmv_s1_gather_grid", P * K)
 
 
 def gathered_gather_apply(d: dict, meta: dict, prefix: str, x2d):

@@ -10,7 +10,7 @@ parent).
 
     python3 kernel_compare.py LABEL [GROUP ...]
 
-GROUPs (all when none is named): b1b7, b3, b2, b8, b6, b4, b9.
+GROUPs (all when none is named): b1b7, b3, b2, b8, b6, b4, b9, b12, b11.
 
 B1's cases, at one vector: TSOPF_RS_b2383's block handle and trans5's ELLX
 overflow.  B7's: crystk03's window handle (format auto, bh 8), crystk03 as
@@ -70,6 +70,24 @@ versions and, where the checkout's ``chip_smoke.py`` has
 each handle's ``run``; language's rank-space ``linear`` at B 64 (wall over
 5 calls); and the ``-Xptxas -v`` registers of ``csrc/spmv_routed.cu`` and
 ``csrc/spmv_gathered.cu``.
+B12's group (``b12``): B12 on analytics' gathered side-plan (P 8 x K 512
+windows) and B11's (``b11``): language's rank-space x S1-S3 (random
+values) and the gathered chain's S2 and S3 on the arrays
+``gathered_gather_apply`` hands them.  Each line gives equality with the
+plain version and with ``index_select`` on the same composed indices
+(``chip_smoke.library_call``), the byte bound, the launch shape (from
+``s1_gather_grid`` / ``permute_stage_grid`` where the checkout has them)
+and the kernel's and ``index_select``'s device times (torch.profiler),
+warm (repeated calls) and cold (128 MB of scratch written, or read,
+before each call, its time left out), taken in turns, and their walls, after one
+reading of each as ``chip_smoke.py``'s phase 4 takes it;
+B11 also at two windows a CTA
+(``permute.cu`` built alone with ``-DHISPMV_PERMUTE_WINDOWS=2``, where
+the source has that parameter) in turns with the built instance.  Then
+the handles the kernels sit in (analytics' gathered ``run`` and its
+chain alone; language's rank-space ``run``, and ``linear`` at B 64 over
+5 calls), wall and device busy, and the ``-Xptxas -v`` registers of
+``csrc/spmv_gathered.cu`` / ``csrc/permute.cu``.
 Exits 1 when a case disagrees, 2 without a CUDA card."""
 
 import importlib
@@ -498,17 +516,23 @@ B9_RUNS = [("trans5", "trans5", False, False),
 def routed_handle(name, rank, gathered):
     """A routed handle of suite stand-in ``name`` (scale 1.0, seed 0); with
     ``gathered``, planned under ``chip_smoke.py``'s lowered gathered
-    costs, so that it diverts tiles to the side-plan as phase 3g does."""
+    costs, so that it diverts tiles to the side-plan as phase 3g does.
+    Planned once a run."""
+    key = ("routed", name, rank, gathered)
+    if key in _HANDLES:
+        return _HANDLES[key]
     saved = {k: getattr(gp, k) for k in cs.GATHERED_COSTS}
     try:
         if gathered:
             for k, v in cs.GATHERED_COSTS.items():
                 setattr(gp, k, v)
-        return prepare(suite_matrix(name, 1.0, seed=cs.SEED),
-                       SpmvConfig(rank_sort=rank), "routed")
+        h = prepare(suite_matrix(name, 1.0, seed=cs.SEED),
+                    SpmvConfig(rank_sort=rank), "routed")
     finally:
         for k, v in saved.items():
             setattr(gp, k, v)
+    _HANDLES[key] = h
+    return h
 
 
 def b9_part(h, xd):
@@ -653,10 +677,269 @@ def b9_report(label, rng):
     return ok
 
 
+FLUSH_BYTES = 128 * 2**20  # a pass this large evicts the card's 50 MB L2
+GATHER_TURNS = 2  # kernel, index_select, index_select, kernel per reading
+_SCRATCH = []
+
+
+def flush_l2(how):
+    """Pass over FLUSH_BYTES of scratch, so that what a gather reads next
+    comes from HBM (a cold L2): ``"write"`` fills it (the L2 is left
+    holding dirty lines, which the next kernel's misses write back),
+    ``"read"`` sums it (clean lines)."""
+    if not _SCRATCH:
+        _SCRATCH.append(torch.ones(FLUSH_BYTES // 4, device="cuda"))
+    if how == "write":
+        _SCRATCH[0].fill_(1.0)
+    else:
+        _SCRATCH[0].sum()
+
+
+_FLUSH_KEYS = {}
+
+
+def _flush_keys(how):
+    """The profiler's keys of :func:`flush_l2`'s own device events, taken
+    once a run (again while a window records none)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(5):
+        if how in _FLUSH_KEYS:
+            break
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            flush_l2(how)
+            torch.cuda.synchronize()
+        keys = {e.key for e in prof.key_averages()
+                if e.self_device_time_total > 0}
+        if keys:
+            _FLUSH_KEYS[how] = keys
+    return _FLUSH_KEYS[how]
+
+
+def own_ms(fn, cold=None, runs=cs.TIMED_RUNS, tries=3):
+    """Device time per call of ``fn`` (torch.profiler over ``runs``
+    calls, every kernel, copy and fill it runs); with ``cold`` ("write"
+    or "read"), :func:`flush_l2` runs before each call and its events are
+    left out.  A window without device time, or (cold) without the
+    flush's events, is taken again, up to ``tries`` windows, then None."""
+    from torch.profiler import ProfilerActivity, profile
+
+    skip = _flush_keys(cold) if cold else set()
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(runs):
+                if cold:
+                    flush_l2(cold)
+                fn()
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        if skip and not skip <= {e.key for e in events}:
+            continue  # the flush went unrecorded: its time is unknown
+        us = sum(e.self_device_time_total for e in events
+                 if e.key not in skip)
+        if us > 0:
+            return us / runs / 1e3
+    return None
+
+
+COLD = (None, "write", "read")  # warm, cold after a write, after a read
+
+
+def _turns(kern, lib, names=("kernel", "index_select")):
+    """Device times of ``kern`` and ``lib``, warm and cold after a write
+    and after a read of scratch, taken in turns (kernel, library,
+    library, kernel), GATHER_TURNS times; then each one's wall (median
+    of CUDA events): a text."""
+    fns = dict(zip(names, (kern, lib)))
+    got = {(n, c): [] for n in names for c in COLD}
+    for _ in range(GATHER_TURNS):
+        for n in (names[0], names[1], names[1], names[0]):
+            for cold in COLD:
+                got[n, cold].append(own_ms(fns[n], cold))
+    out = [f"{n} {'warm' if cold is None else 'cold ' + cold} "
+           + " / ".join("-" if t is None else f"{t:.4f}" for t in ts) + " ms"
+           for (n, cold), ts in got.items()]
+    out += [f"{n} wall {cs.median_ms(fn):.4f} ms" for n, fn in fns.items()]
+    return "; ".join(out)
+
+
+def gather_line(label, tag, name, args, shape):
+    """One B11 or B12 case: equality with the plain version, the bound,
+    the launch shape and the device times in turns with ``index_select``
+    on the same composed indices.  Returns whether the kernel agreed."""
+    kern = cs.KERNELS[name]["wrapper"]
+    y = kern(*args)
+    agree, _, line = cs._agree(name, y, cs.PLAIN[name](*args))
+    lib = cs.library_call(name, args)
+    lib_ok = torch.equal(lib().reshape(y.shape), y)
+    bound, by = cs.kernel_bound(name, args, {}, y)
+    # as phase 4 reads them: wall, then device busy, the kernel first
+    phase4 = []
+    for fn in (lambda: kern(*args), lib):
+        cs.median_ms(fn)
+        phase4.append(cs._ms(cs.device_ms(fn)))
+    print(f"{label} {tag} [{shape}]: {line}, "
+          f"{'equal' if agree else 'FAIL'}, index_select "
+          f"{'equal' if lib_ok else 'DIFFERENT'}; bound {bound:.4f} ms "
+          f"({by}); as phase 4: kernel {phase4[0]}, index_select "
+          f"{phase4[1]}; {_turns(lambda: kern(*args), lib)}", flush=True)
+    return agree and lib_ok
+
+
+def gathered_handle(rng):
+    """Analytics' routed handle with its gathered side-plan, x and y_in."""
+    h = routed_handle(cs.GATHERED_FIXTURE, False, True)
+    R, C = h.shape
+    xd = torch.from_numpy(rng.standard_normal(C).astype(np.float32)).cuda()
+    y_in = torch.from_numpy(rng.standard_normal(R).astype(np.float32)).cuda()
+    return h, xd, y_in
+
+
+def gathered_stage_args(h, xd):
+    """(arrays, dims, a) of the two B11 stages of analytics' gathered x
+    gather, as ``gathered_gather_apply`` hands them over (its
+    ``permute_stage`` wrapped for one call)."""
+    sg = importlib.import_module("hispmv_tpu_torch.ops.spmv_gathered")
+    seen, real = [], sg.permute_stage
+
+    def spy(arrays, dims, a):
+        seen.append((arrays, dims, a))
+        return real(arrays, dims, a)
+
+    sg.permute_stage = spy
+    try:
+        sg.gathered_gather_apply(h._d, h._routed_meta["gathered"], "g_",
+                                 cs._gathered_x(h, xd).reshape(-1, 128))
+    finally:
+        sg.permute_stage = real
+    return seen
+
+
+def _handle_lines(label, tag, h, xd, y_in, chain=None):
+    """The handle's ``run`` (and the gathered chain alone): wall and
+    device busy."""
+    run = lambda: h.run(xd, y_in, 1.5, -0.5)  # noqa: E731
+    calls = [("run", run)] + ([("chain", chain)] if chain else [])
+    for what, fn in calls:
+        print(f"{label} {tag} {what}: wall {cs.median_ms(fn):.4f} ms, device "
+              f"busy {cs._ms(cs.device_ms(fn))}", flush=True)
+
+
+def b12_report(label, rng):
+    """B12 on analytics' side-plan (P 8 x K 512), then the gathered chain
+    alone and the handle's ``run`` and B12's registers."""
+    sg = importlib.import_module("hispmv_tpu_torch.ops.spmv_gathered")
+    h, xd, y_in = gathered_handle(rng)
+    d, gm, nyt = h._d, h._routed_meta["gathered"], h._routed_meta["nyt"]
+    x2d = cs._gathered_x(h, xd).reshape(-1, 128)
+    P, K = gm["P"], gm["K"]
+    shape = f"P {P} x K {K} windows"
+    if hasattr(sg, "s1_gather_grid"):
+        w, rows, ctas = sg.s1_gather_grid(P, K)
+        shape += f", {w} warps a CTA, {rows} rows, {ctas} CTAs"
+    else:
+        shape += f", {P * K} CTAs of 1024 threads"
+    ok = gather_line(label, "B12", "s1_gather", (d["g_s1"], x2d, P, K), shape)
+
+    def chain():
+        xg = sg.gathered_gather_apply(d, gm, "g_", x2d)
+        return sg.spmv_gathered_tiles(d["g_vals"], d["g_word"], d["g_byt"],
+                                      xg, nyt, gm["nch"], gm["tchunk"])
+
+    _handle_lines(label, "analytics gathered", h, xd, y_in, chain)
+    for line in ptxas_registers("spmv_gathered.cu"):
+        print(f"{label} ptxas spmv_gathered.cu {line}", flush=True)
+    return ok
+
+
+def permute_variant(windows):
+    """``csrc/permute.cu`` built alone at HISPMV_PERMUTE_WINDOWS =
+    ``windows`` into a temporary library: its stage call on (route, a,
+    nwin), or None where the source has no such parameter."""
+    import ctypes
+
+    src = os.path.join(cuda_build.CSRC_DIR, "permute.cu")
+    with open(src) as f:
+        if "HISPMV_PERMUTE_WINDOWS" not in f.read():
+            return None
+    lib = cuda_build.build_alone(
+        "permute.cu", {"HISPMV_PERMUTE_WINDOWS": windows},
+        os.path.join(tempfile.mkdtemp(), "libpermute.so"))
+    ptr = ctypes.c_void_p
+    lib.hispmv_permute_stage.restype = ctypes.c_int
+    lib.hispmv_permute_stage.argtypes = [ptr, ptr, ptr, ctypes.c_int, ptr]
+
+    def call(route, a, nwin):
+        out = torch.empty_like(a)
+        rc = lib.hispmv_permute_stage(
+            route.data_ptr(), a.data_ptr(), out.data_ptr(), nwin,
+            torch.cuda.current_stream().cuda_stream)
+        cuda_build.check(rc, "permute_stage variant")
+        return out
+    return call
+
+
+def b11_report(label, rng):
+    """B11 on language's rank-space x S1-S3 (random values, as phase 4)
+    and on the gathered chain's S2 and S3, each also at two windows a
+    CTA where the source takes that parameter; then language's rank-space
+    ``run`` and ``linear`` at B 64 (5 calls), and B11's registers."""
+    pm = importlib.import_module("hispmv_tpu_torch.ops.permute")
+    lang = routed_handle("language", True, False)
+    xmeta = lang._routed_meta["xperm"][0]
+    cases = []
+    for si, dims in enumerate(xmeta["dims"]):
+        a = torch.from_numpy(rng.standard_normal(
+            (dims[0] * dims[1] * 8, 128)).astype(np.float32)).cuda()
+        cases.append((f"language x S{si + 1}",
+                      ((lang._d[f"xp0_a{si}_0"],), dims, a)))
+    gh, gx, _ = gathered_handle(rng)
+    for si, args in zip((2, 3), gathered_stage_args(gh, gx)):
+        cases.append((f"gathered S{si}", args))
+    variant = permute_variant(2)
+    ok = True
+    for tag, (arrays, dims, a) in cases:
+        nwin = dims[0] * dims[1]
+        shape = f"{nwin} windows"
+        if hasattr(pm, "permute_stage_grid"):
+            w, threads, ctas = pm.permute_stage_grid(nwin)
+            shape += f", {w} a CTA of {threads} threads, {ctas} CTAs"
+        else:
+            shape += f", {nwin} CTAs of 1024 threads"
+        ok &= gather_line(label, f"B11 {tag}", "permute_stage",
+                          (arrays, dims, a), shape)
+        if variant is not None:
+            want = pm.permute_stage(arrays, dims, a)
+            got = variant(arrays[0], a, nwin)
+            same = torch.equal(got, want)
+            ok &= same
+            print(f"{label} B11 {tag} at 2 windows a CTA ({-(-nwin // 2)} "
+                  f"CTAs of 512 threads): {'equal' if same else 'FAIL'}; "
+                  + _turns(lambda: variant(arrays[0], a, nwin),
+                           lambda: pm.permute_stage(arrays, dims, a),
+                           ("2 a CTA", "built")), flush=True)
+    R, C = lang.shape
+    xd = torch.from_numpy(rng.standard_normal(C).astype(np.float32)).cuda()
+    y_in = torch.from_numpy(rng.standard_normal(R).astype(np.float32)).cuda()
+    _handle_lines(label, "language rank", lang, xd, y_in)
+    xb = torch.from_numpy(rng.standard_normal(
+        (cs.BATCH, C)).astype(np.float32)).cuda()
+    lin = lambda: lang.linear(xb)  # noqa: E731
+    print(f"{label} language rank linear [B {cs.BATCH}]: wall "
+          f"{cs.median_ms(lin, runs=5, warmup=1):.4f} ms, device busy "
+          f"{cs._ms(cs.device_ms(lin, runs=5))}", flush=True)
+    for line in ptxas_registers("permute.cu"):
+        print(f"{label} ptxas permute.cu {line}", flush=True)
+    return ok
+
+
 # the case groups, in the order they run (and draw from the generator)
 GROUPS = {"b1b7": b1_b7_cases, "b3": b3_cases, "b2": b2_cases,
           "b8": b8_cases, "b6": b6_cases, "b4": b4_cases}
-REPORTS = {"b9": b9_report}  # groups that print their own lines, last
+# groups that print their own lines, last
+REPORTS = {"b9": b9_report, "b12": b12_report, "b11": b11_report}
 
 
 def main(label: str, groups=()) -> int:

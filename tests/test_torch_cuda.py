@@ -35,6 +35,7 @@ from hispmv_tpu_torch.ops.permute import (
     pack_stage,
     permute_apply,
     permute_stage,
+    permute_stage_grid,
     permute_stage_plain,
 )
 from hispmv_tpu_torch.models import (
@@ -83,6 +84,7 @@ from hispmv_tpu_torch.ops.spmv_gathered import (
     gathered_gather_apply,
     pack_gathered,
     s1_gather,
+    s1_gather_grid,
     s1_gather_plain,
     spmv_gathered_tiles,
     spmv_gathered_tiles_plain,
@@ -553,6 +555,104 @@ def test_b11_kernel_equals_plain_and_gather(dev, n):
     x = rng.standard_normal(n).astype(np.float32)
     y = permute_apply(packed, packed["arrays"], torch.from_numpy(x).to(dev))
     assert np.array_equal(y.cpu().numpy(), x[perm])
+
+
+def _misaligned(t):
+    """A copy of ``t`` whose storage starts one element past a 16-byte
+    boundary."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = flat[1:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+def _stage_routes(nwin, real):
+    """i32 [nwin, 8, 128] route words: windows of the stages of a real
+    permutation plan, repeated to nwin, or random 13-bit words."""
+    rng = np.random.default_rng(nwin)
+    if not real:
+        return rng.integers(0, 1 << 13, (nwin, 8, 128), dtype=np.int32)
+    plan = build_permute_plan(rng.permutation(400_000))
+    windows = np.concatenate([s.route for s in (plan.s1, plan.s2, plan.s3)])
+    return np.resize(windows, (nwin, 8, 128)).astype(np.int32)
+
+
+B11_WINDOWS = [1, 3, 390, 1024, 4097]
+
+
+@pytest.mark.parametrize("real", [True, False])
+@pytest.mark.parametrize("nwin", B11_WINDOWS)
+def test_b11_kernel_equals_plain_at_window_counts(dev, nwin, real):
+    route = torch.from_numpy(_stage_routes(nwin, real)).to(dev)
+    arrays, dims = (route.reshape(nwin, 8, 128),), (nwin, 1)
+    a = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (nwin * 8, 128)).astype(np.float32)).to(dev)
+    before = permute_stage.launches
+    got = permute_stage(arrays, dims, a)
+    torch.cuda.synchronize()
+    assert permute_stage.launches == before + 1
+    assert torch.equal(got, permute_stage_plain(arrays, dims, a))
+
+
+@pytest.mark.parametrize("windows", [2, 3])
+def test_b11_windows_a_cta_variants_are_exact(dev, windows, tmp_path):
+    """permute.cu built alone at 2 and 3 windows a CTA: every window count,
+    whether a multiple of the windows a CTA takes or not, is exact."""
+    import ctypes
+
+    from hispmv_tpu_torch.ops import cuda_build
+
+    lib = cuda_build.build_alone("permute.cu",
+                                 {"HISPMV_PERMUTE_WINDOWS": windows},
+                                 str(tmp_path / "libpermute.so"))
+    ptr = ctypes.c_void_p
+    lib.hispmv_permute_stage.argtypes = [ptr, ptr, ptr, ctypes.c_int, ptr]
+    lib.hispmv_permute_stage_grid.argtypes = [ctypes.c_int, ptr]
+    for nwin in B11_WINDOWS:
+        route = torch.from_numpy(_stage_routes(nwin, True)).to(dev)
+        a = torch.from_numpy(np.random.default_rng(2).standard_normal(
+            (nwin * 8, 128)).astype(np.float32)).to(dev)
+        out = torch.empty_like(a)
+        assert lib.hispmv_permute_stage(
+            route.data_ptr(), a.data_ptr(), out.data_ptr(), nwin,
+            torch.cuda.current_stream().cuda_stream) == 0
+        shape = (ctypes.c_int * 3)()
+        assert lib.hispmv_permute_stage_grid(nwin, ctypes.addressof(shape)) == 0
+        assert tuple(shape) == (windows, 256 * windows, -(-nwin // windows))
+        torch.cuda.synchronize()
+        assert torch.equal(out, permute_stage_plain(
+            (route.reshape(nwin, 8, 128),), (nwin, 1), a))
+
+
+@pytest.mark.parametrize("nwin", B11_WINDOWS)
+def test_b11_launch_shape(dev, nwin):
+    w, threads, ctas = permute_stage_grid(nwin)
+    assert threads == 256 * w and ctas == -(-nwin // w)
+
+
+def test_b11_kernel_refuses_unaligned_tensors(dev):
+    nwin = 3
+    route = torch.from_numpy(_stage_routes(nwin, True)).to(dev)
+    a = torch.ones((nwin * 8, 128), device=dev)
+    good = ((route.reshape(nwin, 8, 128),), (nwin, 1), a)
+    permute_stage(*good)
+    with pytest.raises(ValueError, match="aligned"):
+        permute_stage((_misaligned(good[0][0]),), good[1], a)
+    with pytest.raises(ValueError, match="aligned"):
+        permute_stage(good[0], good[1], _misaligned(a))
+
+
+def test_b11_permute_apply_takes_unaligned_views(dev):
+    """permute_apply copies a view that is not 16-byte aligned (a batch
+    row) before B11 reads it."""
+    n = 1 << 20  # one panel's worth: S1 reads x without padding it
+    perm = np.random.default_rng(3).permutation(n)
+    packed = pack_permute_plan(build_permute_plan(perm), dev)
+    x = np.random.default_rng(4).standard_normal(n + 1).astype(np.float32)
+    xd = torch.from_numpy(x).to(dev)[1:]
+    assert xd.data_ptr() % 16
+    y = permute_apply(packed, packed["arrays"], xd)
+    assert np.array_equal(y.cpu().numpy(), x[1:][perm])
 
 
 def _stretched_rmat():
@@ -1517,6 +1617,75 @@ def test_b12_kernel_equals_plain(dev):
     assert s1_gather.launches == before + 1
     assert torch.equal(got, s1_gather_plain(d["s1"], x2d, meta["P"],
                                             meta["K"]))
+
+
+def _s1_words(P, K, seed=0):
+    """Random B12 words of P x K windows: every row holds every lane L
+    0-127 (a stride coprime with 128) and every rank 0-3, the sub fields
+    and the other bits random (the sign bit too)."""
+    rng = np.random.default_rng(seed)
+    n = P * K * 8
+    s = np.arange(n)[:, None]
+    j = np.arange(128)[None, :]
+    L = (37 * j + 11 * s) % 128
+    rank = (j + s) % 4
+    high = rng.integers(0, 1 << 32, (n, 128), dtype=np.uint64)
+    w = (high & ~np.uint64(0x1FF)) | (rank << 7).astype(np.uint64) \
+        | L.astype(np.uint64)
+    return w.astype(np.uint32).view(np.int32)
+
+
+@pytest.mark.parametrize("K", [1, 5, 512])
+@pytest.mark.parametrize("P", [1, 3, 8])
+def test_b12_kernel_equals_plain_on_random_words(dev, P, K):
+    words = _s1_words(P, K)
+    u = words.view(np.uint32)
+    subs = (u[:, None, :] >> (16 + 3 * np.arange(4))[None, :, None]) & 7
+    assert set(np.unique(u & 127)) == set(range(128))
+    assert set(np.unique((u >> 7) & 3)) == set(range(4))
+    assert set(np.unique(subs)) == set(range(8))
+    wd = torch.from_numpy(words).to(dev)
+    x2d = torch.from_numpy(np.random.default_rng(K).standard_normal(
+        (K * 8, 128)).astype(np.float32)).to(dev)
+    before = s1_gather.launches
+    got = s1_gather(wd, x2d, P, K)
+    torch.cuda.synchronize()
+    assert s1_gather.launches == before + 1
+    assert torch.equal(got, s1_gather_plain(wd, x2d, P, K))
+
+
+def test_b12_kernel_equals_plain_on_analytics(dev, monkeypatch):
+    """The side-plan of analytics as the smoke run plans it (P 8 x K 512
+    windows), through the routed handle."""
+    for k, v in {"GATH_TILE_NS": 1.0, "GATH_STAGE_NS": 1.0}.items():
+        monkeypatch.setattr(G, k, v)
+    h = SpmvHandle(suite_matrix("analytics", 1.0, seed=0), format="routed")
+    gm = h._routed_meta["gathered"]
+    assert (gm["P"], gm["K"]) == (8, 512)
+    x2d = torch.from_numpy(np.random.default_rng(6).standard_normal(
+        (gm["K"] * 8, 128)).astype(np.float32)).to(dev)
+    got = s1_gather(h._d["g_s1"], x2d, gm["P"], gm["K"])
+    torch.cuda.synchronize()
+    assert torch.equal(got, s1_gather_plain(h._d["g_s1"], x2d, gm["P"],
+                                            gm["K"]))
+
+
+@pytest.mark.parametrize("P,K", [(1, 1), (3, 5), (8, 512), (64, 512)])
+def test_b12_launch_shape(dev, P, K):
+    """A warp a row, 8 a CTA; one wave of resident CTAs at most."""
+    warps, rows, ctas = s1_gather_grid(P, K)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert (warps, rows) == (8, P * K * 8)
+    assert ctas == P * K or (ctas % sms == 0 and sms <= ctas < P * K)
+    assert ctas <= 8 * sms
+
+
+def test_b12_kernel_refuses_unaligned_words(dev):
+    words = torch.from_numpy(_s1_words(1, 5)).to(dev)
+    x2d = torch.ones((5 * 8, 128), device=dev)
+    s1_gather(words, x2d, 1, 5)
+    with pytest.raises(ValueError, match="aligned"):
+        s1_gather(_misaligned(words), x2d, 1, 5)
 
 
 def test_gathered_gather_on_card_is_exact(dev):

@@ -45,6 +45,7 @@ from hispmv_tpu.ops.spmv_gathered import (
 from hispmv_tpu.plan import routed as JR
 from hispmv_tpu_torch import SpmvHandle
 from hispmv_tpu_torch.formats.matrix import COOMatrix
+from hispmv_tpu_torch.ops.spmv_chunked import check_aligned
 from hispmv_tpu_torch.ops.spmv_gathered import (
     gathered_gather_apply,
     pack_gathered,
@@ -311,6 +312,20 @@ def test_wrappers_on_cpu_take_plain_versions():
                                spmv_gathered_tiles_plain(*args), rtol=0,
                                atol=0)
     assert (s1_gather.launches, spmv_gathered_tiles.launches) == (b12, b13)
+
+
+@pytest.mark.parametrize("name", ["s1", "s2", "s3", "vals", "word"])
+def test_alignment_check_on_packed_arrays(name):
+    """The packer's arrays start on a 16-byte boundary (B12 reads its
+    words, B11 its routes and values by 16 bytes); a view one element in
+    is refused."""
+    _, _, t, x2d = _tile_tensors()
+    a = t[name]
+    check_aligned("s1_gather", a, x2d)
+    flat = a.reshape(-1)
+    with pytest.raises(ValueError, match="s1_gather.*16-byte"):
+        check_aligned("s1_gather", flat[1:])
+    check_aligned("s1_gather", flat[4:])
 
 
 def test_wrappers_reject_bad_arguments():

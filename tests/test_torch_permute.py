@@ -7,7 +7,10 @@ A permutation does no arithmetic, so every comparison here is exact:
 - ``pack_stage`` equals the JAX packer;
 - ``permute_stage_plain`` equals ``permute_stage_pallas`` in interpret mode
   bit for bit on identical arrays;
-- ``permute_apply`` equals ``x[perm]`` bit for bit.
+- ``permute_apply`` equals ``x[perm]`` bit for bit, also on a view that
+  is not 16-byte aligned (the kernel reads by 16 bytes; ``permute_apply``
+  copies such a view first);
+- the wrapper's alignment check refuses a view off a 16-byte boundary.
 """
 
 import jax.numpy as jnp
@@ -19,6 +22,7 @@ from hispmv_tpu.ops.permute import pack_stage as jpack_stage
 from hispmv_tpu.ops.permute import permute_stage_pallas
 from hispmv_tpu.plan.permute import build_permute_plan as jbuild_permute_plan
 from hispmv_tpu_torch import native
+from hispmv_tpu_torch.ops.spmv_chunked import check_aligned
 from hispmv_tpu_torch.ops.permute import (
     pack_permute_into,
     pack_permute_plan,
@@ -125,6 +129,31 @@ def test_permute_apply_equals_gather(n):
     longer = torch.from_numpy(np.concatenate([x, np.ones(5, np.float32)]))
     np.testing.assert_array_equal(
         permute_apply(dev, dev["arrays"], longer).numpy(), x[perm])
+
+
+@pytest.mark.parametrize("offset", [1, 2, 3, 4])
+def test_permute_apply_on_a_view_equals_gather(offset):
+    """x a view ``offset`` elements into a longer array, n a whole number
+    of windows, so that S1 reads the view without padding it."""
+    n = 5 * WINDOW
+    perm = _perm(n)
+    dev = pack_permute_plan(build_permute_plan(perm), device="cpu")
+    x = np.random.default_rng(offset).standard_normal(n + offset).astype(
+        np.float32)
+    view = torch.from_numpy(x)[offset:]
+    assert (view.data_ptr() % 16 == 0) == (offset == 4)
+    y = permute_apply(dev, dev["arrays"], view)
+    np.testing.assert_array_equal(y.numpy(), x[offset:][perm])
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.float32])
+def test_alignment_check_refuses_views_off_16_bytes(dtype):
+    base = torch.zeros(64, dtype=dtype)  # the allocator aligns to 64 bytes
+    assert base.data_ptr() % 16 == 0
+    check_aligned("permute_stage", base, base[4:], base[8:].view(7, 8))
+    for off in (1, 2, 3, 5):
+        with pytest.raises(ValueError, match="permute_stage.*16-byte"):
+            check_aligned("permute_stage", base, base[off:])
 
 
 def test_panel_permute_apply_from_equals_gather():
