@@ -152,6 +152,7 @@ from hispmv_tpu_torch.ops.spmv_gathered import (
     s1_gather,
     s1_gather_grid,
     s1_gather_plain,
+    spmv_gathered_grid,
     spmv_gathered_tiles,
     spmv_gathered_tiles_plain,
 )
@@ -1462,13 +1463,15 @@ def gathered_cases(gath):
     x2d = _gathered_x(h, xd).reshape(-1, 128)
     xg = gathered_gather_apply(d, gm, "g_", x2d)
     warps, rows, ctas = s1_gather_grid(gm["P"], gm["K"])
+    threads, tctas, resident = spmv_gathered_grid(gm["nch"] * gm["tchunk"])
     return [
         ("s1_gather", f"{GATHERED_FIXTURE}: P {gm['P']} x K {gm['K']} "
          f"windows, {rows} rows, {warps} warps a CTA, {ctas} CTAs",
          (d["g_s1"], x2d, gm["P"], gm["K"])),
         ("spmv_gathered", f"{GATHERED_FIXTURE}: {gm['T']} tiles, {nyt} y "
-         "tiles", (d["g_vals"], d["g_word"], d["g_byt"], xg, nyt, gm["nch"],
-                   gm["tchunk"])),
+         f"tiles, {threads} threads a CTA, {tctas} CTAs, {resident} "
+         "resident an SM", (d["g_vals"], d["g_word"], d["g_byt"], xg, nyt,
+                            gm["nch"], gm["tchunk"])),
     ]
 
 

@@ -38,18 +38,35 @@
 // lane, sublane) into one read: c = subC(s, j), L = laneB(c, j), r =
 // subA(c, L), a[r][L], each field read from the route word at the cell
 // named.
-// Design: one CTA of 1024 threads per tile, one thread per slot.  The route
-// words go to shared memory (the composition reads them at other cells),
-// and the prefix is tile_prefix.cuh's block scan into shared memory, in
-// fp64: a row's sum is the difference of two prefixes of the whole tile,
-// so an fp32 prefix errs by ~1e-5 of the tile's running sum and cancels a
-// small row's sum away (one y of the analytics stand-in, 303,813 rows,
-// was off the float64 golden by 25% on an H100); products of two floats
-// are exact in fp64, and the difference is rounded to fp32 once.  Each
-// nonzero output is an atomicAdd, since many tiles add into one y tile.
-// Padding tiles (route 0 both ways, byt 0) give exact zeros and add
-// nothing.  Bound: bytes of vals, word and xg (12 per slot) read once; y
-// tiles are touched by atomics that mostly hit L2.
+// Design: 256 threads a tile, warp w on row w.  Loads: lane l takes slots
+// 4l..4l+3 of its row as one float4 of vals, one int4 of words and one
+// float4 of xg (one xg_rows compare a thread, as the four slots share a
+// row); the words go to shared memory by one int4 store (the composition
+// reads them at other cells).  Prefix, in fp64: a serial prefix over the
+// thread's four products, a warp-shuffle scan of the 32 lane totals (the
+// row's prefix), the 8 row totals through shared memory behind one
+// barrier (a warp adds those of the rows before its own in a loop of
+// warp-uniform length), then four prefixes a thread into s_pf (8 KB) and
+// a second barrier.  fp64 because a row's sum is the difference of two
+// prefixes of the whole tile: an fp32 prefix errs by ~1e-5 of the tile's
+// running sum and cancels a small row's sum away (one y of the analytics
+// stand-in, 303,813 rows, was off the float64 golden by 25% on an H100);
+// products of two floats are exact in fp64, and the difference is
+// rounded to fp32 once.  Clos phase: lane l resolves cells j = l + 32q
+// (q = 0..3) of its row, so that the reads of s_w[(c << 7) + j] of a warp
+// fall on 32 distinct banks (four consecutive cells a lane would conflict
+// 4 ways); its 8 source chains (4 cells x 2 routes) are independent and
+// issued together; the atomics of a warp land on 32 consecutive cells.
+// Each nonzero output is an atomicAdd, since many tiles add into one y
+// tile; a byt outside [0, y_tiles) adds nothing.  Padding tiles (route 0
+// both ways, byt 0) give exact zeros and add nothing.  One CTA a tile,
+// about 12.3 KB of shared memory and 32 registers: 8 CTAs an SM.  (A
+// persistent grid, one wave of CTAs walking tiles with the next tile's
+// loads in flight, needed 54 registers and 4 CTAs an SM and was slower
+// on analytics' 2,077 tiles in every reading.)  vals, word and xg must be
+// 16-byte aligned (the wrapper checks).  Bound: bytes of vals, word and
+// xg (12 per slot) read once; y tiles are touched by atomics that mostly
+// hit L2.
 
 #include <cuda_runtime.h>
 
@@ -57,11 +74,9 @@
 #include <cstddef>
 #include <cstdint>
 
-#include "tile_prefix.cuh"
-
 namespace {
 
-constexpr int kTile = 1024;  // slots per tile == threads per CTA (B13)
+constexpr int kTile = 1024;  // slots per tile (B13)
 constexpr int kLanes = 128;
 constexpr int kS1Warps = 8;  // B12: warps a CTA, a row each at a time
 constexpr int kS1Threads = kS1Warps * 32;
@@ -131,40 +146,101 @@ cudaError_t s1_ctas(long long rows, int* ctas) {
   return cudaSuccess;
 }
 
-// The flat slot that clos(route, .) brings to slot i, for the route held
-// in bits shift .. shift+12 of the words in s_w.
-__device__ __forceinline__ int clos_source(const unsigned* s_w, int i,
-                                           int shift) {
-  const int j = i & 127;
-  const int c = (s_w[i] >> (shift + 10)) & 7;
-  const int L = (s_w[(c << 7) + j] >> (shift + 3)) & 127;
-  const int r = (s_w[(c << 7) + L] >> shift) & 7;
-  return (r << 7) + L;
+constexpr int kGThreads = kTile / 4;  // B13: threads a tile, 4 slots each
+constexpr int kGRows = kTile / kLanes;  // B13: rows a tile, a warp each
+
+__global__ void __launch_bounds__(kGThreads, 8)
+    gathered_tile_kernel(const float4* __restrict__ vals,
+                         const int4* __restrict__ word,
+                         const int* __restrict__ byt,
+                         const float4* __restrict__ xg, long long xg_rows,
+                         float* __restrict__ y, int y_tiles) {
+  __shared__ __align__(16) unsigned s_w[kTile];
+  __shared__ __align__(16) double s_pf[kTile];
+  __shared__ double s_row[kGRows];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const long long t = blockIdx.x;
+  // slots 4 lane .. 4 lane + 3 of row warp, by 16 bytes each
+  const size_t off = static_cast<size_t>(t) * kGThreads + threadIdx.x;
+  const float4 v = vals[off];
+  const int4 w = word[off];
+  const float4 x = t * kGRows + warp < xg_rows
+                       ? xg[off]
+                       : make_float4(0.f, 0.f, 0.f, 0.f);
+  const int yt = byt[t];
+  reinterpret_cast<int4*>(s_w)[threadIdx.x] = w;
+  const double q0 = static_cast<double>(v.x) * x.x;
+  const double q1 = q0 + static_cast<double>(v.y) * x.y;
+  const double q2 = q1 + static_cast<double>(v.z) * x.z;
+  const double q3 = q2 + static_cast<double>(v.w) * x.w;
+  double inc = q3;  // the row's inclusive prefix of lane totals
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const double n = __shfl_up_sync(0xffffffffu, inc, d);
+    if (lane >= d) inc += n;
+  }
+  double pre = __shfl_up_sync(0xffffffffu, inc, 1);
+  if (lane == 0) pre = 0.0;
+  if (lane == 31) s_row[warp] = inc;
+  __syncthreads();  // s_w and the row totals complete
+  for (int r = 0; r < warp; ++r) pre += s_row[r];  // warp-uniform
+  double2* pf = reinterpret_cast<double2*>(s_pf) + 2 * threadIdx.x;
+  pf[0] = make_double2(pre + q0, pre + q1);
+  pf[1] = make_double2(pre + q2, pre + q3);
+  __syncthreads();  // s_pf complete
+  if (yt < 0 || yt >= y_tiles) return;
+  // cells j = lane + 32q of row warp; route 1 in bits 0-12, route 2 in
+  // 13-25: subA at +0, laneB at +3, subC at +10.  All 8 chains at once.
+  const int row = warp << 7;
+  unsigned wd[4], m1[4], m2[4];
+  int c1[4], c2[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) wd[q] = s_w[row + lane + 32 * q];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const int j = lane + 32 * q;
+    c1[q] = ((wd[q] >> 10) & 7) << 7;
+    c2[q] = ((wd[q] >> 23) & 7) << 7;
+    m1[q] = s_w[c1[q] + j];  // a warp: 32 distinct banks
+    m2[q] = s_w[c2[q] + j];
+  }
+  int l1[4], l2[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    l1[q] = (m1[q] >> 3) & 127;
+    l2[q] = (m2[q] >> 16) & 127;
+    m1[q] = s_w[c1[q] + l1[q]];
+    m2[q] = s_w[c2[q] + l2[q]];
+  }
+  float* yp = y + static_cast<size_t>(yt) * kTile;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const float diff = static_cast<float>(
+        s_pf[((m1[q] & 7) << 7) + l1[q]] -
+        s_pf[(((m2[q] >> 13) & 7) << 7) + l2[q]]);
+    const int i = row + lane + 32 * q;  // cell 0 is the trash cell
+    if (diff != 0.f && i != 0) atomicAdd(yp + i, diff);
+  }
 }
 
-__global__ void __launch_bounds__(kTile)
-    gathered_tile_kernel(const float* __restrict__ vals,
-                         const int* __restrict__ word,
-                         const int* __restrict__ byt,
-                         const float* __restrict__ xg, long long xg_rows,
-                         float* __restrict__ y, int y_tiles) {
-  __shared__ unsigned s_w[kTile];
-  __shared__ double s_pf[kTile];
-  __shared__ double s_warp[32];
-  const int i = threadIdx.x;
-  const size_t t = blockIdx.x;
-  const size_t off = t * kTile + i;
-  s_w[i] = static_cast<unsigned>(word[off]);
-  const long long row = static_cast<long long>(t) * 8 + (i >> 7);
-  const float x = row < xg_rows ? xg[off] : 0.f;
-  hispmv::tile_prefix(static_cast<double>(vals[off]) * x, s_warp, s_pf);
-  __syncthreads();  // s_pf and s_w complete
-  const float diff = static_cast<float>(s_pf[clos_source(s_w, i, 0)] -
-                                        s_pf[clos_source(s_w, i, 13)]);
-  const int yt = byt[t];
-  if (i != 0 && diff != 0.f && yt >= 0 && yt < y_tiles) {
-    atomicAdd(y + static_cast<size_t>(yt) * kTile + i, diff);
+// B13's resident CTAs an SM, asked of the card once (the query costs host
+// time).
+cudaError_t gathered_resident(int* occ) {
+  static std::atomic<int> resident{0};
+  int n = resident.load(std::memory_order_relaxed);
+  if (n == 0) {
+    const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &n, gathered_tile_kernel, kGThreads, 0);
+    if (e != cudaSuccess) return e;
+    resident.store(n, std::memory_order_relaxed);
   }
+  *occ = n;
+  return cudaSuccess;
+}
+
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
 }  // namespace
@@ -204,16 +280,33 @@ int hispmv_s1_gather_grid(int num_windows, int* out) {
   return 0;
 }
 
-// B13: see the file comment for the arrays.  Returns a cudaError_t code.
+// B13: see the file comment for the arrays; vals, word and xg 16-byte
+// aligned.  Returns a cudaError_t code.
 int hispmv_spmv_gathered(const float* vals, const int* word, const int* byt,
                          const float* xg, long long xg_rows, float* y,
                          int y_tiles, int num_tiles, cudaStream_t stream) {
-  if (num_tiles <= 0 || y_tiles <= 0 || xg_rows < 0) {
+  if (num_tiles <= 0 || y_tiles <= 0 || xg_rows < 0 || !aligned16(vals) ||
+      !aligned16(word) || !aligned16(xg)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  gathered_tile_kernel<<<num_tiles, kTile, 0, stream>>>(
-      vals, word, byt, xg, xg_rows, y, y_tiles);
+  gathered_tile_kernel<<<num_tiles, kGThreads, 0, stream>>>(
+      reinterpret_cast<const float4*>(vals),
+      reinterpret_cast<const int4*>(word), byt,
+      reinterpret_cast<const float4*>(xg), xg_rows, y, y_tiles);
   return static_cast<int>(cudaGetLastError());
+}
+
+// B13's launch shape for num_tiles tiles into out[3]: (threads a CTA,
+// CTAs, resident CTAs an SM).  Returns a cudaError_t code.
+int hispmv_spmv_gathered_grid(int num_tiles, int* out) {
+  if (num_tiles <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  int occ = 0;
+  const cudaError_t e = gathered_resident(&occ);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  out[0] = kGThreads;
+  out[1] = num_tiles;
+  out[2] = occ;
+  return 0;
 }
 
 }  // extern "C"

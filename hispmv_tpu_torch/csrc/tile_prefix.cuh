@@ -1,7 +1,8 @@
 // Shared device code of the tile kernels that take run sums as prefix
-// differences (spmv_routed.cu: B9 in fp64, B10 in fp32; spmv_gathered.cu:
-// B13, in fp64): the inclusive prefix of one value per thread over a CTA of 1024
-// threads, in thread order (the tile's flat slot order s*128 + j).
+// differences (spmv_routed.cu: B9 in fp64, B10 in fp32; B13 in
+// spmv_gathered.cu scans four slots a thread with its own code): the
+// inclusive prefix of one value per thread over a CTA of 1024 threads, in
+// thread order (the tile's flat slot order s*128 + j).
 //
 // The TPU builds this prefix from triangular MXU matmuls (in a bf16x3
 // split); here it is a warp-shuffle scan plus a scan of the 32 warp totals.

@@ -215,6 +215,8 @@ def get_lib() -> ctypes.CDLL:
             lib.hispmv_spmv_gathered.argtypes = [
                 ptr, ptr, ptr, ptr, ctypes.c_longlong, ptr, i32, i32, ptr,
             ]
+            lib.hispmv_spmv_gathered_grid.restype = i32
+            lib.hispmv_spmv_gathered_grid.argtypes = [i32, ptr]
             lib.hispmv_error_string.restype = ctypes.c_char_p
             lib.hispmv_error_string.argtypes = [i32]
             _lib = lib
@@ -226,7 +228,8 @@ def launch_shape(fn: str, *args) -> tuple:
     ``hispmv_*_grid`` function of ``args`` and an out array of three
     ints): (V, row slices, CTAs) of the vec streams, (warps a CTA, row
     slices, CTAs) of B6, (warps a CTA, rows, CTAs) of B12, (windows a CTA,
-    threads a CTA, CTAs) of B11; raises for sizes its launcher refuses."""
+    threads a CTA, CTAs) of B11, (threads a CTA, CTAs, resident CTAs an SM)
+    of B13; raises for sizes its launcher refuses."""
     out = (ctypes.c_int * 3)()
     check(getattr(get_lib(), fn)(*args, ctypes.addressof(out)), fn)
     return tuple(out)

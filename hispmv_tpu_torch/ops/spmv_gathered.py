@@ -18,7 +18,9 @@ kernels, so both packages can be fed identical inputs.
    the inclusive prefix over the tile's 1024 slots in fp64 (an fp32
    prefix cancels short rows' sums away), run sums as the difference of
    two Clos routes of the prefix rounded to fp32, trash cell (0,0)
-   dropped, the result added into y tile ``byt[t]``.
+   dropped, the result added into y tile ``byt[t]``.  The kernel reads
+   vals, word and xg by 16-byte loads, 256 threads a tile
+   (:func:`spmv_gathered_grid` gives its launch shape).
 
 The port packs exactly (no pow-2 chunk count); the wrappers take the JAX
 package's bucketed arrays and meta as well.
@@ -216,12 +218,14 @@ def spmv_gathered_tiles(vals3, word3, byt, xg, num_ytiles, nch, tchunk):
     [nch*tchunk] from :func:`pack_gathered`, ``xg`` f32 [<= nch*tchunk*8,
     128] from :func:`gathered_gather_apply` (missing rows read as 0).  CPU
     tensors take the plain PyTorch version; CUDA tensors launch the CUDA
-    kernel (csrc/spmv_gathered.cu) or raise."""
+    kernel (csrc/spmv_gathered.cu) or raise, also when ``vals3``,
+    ``word3`` or ``xg`` (read by 16-byte loads) is not 16-byte aligned."""
     _check_tiles(vals3, word3, byt, xg, num_ytiles, nch, tchunk)
     if xg.device.type == "cpu":
         return spmv_gathered_tiles_plain(vals3, word3, byt, xg, num_ytiles,
                                          nch, tchunk)
     check_cuda_tensors("spmv_gathered", xg, vals3, word3, byt)
+    check_aligned("spmv_gathered", vals3, word3, xg)
     lib = cuda_build.get_lib()
     y = torch.zeros((num_ytiles * 8, LANES), dtype=torch.float32,
                     device=xg.device)
@@ -237,3 +241,10 @@ def spmv_gathered_tiles(vals3, word3, byt, xg, num_ytiles, nch, tchunk):
 
 
 spmv_gathered_tiles.launches = 0  # kernel launches, for the smoke run's check
+
+
+def spmv_gathered_grid(num_tiles):
+    """B13's launch shape on ``num_tiles`` tiles: (threads a CTA, CTAs,
+    resident CTAs an SM), 256 threads and one CTA a tile.  Needs the
+    built library and a card."""
+    return cuda_build.launch_shape("hispmv_spmv_gathered_grid", num_tiles)

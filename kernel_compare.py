@@ -10,7 +10,8 @@ parent).
 
     python3 kernel_compare.py LABEL [GROUP ...]
 
-GROUPs (all when none is named): b1b7, b3, b2, b8, b6, b4, b9, b12, b11.
+GROUPs (all when none is named): b1b7, b3, b2, b8, b6, b4, b9, b12, b11,
+b13.
 
 B1's cases, at one vector: TSOPF_RS_b2383's block handle and trans5's ELLX
 overflow.  B7's: crystk03's window handle (format auto, bh 8), crystk03 as
@@ -88,6 +89,14 @@ the handles the kernels sit in (analytics' gathered ``run`` and its
 chain alone; language's rank-space ``run``, and ``linear`` at B 64 over
 5 calls), wall and device busy, and the ``-Xptxas -v`` registers of
 ``csrc/spmv_gathered.cu`` / ``csrc/permute.cu``.
+B13's group (``b13``): B13 on analytics' gathered side-plan (2,077 tiles,
+xg from the chain's gather): agreement with the plain version and with
+the CSR product over the tile slots (``chip_smoke.library_call``), the
+byte bound, the launch shape (``spmv_gathered_grid`` where the checkout
+has it), device times warm and cold in turns with CSR (the wrapper's,
+its y fill included, and the kernel's events alone); then analytics'
+gathered chain and ``run``, and the ``-Xptxas -v`` registers of
+``csrc/spmv_gathered.cu`` and ``csrc/spmv_routed.cu``.
 Exits 1 when a case disagrees, 2 without a CUDA card."""
 
 import importlib
@@ -716,12 +725,13 @@ def _flush_keys(how):
     return _FLUSH_KEYS[how]
 
 
-def own_ms(fn, cold=None, runs=cs.TIMED_RUNS, tries=3):
-    """Device time per call of ``fn`` (torch.profiler over ``runs``
-    calls, every kernel, copy and fill it runs); with ``cold`` ("write"
-    or "read"), :func:`flush_l2` runs before each call and its events are
-    left out.  A window without device time, or (cold) without the
-    flush's events, is taken again, up to ``tries`` windows, then None."""
+def own_events(fn, cold=None, runs=cs.TIMED_RUNS, tries=3):
+    """Device time per call of ``fn`` by the profiler's key, in us
+    (torch.profiler over ``runs`` calls, every kernel, copy and fill it
+    runs); with ``cold`` ("write" or "read"), :func:`flush_l2` runs
+    before each call and its events are left out.  A window without
+    device time, or (cold) without the flush's events, is taken again, up
+    to ``tries`` windows, then None."""
     from torch.profiler import ProfilerActivity, profile
 
     skip = _flush_keys(cold) if cold else set()
@@ -737,27 +747,43 @@ def own_ms(fn, cold=None, runs=cs.TIMED_RUNS, tries=3):
         events = prof.key_averages()
         if skip and not skip <= {e.key for e in events}:
             continue  # the flush went unrecorded: its time is unknown
-        us = sum(e.self_device_time_total for e in events
-                 if e.key not in skip)
-        if us > 0:
-            return us / runs / 1e3
+        got = {e.key: e.self_device_time_total / runs for e in events
+               if e.key not in skip and e.self_device_time_total > 0}
+        if got:
+            return got
     return None
+
+
+def own_ms(fn, cold=None, runs=cs.TIMED_RUNS, tries=3):
+    """Device time per call of ``fn`` (:func:`own_events` summed), ms, or
+    None."""
+    got = own_events(fn, cold, runs, tries)
+    return None if got is None else sum(got.values()) / 1e3
 
 
 COLD = (None, "write", "read")  # warm, cold after a write, after a read
 
 
-def _turns(kern, lib, names=("kernel", "index_select")):
+def _turns(kern, lib, names=("kernel", "index_select"), key=None):
     """Device times of ``kern`` and ``lib``, warm and cold after a write
     and after a read of scratch, taken in turns (kernel, library,
-    library, kernel), GATHER_TURNS times; then each one's wall (median
-    of CUDA events): a text."""
+    library, kernel), GATHER_TURNS times; with ``key``, also the time of
+    ``kern``'s events whose name holds it, from the same windows; then
+    each one's wall (median of CUDA events): a text."""
     fns = dict(zip(names, (kern, lib)))
     got = {(n, c): [] for n in names for c in COLD}
+    if key:
+        got.update({(f"{names[0]} {key} alone", c): [] for c in COLD})
     for _ in range(GATHER_TURNS):
         for n in (names[0], names[1], names[1], names[0]):
             for cold in COLD:
-                got[n, cold].append(own_ms(fns[n], cold))
+                ev = own_events(fns[n], cold)
+                got[n, cold].append(
+                    None if ev is None else sum(ev.values()) / 1e3)
+                if key and n == names[0]:
+                    us = sum(v for k, v in (ev or {}).items() if key in k)
+                    got[f"{n} {key} alone", cold].append(
+                        us / 1e3 if us > 0 else None)
     out = [f"{n} {'warm' if cold is None else 'cold ' + cold} "
            + " / ".join("-" if t is None else f"{t:.4f}" for t in ts) + " ms"
            for (n, cold), ts in got.items()]
@@ -854,6 +880,58 @@ def b12_report(label, rng):
     return ok
 
 
+def b13_report(label, rng):
+    """B13 on analytics' side-plan (2,077 tiles): agreement with the plain
+    version and with CSR over the tile slots, the byte bound, the launch
+    shape, device times warm and cold in turns with CSR (the wrapper's,
+    its y fill included, and the kernel's alone); then the gathered chain
+    alone and the handle's ``run``, and the registers of
+    ``spmv_gathered.cu`` and ``spmv_routed.cu``."""
+    sg = importlib.import_module("hispmv_tpu_torch.ops.spmv_gathered")
+    h, xd, y_in = gathered_handle(rng)
+    d, gm, nyt = h._d, h._routed_meta["gathered"], h._routed_meta["nyt"]
+    x2d = cs._gathered_x(h, xd).reshape(-1, 128)
+    xg = sg.gathered_gather_apply(d, gm, "g_", x2d)
+    args = (d["g_vals"], d["g_word"], d["g_byt"], xg, nyt, gm["nch"],
+            gm["tchunk"])
+    Tp = gm["nch"] * gm["tchunk"]
+    shape = f"{gm['T']} tiles, {nyt} y tiles"
+    if hasattr(sg, "spmv_gathered_grid"):
+        threads, ctas, resident = sg.spmv_gathered_grid(Tp)
+        shape += (f", {threads} threads a CTA, {ctas} CTAs, {resident} "
+                  "resident an SM")
+    else:
+        shape += f", {Tp} CTAs of 1024 threads"
+    kern = lambda: sg.spmv_gathered_tiles(*args)  # noqa: E731
+    y = kern()
+    agree, _, line = cs._agree("spmv_gathered", y, cs.PLAIN["spmv_gathered"](
+        *args))
+    lib = cs.library_call("spmv_gathered", args)
+    lib_ok, _, _ = cs._agree("spmv_gathered", lib().reshape(y.shape), y)
+    bound, by = cs.kernel_bound("spmv_gathered", args, {}, y)
+    phase4 = []
+    for fn in (kern, lib):
+        cs.median_ms(fn)
+        phase4.append(cs._ms(cs.device_ms(fn)))
+    ok = agree and lib_ok
+    print(f"{label} B13 [{shape}]: {line}, {'ok' if agree else 'FAIL'}, "
+          f"CSR {'agrees' if lib_ok else 'DISAGREES'}; bound {bound:.4f} ms "
+          f"({by}); as phase 4: kernel {phase4[0]}, CSR {phase4[1]}; "
+          f"{_turns(kern, lib, ('B13', 'CSR'), 'gathered_tile_kernel')}",
+          flush=True)
+
+    def chain():
+        g = sg.gathered_gather_apply(d, gm, "g_", x2d)
+        return sg.spmv_gathered_tiles(d["g_vals"], d["g_word"], d["g_byt"],
+                                      g, nyt, gm["nch"], gm["tchunk"])
+
+    _handle_lines(label, "analytics gathered", h, xd, y_in, chain)
+    for src in ("spmv_gathered.cu", "spmv_routed.cu"):
+        for line in ptxas_registers(src):
+            print(f"{label} ptxas {src} {line}", flush=True)
+    return ok
+
+
 def permute_variant(windows):
     """``csrc/permute.cu`` built alone at HISPMV_PERMUTE_WINDOWS =
     ``windows`` into a temporary library: its stage call on (route, a,
@@ -939,7 +1017,8 @@ def b11_report(label, rng):
 GROUPS = {"b1b7": b1_b7_cases, "b3": b3_cases, "b2": b2_cases,
           "b8": b8_cases, "b6": b6_cases, "b4": b4_cases}
 # groups that print their own lines, last
-REPORTS = {"b9": b9_report, "b12": b12_report, "b11": b11_report}
+REPORTS = {"b9": b9_report, "b12": b12_report, "b11": b11_report,
+           "b13": b13_report}
 
 
 def main(label: str, groups=()) -> int:

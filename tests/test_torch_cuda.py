@@ -86,6 +86,7 @@ from hispmv_tpu_torch.ops.spmv_gathered import (
     s1_gather,
     s1_gather_grid,
     s1_gather_plain,
+    spmv_gathered_grid,
     spmv_gathered_tiles,
     spmv_gathered_tiles_plain,
 )
@@ -1719,6 +1720,94 @@ def test_b13_kernel_matches_plain(dev, pad):
     want = G.gathered_matvec_numpy(plan, x)
     got = y.cpu().numpy().reshape(-1)[: len(want)]
     assert error_stats(got, want, rtol=1e-3).ok
+
+
+# tile counts: one, a few, one past a wave of 132 SMs x 8 CTAs, analytics'
+B13_TILES = [1, 3, 1057, 2077]
+
+
+def _b13_random(T, nyt, dev, short=0, seed=0):
+    """B13's arguments on T random tiles: random vals, 26-bit words (two
+    random 13-bit routes), byt with repeats inside [0, nyt), and xg short
+    by ``short`` rows."""
+    rng = np.random.default_rng(seed + T)
+    vals = rng.standard_normal((T, 8, 128)).astype(np.float32)
+    word = rng.integers(0, 1 << 26, (T, 8, 128), dtype=np.int32)
+    byt = rng.integers(0, nyt, T).astype(np.int32)
+    byt[-1] = byt[0]
+    xg = rng.standard_normal((T * 8 - short, 128)).astype(np.float32)
+    return (*(torch.from_numpy(a).to(dev) for a in (vals, word, byt, xg)),
+            nyt, T, 1)
+
+
+@pytest.mark.parametrize("T", B13_TILES)
+def test_b13_kernel_matches_plain_on_random_words(dev, T):
+    args = _b13_random(T, 64, dev)
+    before = spmv_gathered_tiles.launches
+    y = spmv_gathered_tiles(*args)
+    torch.cuda.synchronize()
+    assert spmv_gathered_tiles.launches == before + 1
+    assert_close(y, spmv_gathered_tiles_plain(*args))
+
+
+def test_b13_kernel_bad_y_tile_adds_nothing(dev):
+    """byt with repeats and one y tile past num_ytiles: that tile adds
+    nothing, the others add up."""
+    vals, word, byt, xg, nyt, nch, tchunk = _b13_random(3, 2, dev)
+    byt = torch.tensor([1, 2, 1], dtype=torch.int32, device=dev)
+    args = (vals, word, byt, xg, nyt, nch, tchunk)
+    y = spmv_gathered_tiles(*args)
+    assert_close(y, spmv_gathered_tiles_plain(*args))
+    alone = spmv_gathered_tiles(vals[:1], word[:1], byt[:1], xg[:8], nyt, 1,
+                                1)
+    assert float(alone.abs().max()) > 0
+    assert_close(spmv_gathered_tiles(vals[2:], word[2:], byt[:1],
+                                     xg[16:], nyt, 1, 1) + alone, y)
+
+
+@pytest.mark.parametrize("short", [3, 16, 8 * 1057])
+def test_b13_kernel_short_xg(dev, short):
+    """xg short by 3 rows (the last tile partly covered), by two whole
+    tiles and by 1057 tiles: the missing rows read as 0."""
+    args = _b13_random(2077, 64, dev, short=short)
+    y = spmv_gathered_tiles(*args)
+    assert_close(y, spmv_gathered_tiles_plain(*args))
+
+
+@pytest.mark.parametrize("n", [(4096, 16384, 60_000, 1),
+                               (8192, 8192, 20_000, 0)])
+def test_b13_kernel_is_the_float64_row_sum_rounded_once(dev, n):
+    """The fp64 prefix kept on the card: a short row's sum keeps its
+    digits (an fp32 prefix errs by ~1e-5 of the tile's running sum)."""
+    R, C, nnz, seed = n
+    coo = _unique_coo(R, C, nnz, seed)
+    plan = G.build_gathered_plan(coo.rows, coo.cols, coo.values, coo.shape,
+                                 C // 1024)[0]
+    arrays, meta = pack_gathered(plan)
+    d = {k: torch.from_numpy(v).to(dev) for k, v in arrays.items()}
+    x = np.random.default_rng(1).standard_normal(C).astype(np.float32)
+    xg = torch.from_numpy(G.gather_x_numpy(plan, x)).to(dev).reshape(-1, 128)
+    y = spmv_gathered_tiles(d["vals"], d["word"], d["byt"], xg,
+                            plan.num_ytiles, meta["nch"], meta["tchunk"])
+    want = G.gathered_matvec_numpy(plan, x)
+    np.testing.assert_allclose(y.cpu().numpy().reshape(-1)[: R], want,
+                               rtol=1e-6, atol=1e-9)
+
+
+def test_b13_kernel_refuses_unaligned_tensors(dev):
+    args = list(_b13_random(3, 2, dev))
+    spmv_gathered_tiles(*args)
+    for k in (0, 1, 3):  # vals, word, xg: read by 16 bytes
+        bad = list(args)
+        bad[k] = _misaligned(args[k])
+        with pytest.raises(ValueError, match="aligned"):
+            spmv_gathered_tiles(*bad)
+
+
+@pytest.mark.parametrize("T", B13_TILES)
+def test_b13_launch_shape(dev, T):
+    """256 threads and a CTA a tile, 8 resident an SM (32 registers)."""
+    assert spmv_gathered_grid(T) == (256, T, 8)
 
 
 def test_gathered_routed_handle_on_card(dev, monkeypatch):

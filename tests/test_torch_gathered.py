@@ -14,7 +14,8 @@ package.
   arithmetic.
 - The plain version of B13 matches ``spmv_gathered_tiles_pallas`` at
   rtol=1e-5 plus 1e-5*max|y| (the prefix sums and the y additions run in
-  other orders) and the float64 golden at rtol=1e-3.
+  other orders), on planned tiles and on random 26-bit words with shared
+  y tiles and a short xg, and the float64 golden at rtol=1e-3.
 - With cheap gathered constants (``GATH_TILE_NS``, ``GATH_STAGE_NS`` and
   ``GATH_LAUNCH_NS`` lowered on both packages' ``plan.gathered``), the
   routed planner diverts tiles to a side-plan equal to the JAX planner's,
@@ -288,6 +289,41 @@ def test_plain_b13_is_the_float64_row_sum_rounded_once(name):
     want = G.gathered_matvec_numpy(p, x)
     np.testing.assert_allclose(y.numpy().reshape(-1)[: shape[0]], want,
                                rtol=1e-6, atol=1e-9)
+
+
+def _random_tiles(Tp, nyt, seed):
+    """Random B13 arrays that no planner built: vals, 26-bit words (two
+    random 13-bit routes) and byt with repeats inside [0, nyt)."""
+    rng = np.random.default_rng(seed)
+    vals = rng.standard_normal((Tp, 8, 128)).astype(np.float32)
+    word = rng.integers(0, 1 << 26, (Tp, 8, 128), dtype=np.int32)
+    byt = rng.integers(0, nyt, Tp).astype(np.int32)
+    byt[-1] = byt[0]  # a repeat, whatever the draw
+    return vals, word, byt
+
+
+@pytest.mark.parametrize("short", [0, 3])
+@pytest.mark.parametrize("tchunk", [1, 32])
+def test_plain_b13_matches_pallas_on_random_words(tchunk, short):
+    """Random routes, y tiles shared by several tiles, and xg short by
+    ``short`` rows (read as 0): the Clos composition of the plain version
+    is the TPU kernel's."""
+    Tp, nyt = max(tchunk, 5), 3
+    vals, word, byt = _random_tiles(Tp, nyt, tchunk + short)
+    assert len(np.unique(byt)) < Tp
+    xg = np.random.default_rng(7).standard_normal(
+        (Tp * 8 - short, 128)).astype(np.float32)
+    nch = Tp // tchunk
+    v3 = vals.reshape(nch, tchunk * 8, 128)
+    w3 = word.reshape(nch, tchunk * 8, 128)
+    y = spmv_gathered_tiles_plain(torch.from_numpy(v3), torch.from_numpy(w3),
+                                  torch.from_numpy(byt), torch.from_numpy(xg),
+                                  nyt, nch, tchunk)
+    jy = spmv_gathered_tiles_pallas(jnp.asarray(v3), jnp.asarray(w3),
+                                    jnp.asarray(byt), jnp.asarray(xg), nyt,
+                                    nch, tchunk, interpret=True)
+    assert y.shape == (nyt * 8, 128)
+    assert_close(y.numpy(), np.asarray(jy))
 
 
 def _tile_tensors():
