@@ -6,7 +6,7 @@ Run from the root of a checkout, with no arguments:
     python3 chip_smoke.py
 
 It builds the hand-written CUDA kernels from ``hispmv_tpu_torch/csrc/``
-(B1-B13), then drives eight paths of the port, each run with the launch
+(B1-B13), then drives nine paths of the port, each run with the launch
 counts zeroed just before it and read just after:
 
 - ``prepare`` -> ``SpmvHandle.run`` and ``Accelerator`` (formats window,
@@ -41,7 +41,21 @@ counts zeroed just before it and read just after:
   the CSR product; the CLI in process (``@trans5 --format tune --measure
   3``: the shortlist timed on the card, the winner verified and timed
   beside trans5's ``auto`` handle); and the model-only tuner's pick on
-  every fixture beside ``choose_format``'s.
+  every fixture beside ``choose_format``'s;
+- persistence: the plan of every format's handle above (window, ELLX with
+  its overflow, chunked, tiled and paneled block, routed in original and
+  rank space and with its gathered side-plan, split with a routed and an
+  ELLX body) saved with ``save_plan``, loaded with ``load_plan``, rebuilt
+  with ``SpmvHandle.from_plan`` and run on the original's inputs: y
+  against the golden and the original's y, launches of one run kernel by
+  kernel against the original's, file size and seconds beside the
+  original ``prepare``; the crystk03 stand-in written with ``save_mtx``
+  and read by ``load_mtx`` through the native parser and the numpy branch;
+  the Flan_1565-sized matrix packed by the native packer and by the numpy
+  branch (plans array-equal); ``profile_trace`` around TSOPF_RS_b2383
+  block runs (the trace must name B1's kernel) and ``PowerMonitor`` over
+  2.5 s of Flan_1565-sized runs (finite watts within [50 W, the card's
+  power limit]; energy a run), all in a ``Tracer``.
 
 Every result is held to a float64 golden at rtol 1e-3.  Then each kernel
 is compared with its plain PyTorch version on the arrays the paths gave it
@@ -85,6 +99,7 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -109,6 +124,8 @@ from hispmv_tpu_torch.dist import (
 )
 from hispmv_tpu_torch.dist.dryrun import dryrun_multichip
 from hispmv_tpu_torch.dist.shard import device_bytes
+from hispmv_tpu_torch import native
+from hispmv_tpu_torch.formats.mtx import _parse_body_numpy, load_mtx, save_mtx
 from hispmv_tpu_torch.formats.synth import blocked_coo, suite_matrix
 from hispmv_tpu_torch.models import (
     AcceleratorLayerManager,
@@ -177,6 +194,8 @@ from hispmv_tpu_torch.ops.spmv_windowed import (
 )
 from hispmv_tpu_torch.ops.spmv_ellx import EllxPlan
 from hispmv_tpu_torch.plan import gathered as gathered_plan
+from hispmv_tpu_torch.plan import load_plan, save_plan
+from hispmv_tpu_torch.plan.blocks import _pack_blocks_numpy
 from hispmv_tpu_torch.plan.routed import RoutedPlan
 from hispmv_tpu_torch.plan.split import build_split_plan
 from hispmv_tpu_torch.tune import DSE, tune
@@ -184,6 +203,7 @@ from hispmv_tpu_torch.tune.dse import measured_shortlist
 from hispmv_tpu_torch.tune.cost import V5E
 from hispmv_tpu_torch.utils.errors import error_stats
 from hispmv_tpu_torch.utils.metrics import read_metrics
+from hispmv_tpu_torch.utils.trace import PowerMonitor, Tracer, profile_trace
 # the port's timing harness: the median of TIMED_RUNS calls between CUDA
 # events recorded around each, after a warm-up
 from hispmv_tpu_torch.utils.timing import TIMED_RUNS, bench_spmv, median_ms
@@ -388,6 +408,11 @@ def gpu_line() -> str:
         capture_output=True, text=True, timeout=60, check=True,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+def power_limit_w(gpu: str) -> float:
+    """The watts of ``gpu_line()``'s power limit ("..., 700.00 W")."""
+    return float(gpu.rsplit(",", 1)[1].split()[0])
 
 
 def launches() -> dict:
@@ -974,7 +999,8 @@ def ops_entry(handles, fixtures, counts, failures):
 
 
 def _layout(h):
-    return [n for n in ("chunked", "paneled", "tiled") if getattr(h, "_" + n)]
+    return [n for n in ("chunked", "paneled", "tiled")
+            if getattr(h, "_" + n, False)]
 
 
 def large_block_path(counts, failures):
@@ -982,9 +1008,9 @@ def large_block_path(counts, failures):
     chunked layout's budget, ``run`` against the float64 golden through B4
     or B3, and ``linear`` through B6 where a batch is given; counts zeroed
     before each run and read after.  Returns the rows and, per run, the
-    handle and its x."""
+    handle and its x, and the matrices."""
     rng = np.random.default_rng(SEED + 7)
-    rows_out, handles = [], {}
+    rows_out, handles, coos = [], {}, {}
     for label, R, C, nnz, layout, kernel, B in LARGE_BLOCK_RUNS:
         t0 = time.perf_counter()
         coo = blocked_coo(R, C, nnz, seed=SEED, spread_frac=0.4)
@@ -1023,7 +1049,8 @@ def large_block_path(counts, failures):
                                           failures)
         rows_out.append(row)
         handles[label] = (h, xd)
-    return rows_out, handles
+        coos[label] = coo
+    return rows_out, handles, coos
 
 
 def _large_linear(label, h, coo, a, B, rng, counts, failures):
@@ -1091,7 +1118,7 @@ def gathered_path(counts, failures):
     phase only), so that the planner diverts its scattered tiles to a
     gathered side-plan; ``run`` against the golden, then ``linear`` at
     GATHERED_BATCH vector by vector.  Counts zeroed before each run and
-    read after.  Returns the row and (handle, x)."""
+    read after.  Returns the row, (handle, x) and the matrix."""
     coo = suite_matrix(GATHERED_FIXTURE, 1.0, seed=SEED)
     label = f"{GATHERED_FIXTURE} routed gathered"
     saved = {k: getattr(gathered_plan, k) for k in GATHERED_COSTS}
@@ -1109,7 +1136,7 @@ def gathered_path(counts, failures):
     g = h.plan.gathered
     if h.format != "routed" or g is None:
         failures.append(f"{label}: no gathered side-plan")
-        return None, None
+        return None, None, coo
     nstreams = len(h.plan.streams)
     diverted = int(np.count_nonzero(g.vals))
     log(f"  {label}: {coo.shape[0]}x{coo.shape[1]}, nnz {coo.nnz}; gathered "
@@ -1166,7 +1193,7 @@ def gathered_path(counts, failures):
         f"({st.num_mismatches} past rtol {RTOL} + atol {atol:.2e}), "
         f"launches of one call {once}, median linear {lin_ms:.4f} ms")
     row["linear"] = {"batch": B, "linear_ms": lin_ms, "launches": used}
-    return row, (h, xd)
+    return row, (h, xd), coo
 
 
 # phase 3h: the tuned entry
@@ -1201,14 +1228,15 @@ def _busy_line(ms, busy):
     return f"{ms:.4f} ms (device busy {_ms(busy)})"
 
 
-def split_path(fixtures, handles, counts, failures):
+def split_path(fixtures, handles, counts, failures, keep):
     """Phase 3h, part 1: the split format on trans5, with the planner's
     routed body (``prepare(coo, format="split")``) and with an ELLX body
     (``build_split_plan(body_format="ellx")`` then ``from_plan``): ``run``
     at alpha 2, beta 0.5 and ``linear`` with a bias, each held to the
     float64 golden and its launches checked; timed beside trans5's routed
     handle and the CSR product on the same inputs.  Counts zeroed before
-    each run and read after."""
+    each run and read after.  Each handle is kept in ``keep`` by its
+    label, with its prepare seconds."""
     coo = fixtures[SPLIT_FIXTURE]
     a = csr_of(SPLIT_FIXTURE, coo)
     hr, _ = handles["trans5 routed"]
@@ -1322,7 +1350,7 @@ def split_path(fixtures, handles, counts, failures):
                          "routed_linear_busy_ms": rl_busy,
                          "csr_ms": csrb_ms, "csr_busy_ms": csrb_busy}
         rows_out.append(row)
-        del h
+        keep[label] = (h, prep_s)
     return rows_out
 
 
@@ -1409,13 +1437,325 @@ def model_tune_picks(fixtures, failures):
     return picks
 
 
-def tuned_entry(fixtures, handles, runs, counts, failures):
+def tuned_entry(fixtures, handles, runs, counts, failures, keep):
     """Phase 3h: the split format, the CLI's measured tune and model-only
-    tune picks."""
-    split_rows = split_path(fixtures, handles, counts, failures)
+    tune picks; the split handles are kept in ``keep``."""
+    split_rows = split_path(fixtures, handles, counts, failures, keep)
     cli_row = cli_path(fixtures, handles, runs, counts, failures)
     picks = model_tune_picks(fixtures, failures)
     return {"split": split_rows, "cli": cli_row, "tune_picks": picks}
+
+
+# phase 3i: persistence, native parse and pack, trace.  (label, where the
+# handle was built, its key there, the matrix); every format the earlier
+# phases build, at full width
+PERSIST_RUNS = [
+    ("crystk03 window", "main", "crystk03 auto", "crystk03"),
+    ("trans5 ellx with overflow", "main", "trans5 auto", "trans5"),
+    ("TSOPF_RS_b2383 chunked block", "main", "TSOPF_RS_b2383 block",
+     "TSOPF_RS_b2383"),
+    ("trans5 routed", "main", "trans5 routed", "trans5"),
+    ("ford2 routed", "main", "ford2 routed", "ford2"),
+    ("language routed rank space", "main", "language routed rank",
+     "language"),
+    ("analytics routed gathered", "gathered", None, None),
+    ("trans5 split routed body", "split", "trans5 split", "trans5"),
+    ("trans5 split ellx body", "split", "trans5 split ellx body", "trans5"),
+    ("Flan_1565-sized tiled block", "large", "Flan_1565-sized block", None),
+    ("200000x5120000 paneled block", "large", "200000x5120000 block", None),
+]
+PERSIST_ALPHA, PERSIST_BETA = 1.25, 0.75
+MTX_FIXTURE = "crystk03"
+TRACE_RUNS = 20  # runs of the TSOPF block handle under profile_trace
+POWER_S = 3.5  # seconds of back-to-back Flan-sized runs under PowerMonitor
+# the energy a run takes reads only samples this long after the runs began:
+# the first sample is taken before any run, and nvidia-smi's power.draw
+# may average over the last second
+POWER_SETTLE_S = 1.0
+POWER_MIN_W = 50.0
+
+
+def _prepare_s(label, where, key, runs, large_runs, gath_row, split_keep):
+    if where == "main":
+        return next(r["prepare_s"] for r in runs if r["run"] == key)
+    if where == "large":
+        return next(r["prepare_s"] for r in large_runs if r["run"] == key)
+    if where == "gathered":
+        return gath_row["prepare_s"]
+    return split_keep[key][1]
+
+
+def persist_one(label, h, coo, prep_s, tmp, tracer, failures):
+    """save_plan -> load_plan -> from_plan -> run on the inputs the original
+    handle runs: y against the golden (check_run's bound) and the original
+    y (rtol 1e-5 + 1e-5 max|y|), and the launches of one run kernel by
+    kernel.  The file is removed before the next handle's is written."""
+    rng = np.random.default_rng(SEED + 19)
+    x, y_in = inputs(*coo.shape, rng)
+    xd, yd = torch.from_numpy(x).cuda(), torch.from_numpy(y_in).cuda()
+    zero_launches()
+    y0 = h.run(xd, yd, PERSIST_ALPHA, PERSIST_BETA)
+    torch.cuda.synchronize()
+    once0 = launches()
+    path = os.path.join(tmp, "plan.npz")
+    t0 = time.perf_counter()
+    with tracer.span("save_plan"):
+        save_plan(path, h.plan, compress=False)
+    save_s = time.perf_counter() - t0
+    mb = os.path.getsize(path) / 2**20
+    t0 = time.perf_counter()
+    with tracer.span("load_plan"):
+        plan = load_plan(path)
+    load_s = time.perf_counter() - t0
+    os.remove(path)
+    t0 = time.perf_counter()
+    with tracer.span("from_plan"):
+        h2 = SpmvHandle.from_plan(plan, device="cuda")
+        torch.cuda.synchronize()
+    from_s = time.perf_counter() - t0
+    zero_launches()
+    with tracer.span("run"):
+        y = h2.run(xd, yd, PERSIST_ALPHA, PERSIST_BETA)
+        torch.cuda.synchronize()
+    once = launches()
+    want = (PERSIST_ALPHA * coo.matvec(x.astype(np.float64))
+            + PERSIST_BETA * y_in)
+    es = error_stats(y.cpu().numpy(), want, rtol=RTOL)
+    diff = float((y - y0).abs().max())
+    ymax = float(y0.abs().max())
+    same = bool(((y - y0).abs() <= KERNEL_RTOL * y0.abs()
+                 + KERNEL_RTOL * ymax).all())
+    log(f"  {label}: {h.format} ({'/'.join(_layout(h)) or '-'}), file "
+        f"{mb:.1f} MB, save {save_s:.2f} s, load {load_s:.2f} s, from_plan "
+        f"{from_s:.2f} s (prepare {prep_s:.2f} s); reloaded run: max rel "
+        f"err {es.max_rel_error:.3e} ({es.num_mismatches} past rtol {RTOL}"
+        f"), max |y - y original| {diff:.3e} (max |y| {ymax:.3e}), "
+        f"launches {'the same' if once == once0 else f'{once} != {once0}'}")
+    if not es.ok or y.shape != want.shape or not torch.isfinite(y).all():
+        failures.append(f"{label}: the reloaded handle's run is off the "
+                        "golden")
+    if not same:
+        failures.append(f"{label}: the reloaded handle's y differs from the "
+                        "original's past rtol 1e-5")
+    if once != once0 or sum(once.values()) == 0:
+        failures.append(f"{label}: launches of one run {once}, the original "
+                        f"handle's {once0}")
+    if h2.format != h.format or _layout(h2) != _layout(h):
+        failures.append(f"{label}: reloaded as {h2.format} {_layout(h2)}, "
+                        f"was {h.format} {_layout(h)}")
+    del h2, plan
+    return {"run": label, "format": h.format, "file_mb": mb,
+            "save_s": save_s, "load_s": load_s, "from_plan_s": from_s,
+            "prepare_s": prep_s, "max_rel_err": es.max_rel_error,
+            "max_abs_diff_original": diff, "launches": once}
+
+
+def _mtx_body(path):
+    """(body, nnz, has_value) of a MatrixMarket file, as load_mtx reads
+    them past the header and the comments."""
+    with open(path) as f:
+        has_value = "pattern" not in f.readline()
+        line = f.readline()
+        while line.startswith("%") or not line.strip():
+            line = f.readline()
+        return f.read(), int(line.split()[2]), has_value
+
+
+def native_mtx(fixtures, tmp, tracer, counts, failures):
+    """The crystk03 stand-in written with save_mtx and read by load_mtx;
+    its body parsed by the native parser and by the numpy branch, timed
+    and compared; then prepare -> run."""
+    coo = fixtures[MTX_FIXTURE]
+    path = os.path.join(tmp, f"{MTX_FIXTURE}.mtx")
+    t0 = time.perf_counter()
+    save_mtx(path, coo)
+    write_s = time.perf_counter() - t0
+    mb = os.path.getsize(path) / 2**20
+    t0 = time.perf_counter()
+    with tracer.span("load_mtx native"):
+        m = load_mtx(path)
+    load_s = time.perf_counter() - t0
+    body, nnz, has_value = _mtx_body(path)
+    os.remove(path)
+    t0 = time.perf_counter()
+    got = native.parse_mtx_body(body.encode(), nnz, has_value)
+    native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = _parse_body_numpy(body, nnz, "real" if has_value else "pattern")
+    numpy_s = time.perf_counter() - t0
+    del body
+    equal = got is not None and all(np.array_equal(a, b)
+                                    for a, b in zip(got, want))
+    # values at the fp32 round trip of "%.9g"
+    fixture = (m.shape == coo.shape and np.array_equal(m.rows, coo.rows)
+               and np.array_equal(m.cols, coo.cols)
+               and np.array_equal(m.values, coo.values))
+    if not equal:
+        failures.append(f"load_mtx {MTX_FIXTURE}: native and numpy differ")
+    if not fixture:
+        failures.append(f"load_mtx {MTX_FIXTURE}: not the fixture written")
+    zero_launches()
+    t0 = time.perf_counter()
+    with tracer.span("prepare"):
+        h = prepare(m)
+        torch.cuda.synchronize()
+    prep_s = time.perf_counter() - t0
+    rng = np.random.default_rng(SEED + 20)
+    x, y_in = inputs(*m.shape, rng)
+    xd, yd = torch.from_numpy(x).cuda(), torch.from_numpy(y_in).cuda()
+    with tracer.span("run"):
+        y = h.run(xd, yd, ALPHA, BETA)
+        torch.cuda.synchronize()
+    used = launches()
+    for n, c in used.items():
+        counts[n] += c
+    want = ALPHA * m.matvec(x.astype(np.float64)) + BETA * y_in
+    log(f"  load_mtx {MTX_FIXTURE} ({m.nnz} nonzeros, {mb:.1f} MB written in "
+        f"{write_s:.2f} s): {load_s:.2f} s; its body parsed natively "
+        f"{native_s:.2f} s, by the numpy branch {numpy_s:.2f} s, "
+        f"{'equal' if equal else 'DIFFERENT'}; the load is "
+        f"{'the fixture' if fixture else 'NOT the fixture'}; prepare "
+        f"{prep_s:.2f} s ({h.format}), launches {used}")
+    check_run(f"load_mtx {MTX_FIXTURE} run", y, want, h, failures)
+    return {"nnz": m.nnz, "file_mb": mb, "write_s": write_s,
+            "load_s": load_s, "native_s": native_s, "numpy_s": numpy_s,
+            "equal": equal,
+            "prepare_s": prep_s, "format": h.format}
+
+
+def native_pack(h, coo, prep_s, failures):
+    """The native block packer and its numpy branch on the Flan-sized
+    matrix's nonzeros, as its handle's prepare packed them: timed and
+    compared."""
+    plan = h.plan
+    cols = coo.cols
+    if plan.col_perm is not None:
+        inv = np.empty(coo.num_cols, np.int32)
+        inv[plan.col_perm] = np.arange(coo.num_cols, dtype=np.int32)
+        cols = inv[cols]
+    args = (coo.rows, cols, coo.values, plan.block_h, plan.num_col_blocks)
+    t0 = time.perf_counter()
+    got = native.pack_blocks(*args)
+    native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    p_np = _pack_blocks_numpy(*args)
+    numpy_s = time.perf_counter() - t0
+    equal = all(a.dtype == b.dtype and np.array_equal(a, b)
+                for a, b in zip(got, p_np))
+    log(f"  the block pack of the Flan_1565-sized matrix ({coo.nnz} "
+        f"nonzeros, {plan.num_blocks} blocks): pack_blocks native "
+        f"{native_s:.2f} s, numpy branch {numpy_s:.2f} s, packs "
+        f"{'array-equal' if equal else 'DIFFERENT'}; the handle's prepare "
+        f"(native) {prep_s:.2f} s")
+    if not equal:
+        failures.append("pack_blocks: the native and numpy packs differ")
+    del got, p_np
+    return {"nnz": coo.nnz, "blocks": plan.num_blocks,
+            "native_s": native_s, "numpy_s": numpy_s, "equal": equal}
+
+
+def trace_and_power(handles, large, tmp, power_limit, failures):
+    """profile_trace around TRACE_RUNS runs of the TSOPF block handle (the
+    trace must name B1's kernel), then PowerMonitor over POWER_S seconds of
+    back-to-back runs of the Flan-sized handle (HBM-bound).  Launches here
+    are not counted."""
+    h, xd = handles["TSOPF_RS_b2383 block"]
+    with profile_trace(os.path.join(tmp, "trace"), device="cuda") as tr:
+        for _ in range(TRACE_RUNS):
+            h.run(xd)
+    with open(tr.path) as f:
+        text = f.read()
+    named = "chunked_vec_kernel" in text
+    log(f"  profile_trace of {TRACE_RUNS} TSOPF_RS_b2383 block runs: "
+        f"{len(text) / 2**20:.1f} MB Chrome trace, device time "
+        f"{tr.device_us / 1e3:.4f} ms, {'names' if named else 'LACKS'} "
+        "chunked_vec_kernel")
+    if not named:
+        failures.append("profile_trace: the trace does not name "
+                        "chunked_vec_kernel")
+    shutil.rmtree(tr.logdir)
+
+    hf, xf = large["Flan_1565-sized block"]
+    run_ms = median_ms(lambda: hf.run(xf))
+    pm = PowerMonitor(interval_s=0.1, device="cuda")
+    pm.start()
+    t0, nruns = time.perf_counter(), 0
+    while time.perf_counter() - t0 < POWER_S:
+        for _ in range(200):
+            hf.run(xf)
+        nruns += 200
+        torch.cuda.synchronize()
+    span_s = time.perf_counter() - t0
+    pm.stop()
+    watts = [s.watts for s in pm.samples]
+    loaded = [s.watts for s in pm.samples if s.t_s >= t0 + POWER_SETTLE_S]
+    loaded_w = float(np.mean(loaded)) if loaded else float("nan")
+    ok = (all(np.isfinite(watts)) and len(loaded) > 0
+          and POWER_MIN_W <= loaded_w <= power_limit
+          and pm.max_watts <= power_limit)
+    energy_mj = loaded_w * run_ms  # W x ms = mJ
+    log(f"  PowerMonitor over {nruns} Flan_1565-sized runs ({span_s:.2f} s, "
+        f"{len(pm.samples)} samples): avg {pm.avg_watts:.1f} W, max "
+        f"{pm.max_watts:.1f} W, {pm.avg_bytes_in_use / 2**20:.0f} MB in use; "
+        f"avg {loaded_w:.1f} W over the {len(loaded)} samples from "
+        f"{POWER_SETTLE_S:.1f} s into the runs; median run {run_ms:.4f} ms, "
+        f"so {energy_mj:.4f} mJ a run (card power limit {power_limit:.2f} W)")
+    if not ok:
+        failures.append(f"PowerMonitor: watts {watts} not finite within "
+                        f"[{POWER_MIN_W}, {power_limit}]")
+    return {"trace_mb": len(text) / 2**20, "trace_device_ms":
+            tr.device_us / 1e3, "trace_names_b1": named,
+            "power_runs": nruns, "power_s": span_s,
+            "samples": len(pm.samples), "avg_watts": pm.avg_watts,
+            "loaded_samples": len(loaded), "loaded_avg_watts": loaded_w,
+            "max_watts": pm.max_watts,
+            "avg_bytes_in_use": pm.avg_bytes_in_use, "run_ms": run_ms,
+            "energy_mj_per_run": energy_mj}
+
+
+def persistence_path(fixtures, handles, runs, large, large_coo, large_runs,
+                     gath, gath_coo, gath_row, split_keep, power_limit,
+                     counts, failures):
+    """Phase 3i: every format's handle saved, loaded and rebuilt with
+    ``from_plan`` at full width; the native MatrixMarket parser and block
+    packer beside their numpy branches; ``profile_trace`` and
+    ``PowerMonitor`` on the card.  Its own steps run in a Tracer."""
+    tracer = Tracer()
+    rows = []
+    with tempfile.TemporaryDirectory() as tmp:
+        for label, where, key, name in PERSIST_RUNS:
+            if where == "main":
+                h, coo = handles[key][0], fixtures[name]
+            elif where == "large":
+                h, coo = large[key][0], large_coo[key]
+            elif where == "gathered":
+                if gath is None:
+                    failures.append(f"{label}: phase 3g gave no handle")
+                    continue
+                h, coo = gath[0], gath_coo
+            elif key not in split_keep:
+                failures.append(f"{label}: phase 3h gave no handle")
+                continue
+            else:
+                h, coo = split_keep[key][0], fixtures[name]
+            prep_s = _prepare_s(label, where, key, runs, large_runs,
+                                gath_row, split_keep)
+            row = persist_one(label, h, coo, prep_s, tmp, tracer, failures)
+            for n, c in row["launches"].items():
+                counts[n] += c
+            rows.append(row)
+        mtx = native_mtx(fixtures, tmp, tracer, counts, failures)
+        key = "Flan_1565-sized block"
+        flan_prep = next(r["prepare_s"] for r in large_runs
+                         if r["run"] == key)
+        pack = native_pack(large[key][0], large_coo[key], flan_prep,
+                           failures)
+        power = trace_and_power(handles, large, tmp, power_limit, failures)
+    log("  phase 3i's steps (Tracer):")
+    for line in tracer.report().splitlines():
+        log(f"    {line}")
+    return {"persist": rows, "mtx": mtx, "pack": pack, "power": power,
+            "tracer": tracer.segments}
 
 
 def large_block_cases(large):
@@ -1556,7 +1896,9 @@ def kernel_checks(handles, linear_x, accel, extra_cases, failures):
                 failures.append(f"{name} [{shape}] with its sector mask "
                                 "disagrees with the unmasked product")
         ms = median_ms(lambda: kern(*args, **kw))
-        busy = device_ms(lambda: kern(*args, **kw))
+        # more windows than elsewhere: the profiler may miss a short
+        # kernel's events in one (B10 on trans5's stream 3 in a past run)
+        busy = device_ms(lambda: kern(*args, **kw), tries=6)
         plain_ms = median_ms(lambda: PLAIN[name](*args))
         bound_ms, bound_by = kernel_bound(name, args, kw, yk)
         extra = {}
@@ -2198,14 +2540,23 @@ def main() -> int:
     log(f"phase 3e: the ops entry (spmv_block, B6 at B {BATCH})")
     ops_row, ops_cases = ops_entry(handles, fixtures, counts, failures)
     log("phase 3f: block matrices past the chunked layout's budget")
-    large_runs, large = large_block_path(counts, failures)
+    large_runs, large, large_coo = large_block_path(counts, failures)
     log(f"phase 3g: the gathered side-plan of routed ({GATHERED_FIXTURE}, "
         f"modelled costs {GATHERED_COSTS} for this phase)")
-    gath_row, gath = gathered_path(counts, failures)
+    gath_row, gath, gath_coo = gathered_path(counts, failures)
     log("phase 3h: the tuned entry (split on trans5, the CLI's measured tune, "
         "model-only tune picks)")
-    tuned = tuned_entry(fixtures, handles, runs, counts, failures)
-    log(f"  launches on the eight paths: {counts}")
+    split_handles = {}
+    tuned = tuned_entry(fixtures, handles, runs, counts, failures,
+                        split_handles)
+    log("phase 3i: persistence (save_plan -> load_plan -> from_plan -> run "
+        "on every format), the native MatrixMarket parser and block packer, "
+        f"profile_trace and PowerMonitor; card: {gpu}")
+    persisted = persistence_path(
+        fixtures, handles, runs, large, large_coo, large_runs, gath,
+        gath_coo, gath_row, split_handles, power_limit_w(gpu), counts,
+        failures)
+    log(f"  launches on the nine paths: {counts}")
     for n, c in counts.items():
         if c == 0:
             failures.append(f"the paths never launched {n}")
@@ -2248,7 +2599,7 @@ def main() -> int:
     log(json.dumps({"runs": runs, "linear": linear_runs, "mlp": mlp_runs,
                     "sharded": shard_runs, "dryrun": dry, "ops": ops_row,
                     "large_block": large_runs, "gathered": gath_row,
-                    "tuned": tuned,
+                    "tuned": tuned, "persistence": persisted,
                     "gathered_chain": chain, "permutation": perm_times,
                     "b10_v_sweep": sweep, "b2_v_sweep": b2_sweep,
                     "b8_v_sweep": b8_sweep, "b1_v_sweep": b1_sweep,

@@ -4,17 +4,29 @@ and CUDA (NVIDIA Hopper).
 Port of ``hispmv_tpu`` (JAX/XLA/Pallas on a TPU), which stays beside it as
 the reference.  The layout mirrors the JAX package module for module:
 
-- ``formats`` — COO container, MatrixMarket IO (numpy), synthetic suite;
+- ``formats`` — COO container, MatrixMarket IO (the body parsed by the
+                native parser, the numpy branch beside it), synthetic
+                suite and ``fetch_suite`` for the reference's 20 SuiteSparse
+                matrices;
 - ``plan``    — block-ELL, windowed and lane-stream planners (numpy, plans
-                identical to the JAX package's) and ``convert`` for plans
-                prepared by the JAX package;
-- ``ops``     — the kernels hand-written in CUDA C++ under ``csrc/``, each
-                with a plain PyTorch version beside it: the block streams
-                B1 and B2 (``spmv_chunked``, one vector and a batch), the
-                windowed streams B7 and B8 (``spmv_windowed``), the routed
-                streams B9 and B10 (``spmv_routed``) and the window
-                permutation B11 (``permute``); plus ELLX, the stream
-                reference and dense GeMV in plain PyTorch;
+                identical to the JAX package's; the block packer in C++),
+                ``serialize`` (``save_plan`` / ``load_plan``: every plan
+                type to and from ``.npz``, in the JAX package's file
+                layout, so either package loads the other's files) and
+                ``convert`` for plans prepared by the JAX package;
+- ``native``  — the C++ routines of the prepare path (MatrixMarket body
+                parser, block packer, the routed and permutation
+                planners' loops), built with ``g++`` at first use;
+- ``ops``     — the thirteen kernels hand-written in CUDA C++ under
+                ``csrc/``, each with a plain PyTorch version beside it:
+                the block streams B1-B4 (``spmv_chunked``: one vector, a
+                batch, x-paneled, x- and y-paneled), B5 and B6
+                (``spmv_block``), the windowed streams B7 and B8
+                (``spmv_windowed``), the routed streams B9 and B10
+                (``spmv_routed``), the window permutation B11
+                (``permute``) and the gathered side-plan's B12 and B13
+                (``spmv_gathered``); plus ELLX, the stream reference and
+                dense GeMV in plain PyTorch;
 - ``api``     — ``SpmvHandle`` / ``prepare`` / ``Accelerator``, with
                 ``run`` and the batched ``linear``, in every format of the
                 JAX package (``split`` included);
@@ -25,8 +37,11 @@ the reference.  The layout mirrors the JAX package module for module:
                 reachable as ``hispmv_tpu_torch.tune``;
 - ``models``  — ``SparseLinear``, ``ThreeLayerFCModel`` (torch.nn), the
                 layer swap onto an ``Accelerator`` and the demo CLI;
-- ``utils``   — error statistics, CUDA-event timing (``timing``) and the
-                metrics CSV (``metrics``);
+- ``utils``   — error statistics, CUDA-event timing (``timing``), the
+                metrics CSV (``metrics``) and ``trace`` (``Tracer``,
+                ``profile_trace`` around ``torch.profiler``, and
+                ``PowerMonitor`` reading the card's power by
+                ``nvidia-smi``);
 - ``cli``     — ``python -m hispmv_tpu_torch MATRIX | ROWS COLS |
                 @suite[:scale] [--format tune --measure N] [--device cpu]``.
 

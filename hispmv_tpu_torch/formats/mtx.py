@@ -11,9 +11,12 @@ Behavioral contract matches the reference loader
 - Symmetric / skew-symmetric matrices are expanded: the mirror entry (c, r)
   is added for off-diagonal entries (negated for skew).
 
-Implementation is vectorized numpy rather than a per-line parse loop.  The
-C++ fast path of ``hispmv_tpu/native`` is ported later; this is the numpy
-branch of ``hispmv_tpu/formats/mtx.py``.
+The body is parsed by the C++ routine of ``hispmv_tpu_torch/native``
+(``parse_mtx_body``), as ``hispmv_tpu/formats/mtx.py`` does.  A body it
+does not take (a line with more or fewer tokens than an entry has) goes to
+``_parse_body_numpy``, the vectorized numpy parse, which reads it or raises
+"Malformed MatrixMarket body"; that function is also the plain version the
+tests hold the native one to.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ from typing import Union
 
 import numpy as np
 
+from hispmv_tpu_torch import native
 from hispmv_tpu_torch.formats.matrix import COOMatrix
 
 _BANNER = "%%MatrixMarket"
@@ -49,6 +53,30 @@ def _parse_header(line: str):
     return fmt, field, symmetry
 
 
+def _parse_body_numpy(body: str, nnz: int, field: str):
+    """Plain version of ``native.parse_mtx_body``: (rows, cols, vals) as
+    int64, int64 (0-based) and float32 of the body's ``nnz`` entries; the
+    first 2 (pattern) or 3 tokens of each entry when every line has more."""
+    ncols_file = 2 if field == "pattern" else 3
+    data = np.array(body.split(), dtype=np.float64)
+    if nnz == 0:
+        data = data.reshape(0, ncols_file)
+    else:
+        if data.size % nnz != 0:
+            raise ValueError("Malformed MatrixMarket body")
+        per_entry = data.size // nnz
+        if per_entry < ncols_file:
+            raise ValueError("Malformed MatrixMarket body")
+        data = data.reshape(nnz, per_entry)[:, :ncols_file]
+    r = data[:, 0].astype(np.int64) - 1
+    c = data[:, 1].astype(np.int64) - 1
+    if field == "pattern":
+        v = np.ones(len(r), dtype=np.float32)
+    else:
+        v = data[:, 2].astype(np.float32)
+    return r, c, v
+
+
 def load_mtx(path_or_file: Union[str, io.IOBase]) -> COOMatrix:
     """Load a MatrixMarket coordinate file into a :class:`COOMatrix`."""
     if isinstance(path_or_file, str):
@@ -66,25 +94,14 @@ def load_mtx(path_or_file: Union[str, io.IOBase]) -> COOMatrix:
     rows, cols, nnz = (int(tok) for tok in line.split()[:3])
 
     body = f.read()
-    ncols_file = 2 if field == "pattern" else 3
-
-    data = np.array(body.split(), dtype=np.float64)
-    if nnz == 0:
-        data = data.reshape(0, ncols_file)
+    parsed = None
+    if nnz > 0:
+        parsed = native.parse_mtx_body(body.encode(), nnz,
+                                       field != "pattern")
+    if parsed is None:
+        r, c, v = _parse_body_numpy(body, nnz, field)
     else:
-        if data.size % nnz != 0:
-            raise ValueError("Malformed MatrixMarket body")
-        per_entry = data.size // nnz
-        if per_entry < ncols_file:
-            raise ValueError("Malformed MatrixMarket body")
-        data = data.reshape(nnz, per_entry)[:, :ncols_file]
-
-    r = data[:, 0].astype(np.int64) - 1
-    c = data[:, 1].astype(np.int64) - 1
-    if field == "pattern":
-        v = np.ones(len(r), dtype=np.float32)
-    else:
-        v = data[:, 2].astype(np.float32)
+        r, c, v = parsed
 
     # Drop explicit zeros (spmv-helper.cpp:105-107).
     keep = v != 0.0
@@ -117,5 +134,8 @@ def save_mtx(path: str, mtx: COOMatrix, field: str = "real") -> None:
             cols_out = np.stack([mtx.rows + 1, mtx.cols + 1], axis=1)
             np.savetxt(f, cols_out, fmt="%d %d")
         else:
-            for r, c, v in zip(mtx.rows, mtx.cols, mtx.values):
-                f.write(f"{r + 1} {c + 1} {v:.9g}\n")
+            # Python numbers format as numpy scalars do, several times faster
+            r1 = (mtx.rows.astype(np.int64) + 1).tolist()
+            c1 = (mtx.cols.astype(np.int64) + 1).tolist()
+            f.write("".join(f"{r} {c} {v:.9g}\n" for r, c, v in
+                            zip(r1, c1, mtx.values.tolist())))

@@ -4,17 +4,47 @@ Carried over from ``hispmv_tpu/formats/synth.py``: for the same seed every
 generator gives bit-identical COO arrays in both packages, so the port and
 the JAX package can be held against each other on the same fixtures.  The
 stand-ins reproduce each SuiteSparse matrix's structural profile (shape,
-nnz, row-length distribution family); shapes/nnz are approximate.
+nnz, row-length distribution family); shapes/nnz are approximate.  The
+reference's 20 SuiteSparse matrices themselves are listed in
+:data:`SUITE_URLS`; :func:`fetch_suite` downloads them where there is a
+network.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+import os
+from typing import Optional, Sequence
 
 import numpy as np
 
 from hispmv_tpu_torch.formats.matrix import COOMatrix
+
+# Reference fixture URLs (get_tb_matrices.py:57-78), usable when the
+# environment has network access.
+SUITE_URLS = [
+    "https://suitesparse-collection-website.herokuapp.com/MM/Precima/analytics.tar.gz",
+    "https://suitesparse-collection-website.herokuapp.com/MM/GHS_indef/boyd2.tar.gz",
+    "https://suitesparse-collection-website.herokuapp.com/MM/GHS_psdef/crankseg_2.tar.gz",
+    "https://suitesparse-collection-website.herokuapp.com/MM/GHS_psdef/ford2.tar.gz",
+    "https://suitesparse-collection-website.herokuapp.com/MM/Tromble/language.tar.gz",
+    "https://suitesparse-collection-website.herokuapp.com/MM/Belcastro/mouse_gene.tar.gz",
+    "https://suitesparse-collection-website.herokuapp.com/MM/Freescale/nxp1.tar.gz",
+    "https://suitesparse-collection-website.herokuapp.com/MM/Grund/poli_large.tar.gz",
+    "https://suitesparse-collection-website.herokuapp.com/MM/SNAP/soc-Pokec.tar.gz",
+    "https://suitesparse-collection-website.herokuapp.com/MM/IBM_EDA/trans5.tar.gz",
+    "https://suitesparse-collection-website.herokuapp.com/MM/Sandia/ASIC_680k.tar.gz",
+    "https://suitesparse-collection-website.herokuapp.com/MM/Schenk_IBMNA/c-52.tar.gz",
+    "https://suitesparse-collection-website.herokuapp.com/MM/Boeing/crystk03.tar.gz",
+    "https://suitesparse-collection-website.herokuapp.com/MM/VDOL/hangGlider_3.tar.gz",
+    "https://suitesparse-collection-website.herokuapp.com/MM/VDOL/lowThrust_7.tar.gz",
+    "https://suitesparse-collection-website.herokuapp.com/MM/ND/nd6k.tar.gz",
+    "https://suitesparse-collection-website.herokuapp.com/MM/Janna/PFlow_742.tar.gz",
+    "https://suitesparse-collection-website.herokuapp.com/MM/PARSEC/Si41Ge41H72.tar.gz",
+    "https://suitesparse-collection-website.herokuapp.com/MM/DNVS/thread.tar.gz",
+    "https://suitesparse-collection-website.herokuapp.com/MM/TSOPF/TSOPF_RS_b2383.tar.gz",
+]
+
 
 @dataclasses.dataclass(frozen=True)
 class MatrixProfile:
@@ -31,7 +61,7 @@ class MatrixProfile:
 # Approximate SuiteSparse statistics for the reference's 20-matrix suite.
 # nnz counts are the *expanded* (general-form) values the reference computes
 # after symmetry expansion.  Used only to build synthetic stand-ins; real
-# matrices can be fetched with fetch_suite() when network access exists.
+# matrices can be fetched with fetch_suite() where there is a network.
 # Kinds chosen per structural family (round-2 fidelity pass — the round-1
 # configuration-model "powerlaw" stand-ins misrepresented every class that
 # has real-world locality):
@@ -440,3 +470,26 @@ def suite_matrix(name: str, scale: float = 1.0, seed: int = 0) -> COOMatrix:
             p.params,
         )
     return synth_from_profile(p, seed=seed)
+
+
+def fetch_suite(directory: str, urls: Optional[Sequence[str]] = None) -> list:
+    """Download and extract the reference's 20 SuiteSparse fixtures
+    (``urls`` defaults to :data:`SUITE_URLS`; any URL ``urllib`` opens,
+    ``file://`` included) into ``directory``; a matrix already extracted
+    there is not fetched again.  Returns the ``.mtx`` paths, in order."""
+    import tarfile
+    import urllib.request
+
+    os.makedirs(directory, exist_ok=True)
+    paths = []
+    for url in SUITE_URLS if urls is None else urls:
+        name = url.rstrip("/").split("/")[-1].replace(".tar.gz", "")
+        mtx_path = os.path.join(directory, name, f"{name}.mtx")
+        if not os.path.exists(mtx_path):
+            tgz = os.path.join(directory, f"{name}.tar.gz")
+            urllib.request.urlretrieve(url, tgz)
+            with tarfile.open(tgz) as tar:
+                tar.extractall(directory, filter="data")
+            os.remove(tgz)
+        paths.append(mtx_path)
+    return paths

@@ -1,4 +1,5 @@
-"""Native (C++) planning routines of the routed and permutation planners.
+"""Native (C++) routines of the prepare path: the routed and permutation
+planners' loops, the MatrixMarket body parser and the block packer.
 
 The routines of ``hispmv_native.cpp`` (copied from the JAX package's
 ``hispmv_tpu/native``) are compiled with the host ``g++`` at first use,
@@ -7,9 +8,9 @@ never at import, into ``hispmv_tpu_torch/_build/`` (listed in
 The build is tried once with ``-fopenmp`` and once without; when both fail
 it raises with the compiler's output.  There is no silent fallback: the
 numpy / Python versions beside the callers (``plan/routed.py``,
-``plan/permute.py``) are the plain versions the tests hold these to, and
-the Python colouring takes tens of seconds where the native one takes
-milliseconds.
+``plan/permute.py``, ``formats/mtx.py``, ``plan/blocks.py``) are the plain
+versions the tests hold these to, and they take seconds to minutes where
+the native ones take milliseconds to seconds.
 """
 
 from __future__ import annotations
@@ -85,6 +86,18 @@ def get_lib() -> ctypes.CDLL:
             lib.routed_tile_stats.restype = None
             lib.routed_tile_stats.argtypes = [ptr, ptr, ptr, i64, ptr, ptr,
                                               ptr, ptr]
+            lib.parse_mtx_body.restype = i64
+            lib.parse_mtx_body.argtypes = [ctypes.c_char_p, i64, i64,
+                                           ctypes.c_int, ptr, ptr, ptr]
+            lib.pack_blocks_count.restype = ptr
+            lib.pack_blocks_count.argtypes = [ptr, ptr, i64, ctypes.c_int,
+                                              i64, ptr]
+            lib.pack_blocks_fill.restype = None
+            lib.pack_blocks_fill.argtypes = [ptr, ptr, ptr, ptr, i64,
+                                             ctypes.c_int, i64, ptr, ptr,
+                                             ptr]
+            lib.pack_blocks_free.restype = None
+            lib.pack_blocks_free.argtypes = [ptr]
             _lib = lib
         return _lib
 
@@ -159,3 +172,52 @@ def routed_tile_stats(p_win: np.ndarray, p_band: np.ndarray,
     get_lib().routed_tile_stats(_ptr(p_win), _ptr(p_band), _ptr(pad), T,
                                 *map(_ptr, out))
     return tuple(out)
+
+
+def parse_mtx_body(body: bytes, expect: int, has_value: bool):
+    """(rows, cols, vals) — int32, int32, float32, 0-based — of the
+    ``expect`` entries of a MatrixMarket coordinate body, or None when the
+    body is not ``expect`` lines of exactly 2 (``has_value`` False) or 3
+    tokens (then the numpy branch of ``load_mtx`` parses it or raises)."""
+    rows = np.empty(expect, np.int32)
+    cols = np.empty(expect, np.int32)
+    vals = np.empty(expect, np.float32)
+    n = get_lib().parse_mtx_body(body, len(body), expect, int(has_value),
+                                 _ptr(rows), _ptr(cols), _ptr(vals))
+    if n != expect:
+        return None
+    return rows, cols, vals
+
+
+def pack_blocks(rows: np.ndarray, cols: np.ndarray, vals: np.ndarray,
+                block_h: int, ncb: int):
+    """(block_rows, block_cols, data): the distinct (row // block_h,
+    col // 128) blocks of the nonzeros, sorted by (row block, col block),
+    as int32 ids and f32 [nblocks, block_h, 128] payloads with duplicates
+    summed in COO order, as ``plan/blocks.py::_pack_blocks_numpy``."""
+    nnz = len(rows)
+    if len(cols) != nnz or len(vals) != nnz:
+        raise ValueError("rows, cols and vals differ in length")
+    if nnz >= 1 << 32:
+        raise ValueError("pack_blocks holds nonzero indices in 32 bits")
+    if nnz and (min(int(rows.min()), int(cols.min())) < 0
+                or max(int(rows.max()), int(cols.max())) >= 1 << 31):
+        raise ValueError("row and column indices must lie in [0, 2**31)")
+    rows = np.ascontiguousarray(rows, np.int32)
+    cols = np.ascontiguousarray(cols, np.int32)
+    vals = np.ascontiguousarray(vals, np.float32)
+    lib = get_lib()
+    nb = ctypes.c_longlong(0)
+    ctx = lib.pack_blocks_count(_ptr(rows), _ptr(cols), nnz, int(block_h),
+                                int(ncb), ctypes.byref(nb))
+    try:
+        nblocks = int(nb.value)
+        block_rows = np.empty(nblocks, np.int32)
+        block_cols = np.empty(nblocks, np.int32)
+        data = np.zeros((nblocks, block_h, 128), np.float32)
+        lib.pack_blocks_fill(ctx, _ptr(rows), _ptr(cols), _ptr(vals), nnz,
+                             int(block_h), int(ncb), _ptr(block_rows),
+                             _ptr(block_cols), _ptr(data))
+    finally:
+        lib.pack_blocks_free(ctx)
+    return block_rows, block_cols, data

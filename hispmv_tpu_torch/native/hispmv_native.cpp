@@ -1,8 +1,10 @@
-// Host-side planning routines of the routed and permutation planners.
+// Host-side routines of the prepare path: the routed and permutation
+// planners' loops, the MatrixMarket body parser and the block packer.
 //
-// Carried over unchanged from hispmv_tpu/native/hispmv_native.cpp (the
-// routines plan/routed.py and plan/permute.py call), so that both packages
-// build identical plans.  Each has a numpy / Python version beside its
+// Carried over from hispmv_tpu/native/hispmv_native.cpp, so that both
+// packages build identical plans (the block packer sorts with the radix
+// argsort below where the JAX package's calls std::sort; the order, and so
+// the output, is the same).  Each has a numpy / Python version beside its
 // caller that the tests hold it to:
 //
 //   euler_color        plan/permute.py::_color_py
@@ -10,6 +12,8 @@
 //   radix_argsort_u64  np.lexsort((cols, rows, mcell))
 //   distinct_rank_u64  plan/routed.py::_distinct_rank_py
 //   routed_tile_stats  plan/routed.py::_tile_stats_py
+//   parse_mtx_body     formats/mtx.py::_parse_body_numpy
+//   pack_blocks_*      plan/blocks.py::_pack_blocks_numpy
 //
 // Plain C ABI for ctypes; OpenMP when compiled with -fopenmp (results do not
 // depend on the thread count).
@@ -17,6 +21,7 @@
 #include <algorithm>
 #include <climits>
 #include <cstdint>
+#include <cstdlib>
 #include <vector>
 
 #ifdef _OPENMP
@@ -294,5 +299,112 @@ void routed_tile_stats(const int32_t* p_win, const int32_t* p_band,
     band_t[t] = db;
   }
 }
+
+// ---------------------------------------------------------------------------
+// MatrixMarket coordinate body parser: "row col [value]" lines, 1-based
+// indices made 0-based (reference loadMtx contract, spmv-helper.cpp:34-136).
+// Returns the number of entries parsed, or -1 on malformed input: a token
+// that is not a number, or a line with more tokens than an entry has.  The
+// numpy version is formats/mtx.py::_parse_body_numpy.
+// ---------------------------------------------------------------------------
+
+long long parse_mtx_body(const char* buf, long long len, long long expect,
+                         int has_value, int32_t* out_rows, int32_t* out_cols,
+                         float* out_vals) {
+  const char* p = buf;
+  const char* end = buf + len;
+  long long n = 0;
+  while (p < end && n < expect) {
+    while (p < end && (*p == ' ' || *p == '\n' || *p == '\r' || *p == '\t'))
+      ++p;
+    if (p >= end) break;
+    char* next = nullptr;
+    long r = strtol(p, &next, 10);
+    if (next == p) return -1;
+    p = next;
+    long c = strtol(p, &next, 10);
+    if (next == p) return -1;
+    p = next;
+    double v = 1.0;
+    if (has_value) {
+      v = strtod(p, &next);
+      if (next == p) return -1;
+      p = next;
+    }
+    // the rest of the line must be blank
+    while (p < end && (*p == ' ' || *p == '\t' || *p == '\r')) ++p;
+    if (p < end && *p != '\n') return -1;
+    out_rows[n] = (int32_t)(r - 1);
+    out_cols[n] = (int32_t)(c - 1);
+    out_vals[n] = (float)v;
+    ++n;
+  }
+  return n;
+}
+
+// ---------------------------------------------------------------------------
+// Block packing (plan/blocks.py::build_block_plan; the numpy version is
+// plan/blocks.py::_pack_blocks_numpy): the sorted distinct (row_block,
+// col_block) keys of the nonzeros and their dense [nblocks, block_h, 128]
+// payloads, duplicates summed.
+//
+// pack_blocks_count sorts the nonzeros by block key with the stable radix
+// argsort above (the order of np.unique's inverse with np.add.at's index
+// order within a key) and counts the blocks; the caller allocates the
+// outputs; pack_blocks_fill writes them, one block per thread at a time,
+// adding each block's nonzeros in their COO order (so sums are those of
+// np.add.at, bit for bit); pack_blocks_free releases the context.
+// ---------------------------------------------------------------------------
+
+struct PackCtx {
+  std::vector<int64_t> order;   // nonzero indices sorted by block key
+  std::vector<int64_t> starts;  // [nblocks + 1] first position of a block
+  std::vector<uint64_t> keys;   // [nblocks] block key
+};
+
+void* pack_blocks_count(const int32_t* rows, const int32_t* cols,
+                        long long nnz, int block_h, long long ncb,
+                        long long* out_nblocks) {
+  auto* ctx = new PackCtx();
+  std::vector<uint64_t> key(nnz);
+#pragma omp parallel for schedule(static)
+  for (long long i = 0; i < nnz; ++i)
+    key[i] = (uint64_t)(rows[i] / block_h) * (uint64_t)ncb +
+             (uint64_t)(cols[i] >> 7);
+  ctx->order.resize(nnz);
+  radix_argsort_u64(key.data(), nnz, ctx->order.data());
+  for (long long i = 0; i < nnz; ++i) {
+    uint64_t k = key[ctx->order[i]];
+    if (i == 0 || k != ctx->keys.back()) {
+      ctx->starts.push_back(i);
+      ctx->keys.push_back(k);
+    }
+  }
+  ctx->starts.push_back(nnz);
+  *out_nblocks = (long long)ctx->keys.size();
+  return ctx;
+}
+
+// out_data must be zero-initialised [nblocks * block_h * 128] floats.
+void pack_blocks_fill(void* ctx_ptr, const int32_t* rows, const int32_t* cols,
+                      const float* vals, long long nnz, int block_h,
+                      long long ncb, int32_t* out_block_rows,
+                      int32_t* out_block_cols, float* out_data) {
+  (void)nnz;
+  auto* ctx = (PackCtx*)ctx_ptr;
+  const int64_t nb = (int64_t)ctx->keys.size();
+#pragma omp parallel for schedule(static)
+  for (int64_t b = 0; b < nb; ++b) {
+    out_block_rows[b] = (int32_t)(ctx->keys[b] / (uint64_t)ncb);
+    out_block_cols[b] = (int32_t)(ctx->keys[b] % (uint64_t)ncb);
+    float* blk = out_data + b * (int64_t)block_h * 128;
+    for (int64_t i = ctx->starts[b]; i < ctx->starts[b + 1]; ++i) {
+      int64_t src = ctx->order[i];
+      blk[(rows[src] % block_h) * 128 + (cols[src] & 127)] += vals[src];
+    }
+  }
+}
+
+void pack_blocks_free(void* ctx_ptr) { delete (PackCtx*)ctx_ptr; }
 
 }  // extern "C"

@@ -1,8 +1,9 @@
 """Block-ELL planner: matrix -> packed dense-block stream.
 
 Carried over from ``hispmv_tpu/plan/blocks.py`` so that plans are identical
-in both packages; only the numpy branch is kept (the C++ packer of
-``hispmv_tpu/native`` is ported later).  Original notes follow.
+in both packages.  The packing runs in the C++ routine of
+``hispmv_tpu_torch/native`` (``pack_blocks``); ``_pack_blocks_numpy`` is
+its plain version, which the tests hold it to.  Original notes follow.
 
 TPU-native re-design of the reference's stream encoder (``prepareTile``,
 common/src/spmv-helper.cpp:517-638).  The reference packs individual nonzeros
@@ -33,6 +34,7 @@ from typing import Optional
 
 import numpy as np
 
+from hispmv_tpu_torch import native
 from hispmv_tpu_torch.formats.matrix import COOMatrix
 
 LANES = 128  # TPU lane width; block width is fixed to one vreg row.
@@ -112,31 +114,34 @@ def build_block_plan(
     nrb = max(-(-R // block_h), 1)
     ncb = max(-(-C // LANES), 1)
 
-    rows = coo.rows.astype(np.int64)
-    cols = coo.cols.astype(np.int64)
+    rows, cols = coo.rows, coo.cols  # int32
     if col_perm is not None:
         # col_perm[k] = original column placed at position k; nonzeros move
         # with the inverse map.
-        inv = np.empty(C, np.int64)
-        inv[col_perm] = np.arange(C)
+        inv = np.empty(C, np.int32)
+        inv[col_perm] = np.arange(C, dtype=np.int32)
         cols = inv[cols]
 
-    # numpy only: the C++ packer of the JAX package is ported later
-    rb = rows // block_h
-    cb = cols // LANES
-    key = rb * ncb + cb
-
-    uniq, inv_idx = np.unique(key, return_inverse=True)
-    block_rows = (uniq // ncb).astype(np.int32)
-    block_cols = (uniq % ncb).astype(np.int32)
-
-    nblocks = len(block_rows)
-    data = np.zeros((nblocks, block_h, LANES), np.float32)
-    np.add.at(data, (inv_idx, rows % block_h, cols % LANES), coo.values)
-
+    block_rows, block_cols, data = native.pack_blocks(
+        rows, cols, coo.values, block_h, ncb)
     return _assemble_plan(
         coo, block_h, col_perm, block_rows, block_cols, data, nrb, ncb
     )
+
+
+def _pack_blocks_numpy(rows, cols, vals, block_h, ncb):
+    """Plain version of ``native.pack_blocks``: (block_rows, block_cols,
+    data) of the nonzeros, blocks sorted by (row block, col block),
+    duplicates summed in COO order."""
+    rows = np.asarray(rows, np.int64)
+    cols = np.asarray(cols, np.int64)
+    key = (rows // block_h) * ncb + cols // LANES
+    uniq, inv_idx = np.unique(key, return_inverse=True)
+    block_rows = (uniq // ncb).astype(np.int32)
+    block_cols = (uniq % ncb).astype(np.int32)
+    data = np.zeros((len(uniq), block_h, LANES), np.float32)
+    np.add.at(data, (inv_idx, rows % block_h, cols % LANES), vals)
+    return block_rows, block_cols, data
 
 
 def _assemble_plan(

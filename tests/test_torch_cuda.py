@@ -1890,3 +1890,84 @@ def test_bench_spmv_on_card(dev):
     assert error_stats(y, coo.matvec(x.astype(np.float64)), rtol=1e-3).ok
     xd = torch.from_numpy(x).to(dev)
     assert median_ms(lambda: h.run(xd), runs=3, warmup=1, device=dev) > 0
+
+
+# --- plans kept on disk, profile_trace and PowerMonitor on the card -------
+
+WRAPPERS = (spmv_chunked, spmv_windowed, spmv_routed_streams, permute_stage,
+            spmv_chunked_paneled, spmv_chunked_tiled, s1_gather,
+            spmv_gathered_tiles)
+
+
+def _launches():
+    return [w.launches for w in WRAPPERS]
+
+
+@pytest.mark.parametrize("fmt,cfg", [
+    ("block", SpmvConfig()),
+    ("block", SpmvConfig(col_reorder=True)),
+    ("routed", SpmvConfig()),
+    ("routed", SpmvConfig(rank_sort=True)),
+])
+def test_reloaded_plan_runs_on_card_with_the_same_launches(dev, tmp_path,
+                                                           fmt, cfg):
+    from hispmv_tpu_torch.plan import load_plan, save_plan
+
+    coo = powerlaw_coo(4000, 4000, 60_000, seed=7)
+    h = SpmvHandle(coo, cfg, fmt)
+    path = str(tmp_path / "plan.npz")
+    save_plan(path, h.plan, compress=False)
+    h2 = SpmvHandle.from_plan(load_plan(path))
+    assert h2.format == h.format == fmt
+    rng = np.random.default_rng(8)
+    x = torch.from_numpy(rng.standard_normal(coo.num_cols).astype(
+        np.float32)).to(dev)
+    y_in = torch.from_numpy(rng.standard_normal(coo.num_rows).astype(
+        np.float32)).to(dev)
+    runs = []
+    for handle in (h, h2):
+        before = _launches()
+        y = handle.run(x, y_in, 1.5, -0.5)
+        torch.cuda.synchronize()
+        runs.append((y, [a - b for a, b in zip(_launches(), before)]))
+    (y, n), (y2, n2) = runs
+    assert n == n2 and sum(n) > 0
+    assert_close(y2, y)
+    want = 1.5 * coo.matvec(x.cpu().numpy().astype(np.float64)) \
+        - 0.5 * y_in.cpu().numpy()
+    assert error_stats(y2.cpu().numpy(), want, rtol=1e-3).ok
+
+
+def test_profile_trace_sees_device_events_on_card(dev, tmp_path):
+    from hispmv_tpu_torch.utils.trace import profile_trace
+
+    coo = MATRICES["blocked"]()
+    h = SpmvHandle(coo, format="block")
+    x = torch.ones(coo.num_cols, device=dev)
+    h.run(x)
+    with profile_trace(str(tmp_path), device=dev) as tr:
+        for _ in range(5):
+            h.run(x)
+    assert tr.device_us > 0
+    with open(tr.path) as f:
+        assert "chunked_vec_kernel" in f.read()
+
+
+def test_power_monitor_reads_finite_watts_on_card(dev):
+    import time
+
+    from hispmv_tpu_torch.utils.trace import PowerMonitor
+
+    pm = PowerMonitor(interval_s=0.1, device=dev)
+    pm.start()
+    a = torch.randn(4096, 4096, device=dev)
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < 0.5:
+        a = a @ a.T
+        a /= a.norm()
+    torch.cuda.synchronize()
+    pm.stop()
+    assert len(pm.samples) >= 3
+    assert all(np.isfinite(s.watts) and s.watts > 0 for s in pm.samples)
+    assert pm.max_watts >= pm.avg_watts > 0
+    assert pm.avg_bytes_in_use > 0

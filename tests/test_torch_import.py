@@ -82,6 +82,13 @@ def test_public_names():
     ("hispmv_tpu_torch.utils.metrics", ("MetricsRow", "append_metrics",
                                         "read_metrics")),
     ("hispmv_tpu_torch.cli", ("main", "build_parser", "load_matrix")),
+    ("hispmv_tpu_torch.plan", ("save_plan", "load_plan", "build_plan",
+                               "build_block_plan", "build_window_plan")),
+    ("hispmv_tpu_torch.plan.serialize", ("save_plan", "load_plan")),
+    ("hispmv_tpu_torch.utils.trace", ("Tracer", "profile_trace",
+                                      "PowerMonitor")),
+    ("hispmv_tpu_torch.native", ("parse_mtx_body", "pack_blocks")),
+    ("hispmv_tpu_torch.formats.synth", ("fetch_suite",)),
 ])
 def test_package_exports(module, names):
     mod = importlib.import_module(module)
@@ -153,3 +160,50 @@ def test_missing_nvcc_raises(monkeypatch):
     monkeypatch.setattr(cuda_build.os.path, "exists", lambda p: False)
     with pytest.raises(RuntimeError, match="nvcc not found"):
         cuda_build._nvcc()
+
+
+@pytest.mark.parametrize("module", [
+    "hispmv_tpu_torch.plan.serialize", "hispmv_tpu_torch.utils.trace",
+    "hispmv_tpu_torch.native", "hispmv_tpu_torch.formats.mtx",
+    "hispmv_tpu_torch.formats.synth", "hispmv_tpu_torch.plan.blocks",
+])
+def test_prepare_once_modules_load_no_jax(module):
+    """Each module alone, in a fresh interpreter: no jax, no hispmv_tpu,
+    and no native library or kernel built at import."""
+    code = textwrap.dedent(f"""
+        import importlib, sys
+        importlib.import_module({module!r})
+        bad = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "hispmv_tpu"))
+        assert not bad, bad
+        from hispmv_tpu_torch import native
+        from hispmv_tpu_torch.ops import cuda_build
+        assert native._lib is None and cuda_build._lib is None
+        print("ok")
+    """)
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def test_plan_package_exports_serialize_lazily():
+    code = textwrap.dedent("""
+        import sys
+        import hispmv_tpu_torch.plan as plan
+        assert "hispmv_tpu_torch.plan.serialize" not in sys.modules
+        from hispmv_tpu_torch.plan import load_plan, save_plan
+        from hispmv_tpu_torch.plan import serialize
+        assert save_plan is serialize.save_plan
+        assert load_plan is serialize.load_plan
+        try:
+            plan.no_such_name
+        except AttributeError:
+            print("ok")
+    """)
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
