@@ -6,7 +6,7 @@ Run from the root of a checkout, with no arguments:
     python3 chip_smoke.py
 
 It builds the hand-written CUDA kernels from ``hispmv_tpu_torch/csrc/``
-(B1-B13), then drives nine paths of the port, each run with the launch
+(B1-B13), then drives ten paths of the port, each run with the launch
 counts zeroed just before it and read just after:
 
 - ``prepare`` -> ``SpmvHandle.run`` and ``Accelerator`` (formats window,
@@ -55,7 +55,17 @@ counts zeroed just before it and read just after:
   branch (plans array-equal); ``profile_trace`` around TSOPF_RS_b2383
   block runs (the trace must name B1's kernel) and ``PowerMonitor`` over
   2.5 s of Flan_1565-sized runs (finite watts within [50 W, the card's
-  power limit]; energy a run), all in a ``Tracer``.
+  power limit]; energy a run), all in a ``Tracer``;
+- the sharded executors on a ``ProcessMesh``: one NCCL rank a card (one
+  rank on a single card, up to four on distinct cards), each a process
+  that this script starts (``python3 chip_smoke.py STORE WORLD RANK
+  OUT``), runs the block executor with x gathered and the chunked one
+  with the x ring on TSOPF_RS_b2383 and the windowed one with x gathered
+  on crystk03; every rank's full y is held to the golden and to the
+  one-process executor at the same D, its launches of one call (one B5 or
+  B7, D B3) and ring sends counted, and its time (CUDA events, median of
+  20) logged beside the one-process executor's.  A rank that fails or
+  outlives its time fails the run.
 
 Every result is held to a float64 golden at rtol 1e-3.  Then each kernel
 is compared with its plain PyTorch version on the arrays the paths gave it
@@ -100,6 +110,7 @@ from __future__ import annotations
 import json
 import os
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -107,6 +118,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 import hispmv_tpu_torch.ops as ops
 from hispmv_tpu_torch import Accelerator, SpmvConfig, SpmvHandle, cli, \
@@ -116,7 +128,9 @@ from hispmv_tpu_torch.dist import (
     build_sharded_block_plan,
     build_sharded_chunked_plan,
     build_sharded_window_plan,
+    init_distributed,
     make_mesh,
+    make_process_mesh,
     spmv_sharded,
     spmv_sharded_chunked,
     spmv_sharded_window,
@@ -1758,6 +1772,208 @@ def persistence_path(fixtures, handles, runs, large, large_coo, large_runs,
             "tracer": tracer.segments}
 
 
+# phase 3j: the sharded executors on a ProcessMesh, one rank a card (one
+# NCCL rank on the one card, up to four on distinct cards), each rank a
+# process of its own: ``python3 chip_smoke.py STORE WORLD RANK OUT``.
+# (label, fixture, plan kind, x_mode)
+PROCESS_RUNS = [
+    ("TSOPF_RS_b2383 block gather", "TSOPF_RS_b2383", "block", "gather"),
+    ("TSOPF_RS_b2383 chunked ring", "TSOPF_RS_b2383", "chunked", "ring"),
+    ("crystk03 window gather", "crystk03", "window", "gather"),
+]
+RANK_TIMEOUT_S = 600  # every rank's whole run; collectives time out at 120
+
+
+def process_world() -> int:
+    """Ranks of phase 3j: one a card, at most four; one on a single card."""
+    n = torch.cuda.device_count()
+    return min(n, 4) if n >= 2 else 1
+
+
+def process_xs(fixtures):
+    rng = np.random.default_rng(SEED + 6)
+    return {n: rng.standard_normal(fixtures[n].num_cols).astype(np.float32)
+            for n in sorted({r[1] for r in PROCESS_RUNS})}
+
+
+def host_us(fn, calls: int = 50) -> float:
+    """Microseconds of host time a call: ``calls`` calls enqueued back to
+    back after a warm-up, the card synchronised before and after."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def rank_main(argv) -> int:
+    """One rank of phase 3j: join the NCCL group, make the process mesh
+    (``cuda:$LOCAL_RANK``), and for each run build the plan at the world's
+    size, call the executor once with the launch counts zeroed (read
+    after), then time it (median of 20 by CUDA events after 3 warm-up
+    calls, and the device busy time over one profiler window of 20 calls:
+    every rank makes the same calls, so that the collectives pair up).
+    Writes each full y and its figures to ``OUT`` (``.npz``)."""
+    store, world, rank, out = argv[0], int(argv[1]), int(argv[2]), argv[3]
+    init_distributed(store, world, rank, backend="nccl")
+    mesh = make_process_mesh()
+    cuda_build.get_lib()
+    fixtures = {n: suite_matrix(n, 1.0, seed=SEED)
+                for n in sorted({r[1] for r in PROCESS_RUNS})}
+    xs = process_xs(fixtures)
+    ys, rows = {}, []
+    for label, name, kind, x_mode in PROCESS_RUNS:
+        build, run, kernel, _ = SHARD_KINDS[kind]
+        t0 = time.perf_counter()
+        plan = build(fixtures[name], world)
+        plan_s = time.perf_counter() - t0
+        xd = torch.from_numpy(xs[name]).to(mesh.device)
+        call = lambda: run(plan, xd, mesh, x_mode=x_mode)  # noqa: E731
+        zero_launches()
+        sent = spmv_sharded_chunked.rotations
+        y = call()
+        torch.cuda.synchronize()
+        once = launches()
+        sends = spmv_sharded_chunked.rotations - sent
+        ms = median_ms(call, device=mesh.device)
+        busy = device_ms(call, tries=1)
+        ys[label] = y.cpu().numpy()
+        rows.append({"run": label, "rank": mesh.rank, "device":
+                     str(mesh.device), "plan_s": plan_s, "device_mb":
+                     device_bytes(plan, mesh) / 2**20, "launches_once": once,
+                     "launches": launches(), "sends": sends, "ms": ms,
+                     "device_busy_ms": busy, "host_us": host_us(call),
+                     "y_device": str(y.device)})
+    # one collective alone, at the size of TSOPF's x, beside a copy of it
+    n = -(-fixtures["TSOPF_RS_b2383"].num_cols // 128) * 128
+    src = torch.zeros(n, device=mesh.device)
+    dst = torch.empty(world * n, device=mesh.device)
+    exchange = {"floats": n}
+    for key, fn in (("all_gather_into_tensor", lambda: dist.
+                     all_gather_into_tensor(dst, src, group=mesh.group)),
+                    ("copy_", lambda: dst[:n].copy_(src))):
+        exchange[key] = {"ms": median_ms(fn, device=mesh.device),
+                         "host_us": host_us(fn)}
+    rows.append(exchange)
+    np.savez(out, rows=np.array(json.dumps(rows)), **ys)
+    dist.destroy_process_group()
+    return 0
+
+
+def process_mesh_path(fixtures, gpu, counts, failures):
+    """Phase 3j: spawn the ranks (each in a session of its own, killed with
+    what it started if it outlives RANK_TIMEOUT_S); hold every rank's full
+    y to the float64 golden and to the one-process executor on the same
+    cards at the same D, check its launches of one call (one B5 or B7, D
+    B3) and its D - 1 ring sends, and log its time beside the one-process
+    executor's."""
+    D = process_world()
+    rows = []
+    with tempfile.TemporaryDirectory() as tmp:
+        procs, logs = [], []
+        try:
+            for r in range(D):
+                logs.append(os.path.join(tmp, f"rank{r}.log"))
+                with open(logs[-1], "w") as f:
+                    procs.append(subprocess.Popen(
+                        [sys.executable, os.path.abspath(__file__),
+                         f"file://{tmp}/store", str(D), str(r),
+                         os.path.join(tmp, f"rank{r}.npz")],
+                        env=dict(os.environ, LOCAL_RANK=str(r)),
+                        stdout=f, stderr=subprocess.STDOUT,
+                        start_new_session=True))
+            deadline = time.perf_counter() + RANK_TIMEOUT_S
+            for p in procs:
+                try:
+                    p.wait(timeout=max(deadline - time.perf_counter(), 1))
+                except subprocess.TimeoutExpired:
+                    break
+        finally:
+            killed = [p for p in procs if p.poll() is None]
+            for p in killed:
+                os.killpg(p.pid, signal.SIGKILL)
+                p.wait()
+        results = []
+        for r, (p, path) in enumerate(zip(procs, logs)):
+            if p.returncode != 0:
+                why = (f"killed after {RANK_TIMEOUT_S} s" if p in killed
+                       else f"exit {p.returncode}")
+                with open(path) as f:
+                    tail = f.read()[-3000:]
+                failures.append(f"phase 3j rank {r} of {D}: {why}")
+                log(f"  rank {r} of {D} failed ({why}):\n{tail}")
+                continue
+            with np.load(os.path.join(tmp, f"rank{r}.npz")) as f:
+                *runs, exchange = json.loads(str(f["rows"]))
+                results.append((runs, {k: f[k] for k in f.files
+                                       if k != "rows"}))
+            log(f"  rank {r} of {D}, {exchange['floats']} floats: "
+                + ", ".join(f"{k} median {v['ms']:.4f} ms, host "
+                            f"{v['host_us']:.1f} us a call"
+                            for k, v in exchange.items() if k != "floats")
+                + f"; card: {gpu}")
+            rows.append({"rank": r, "world": D, "exchange": exchange})
+    if len(results) < D:
+        return rows
+    xs = process_xs(fixtures)
+    mesh = make_mesh(devices=[f"cuda:{r}" for r in range(D)])
+    for i, (label, name, kind, x_mode) in enumerate(PROCESS_RUNS):
+        build, run, kernel, per_call = SHARD_KINDS[kind]
+        coo, x = fixtures[name], xs[name]
+        plan = build(coo, D)
+        xd = torch.from_numpy(x).to(mesh.devices[0])
+        y1 = run(plan, xd, mesh, x_mode=x_mode)
+        want = coo.matvec(x.astype(np.float64))
+        ms1 = median_ms(lambda: run(plan, xd, mesh, x_mode=x_mode))
+        busy1 = device_ms(lambda: run(plan, xd, mesh, x_mode=x_mode))
+        host1 = host_us(lambda: run(plan, xd, mesh, x_mode=x_mode))
+        per_rank = per_call(D) // D  # one shard a rank
+        for rank_rows, ys in results:
+            row = rank_rows[i]
+            tag = f"{label}, rank {row['rank']} of {D} on {row['device']}"
+            y = torch.from_numpy(ys[label]).to(y1.device)
+            st = error_stats(ys[label], want, rtol=RTOL)
+            same = _agree(kernel, y, y1)[0]
+            once = {n: c for n, c in row["launches_once"].items() if c}
+            log(f"  {tag}: plan {row['plan_s']:.2f} s, device "
+                f"{row['device_mb']:.1f} MB; max rel err "
+                f"{st.max_rel_error:.3e} ({st.num_mismatches} mismatches), "
+                f"{'equal to' if same else 'OFF'} the one-process y within "
+                f"{KERNEL_RTOL}; launches of one call {once}, ring sends "
+                f"{row['sends']}; median {row['ms']:.4f} ms (device busy "
+                f"{_ms(row['device_busy_ms'])}, host {row['host_us']:.1f} us"
+                f" a call), one-process executor at D {D} {ms1:.4f} ms "
+                f"(device busy {_ms(busy1)}, host {host1:.1f} us); card: "
+                f"{gpu}")
+            if not st.ok or ys[label].shape != want.shape:
+                failures.append(f"{tag}: off the golden")
+            if not same:
+                failures.append(f"{tag}: off the one-process executor's y")
+            if row["y_device"] != row["device"]:
+                failures.append(f"{tag}: y on {row['y_device']}")
+            if once != {kernel: per_rank}:
+                failures.append(f"{tag}: launches {once}, want {per_rank} "
+                                f"{kernel}")
+            want_sends = D - 1 if x_mode == "ring" else 0
+            if row["sends"] != want_sends:
+                failures.append(f"{tag}: {row['sends']} ring sends, want "
+                                f"{want_sends}")
+            for n, c in row["launches"].items():
+                counts[n] += c
+            rows.append({**{k: v for k, v in row.items()
+                            if k not in ("launches_once", "y_device")},
+                         "world": D, "x_mode": x_mode,
+                         "max_rel_error": st.max_rel_error,
+                         "one_process_ms": ms1,
+                         "one_process_device_busy_ms": busy1,
+                         "one_process_host_us": host1})
+    return rows
+
+
 def large_block_cases(large):
     """B4 and B3 on the arrays and x of phase 3f's handles."""
     cases = []
@@ -2556,7 +2772,11 @@ def main() -> int:
         fixtures, handles, runs, large, large_coo, large_runs, gath,
         gath_coo, gath_row, split_handles, power_limit_w(gpu), counts,
         failures)
-    log(f"  launches on the nine paths: {counts}")
+    log(f"phase 3j: the sharded executors on a ProcessMesh "
+        f"({process_world()} NCCL rank(s), one a card, a process each); "
+        f"card: {gpu}")
+    proc_runs = process_mesh_path(fixtures, gpu, counts, failures)
+    log(f"  launches on the ten paths: {counts}")
     for n, c in counts.items():
         if c == 0:
             failures.append(f"the paths never launched {n}")
@@ -2600,6 +2820,7 @@ def main() -> int:
                     "sharded": shard_runs, "dryrun": dry, "ops": ops_row,
                     "large_block": large_runs, "gathered": gath_row,
                     "tuned": tuned, "persistence": persisted,
+                    "process_mesh": proc_runs,
                     "gathered_chain": chain, "permutation": perm_times,
                     "b10_v_sweep": sweep, "b2_v_sweep": b2_sweep,
                     "b8_v_sweep": b8_sweep, "b1_v_sweep": b1_sweep,
@@ -2619,4 +2840,5 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    # with arguments: one rank of phase 3j, started by the phase itself
+    sys.exit(rank_main(sys.argv[1:]) if len(sys.argv) > 1 else main())

@@ -35,6 +35,12 @@ the reference.  The layout mirrors the JAX package module for module:
                 default, so the model-only pick equals the JAX tuner's,
                 and measured tuning that times the shortlist on the card;
                 reachable as ``hispmv_tpu_torch.tune``;
+- ``dist``    — row-sharded plans and the three sharded executors (B5,
+                B7, B3 with the x ring) over a ``Mesh`` of devices in one
+                process or a ``ProcessMesh`` of ranks under
+                ``torch.distributed`` (``make_process_mesh``,
+                ``local_device``; ``python -m hispmv_tpu_torch.dist.dryrun``
+                under torchrun);
 - ``models``  — ``SparseLinear``, ``ThreeLayerFCModel`` (torch.nn), the
                 layer swap onto an ``Accelerator`` and the demo CLI;
 - ``utils``   — error statistics, CUDA-event timing (``timing``), the
@@ -56,6 +62,11 @@ from hispmv_tpu_torch.api.handle import (  # noqa: F401
     prepare,
 )
 from hispmv_tpu_torch.config import SpmvConfig  # noqa: F401
+from hispmv_tpu_torch.dist import (  # noqa: F401
+    ProcessMesh,
+    local_device,
+    make_process_mesh,
+)
 from hispmv_tpu_torch.formats.matrix import COOMatrix  # noqa: F401
 
 

@@ -1,6 +1,10 @@
-from hispmv_tpu_torch.dist.init import init_distributed  # noqa: F401
+from hispmv_tpu_torch.dist.init import (  # noqa: F401
+    init_distributed,
+    local_device,
+)
 from hispmv_tpu_torch.dist.shard import (  # noqa: F401
     Mesh,
+    ProcessMesh,
     ShardedBlockPlan,
     ShardedChunkedPlan,
     ShardedWindowPlan,
@@ -8,6 +12,7 @@ from hispmv_tpu_torch.dist.shard import (  # noqa: F401
     build_sharded_chunked_plan,
     build_sharded_window_plan,
     make_mesh,
+    make_process_mesh,
     spmv_sharded,
     spmv_sharded_chunked,
     spmv_sharded_window,

@@ -9,32 +9,41 @@ the sharded plans equal the JAX package's array for array:
 - x is replicated, or column-sharded and gathered ("gather"), or rotated
   around a ring ("ring", the chunked executor);
 - y comes out row-sharded with no communication (the planner keeps whole
-  row-blocks on one device) and is reassembled on the mesh's first device.
+  row-blocks on one device) and is then put back together.
 
 The JAX package runs one program over a ``Mesh`` of devices with
-``shard_map``.  Its counterpart here is single-process too: a
-:class:`Mesh` is a tuple of ``torch.device``\\ s, shard d's arrays live on
-``devices[d]``, and every x exchange is a device-to-device copy.  The tuple
-may repeat one card (or name ``"cpu"``): then the planner, the padding, the
-local row-block ids, the ring schedule and the reassembly all run as on D
-devices, while the copies stay on one card.  Such a mesh shows the
-schedule, not the interconnect's bandwidth.
+``shard_map``, and the mesh may span processes.  The executors here take
+either of two meshes, and the mesh's type picks the exchange:
+
+- :class:`Mesh`, one process: a tuple of ``torch.device``\\ s, shard d's
+  arrays on ``devices[d]``, every x exchange a device-to-device copy, y
+  put back together on ``devices[0]``.  The tuple may repeat one card (or
+  name ``"cpu"``): then the planner, the padding, the local row-block ids,
+  the ring schedule and the reassembly all run as on D devices, while the
+  copies stay on one card.  Such a mesh shows the schedule, not the
+  interconnect's bandwidth.
+- :class:`ProcessMesh`, one rank a device under ``torch.distributed``
+  (NCCL on cards, gloo on the CPU): every rank builds the same plan and
+  holds only its own shard; x is gathered by ``all_gather_into_tensor`` or
+  rotated by ``batch_isend_irecv``, and y is all-gathered, so every rank
+  returns the full y on its device.
 
 Per shard the executors launch B5 (``spmv_sharded``, ops/spmv_block.py),
 B7 (``spmv_sharded_window``, ops/spmv_windowed.py) or B3 per ring step
-(``spmv_sharded_chunked``, ops/spmv_chunked.py).  A plan's shards are
-uploaded to their devices once (:func:`to_device`, also at the first call)
-and kept on the plan.
+(``spmv_sharded_chunked``, ops/spmv_chunked.py), the same call in both
+forms.  A plan's shards are uploaded to their devices once
+(:func:`to_device`, also at the first call) and kept on the plan.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
-from typing import Optional
+from typing import Optional, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from hispmv_tpu_torch.formats.matrix import COOMatrix
 from hispmv_tpu_torch.ops.spmv_block import run_starts, spmv_block_stream
@@ -90,6 +99,65 @@ def make_mesh(num_devices: Optional[int] = None, axis: str = "rows",
             "devices with devices=[...] (one card may repeat, or 'cpu')"
         )
     return Mesh(tuple(torch.device("cuda", i) for i in range(n)), axis)
+
+
+# the backend the port runs a process mesh's collectives on, by device type
+_BACKEND_FOR = {"cuda": "nccl", "cpu": "gloo"}
+
+
+@dataclasses.dataclass(frozen=True)
+class ProcessMesh:
+    """The ranks of a process group, one shard a rank: shard ``rank`` on
+    this process's ``device``.  Raises when the group's backend cannot
+    carry tensors on ``device`` (NCCL on a card, gloo on the CPU)."""
+
+    group: object  # torch.distributed.ProcessGroup
+    rank: int
+    size: int
+    device: torch.device
+
+    def __post_init__(self):
+        name = str(dist.get_backend(self.group))
+        want = _BACKEND_FOR.get(self.device.type)
+        # "nccl", or "cpu:gloo,cuda:nccl" for a group of several backends
+        if name != want and f"{self.device.type}:{want}" not in \
+                name.split(","):
+            raise RuntimeError(
+                f"ProcessMesh: the group's backend {name!r} cannot carry "
+                f"tensors on {self.device}: the collectives run NCCL on a "
+                "card and gloo on the CPU")
+
+
+def make_process_mesh(device=None, group=None) -> ProcessMesh:
+    """A mesh of the joined process group (the default group when None),
+    this rank on ``local_device(device)``: ``cuda:$LOCAL_RANK`` unless a
+    device is named.  Raises when no group has been joined
+    (``init_distributed``)."""
+    from hispmv_tpu_torch.dist.init import local_device
+
+    if not (dist.is_available() and dist.is_initialized()):
+        raise RuntimeError("make_process_mesh: no process group has been "
+                           "joined; call init_distributed() first (under "
+                           "torchrun it reads the launcher's variables)")
+    group = dist.group.WORLD if group is None else group
+    return ProcessMesh(group, dist.get_rank(group), dist.get_world_size(group),
+                       local_device(device))
+
+
+AnyMesh = Union[Mesh, ProcessMesh]
+
+
+def _local(mesh: AnyMesh) -> list:
+    """(shard, device) of each shard this process runs: every shard of a
+    Mesh, the rank's own of a ProcessMesh."""
+    if isinstance(mesh, ProcessMesh):
+        return [(mesh.rank, mesh.device)]
+    return list(enumerate(mesh.devices))
+
+
+def _home(mesh: AnyMesh) -> torch.device:
+    """Where x is given and y is returned."""
+    return mesh.device if isinstance(mesh, ProcessMesh) else mesh.devices[0]
 
 
 def _cache_field():
@@ -446,26 +514,29 @@ def _window_chunk(splan: ShardedWindowPlan) -> int:
     return chunk
 
 
-def to_device(splan, mesh: Mesh) -> list:
-    """Shard d of ``splan`` on ``mesh.devices[d]``, as one dict of tensors
-    per shard.  Uploaded once per mesh and kept on the plan; every executor
-    calls it."""
+def to_device(splan, mesh: AnyMesh) -> list:
+    """The shards this process runs, on their devices, as one dict of
+    tensors per shard: shard d on ``mesh.devices[d]`` for a Mesh, only the
+    rank's own shard on its device for a ProcessMesh.  Uploaded once per
+    mesh and kept on the plan; every executor calls it."""
     if mesh.size != splan.num_devices:
         raise ValueError(f"plan has {splan.num_devices} shards, mesh "
                          f"{mesh.size} devices")
-    shards = splan.device_cache.get(mesh.devices)
+    key = ((mesh.rank, mesh.device) if isinstance(mesh, ProcessMesh)
+           else mesh.devices)
+    shards = splan.device_cache.get(key)
     if shards is None:
         shards = [
             {k: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
              for k, a in _shard_arrays(splan, d).items()}
-            for d, dev in enumerate(mesh.devices)
+            for d, dev in _local(mesh)
         ]
-        splan.device_cache[mesh.devices] = shards
+        splan.device_cache[key] = shards
     return shards
 
 
-def device_bytes(splan, mesh: Mesh) -> int:
-    """Bytes of the plan's shards on the mesh's devices."""
+def device_bytes(splan, mesh: AnyMesh) -> int:
+    """Bytes of the plan's shards that this process holds on its devices."""
     return sum(int(t.nbytes) for sh in to_device(splan, mesh)
                for t in sh.values())
 
@@ -481,31 +552,50 @@ def _padded_x(x, num_cols: int, target: int, dev) -> torch.Tensor:
     return x
 
 
-def _x_per_device(x, mesh: Mesh, x_mode: str, per_dev: int) -> list:
-    """Full x on every device: copied as it is ("replicated"), or cut into
-    one shard per device and all-gathered ("gather")."""
+def _x_per_device(x, mesh: AnyMesh, x_mode: str, per_dev: int) -> list:
+    """Full x on the device of each shard this process runs: as it is
+    ("replicated"), or cut into one ``per_dev`` slice per shard and
+    all-gathered ("gather"); across ranks by ``all_gather_into_tensor``."""
+    if x_mode not in ("replicated", "gather"):
+        raise ValueError(f"unknown x_mode {x_mode!r}")
+    if isinstance(mesh, ProcessMesh):
+        if x_mode == "replicated":
+            return [x]
+        r = mesh.rank
+        full = torch.empty(mesh.size * per_dev, dtype=x.dtype, device=x.device)
+        dist.all_gather_into_tensor(full, x[r * per_dev:(r + 1) * per_dev],
+                                    group=mesh.group)
+        return [full]
     if x_mode == "replicated":
         return [x.to(dev) for dev in mesh.devices]
-    if x_mode != "gather":
-        raise ValueError(f"unknown x_mode {x_mode!r}")
     shards = [x[d * per_dev:(d + 1) * per_dev].to(dev)
               for d, dev in enumerate(mesh.devices)]
     return [torch.cat([s.to(dev) for s in shards]) for dev in mesh.devices]
 
 
-def _gather_y(ys: list, splan, mesh: Mesh) -> torch.Tensor:
-    """Device d's first nrb_per_dev[d] row-blocks, concatenated on the
-    mesh's first device, cut to the matrix's rows."""
+def _gather_y(ys: list, splan, mesh: AnyMesh) -> torch.Tensor:
+    """Shard d's first nrb_per_dev[d] row-blocks, concatenated and cut to
+    the matrix's rows: on the mesh's first device for a Mesh, on every
+    rank's device for a ProcessMesh, whose ranks all-gather their padded
+    ``nrb_max`` row-blocks first (every rank joins, an empty shard too)."""
     bh = splan.block_h
-    pieces = [y.reshape(-1)[: splan.nrb_per_dev[d] * bh].to(mesh.devices[0])
+    if isinstance(mesh, ProcessMesh):
+        (y,) = ys
+        full = torch.empty(mesh.size * splan.nrb_max * bh, dtype=y.dtype,
+                           device=y.device)
+        dist.all_gather_into_tensor(full, y.reshape(-1), group=mesh.group)
+        ys = full.view(mesh.size, -1)
+    home = _home(mesh)
+    pieces = [y.reshape(-1)[: splan.nrb_per_dev[d] * bh].to(home)
               for d, y in enumerate(ys)]
     return torch.cat(pieces)[: splan.shape[0]]
 
 
-def spmv_sharded(splan: ShardedBlockPlan, x, mesh: Mesh, *,
+def spmv_sharded(splan: ShardedBlockPlan, x, mesh: AnyMesh, *,
                  x_mode: str = "replicated") -> torch.Tensor:
     """Distributed ``y = A @ x`` through B5 on each shard; returns the full
-    y on ``mesh.devices[0]``.
+    y on ``mesh.devices[0]`` (a Mesh) or on every rank's device (a
+    ProcessMesh, where each rank is given the full x).
 
     ``x_mode="gather"`` shards x over the mesh and all-gathers it on every
     device (``"replicated"`` copies the whole x to each)."""
@@ -513,7 +603,7 @@ def spmv_sharded(splan: ShardedBlockPlan, x, mesh: Mesh, *,
     Cp = splan.num_col_blocks * LANES
     per_dev = -(-Cp // (D * LANES)) * LANES
     shards = to_device(splan, mesh)
-    x = _padded_x(x, splan.shape[1], per_dev * D, mesh.devices[0])
+    x = _padded_x(x, splan.shape[1], per_dev * D, _home(mesh))
     ys = []
     for sh, xg in zip(shards, _x_per_device(x, mesh, x_mode, per_dev)):
         ys.append(spmv_block_stream(
@@ -524,7 +614,7 @@ def spmv_sharded(splan: ShardedBlockPlan, x, mesh: Mesh, *,
     return _gather_y(ys, splan, mesh)
 
 
-def spmv_sharded_window(splan: ShardedWindowPlan, x, mesh: Mesh, *,
+def spmv_sharded_window(splan: ShardedWindowPlan, x, mesh: AnyMesh, *,
                         x_mode: str = "replicated") -> torch.Tensor:
     """Distributed windowed SpMV through B7 on each shard; the same
     communication as :func:`spmv_sharded`."""
@@ -533,7 +623,7 @@ def spmv_sharded_window(splan: ShardedWindowPlan, x, mesh: Mesh, *,
     per_dev = -(-Cp // (D * LANES)) * LANES
     chunk = _window_chunk(splan)
     shards = to_device(splan, mesh)
-    x = _padded_x(x, splan.shape[1], per_dev * D, mesh.devices[0])
+    x = _padded_x(x, splan.shape[1], per_dev * D, _home(mesh))
     ys = []
     for sh, xg in zip(shards, _x_per_device(x, mesh, x_mode, per_dev)):
         ys.append(spmv_windowed(
@@ -603,38 +693,68 @@ def _ring_cuda(x_shards: list, mesh: Mesh, step) -> None:
         compute[p].wait_stream(side[p])
 
 
-def spmv_sharded_chunked(splan: ShardedChunkedPlan, x, mesh: Mesh, *,
+def _ring_ranks(x_own: torch.Tensor, mesh: ProcessMesh, step) -> None:
+    """The x ring over ranks.  Before step t's kernel, the rank posts the
+    send of the shard it holds to rank r+1 and the receive from rank r-1
+    into its second buffer, in one ``batch_isend_irecv``, so the exchange
+    overlaps the kernel; it waits on both before step t+1 reads the
+    received shard.  Waiting orders NCCL's stream before the current one,
+    and NCCL's stream waits for the kernels already queued (step t-1's read
+    of the buffer the receive lands in) before it starts."""
+    D, r = mesh.size, mesh.rank
+    cur, nxt = x_own, torch.empty_like(x_own)
+    for t in range(D):
+        if t < D - 1:
+            reqs = dist.batch_isend_irecv([
+                dist.P2POp(dist.isend, cur, (r + 1) % D, mesh.group),
+                dist.P2POp(dist.irecv, nxt, (r - 1) % D, mesh.group),
+            ])
+            spmv_sharded_chunked.rotations += 1
+        step(0, t, cur)
+        if t < D - 1:
+            for req in reqs:
+                req.wait()
+            cur, nxt = nxt, cur
+
+
+def spmv_sharded_chunked(splan: ShardedChunkedPlan, x, mesh: AnyMesh, *,
                          x_mode: str = "ring") -> torch.Tensor:
-    """Distributed chunked SpMV through B3, one launch per device and ring
+    """Distributed chunked SpMV through B3, one launch per shard and ring
     step (all panel ids zero: the x panel is the shard the device holds);
-    returns the full y on ``mesh.devices[0]``.
+    returns the full y on ``mesh.devices[0]`` (a Mesh) or on every rank's
+    device (a ProcessMesh).
 
     ``x_mode="ring"``: x column-sharded; D ring steps, each computing the
     segment of the x shard the device currently holds while the shards
-    rotate to the next device (D - 1 rounds of D copies, counted in
-    ``spmv_sharded_chunked.rotations``).  ``"replicated"``: every device
-    holds the full x and runs its D segments back to back (no copies)."""
+    rotate to the next device (counted in ``spmv_sharded_chunked.rotations``:
+    D - 1 rounds of D copies in one process, D - 1 sends a rank).
+    ``"replicated"``: every device holds the full x and runs its D segments
+    back to back (no exchange)."""
     D = splan.num_devices
     bh, chunk, nrb_max = splan.block_h, splan.chunk, splan.nrb_max
     ncb_per = splan.ncb_per_shard
     per = ncb_per * LANES
-    devs = mesh.devices
+    local = _local(mesh)
     shards = to_device(splan, mesh)
-    x = _padded_x(x, splan.shape[1], D * per, devs[0])
+    x = _padded_x(x, splan.shape[1], D * per, _home(mesh))
     ys = [torch.zeros((nrb_max, bh), dtype=torch.float32, device=dev)
-          for dev in devs]
+          for _, dev in local]
 
-    def step(d, t, x_shard):
-        sh = shards[d]
+    def step(i, t, x_shard):
+        """Ring step t of the i-th shard this process runs: the segment of
+        x shard (d - t) mod D, d that shard's position."""
+        sh = shards[i]
         spmv_chunked_paneled(sh["data"][t], sh["meta"][t], sh["panels"],
                              x_shard.reshape(ncb_per, LANES), nrb_max, bh,
-                             chunk, ncb_per, out=ys[d])
+                             chunk, ncb_per, out=ys[i])
 
     if x_mode == "ring":
-        # device d starts with its own shard, in a buffer of its own
+        # each shard starts with its own x slice, in a buffer of its own
         x_shards = [x[d * per:(d + 1) * per].to(dev, copy=True)
-                    for d, dev in enumerate(devs)]
-        if devs[0].type == "cuda":
+                    for d, dev in local]
+        if isinstance(mesh, ProcessMesh):
+            _ring_ranks(x_shards[0], mesh, step)
+        elif mesh.devices[0].type == "cuda":
             _ring_cuda(x_shards, mesh, step)
         else:
             nxt = [torch.empty_like(s) for s in x_shards]
@@ -648,13 +768,14 @@ def spmv_sharded_chunked(splan: ShardedChunkedPlan, x, mesh: Mesh, *,
                 if t < D - 1:
                     x_shards, nxt = nxt, x_shards
     elif x_mode == "replicated":
-        for d, xd in enumerate(x.to(dev) for dev in devs):
+        for i, (d, dev) in enumerate(local):
+            xd = x.to(dev)
             for t in range(D):
                 s = (d - t) % D  # step t of the ring uses shard (d - t) mod D
-                step(d, t, xd[s * per:(s + 1) * per])
+                step(i, t, xd[s * per:(s + 1) * per])
     else:
         raise ValueError(f"unknown x_mode {x_mode!r}")
     return _gather_y(ys, splan, mesh)
 
 
-spmv_sharded_chunked.rotations = 0  # x shard copies of the ring
+spmv_sharded_chunked.rotations = 0  # x shard copies (sends) of the ring

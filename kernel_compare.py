@@ -11,7 +11,7 @@ parent).
     python3 kernel_compare.py LABEL [GROUP ...]
 
 GROUPs (all when none is named): b1b7, b3, b2, b8, b6, b4, b9, b12, b11,
-b13.
+b13, dist.
 
 B1's cases, at one vector: TSOPF_RS_b2383's block handle and trans5's ELLX
 overflow.  B7's: crystk03's window handle (format auto, bh 8), crystk03 as
@@ -97,6 +97,12 @@ has it), device times warm and cold in turns with CSR (the wrapper's,
 its y fill included, and the kernel's events alone); then analytics'
 gathered chain and ``run``, and the ``-Xptxas -v`` registers of
 ``csrc/spmv_gathered.cu`` and ``csrc/spmv_routed.cu``.
+The ``dist`` group: the process mesh of one NCCL rank (this process)
+beside the one-process executor on phase 3j's runs, and one
+``all_gather_into_tensor`` beside a ``copy_``, each call's wall, host time
+a call and device busy time, alone on the card and while a second, idle
+process holds a context on it; with two or more cards, also phase 3j of
+``chip_smoke.py`` at one NCCL rank a card (``dist_report``).
 Exits 1 when a case disagrees, 2 without a CUDA card."""
 
 import importlib
@@ -1013,12 +1019,97 @@ def b11_report(label, rng):
     return ok
 
 
+def _dist_readings(label, tag, calls):
+    """Each call's median wall (CUDA events), host time a call and, last,
+    device busy time, the calls in turns (first, second, second, first
+    for a pair); prints one line a call."""
+    order = list(calls) + list(calls)[::-1]
+    got = {k: [] for k in calls}
+    for k in order:
+        got[k].append((cs.median_ms(calls[k]), cs.host_us(calls[k])))
+    for k, fn in calls.items():
+        walls = ", ".join(f"{w:.4f}" for w, _ in got[k])
+        hosts = ", ".join(f"{h:.1f}" for _, h in got[k])
+        print(f"{label} dist {tag} {k}: wall {walls} ms, host {hosts} us a "
+              f"call, device busy {cs._ms(cs.device_ms(fn))}", flush=True)
+
+
+def dist_report(label, rng):
+    """The process mesh at D 1 (one NCCL rank, this process) beside the
+    one-process executor on ["cuda:0"], on phase 3j's runs, in turns; one
+    ``all_gather_into_tensor`` and one ``copy_`` at the size of TSOPF's x;
+    then the same again while a second, idle process holds a context on
+    the card (as the smoke's own process does while its rank runs), and
+    the process mesh's host time once more after the profiler has run in
+    this process.  Holds every y to the one-process y.  With two or more
+    cards, then ``chip_smoke.py``'s phase 3j: one NCCL rank a card (up to
+    four), each a process, beside the one-process executor on the same
+    cards."""
+    import torch.distributed as dist
+
+    from hispmv_tpu_torch.dist import init_distributed, make_process_mesh
+
+    tmp = tempfile.mkdtemp()
+    init_distributed(f"file://{tmp}/store", 1, 0, backend="nccl")
+    pm, one = make_process_mesh("cuda:0"), make_mesh(devices=["cuda:0"])
+    fixtures = {n: suite_matrix(n, 1.0, seed=cs.SEED)
+                for n in sorted({r[1] for r in cs.PROCESS_RUNS})}
+    xs = cs.process_xs(fixtures)
+    calls, ok = {}, True
+    for label_run, name, kind, x_mode in cs.PROCESS_RUNS:
+        build, run, kernel, _ = cs.SHARD_KINDS[kind]
+        plan = build(fixtures[name], 1)
+        xd = torch.from_numpy(xs[name]).cuda()
+        pair = {"process mesh": (lambda p=plan, r=run, x=xd, m=x_mode:
+                                 r(p, x, pm, x_mode=m)),
+                "one-process": (lambda p=plan, r=run, x=xd, m=x_mode:
+                                r(p, x, one, x_mode=m))}
+        ok &= cs._agree(kernel, pair["process mesh"](),
+                        pair["one-process"]())[0]
+        calls[label_run] = pair
+    n = -(-fixtures["TSOPF_RS_b2383"].num_cols // 128) * 128
+    src, dst = torch.zeros(n, device="cuda"), torch.empty(n, device="cuda")
+    calls[f"{n} floats"] = {
+        "all_gather_into_tensor": lambda: dist.all_gather_into_tensor(dst,
+                                                                     src),
+        "copy_": lambda: dst.copy_(src)}
+    for tag, pair in calls.items():
+        _dist_readings(label, f"{tag}, alone on the card", pair)
+    other = subprocess.Popen(
+        [sys.executable, "-c", "import sys, time, torch; "
+         "torch.zeros(1, device='cuda'); print('up', flush=True); "
+         "time.sleep(3600)"], stdout=subprocess.PIPE, text=True,
+        start_new_session=True)
+    try:
+        other.stdout.readline()
+        for tag, pair in calls.items():
+            _dist_readings(label, f"{tag}, a second context on the card",
+                           pair)
+    finally:
+        other.kill()
+        other.wait()
+    for tag, pair in calls.items():
+        fn = pair.get("process mesh", pair.get("all_gather_into_tensor"))
+        print(f"{label} dist {tag}, after the profiler: host "
+              f"{cs.host_us(fn):.1f} us a call", flush=True)
+    dist.destroy_process_group()
+    shutil.rmtree(tmp, ignore_errors=True)
+    if torch.cuda.device_count() >= 2:  # phase 3j: a rank a card, NCCL
+        failures = []
+        cs.process_mesh_path(fixtures, cs.gpu_line(),
+                             {n: 0 for n in cs.KERNELS}, failures)
+        for f in failures:
+            print(f"{label} dist FAIL {f}", flush=True)
+        ok &= not failures
+    return ok
+
+
 # the case groups, in the order they run (and draw from the generator)
 GROUPS = {"b1b7": b1_b7_cases, "b3": b3_cases, "b2": b2_cases,
           "b8": b8_cases, "b6": b6_cases, "b4": b4_cases}
 # groups that print their own lines, last
 REPORTS = {"b9": b9_report, "b12": b12_report, "b11": b11_report,
-           "b13": b13_report}
+           "b13": b13_report, "dist": dist_report}
 
 
 def main(label: str, groups=()) -> int:

@@ -17,6 +17,11 @@ atol=1e-5*max(1, max|y|).  B11 does no arithmetic and is held
 to its plain version and to ``x[perm]`` exactly, B12 and the full gathered
 x gather likewise.  Handles are held to the float64 golden at rtol=1e-3."""
 
+import json
+import os
+import subprocess
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -44,10 +49,13 @@ from hispmv_tpu_torch.models import (
     compare_model_outputs,
 )
 from hispmv_tpu_torch.dist import (
+    ProcessMesh,
     build_sharded_block_plan,
     build_sharded_chunked_plan,
     build_sharded_window_plan,
+    init_distributed,
     make_mesh,
+    make_process_mesh,
     spmv_sharded,
     spmv_sharded_chunked,
     spmv_sharded_window,
@@ -122,6 +130,8 @@ from hispmv_tpu_torch.utils.errors import error_stats
 from hispmv_tpu_torch.utils.timing import bench_spmv, median_ms
 
 pytestmark = pytest.mark.cuda
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 MATRICES = {
     "random": lambda: random_coo(700, 3000, 20_000, seed=11),
@@ -1391,6 +1401,83 @@ def test_sharded_window_with_empty_shards_on_one_card(dev):
 def test_dryrun_multichip_on_one_card(dev):
     stats = dryrun_multichip(["cuda:0"] * 4)
     assert stats["ring_copies"] == 12
+
+
+@pytest.fixture
+def nccl_world(dev, tmp_path):
+    """A world of one NCCL rank on cuda:0, joined by a file store; its
+    process mesh.  Left after the test."""
+    assert init_distributed(f"file://{tmp_path}/store", 1, 0,
+                            backend="nccl") is False
+    try:
+        yield make_process_mesh("cuda:0")
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+@pytest.mark.parametrize("kind", list(SHARDED))
+def test_process_mesh_of_one_nccl_rank(nccl_world, kind):
+    """The executors on a ProcessMesh of one NCCL rank: y on the rank's
+    card equals the one-process form on ["cuda:0"] (same kernels, same
+    arrays: B5 bit for bit; B7 and B3 add by atomics, so at the kernel
+    tolerance) and is within 1e-3 of the golden; one B5 or B7, or D B3, a
+    call, and no ring send at D 1."""
+    build, run, modes = SHARDED[kind]
+    coo = powerlaw_coo(3000, 2500, 50_000, seed=9)
+    plan = build(coo, 1)
+    x = np.random.default_rng(1).standard_normal(coo.num_cols).astype(
+        np.float32)
+    want = coo.matvec(x.astype(np.float64))
+    counter = {"block": spmv_block_stream, "window": spmv_windowed,
+               "chunked": spmv_chunked_paneled}[kind]
+    for mode in modes:
+        one = run(plan, x, make_mesh(devices=["cuda:0"]), x_mode=mode)
+        launched, sent = counter.launches, spmv_sharded_chunked.rotations
+        y = run(plan, x, nccl_world, x_mode=mode)
+        torch.cuda.synchronize()
+        assert counter.launches - launched == 1, (kind, mode)
+        assert spmv_sharded_chunked.rotations == sent
+        assert y.device == torch.device("cuda", 0)
+        assert y.shape == (coo.num_rows,)
+        if kind == "block":
+            assert torch.equal(y, one), mode
+        else:
+            assert_close(y, one)
+        assert error_stats(y.cpu().numpy(), want, rtol=1e-3).ok, (kind, mode)
+
+
+def test_process_mesh_on_distinct_cards(dev, tmp_path):
+    """The dry run on min(cards, 4) NCCL ranks, one a card, under
+    torchrun: every rank's y within 1e-3 of the golden and D - 1 ring
+    sends."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip(f"needs two or more cards, found {n}")
+    D = min(n, 4)
+    env = dict(os.environ, PYTHONPATH=REPO)
+    for var in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK"):
+        env.pop(var, None)
+    out = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", str(D), "-m", "hispmv_tpu_torch.dist.dryrun"],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0, out.stderr[-4000:]
+    lines = [json.loads(ln) for ln in out.stdout.splitlines()
+             if ln.startswith("{")]
+    assert sorted(d["rank"] for d in lines) == list(range(D))
+    for d in lines:
+        assert d["ok"] and d["ring_copies"] == D - 1
+        assert d["device"] == f"cuda:{d['rank']}"
+
+
+def test_gloo_group_refuses_card_tensors(nccl_world):
+    """A gloo group given the card raises, naming the backend and the
+    device, before any collective."""
+    gloo = torch.distributed.new_group(backend="gloo")
+    with pytest.raises(RuntimeError, match="gloo.*cuda:0"):
+        make_process_mesh("cuda:0", group=gloo)
+    with pytest.raises(RuntimeError, match="gloo.*cuda:0"):
+        ProcessMesh(gloo, 0, 1, torch.device("cuda", 0))
 
 
 # --- B4 and the block handle's layouts ---------------------------------------

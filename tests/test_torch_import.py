@@ -89,6 +89,11 @@ def test_public_names():
                                       "PowerMonitor")),
     ("hispmv_tpu_torch.native", ("parse_mtx_body", "pack_blocks")),
     ("hispmv_tpu_torch.formats.synth", ("fetch_suite",)),
+    ("hispmv_tpu_torch.dist", ("ProcessMesh", "make_process_mesh",
+                               "local_device")),
+    ("hispmv_tpu_torch", ("ProcessMesh", "make_process_mesh",
+                          "local_device")),
+    ("hispmv_tpu_torch.dist.dryrun", ("main",)),
 ])
 def test_package_exports(module, names):
     mod = importlib.import_module(module)
