@@ -6,8 +6,12 @@ Run from the root of a checkout, with no arguments:
     python3 chip_smoke.py
 
 It builds the hand-written CUDA kernels from ``hispmv_tpu_torch/csrc/``
-(B1-B13), then drives ten paths of the port, each run with the launch
-counts zeroed just before it and read just after:
+(B1-B13), then drives eleven paths of the port, each run with the launch
+counts zeroed just before it and read just after.  Every handle plans
+under the card's device profile (``H100``,
+``hispmv_tpu_torch/profiles.py``); the gathered phase takes V5E with its
+gathered costs lowered where H100's own costs do not keep a side-plan
+beside routed streams, and prints why.
 
 - ``prepare`` -> ``SpmvHandle.run`` and ``Accelerator`` (formats window,
   ellx, block, dense and routed, the latter in original and rank space) on
@@ -29,19 +33,19 @@ counts zeroed just before it and read just after:
   in the x- and y-paneled layout (``run`` through B4, which reads only the
   sectors its handle's sector mask marks live, ``linear`` at B 64 through
   B6) and a 200,000 x 5,120,000 one in the x-paneled layout (``run``
-  through B3);
-- the routed format's gathered side-plan on the analytics stand-in, with
-  the gathered executor's modelled cost lowered so that the planner diverts
-  its scattered tiles: ``run`` through B12, B11 twice, B13 and B9, and
-  ``linear`` at B 8 vector by vector.
+  through B3; planned under V5E where H100's budgets tile it, which the
+  phase prints);
+- the routed format's gathered side-plan on the analytics stand-in beside
+  its routed streams, under H100 or, where H100's costs do not give both,
+  under V5E with the gathered costs lowered: ``run`` through B12, B11
+  twice, B13 and B9, and ``linear`` at B 8 vector by vector.
 - the tuned entry: the ``split`` format on trans5 with its routed body
   (``run`` through one B9 launch, ``linear`` at B 64 vector by vector)
   and with an ELLX body (``run`` through the base product and B1,
   ``linear`` at B 8 through B2), each timed beside the routed handle and
   the CSR product; the CLI in process (``@trans5 --format tune --measure
   3``: the shortlist timed on the card, the winner verified and timed
-  beside trans5's ``auto`` handle); and the model-only tuner's pick on
-  every fixture beside ``choose_format``'s;
+  beside trans5's ``auto`` handle);
 - persistence: the plan of every format's handle above (window, ELLX with
   its overflow, chunked, tiled and paneled block, routed in original and
   rank space and with its gathered side-plan, split with a routed and an
@@ -65,7 +69,12 @@ counts zeroed just before it and read just after:
   one-process executor at the same D, its launches of one call (one B5 or
   B7, D B3) and ring sends counted, and its time (CUDA events, median of
   20) logged beside the one-process executor's.  A rank that fails or
-  outlives its time fails the run.
+  outlives its time fails the run;
+- the device profile: model-only ``tune`` under V5E and under H100 on the
+  five phase-3 fixtures and analytics, every shortlisted candidate
+  prepared under its profile, held to the golden and timed with
+  ``bench_spmv`` beside its estimate; the two picks timed in turns; the
+  median |log2(estimate / time)| of each profile.
 
 Every result is held to a float64 golden at rtol 1e-3.  Then each kernel
 is compared with its plain PyTorch version on the arrays the paths gave it
@@ -107,6 +116,7 @@ no CUDA card or any check fails.  The last line of standard output is
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import shutil
@@ -207,14 +217,13 @@ from hispmv_tpu_torch.ops.spmv_windowed import (
     windowed_batched_grid,
 )
 from hispmv_tpu_torch.ops.spmv_ellx import EllxPlan
-from hispmv_tpu_torch.plan import gathered as gathered_plan
 from hispmv_tpu_torch.plan import load_plan, save_plan
 from hispmv_tpu_torch.plan.blocks import _pack_blocks_numpy
 from hispmv_tpu_torch.plan.routed import RoutedPlan
 from hispmv_tpu_torch.plan.split import build_split_plan
 from hispmv_tpu_torch.tune import DSE, tune
 from hispmv_tpu_torch.tune.dse import measured_shortlist
-from hispmv_tpu_torch.tune.cost import V5E
+from hispmv_tpu_torch.tune.cost import H100, V5E
 from hispmv_tpu_torch.utils.errors import error_stats
 from hispmv_tpu_torch.utils.metrics import read_metrics
 from hispmv_tpu_torch.utils.trace import PowerMonitor, Tracer, profile_trace
@@ -299,20 +308,23 @@ SHARD_KINDS = {  # plan builder, executor, kernel, launches per call of D
 MAX_BALANCE = 1.3  # max/mean device load of the nnz-balanced planners
 PANEL_NCB = 64  # x panel of the multi-panel B3 check (8192 columns)
 
-# phase 3f: block matrices past the chunked layout's budget, the JAX
-# handle's dispatch with its constants.  (label, rows, cols, nonzeros
-# before dedup, layout, kernel of run, linear batch or None); the first is
-# SuiteSparse Janna/Flan_1565's size, the second tests/test_api.py's wide
-# shape.
+# phase 3f: block matrices past the chunked layout's budget, under H100's
+# budgets, or under V5E's where H100's give another layout (the phase
+# prints which).  (label, rows, cols, nonzeros before dedup, layout, kernel of
+# run, linear batch or None); the first is SuiteSparse Janna/Flan_1565's
+# size, the second tests/test_api.py's wide shape.
 LARGE_BLOCK_RUNS = [
     ("Flan_1565-sized block", 1_564_794, 1_564_794, 114_165_372, "tiled",
      "spmv_chunked_tiled", BATCH),
     ("200000x5120000 block", 200_000, 5_120_000, 14_600_000, "paneled",
      "spmv_chunked_paneled", None),
 ]
-# phase 3g: the gathered side-plan, diverted with cheap modelled costs
+# phase 3g: the gathered side-plan of analytics beside routed streams,
+# planned under H100, or, where H100's own costs do not give both, under
+# V5E with the gathered tile and stage costs lowered (the plan of two
+# streams and a side-plan; the phase prints which and why)
 GATHERED_FIXTURE = "analytics"
-GATHERED_COSTS = {"GATH_TILE_NS": 1.0, "GATH_STAGE_NS": 1.0}
+GATHERED_LOWERED = {"gath_tile_ns": 1.0, "gath_stage_ns": 1.0}
 GATHERED_BATCH = 8
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet): HBM bandwidth and
@@ -647,6 +659,13 @@ def linear_path(handles, fixtures, counts, failures):
             golden_a = coo.to_scipy()
             nnz = coo.nnz
             a_csr = csr_of(SPARSE_NAME[key], coo)
+            if h.format == "block":
+                # the handle's profile rules B2 against B6
+                kernels = (("spmv_chunked_batched",) if h._block_uses_b2(B)
+                           else ("spmv_block_batched",))
+                log(f"  {label}: {h.profile.name}'s rule takes "
+                    f"{'B2' if kernels[0] == 'spmv_chunked_batched' else 'B6'}"
+                    f" at B {B}")
 
             def call(xd, bd, h=h):
                 return h.linear(xd, bd)
@@ -1035,6 +1054,16 @@ def large_block_path(counts, failures):
         torch.cuda.synchronize()
         prep_s = time.perf_counter() - t0
         if _layout(h) != [layout]:
+            got = _layout(h)
+            del h
+            t0 = time.perf_counter()
+            h = prepare(coo, SpmvConfig(), "block", profile=V5E)
+            torch.cuda.synchronize()
+            prep_s = time.perf_counter() - t0
+            log(f"  {label}: {H100.name}'s budgets lay it out {got}, so the "
+                f"phase builds it under {V5E.name}, whose budgets give "
+                f"{layout}, to reach {kernel}")
+        if _layout(h) != [layout]:
             failures.append(f"{label}: layout {_layout(h)}, want {layout}")
         x, y_in = inputs(R, C, rng)
         xd, yd = torch.from_numpy(x).cuda(), torch.from_numpy(y_in).cuda()
@@ -1126,30 +1155,43 @@ def b6_bound(h, xbd):
                         y)
 
 
+def gathered_prepare(coo):
+    """The routed handle of ``coo`` with a gathered side-plan beside
+    routed streams: under H100, or, when H100's costs do not give both,
+    under V5E with GATHERED_LOWERED; returns (handle, the profile and
+    why)."""
+    h = prepare(coo, SpmvConfig(), "routed", profile=H100)
+    g, n = h.plan.gathered, len(h.plan.streams)
+    if g is not None and n:
+        return h, (f"{H100.name}: its own costs divert the scattered tiles "
+                   f"and keep {n} streams")
+    got = (f"{g.num_tiles} gathered tiles" if g is not None
+           else "no gathered tile") + f" beside {n} streams"
+    prof = dataclasses.replace(V5E, **GATHERED_LOWERED)
+    return (prepare(coo, SpmvConfig(), "routed", profile=prof),
+            f"{V5E.name} with {GATHERED_LOWERED}: under {H100.name}'s own "
+            f"costs the routed plan of this matrix has {got}, so the phase "
+            "takes the plan that runs B12, B11 twice, B13 and B9 together")
+
+
 def gathered_path(counts, failures):
     """Phase 3g: ``prepare(coo, format="routed")`` on the analytics
-    stand-in with the gathered executor's modelled cost lowered (this
-    phase only), so that the planner diverts its scattered tiles to a
-    gathered side-plan; ``run`` against the golden, then ``linear`` at
-    GATHERED_BATCH vector by vector.  Counts zeroed before each run and
-    read after.  Returns the row, (handle, x) and the matrix."""
+    stand-in with a gathered side-plan (``gathered_prepare``); ``run``
+    against the golden, then ``linear`` at GATHERED_BATCH vector by
+    vector.  Counts zeroed before each run and read after.  Returns the
+    row, (handle, x) and the matrix."""
     coo = suite_matrix(GATHERED_FIXTURE, 1.0, seed=SEED)
     label = f"{GATHERED_FIXTURE} routed gathered"
-    saved = {k: getattr(gathered_plan, k) for k in GATHERED_COSTS}
     zero_launches()
     t0 = time.perf_counter()
-    try:
-        for k, v in GATHERED_COSTS.items():
-            setattr(gathered_plan, k, v)
-        h = prepare(coo, SpmvConfig(), "routed")
-    finally:
-        for k, v in saved.items():
-            setattr(gathered_plan, k, v)
+    h, why = gathered_prepare(coo)
     torch.cuda.synchronize()
     prep_s = time.perf_counter() - t0
+    log(f"  {label}: planned under {why}")
     g = h.plan.gathered
-    if h.format != "routed" or g is None:
-        failures.append(f"{label}: no gathered side-plan")
+    if h.format != "routed" or g is None or not h.plan.streams:
+        failures.append(f"{label}: no gathered side-plan beside routed "
+                        "streams")
         return None, None, coo
     nstreams = len(h.plan.streams)
     diverted = int(np.count_nonzero(g.vals))
@@ -1262,8 +1304,8 @@ def split_path(fixtures, handles, counts, failures, keep):
         if body == "routed":
             h = prepare(coo, format="split")
         else:
-            h = SpmvHandle.from_plan(build_split_plan(coo,
-                                                      body_format="ellx"))
+            h = SpmvHandle.from_plan(build_split_plan(
+                coo, body_format="ellx", profile=H100))
         torch.cuda.synchronize()
         prep_s = time.perf_counter() - t0
         st = h.plan.stats
@@ -1371,12 +1413,13 @@ def split_path(fixtures, handles, counts, failures, keep):
 def cli_path(fixtures, handles, runs, counts, failures):
     """Phase 3h, part 2: the CLI in process, ``@trans5 --format tune
     --measure 3`` with a metrics CSV and a tune cache in a temporary
-    directory; the model's ranking (the TPU v5e profile's estimates), the
-    time on the card of each shortlisted candidate, and the winner's run
-    beside trans5 auto's (ELLX).  Counts zeroed before, read after."""
+    directory; the model's ranking (the card's profile, H100: estimates,
+    not times), the time on the card of each shortlisted candidate, and
+    the winner's run beside trans5 auto's (ELLX).  Counts zeroed before,
+    read after."""
     coo = fixtures[SPLIT_FIXTURE]
-    model = DSE().explore(coo)
-    log(f"  model ranking ({V5E.name} estimates, not times): "
+    model = DSE(H100).explore(coo)
+    log(f"  model ranking ({H100.name} estimates, not times): "
         f"{[(lbl, round(s * 1e6, 1)) for lbl, s in model.candidates[:6]]}")
     with tempfile.TemporaryDirectory() as tmp:
         csv = os.path.join(tmp, "metrics.csv")
@@ -1394,7 +1437,9 @@ def cli_path(fixtures, handles, runs, counts, failures):
         with open(cache) as f:
             (entry,) = json.load(f).values()
         with open(cache + ".measured") as f:
-            measured = {k.split(":", 1)[1]: v for k, v in json.load(f).items()}
+            # keyed fingerprint:profile:label
+            measured = {k.rsplit(":", 1)[1]: v
+                        for k, v in json.load(f).items()}
     for n, c in used.items():
         counts[n] += c
     if rc != 0 or row["verified"] != "True":
@@ -1431,33 +1476,175 @@ def cli_path(fixtures, handles, runs, counts, failures):
             "auto_run_ms": auto_ms}
 
 
-def model_tune_picks(fixtures, failures):
-    """Phase 3h, part 3: model-only ``tune`` (no handle, no device) on
-    every phase-3 fixture, beside ``choose_format``'s pick."""
-    picks = {}
-    for name, coo in fixtures.items():
-        t0 = time.perf_counter()
-        res = tune(coo)
-        dt = time.perf_counter() - t0
-        cf = choose_format(coo, SpmvConfig())
-        log(f"  {name}: tune -> {res.format} (block_h "
-            f"{res.config.block_h}, rank_sort {res.config.rank_sort}; model "
-            f"est ({V5E.name}) {res.est_seconds * 1e6:.1f} us), "
-            f"choose_format -> {cf}; {dt:.1f} s")
-        if res.measured:
-            failures.append(f"{name}: a model-only tune came back measured")
-        picks[name] = {"tune": res.format, "block_h": res.config.block_h,
-                       "choose_format": cf, "seconds": dt}
-    return picks
-
-
 def tuned_entry(fixtures, handles, runs, counts, failures, keep):
-    """Phase 3h: the split format, the CLI's measured tune and model-only
-    tune picks; the split handles are kept in ``keep``."""
+    """Phase 3h: the split format and the CLI's measured tune; the split
+    handles are kept in ``keep``."""
     split_rows = split_path(fixtures, handles, counts, failures, keep)
     cli_row = cli_path(fixtures, handles, runs, counts, failures)
-    picks = model_tune_picks(fixtures, failures)
-    return {"split": split_rows, "cli": cli_row, "tune_picks": picks}
+    return {"split": split_rows, "cli": cli_row}
+
+
+# phase 3k: the device profile.  Model-only tune under the JAX package's
+# TPU v5e profile and under the card's (H100), on the five phase-3
+# fixtures and analytics: each shortlisted candidate (the measured tune's
+# shortlist at top 2, bf16 payloads left out: they are not held to rtol
+# 1e-3) prepared under its profile, held to the golden and timed with
+# bench_spmv beside its estimate.
+PROFILE_FIXTURES = sorted({r[1] for r in SPARSE_RUNS}) + [GATHERED_FIXTURE]
+PROFILE_TOP = 2
+PICK_SLACK = 1.10  # an H100 pick within 10% of the V5E pick's time
+PICK_ROUNDS = 10  # the picks timed in turns, the order reversed each round
+
+
+def profile_fixtures(fixtures=None):
+    """name -> matrix of PROFILE_FIXTURES (from ``fixtures`` where it has
+    them, else generated at scale 1.0, seed SEED)."""
+    fixtures = fixtures or {}
+    return {n: fixtures[n] if n in fixtures
+            else suite_matrix(n, 1.0, seed=SEED) for n in PROFILE_FIXTURES}
+
+
+def _candidate(coo, fmt, cfg, profile, x, want, failures, label):
+    """Prepare one candidate under ``profile``, hold its run to the
+    golden, time it; returns (seconds, handle, prepare seconds)."""
+    t0 = time.perf_counter()
+    h = prepare(coo, cfg, fmt, profile=profile)
+    torch.cuda.synchronize()
+    prep_s = time.perf_counter() - t0
+    t, y = bench_spmv(h, x)
+    st = error_stats(y, want, rtol=RTOL, atol=GOLDEN_ATOL * float(
+        np.abs(want).max()))
+    if not st.ok or not np.isfinite(y).all():
+        failures.append(f"{label}: off the golden ({st.num_mismatches} "
+                        f"past rtol {RTOL})")
+    return t, h, prep_s
+
+
+ROUTED_BUSY_ROUNDS = 3  # the routed plans' device busy, in turns
+
+
+def routed_busy(name, coo, profiles, x, want, failures):
+    """The routed plan of ``coo`` (rank space for language, as phase 3
+    runs it) under each profile: verified, then its device busy time a
+    run, the median of ROUTED_BUSY_ROUNDS readings taken in turns; logs
+    the last profile's over the first's.  Returns name -> (streams,
+    tiles, residual nonzeros, busy ms)."""
+    cfg = SpmvConfig(rank_sort=name == "language")
+    hs, busy = {}, {p.name: [] for p in profiles}
+    for p in profiles:
+        _, h, _ = _candidate(coo, "routed", cfg, p, x, want, failures,
+                             f"{name} {p.name} routed")
+        hs[p.name] = (h, h._pad_x(torch.from_numpy(x).cuda()))
+    for r in range(ROUTED_BUSY_ROUNDS):
+        for p in (profiles if r % 2 == 0 else profiles[::-1]):
+            h, xp = hs[p.name]
+            busy[p.name].append(device_ms(lambda: h._matvec(xp)))
+    out = {}
+    for p in profiles:
+        plan = hs[p.name][0].plan
+        b = [t for t in busy[p.name] if t is not None]
+        out[p.name] = {"streams": [(s.num_tiles, s.wmax, s.l1, s.lmax)
+                                   for s in plan.streams],
+                       "residual": len(plan.residual_vals),
+                       "gathered_tiles": (plan.gathered.num_tiles
+                                          if plan.gathered else 0),
+                       "busy_ms": float(np.median(b)) if b else None}
+    hs.clear()
+    first, last = profiles[0].name, profiles[-1].name
+    b0, b1 = out[first]["busy_ms"], out[last]["busy_ms"]
+    ratio = b1 / b0 if b0 and b1 else None
+    out["busy_ratio"] = ratio
+    each = [f"{n} {_ms(o['busy_ms'])} (streams {o['streams']}, residual "
+            f"{o['residual']}, gathered tiles {o['gathered_tiles']})"
+            for n, o in ((p.name, out[p.name]) for p in profiles)]
+    log(f"  {name} routed plans, device busy a run (median of "
+        f"{ROUTED_BUSY_ROUNDS} in turns): " + "; ".join(each)
+        + f"; {last} / {first} "
+        + ("not measured" if ratio is None else f"{ratio:.3f}"))
+    return out
+
+
+def profile_picks(fixtures, profiles, failures):
+    """Phase 3k: for each fixture and profile, the model-only ``tune``
+    pick and every shortlisted candidate, verified and timed once; then
+    per fixture the picks timed in turns (PICK_ROUNDS, ``bench_spmv``
+    each), the last profile's pick time over the first's and each pick's
+    device busy time, the routed plans' device busy under each profile
+    (``routed_busy``), and per profile the median |log2(estimate / time)|
+    over the candidates.  Returns the rows."""
+    rng = np.random.default_rng(SEED + 11)
+    out = {"fixtures": {}, "median_abs_log2": {}}
+    logs = {p.name: [] for p in profiles}
+    for name, coo in fixtures.items():
+        x = rng.standard_normal(coo.num_cols).astype(np.float32)
+        want = coo.matvec(x.astype(np.float64))
+        row = {"choose_format": choose_format(coo, SpmvConfig())}
+        pick_h = {}
+        for prof in profiles:
+            t0 = time.perf_counter()
+            res = tune(coo, profile=prof)
+            tune_s = time.perf_counter() - t0
+            if res.measured:
+                failures.append(f"{name}: a model-only tune came back "
+                                "measured")
+            cands = []
+            for label, est, fmt, cfg in measured_shortlist(res,
+                                                           PROFILE_TOP):
+                if label.endswith("-bf16"):
+                    continue
+                t, h, prep_s = _candidate(
+                    coo, fmt, cfg, prof, x, want, failures,
+                    f"{name} {prof.name} {label}")
+                ratio = est / t
+                logs[prof.name].append(abs(np.log2(ratio)))
+                cands.append({"label": label, "format": h.format,
+                              "est_s": est, "bench_s": t,
+                              "est_over_time": ratio, "prepare_s": prep_s})
+                if len(cands) == 1:
+                    pick_h[prof.name] = h
+                del h
+            pick = cands[0]
+            row[prof.name] = {"pick": pick["label"], "format": res.format,
+                              "est_s": res.est_seconds,
+                              "bench_s": pick["bench_s"],
+                              "candidates": cands, "tune_s": tune_s}
+            log(f"  {name} under {prof.name}: pick {pick['label']} "
+                f"({res.format}), est {res.est_seconds * 1e3:.4f} ms, "
+                f"bench_spmv {pick['bench_s'] * 1e3:.4f} ms; shortlist "
+                + ", ".join(f"{c['label']} est/time "
+                            f"{c['est_over_time']:.3g} "
+                            f"({c['bench_s'] * 1e3:.4f} ms)" for c in cands)
+                + f"; tune {tune_s:.1f} s")
+        turns = {p.name: [] for p in profiles}
+        for r in range(PICK_ROUNDS):
+            for p in (profiles if r % 2 == 0 else profiles[::-1]):
+                turns[p.name].append(bench_spmv(pick_h[p.name], x)[0])
+        for p in profiles:
+            h = pick_h[p.name]
+            xp = h._pad_x(torch.from_numpy(x).cuda())
+            row[p.name]["turns_s"] = turns[p.name]
+            row[p.name]["device_busy_ms"] = device_ms(lambda: h._matvec(xp))
+        pick_h.clear()
+        row["routed"] = routed_busy(name, coo, profiles, x, want, failures)
+        first, last = profiles[0].name, profiles[-1].name
+        ratio = float(np.median(turns[last]) / np.median(turns[first]))
+        row["pick_time_ratio"] = ratio
+        log(f"  {name}: picks in turns, {first} "
+            f"{[round(t * 1e3, 4) for t in turns[first]]} ms, {last} "
+            f"{[round(t * 1e3, 4) for t in turns[last]]} ms: {last} / "
+            f"{first} {ratio:.3f} "
+            f"({'within' if ratio <= PICK_SLACK else 'past'} "
+            f"{PICK_SLACK:.2f}); device busy a run {first} "
+            f"{_ms(row[first]['device_busy_ms'])}, {last} "
+            f"{_ms(row[last]['device_busy_ms'])}; choose_format -> "
+            f"{row['choose_format']}")
+        out["fixtures"][name] = row
+    for pname, lg in logs.items():
+        out["median_abs_log2"][pname] = float(np.median(lg))
+    log("  median |log2(est / time)| over the shortlisted candidates: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in
+                    out["median_abs_log2"].items()))
+    return out
 
 
 # phase 3i: persistence, native parse and pack, trace.  (label, where the
@@ -1524,7 +1711,8 @@ def persist_one(label, h, coo, prep_s, tmp, tracer, failures):
     os.remove(path)
     t0 = time.perf_counter()
     with tracer.span("from_plan"):
-        h2 = SpmvHandle.from_plan(plan, device="cuda")
+        # a plan file carries no profile: the original's layouts
+        h2 = SpmvHandle.from_plan(plan, device="cuda", profile=h.profile)
         torch.cuda.synchronize()
     from_s = time.perf_counter() - t0
     zero_launches()
@@ -1992,15 +2180,16 @@ def large_block_cases(large):
                                      p.block_h, chunked_tiled_grid),
                           (d["data"], d["meta"], d["xpanels"], d["ypanels"],
                            x2d, npy, pnrb, p.block_h, h._chunk,
-                           h._PANEL_NCB, h._sector_mask)))
+                           h.profile.panel_ncb, h._sector_mask)))
         else:
             nch = d["data"].shape[0]
             cases.append(("spmv_chunked_paneled",
-                          f"{shape}, x panels of {h._PANEL_NCB} col blocks, "
+                          f"{shape}, x panels of {h.profile.panel_ncb} col "
+                          "blocks, "
                           f"{b3_shape(nch, h._chunk, p.block_h)}",
                           (d["data"], d["meta"], d["panels"], x2d,
                            p.num_row_blocks, p.block_h, h._chunk,
-                           h._PANEL_NCB)))
+                           h.profile.panel_ncb)))
     return cases
 
 
@@ -2757,8 +2946,7 @@ def main() -> int:
     ops_row, ops_cases = ops_entry(handles, fixtures, counts, failures)
     log("phase 3f: block matrices past the chunked layout's budget")
     large_runs, large, large_coo = large_block_path(counts, failures)
-    log(f"phase 3g: the gathered side-plan of routed ({GATHERED_FIXTURE}, "
-        f"modelled costs {GATHERED_COSTS} for this phase)")
+    log(f"phase 3g: the gathered side-plan of routed ({GATHERED_FIXTURE})")
     gath_row, gath, gath_coo = gathered_path(counts, failures)
     log("phase 3h: the tuned entry (split on trans5, the CLI's measured tune, "
         "model-only tune picks)")
@@ -2776,7 +2964,13 @@ def main() -> int:
         f"({process_world()} NCCL rank(s), one a card, a process each); "
         f"card: {gpu}")
     proc_runs = process_mesh_path(fixtures, gpu, counts, failures)
-    log(f"  launches on the ten paths: {counts}")
+    log(f"phase 3k: model-only tune under {V5E.name} and {H100.name} on "
+        f"{PROFILE_FIXTURES}, each shortlisted candidate verified and timed "
+        f"with bench_spmv; card: {gpu}")
+    picks = profile_picks(profile_fixtures(
+        dict(fixtures, **({GATHERED_FIXTURE: gath_coo} if gath_coo is not None
+                          else {}))), [V5E, H100], failures)
+    log(f"  launches on the eleven paths: {counts}")
     for n, c in counts.items():
         if c == 0:
             failures.append(f"the paths never launched {n}")
@@ -2820,7 +3014,7 @@ def main() -> int:
                     "sharded": shard_runs, "dryrun": dry, "ops": ops_row,
                     "large_block": large_runs, "gathered": gath_row,
                     "tuned": tuned, "persistence": persisted,
-                    "process_mesh": proc_runs,
+                    "process_mesh": proc_runs, "profile_picks": picks,
                     "gathered_chain": chain, "permutation": perm_times,
                     "b10_v_sweep": sweep, "b2_v_sweep": b2_sweep,
                     "b8_v_sweep": b8_sweep, "b1_v_sweep": b1_sweep,

@@ -31,10 +31,13 @@ the reference.  The layout mirrors the JAX package module for module:
                 ``run`` and the batched ``linear``, in every format of the
                 JAX package (``split`` included);
 - ``tune``    — the cost-model tuner (``tune``, ``DSE``): the JAX
-                package's model with its TPU v5e profile kept as the
-                default, so the model-only pick equals the JAX tuner's,
-                and measured tuning that times the shortlist on the card;
-                reachable as ``hispmv_tpu_torch.tune``;
+                package's model under the device's profile, and measured
+                tuning that times the shortlist on the card; reachable as
+                ``hispmv_tpu_torch.tune``;
+- ``profiles``— ``DeviceProfile``: every number that steers a choice
+                (``V5E``, the JAX package's values, on the CPU; ``H100``,
+                measured on the card, on a CUDA device:
+                ``device_profile``);
 - ``dist``    — row-sharded plans and the three sharded executors (B5,
                 B7, B3 with the x ring) over a ``Mesh`` of devices in one
                 process or a ``ProcessMesh`` of ranks under

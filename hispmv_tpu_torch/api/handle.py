@@ -15,18 +15,18 @@ banded cell grid for matrices that fail ``routed_vmem_ok``) and ``split``
   one, or any one's ``linear``.
 
 The runners are eager Python on explicit tensors: no jit, no interpret
-mode and no runner cache per batch size.  The block format keeps the JAX
-handle's layout dispatch by its TPU VMEM budget (the class attributes
-``_CHUNKED_VMEM_BUDGET``, ``_PANEL_NCB`` and ``_PANEL_Y_BYTES``, with the
-JAX values), so both packages build the same arrays and run the same
-kernels: ``run`` takes B1 (chunked), B3 (x-paneled) or B4 (x- and
+mode and no runner cache per batch size.  Every choice a handle makes
+comes from its ``profile`` (``tune/cost.py``; None: its device's,
+``H100`` on the card, ``V5E`` on the CPU): the planners' costs, and the
+block format's layout dispatch by ``chunked_budget_bytes``,
+``panel_ncb`` and ``panel_y_bytes`` (under ``V5E`` the JAX handle's
+values, so both packages build the same arrays and run the same
+kernels): ``run`` takes B1 (chunked), B3 (x-paneled) or B4 (x- and
 y-paneled), and ``linear`` B2 when the handle is chunked and a batch's x +
-y fit the budget, else B6 on per-block arrays uploaded once.  A GPU kernel
-reads x and y from device memory, so on the card the budget only decides
-the layout; recalibrating it for the card is a measured change still to
-make.  Every handle lives on one ``device`` (default ``"cuda"``); it never
-moves to the CPU on its own.  On a CPU device the kernel wrappers run
-their plain PyTorch versions.
+y fit ``batched_budget_bytes``, else B6 on per-block arrays uploaded once.
+Every handle lives on one ``device`` (default ``"cuda"``); it never moves
+to the CPU on its own.  On a CPU device the kernel wrappers run their
+plain PyTorch versions.
 """
 
 from __future__ import annotations
@@ -102,6 +102,7 @@ from hispmv_tpu_torch.plan.routed import (
 )
 from hispmv_tpu_torch.plan.split import SplitPlan, build_split_plan
 from hispmv_tpu_torch.plan.windows import SEGS, WindowPlan, build_window_plan
+from hispmv_tpu_torch.profiles import DeviceProfile, device_profile
 from hispmv_tpu_torch.utils.device import resolve_device
 from hispmv_tpu_torch.utils.errors import error_stats
 
@@ -247,7 +248,8 @@ class PrepareStats:
 
 
 class SpmvHandle:
-    """One prepared matrix, resident on ``device``."""
+    """One prepared matrix, resident on ``device``, planned under
+    ``profile`` (None: the device's, ``device_profile``)."""
 
     def __init__(
         self,
@@ -255,10 +257,12 @@ class SpmvHandle:
         config: Optional[SpmvConfig] = None,
         format: str = "auto",  # noqa: A002 — mirrors the reference naming
         device="cuda",
+        profile: Optional[DeviceProfile] = None,
     ):
         t0 = time.perf_counter()
         self.config = config or SpmvConfig()
         self.device = resolve_device(device)
+        self.profile = profile or device_profile(self.device)
         if isinstance(matrix, np.ndarray):
             self._from_dense_array(matrix)
             fmt = "dense"
@@ -294,13 +298,17 @@ class SpmvHandle:
         )
 
     @classmethod
-    def from_plan(cls, plan, device="cuda"):
+    def from_plan(cls, plan, device="cuda",
+                  profile: Optional[DeviceProfile] = None):
         """Build a handle directly from a prepared plan of the port
         (``plan/convert.py`` carries one over from the JAX package),
-        skipping preprocessing."""
+        skipping preprocessing.  A plan carries no profile: ``profile``
+        (None: the device's) sets the block layouts and the residual
+        executor of the handle."""
         self = cls.__new__(cls)
         self.config = getattr(plan, "config", None) or SpmvConfig()
         self.device = resolve_device(device)
+        self.profile = profile or device_profile(self.device)
         self.coo = None
         self.shape = tuple(plan.shape)
         self.nnz = plan.nnz
@@ -385,31 +393,28 @@ class SpmvHandle:
                                 col_perm=perm)
         self._build_block_arrays(plan, coo.num_cols)
 
-    # The JAX handle's layout dispatch, with its TPU constants (kept so that
-    # both packages build the same arrays): the chunked kernel's resident x
-    # + y (+ two chunk buffers) must fit a 10 MiB VMEM budget, else x
-    # streams in panels of _PANEL_NCB col blocks, and when a resident y does
-    # not fit either, y streams in panels of _PANEL_Y_BYTES too.
-    _CHUNKED_VMEM_BUDGET = 10 * 2**20
-    _PANEL_NCB = 4096
-    _PANEL_Y_BYTES = 1 << 20
+    # The JAX handle's layout dispatch, with the profile's budgets: the
+    # chunked kernel's x + y (+ two chunk buffers) must fit
+    # chunked_budget_bytes, else x streams in panels of panel_ncb col
+    # blocks, and when y does not fit either, y streams in panels of
+    # panel_y_bytes too.
 
     def _block_fits_chunked(self, plan) -> bool:
         xy = (plan.num_col_blocks * LANES
               + plan.num_row_blocks * plan.block_h) * 4
         chunk_bytes = 2 * chunk_for(plan.block_h) * plan.block_h * LANES * 4
-        return xy + chunk_bytes <= self._CHUNKED_VMEM_BUDGET
+        return xy + chunk_bytes <= self.profile.chunked_budget_bytes
 
     def _block_fits_paneled(self, plan) -> bool:
         need = (
             plan.num_row_blocks * plan.block_h * 4  # y resident
-            + self._PANEL_NCB * LANES * 4 * 2  # x panel, double-buffered
+            + self.profile.panel_ncb * LANES * 4 * 2  # x panel, two buffers
             + 2 * chunk_for(plan.block_h) * plan.block_h * LANES * 4
         )
-        return need <= self._CHUNKED_VMEM_BUDGET
+        return need <= self.profile.chunked_budget_bytes
 
     def _panel_nrb(self, block_h: int) -> int:
-        return max(self._PANEL_Y_BYTES // (block_h * 4), 8)
+        return max(self.profile.panel_y_bytes // (block_h * 4), 8)
 
     def _build_block_arrays(self, plan: BlockPlan, num_cols: int):
         """Dispatch a BlockPlan to the chunked (B1), x-paneled (B3) or x-
@@ -433,13 +438,13 @@ class SpmvHandle:
                  "meta": self._upload(meta)}
         elif self._paneled:
             data3d, meta, panel_ids, _ = pack_chunks_paneled(
-                plan, self._chunk, self._PANEL_NCB)
+                plan, self._chunk, self.profile.panel_ncb)
             d = {"data": self._upload(data3d, vdt),
                  "meta": self._upload(meta),
                  "panels": self._upload(panel_ids)}
         else:
             data3d, meta, xp, yp, yf, _ = pack_chunks_tiled(
-                plan, self._chunk, self._PANEL_NCB,
+                plan, self._chunk, self.profile.panel_ncb,
                 self._panel_nrb(plan.block_h))
             d = {"data": self._upload(data3d, vdt),
                  "meta": self._upload(meta),
@@ -462,7 +467,8 @@ class SpmvHandle:
         ncb = self._block_plan_meta.num_col_blocks
         if self._chunked:
             return ncb * LANES
-        return -(-ncb // self._PANEL_NCB) * self._PANEL_NCB * LANES
+        pn = self.profile.panel_ncb
+        return -(-ncb // pn) * pn * LANES
 
     def _prepare_ellx(self, coo: COOMatrix):
         """Base-K ELL (plain torch product) + B1 overflow for heavy rows;
@@ -472,7 +478,8 @@ class SpmvHandle:
             perm = degree_column_perm(coo)
         plan = build_block_plan(coo, block_h=self.config.block_h,
                                 col_perm=perm)
-        self._build_ellx_arrays(build_ellx_plan(plan), coo.num_cols)
+        self._build_ellx_arrays(build_ellx_plan(plan, profile=self.profile),
+                                coo.num_cols)
 
     def _ellx_pack_into(self, d, eplan: EllxPlan):
         """Upload an ELLX plan's base and B1 overflow into ``d`` under the
@@ -509,7 +516,8 @@ class SpmvHandle:
         """Hub split (plan/split.py): dense hub columns and rows, the body
         routed or ELLX as the planner picks it."""
         self._build_split_arrays(
-            build_split_plan(coo, block_h=self.config.block_h)
+            build_split_plan(coo, block_h=self.config.block_h,
+                             profile=self.profile)
         )
 
     def _build_split_arrays(self, plan: SplitPlan):
@@ -607,11 +615,12 @@ class SpmvHandle:
                 d, plan.col_perms, plan.row_perms, prefix
             )
         n_res = len(plan.residual_vals)
+        p = self.profile
         if n_res:
-            # the JAX package's choice (TPU-measured constants, kept so the
-            # two packages run the same executors): element scatter below
-            # the row-granular ELLX's fixed per-row cost
-            if n_res * 16e-9 < shape[0] * 11e-9 + n_res * 2.5e-9:
+            # the JAX package's choice, under the profile's costs: element
+            # scatter below the row-granular ELLX's per-row cost
+            if n_res * p.residual_ns < (shape[0] * p.res_ellx_row_ns
+                                        + n_res * p.res_ellx_nnz_ns):
                 meta["res_coo"] = True
                 d[prefix + "r_rows"] = self._upload(
                     plan.residual_rows.astype(np.int32))
@@ -623,7 +632,7 @@ class SpmvHandle:
                 res = COOMatrix(shape, plan.residual_rows,
                                 plan.residual_cols, plan.residual_vals)
                 eplan = build_ellx_plan(build_block_plan(res, block_h=1),
-                                        max_base_bytes=2 << 30)
+                                        max_base_bytes=2 << 30, profile=p)
                 meta["res"] = eplan
                 d[prefix + "r_base_data"] = self._upload(eplan.base_data)
                 d[prefix + "r_base_cols"] = self._upload(eplan.base_cols)
@@ -684,14 +693,15 @@ class SpmvHandle:
         its residual as an element scatter or row-granular ELLX (B1), in
         rank space with ``config.rank_sort`` (B11 sandwich), and as a grid
         of cells when x + y fail ``routed_vmem_ok`` (the JAX package's
-        dispatch, kept so both build the same plan)."""
-        if not routed_vmem_ok(coo.shape):
+        dispatch, under the handle's profile)."""
+        p = self.profile
+        if not routed_vmem_ok(coo.shape, p):
             plan = build_banded_routed_plan(
-                coo, rank_sort=self.config.rank_sort)
+                coo, rank_sort=self.config.rank_sort, profile=p)
         elif self.config.rank_sort:
-            plan = build_ranked_routed_plan(coo)
+            plan = build_ranked_routed_plan(coo, profile=p)
         else:
-            plan = build_routed_plan(coo)
+            plan = build_routed_plan(coo, profile=p)
         self._build_routed_arrays(plan)
 
     def _build_routed_arrays(self, plan):
@@ -792,12 +802,12 @@ class SpmvHandle:
         if self._paneled:
             return spmv_chunked_paneled(d["data"], d["meta"], d["panels"],
                                         x2d, nrb, bh, self._chunk,
-                                        self._PANEL_NCB)
+                                        self.profile.panel_ncb)
         panel_nrb = self._panel_nrb(bh)
         return spmv_chunked_tiled(d["data"], d["meta"], d["xpanels"],
                                   d["ypanels"], x2d, -(-nrb // panel_nrb),
                                   panel_nrb, bh, self._chunk,
-                                  self._PANEL_NCB, self._sector_mask)
+                                  self.profile.panel_ncb, self._sector_mask)
 
     def _split_hubs(self, y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
         """``y`` plus the hub panels' products against the padded ``x``
@@ -852,13 +862,13 @@ class SpmvHandle:
 
     def _block_uses_b2(self, batch: int) -> bool:
         """The JAX handle's ``linear`` rule: B2 when the handle is chunked
-        and the batch's x + y (+ two chunk buffers) fit the budget, else
-        B6."""
+        and the batch's x + y (+ two chunk buffers) fit the profile's
+        ``batched_budget_bytes``, else B6."""
         plan = self._block_plan_meta
         need = ((plan.num_col_blocks * LANES
                  + plan.num_row_blocks * plan.block_h) * batch * 4
                 + 2 * self._chunk * plan.block_h * LANES * 4)
-        return self._chunked and need <= self._CHUNKED_VMEM_BUDGET
+        return self._chunked and need <= self.profile.batched_budget_bytes
 
     def _block_matmat(self, xb: torch.Tensor) -> torch.Tensor:
         """y [nrb, bh, B] of the block format from the padded batch ``xb``
@@ -1006,9 +1016,12 @@ def prepare(
     config: Optional[SpmvConfig] = None,
     format: str = "auto",  # noqa: A002
     device="cuda",
+    profile: Optional[DeviceProfile] = None,
 ) -> SpmvHandle:
-    """Prepare a matrix for repeated execution on ``device``."""
-    return SpmvHandle(matrix, config=config, format=format, device=device)
+    """Prepare a matrix for repeated execution on ``device``, planned
+    under ``profile`` (None: the device's)."""
+    return SpmvHandle(matrix, config=config, format=format, device=device,
+                      profile=profile)
 
 
 class Accelerator:
@@ -1017,11 +1030,14 @@ class Accelerator:
     Create handles for many matrices up front, keep them resident on one
     device, then run any of them back to back.  ``budget_bytes`` imitates
     the reference's fixed per-channel arena by refusing new matrices past
-    the budget (``create_*`` then returns -1)."""
+    the budget (``create_*`` then returns -1).  Every handle is planned
+    under ``profile`` (None: the device's)."""
 
-    def __init__(self, budget_bytes: Optional[int] = None, device="cuda"):
+    def __init__(self, budget_bytes: Optional[int] = None, device="cuda",
+                 profile: Optional[DeviceProfile] = None):
         self.budget_bytes = budget_bytes
         self.device = resolve_device(device)
+        self.profile = profile or device_profile(self.device)
         self._handles: Dict[int, SpmvHandle] = {}
         self._next_id = 0
         self._selected: Optional[int] = None
@@ -1039,11 +1055,13 @@ class Accelerator:
     ) -> int:
         """Returns a matrix id, or -1 if the memory budget is exhausted."""
         return self._register(
-            SpmvHandle(coo, config=config, format=format, device=self.device)
+            SpmvHandle(coo, config=config, format=format, device=self.device,
+                       profile=self.profile)
         )
 
     def create_dense_handle(self, arr: np.ndarray) -> int:
-        return self._register(SpmvHandle(np.asarray(arr), device=self.device))
+        return self._register(SpmvHandle(np.asarray(arr), device=self.device,
+                                         profile=self.profile))
 
     def _register(self, h: SpmvHandle) -> int:
         if (

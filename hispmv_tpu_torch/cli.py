@@ -7,14 +7,16 @@ Port of ``hispmv_tpu/cli.py`` (the reference's ``spmv-host``):
     python -m hispmv_tpu_torch @name[:scale] [options]  # suite stand-in
 
 It takes the JAX CLI's flags plus ``--device`` (default ``cuda``; ``cpu``
-runs the plain PyTorch versions).  The steps are the same: load, ``tune``
+runs the plain PyTorch versions) and ``--profile`` (the device profile
+that plans the matrix and ranks the tuner's candidates; by default the
+device's: ``nvidia-h100-80gb-hbm3`` on the card, ``tpu-v5e`` on the
+CPU).  The steps are the same: load, ``tune``
 when ``--format tune`` (model-only, or measured on the device with
 ``--measure N``), prepare, check one ``run`` against the float64 golden
 (exit 1 when it fails), time the run with ``utils/timing.bench_spmv``
 (CUDA events on the card) unless ``--no-bench``, and append a metrics row
-with ``--metrics-csv``.  A model-only tune's estimate is a figure of its
-device profile (the TPU v5e's by default) and is printed as such, never as
-a time.
+with ``--metrics-csv``.  A model-only tune's estimate is a figure of the
+active profile and is printed under its name, never as a time.
 """
 
 from __future__ import annotations
@@ -24,6 +26,8 @@ import sys
 import time
 
 import numpy as np
+
+from hispmv_tpu_torch.profiles import PROFILES, device_profile
 
 FORMATS = ["auto", "tune", "block", "ellx", "split", "routed", "window",
            "stream", "dense"]
@@ -62,6 +66,10 @@ def build_parser() -> argparse.ArgumentParser:
         help="torch device of the handle (default cuda; cpu runs the plain "
              "PyTorch versions)",
     )
+    p.add_argument(
+        "--profile", default=None, choices=sorted(PROFILES),
+        help="device profile that plans and tunes (default: the device's)",
+    )
     return p
 
 
@@ -87,12 +95,10 @@ def load_matrix(args):
     return name, load_mtx(name)
 
 
-def _tune_line(name, res, device) -> str:
+def _tune_line(name, res, device, profile) -> str:
     """The tuner's pick, each figure labelled as a time on ``device`` or as
-    the profile's estimate."""
-    from hispmv_tpu_torch.tune.cost import V5E
-
-    model = f"model est ({V5E.name})"
+    ``profile``'s estimate."""
+    model = f"model est ({profile.name})"
     cands = [
         (lbl, round(s * 1e6), f"{device} us" if i < res.n_measured
          else f"{model} us")
@@ -119,13 +125,15 @@ def main(argv=None) -> int:
     )
     fmt = args.format
     predicted = float("nan")
+    profile = (PROFILES[args.profile] if args.profile
+               else device_profile(args.device))
     if fmt == "tune":
         from hispmv_tpu_torch.tune import tune
 
         res = tune(coo, cache_path=args.tune_cache, measure=args.measure,
-                   device=args.device)
+                   device=args.device, profile=profile)
         cfg, fmt, predicted = res.config, res.format, res.est_seconds
-        print(_tune_line(name, res, args.device))
+        print(_tune_line(name, res, args.device, profile))
         if args.measure > 1 and not res.measured:
             print(f"[{name}] no measured pick: every shortlisted candidate "
                   "failed on the device, or the fastest was over 4x the "
@@ -133,13 +141,14 @@ def main(argv=None) -> int:
                   "model's pick stands, unmeasured", file=sys.stderr)
 
     t0 = time.perf_counter()
-    handle = SpmvHandle(coo, config=cfg, format=fmt, device=args.device)
+    handle = SpmvHandle(coo, config=cfg, format=fmt, device=args.device,
+                        profile=profile)
     prep_s = time.perf_counter() - t0
     print(
         f"[{name}] rows={coo.num_rows} cols={coo.num_cols} nnz={coo.nnz} "
         f"format={handle.format} fill={handle.stats.fill:.4f} "
         f"device_bytes={handle.device_bytes} prep={prep_s:.2f}s "
-        f"device={handle.device}"
+        f"device={handle.device} profile={profile.name}"
     )
 
     # golden model on the host (cpuSequential analog), timed

@@ -8,8 +8,8 @@ TPU-native analog of the reference's ``SpMVConfig`` dataclass and its
 (reference automation_tool/src/commons.py:21-78).  Where the reference picks
 FPGA channel counts and crossbar options, we pick block geometry, payload
 dtype, reordering and the long-row split threshold — the knobs the autotuner
-(``hispmv_tpu_torch.tune``, ported with the JAX package's TPU v5e profile
-as its default) searches per matrix.  Every field here is consumed by a
+(``hispmv_tpu_torch.tune``, under the device's profile) searches per
+matrix.  Every field here is consumed by a
 planner, kernel or dispatcher; the config is the complete design record.
 """
 

@@ -589,13 +589,18 @@ __global__ void __launch_bounds__(kThreads, 2)
 
 // V for a batch: vpt when it is given (4 or 8); else 8, or 4 when the
 // batch is at most 4 or when V 8 would launch fewer CTAs than the card has
-// SMs (kSms: H100 SXM).  0 when vpt is neither.
-constexpr int kSms = 132;
-
+// SMs (asked of the current device, as the block-stream launchers do).  0
+// when vpt is neither or the device cannot be asked.
 int pick_v(int batch, int num_tiles, int vpt) {
   if (vpt != 0) return (vpt == 4 || vpt == 8) ? vpt : 0;
+  int dev = 0, sms = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess) {
+    return 0;
+  }
   const long long ctas8 = static_cast<long long>(num_tiles) * ((batch + 7) / 8);
-  return (batch <= 4 || ctas8 < kSms) ? 4 : 8;
+  return (batch <= 4 || ctas8 < sms) ? 4 : 8;
 }
 
 template <int V>

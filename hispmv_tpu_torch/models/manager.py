@@ -22,11 +22,12 @@ from hispmv_tpu_torch.models.mlp import AcceleratedModel, extract_linears
 
 class AcceleratorLayerManager:
     """Builds accelerated models on ``accelerator`` (which carries the
-    device; a default ``Accelerator()`` is on the card)."""
+    device and the profile; a default ``Accelerator(profile=profile)`` is
+    on the card, under ``profile`` or, None, the card's)."""
 
     def __init__(self, accelerator: Optional[Accelerator] = None,
-                 density_threshold: float = 0.5):
-        self.accel = accelerator or Accelerator()
+                 density_threshold: float = 0.5, profile=None):
+        self.accel = accelerator or Accelerator(profile=profile)
         self.density_threshold = density_threshold
         self.layer_names: List[str] = []
 

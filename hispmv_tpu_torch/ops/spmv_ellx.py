@@ -1,9 +1,10 @@
 """ELLX: base-K block-ELL executor + B1 / B2 overflow stream.
 
 Port of ``hispmv_tpu/ops/spmv_ellx.py``.  The planner (``EllxPlan``,
-``choose_k_base``, ``build_ellx_plan``) is carried over unchanged,
-TPU-calibrated cost constants included, so both packages build identical
-plans.  ``ellx_base_matvec`` (and its batched form) is a plain torch gather
+``choose_k_base``, ``build_ellx_plan``) is carried over unchanged; its
+``k_base`` choice weighs the costs of a ``DeviceProfile``
+(``tune/cost.py``; under ``V5E``, the JAX package's values from
+``hispmv_tpu/ops/spmv_ellx.py``, both packages build identical plans).  ``ellx_base_matvec`` (and its batched form) is a plain torch gather
 plus batched product in full fp32, as the JAX package leaves it to XLA
 outside any kernel; the overflow stream runs the B1 kernel (B2 against a
 batch, ops/spmv_chunked.py) and merges back through ``ov_expand``.
@@ -29,14 +30,7 @@ from hispmv_tpu_torch.ops.spmv_chunked import (
     spmv_chunked_batched,
 )
 from hispmv_tpu_torch.plan.blocks import LANES, BlockPlan
-
-# Measured TPU v5e constants of the JAX package, kept unchanged so that
-# plans stay identical; used only to pick k_base.
-# The overflow stream's per-block cost is ~45 ns at block_h=1 (flush-heavy:
-# nearly every block ends a row run) — measured on trans5-class plans.
-_ELLX_BYTES_PER_S = 450e9
-_OVERFLOW_BLOCK_S = 4.5e-8
-_OVERFLOW_LAUNCH_S = 3e-6
+from hispmv_tpu_torch.profiles import V5E, DeviceProfile
 
 # The batched base product gathers x for a group of row-blocks at a time,
 # [group, K, 128, B], so that its copy stays under this size whatever B is.
@@ -80,9 +74,12 @@ class EllxPlan:
         return self.nnz / slots if slots else 0.0
 
 
-def choose_k_base(counts: np.ndarray, block_h: int) -> int:
-    """Pick the base slot count minimizing modeled time:
-    base DMA (nrb*k*bh*512 B at the fused rate) + overflow kernel cost."""
+def choose_k_base(counts: np.ndarray, block_h: int,
+                  profile: DeviceProfile = V5E) -> int:
+    """Pick the base slot count minimizing modeled time under ``profile``:
+    the base product's bytes (nrb*k*bh*512 B at ``ellx_choose_bytes_per_s``)
+    + the overflow stream's launch and per-block cost."""
+    p = profile
     nrb = len(counts)
     best_k, best_t = 1, float("inf")
     kmax = int(counts.max()) if nrb else 1
@@ -90,8 +87,9 @@ def choose_k_base(counts: np.ndarray, block_h: int) -> int:
     while True:
         base_b = nrb * k * (block_h * LANES * 4 + 4)
         over = int(np.maximum(counts - k, 0).sum())
-        t = base_b / _ELLX_BYTES_PER_S + (
-            (_OVERFLOW_LAUNCH_S + over * _OVERFLOW_BLOCK_S) if over else 0.0
+        t = base_b / p.ellx_choose_bytes_per_s + (
+            (p.overflow_launch_s + over * p.overflow_block_s) if over
+            else 0.0
         )
         if t < best_t:
             best_k, best_t = k, t
@@ -105,8 +103,10 @@ def build_ellx_plan(
     plan: BlockPlan,
     k_base: Optional[int] = None,
     max_base_bytes: Optional[int] = None,
+    profile: DeviceProfile = V5E,
 ) -> EllxPlan:
-    """Convert a sorted BlockPlan into base-K ELL arrays + overflow.
+    """Convert a sorted BlockPlan into base-K ELL arrays + overflow
+    (``k_base`` chosen under ``profile`` when not given).
 
     ``max_base_bytes`` caps the base array (residual executors for huge
     matrices must not claim gigabytes just because the cost model would
@@ -115,7 +115,7 @@ def build_ellx_plan(
     bh = plan.block_h
     counts = np.bincount(plan.block_rows, minlength=nrb)
     if k_base is None:
-        k_base = choose_k_base(counts, bh)
+        k_base = choose_k_base(counts, bh, profile)
     if max_base_bytes is not None:
         per_k = max(nrb * (bh * LANES * 4 + 4), 1)
         k_base = max(1, min(int(k_base), max_base_bytes // per_k))

@@ -52,15 +52,11 @@ from hispmv_tpu_torch.ops.spmv_chunked import check_cuda_tensors
 from hispmv_tpu_torch.plan.routed import (
     L1_CAP,
     L_CAP,
-    LAUNCH_NS,
     TILE,
-    TILE_BASE_NS,
-    TILE_BND_NS,
-    TILE_OV_NS,
-    TILE_W_NS,
     W_CAP,
     RoutedStream,
 )
+from hispmv_tpu_torch.profiles import V5E
 
 LANES = 128
 DEFAULT_TCHUNK = 16
@@ -117,14 +113,15 @@ def stream_array_names(lmax: int = 2) -> tuple:
 
 def _segment_terms(nch: int, chunk_cost_ns: float, cap: int = 0) -> list:
     """The pow-2 segmentation of the JAX package (binary split or one
-    rounded-up grid, whichever its TPU cost model finds cheaper)."""
+    rounded-up grid, whichever its TPU cost model, ``V5E``, finds
+    cheaper)."""
     split = _chunk_terms(nch, cap=cap)
     single = [_bucket(max(nch, 1))]
     if cap and single[0] > cap:
         return split
-    cost_split = LAUNCH_NS * len(split) \
+    cost_split = V5E.launch_ns * len(split) \
         + chunk_cost_ns * (sum(split) - nch)
-    cost_single = LAUNCH_NS + chunk_cost_ns * (single[0] - nch)
+    cost_single = V5E.launch_ns + chunk_cost_ns * (single[0] - nch)
     return single if cost_single <= cost_split else split
 
 
@@ -149,9 +146,10 @@ def pack_stream(s: RoutedStream, tchunk: int = 0, bucket: bool = True):
     l1 = min(s.l1, L1_CAP)
     lp = s.lmax if not bucket else _bucket(s.lmax)
     if bucket:
+        # the JAX package's TPU layout, sized by its costs (V5E)
         chunk_cost = tchunk * (
-            TILE_BASE_NS + TILE_W_NS * (W - 1)
-            + TILE_OV_NS * (l1 - 1) + TILE_BND_NS * lp
+            V5E.tile_base_ns + V5E.tile_w_ns * (W - 1)
+            + V5E.tile_ov_ns * (l1 - 1) + V5E.tile_bnd_ns * lp
         )
 
         # the TPU keeps base/byt/lt in 1 MiB of scalar memory, padded per

@@ -1,12 +1,14 @@
 """Gathered-stream plan: scatter-free SpMV for scattered short rows.
 
-Carried over unchanged from ``hispmv_tpu/plan/gathered.py`` (numpy and the
-port's ``plan/permute.py``), TPU cost constants and the wide-matrix guard
-included, so that both packages build identical plans and the routed
-planner's diversion gate decides alike.  The executor is
+Carried over from ``hispmv_tpu/plan/gathered.py`` (numpy and the port's
+``plan/permute.py``), the wide-matrix guard included, so that both
+packages build identical plans.  The modelled cost (``gathered_cost_ns``,
+which the routed planner's diversion gate weighs) takes the costs of a
+``DeviceProfile`` (``gath_*_ns``; ``V5E`` holds the JAX package's values,
+from ``hispmv_tpu/plan/gathered.py``).  The executor is
 ``ops/spmv_gathered.py``: S1 is kernel B12, S2 and S3 are B11
 (``ops/permute.py``) and the tile kernel is B13 (``csrc/spmv_gathered.cu``).
-Original notes follow; the costs quoted are the TPU's.
+Original notes follow; the costs quoted are the TPU's, not the card's.
 
 
 The routed format's cost on tiles built from SHORT, SCATTERED rows is
@@ -63,6 +65,7 @@ from hispmv_tpu_torch.plan.permute import (
     color_permutation,
     pack_window_stage,
 )
+from hispmv_tpu_torch.profiles import V5E, DeviceProfile
 
 WINDOW = 1024
 TILE = 1024
@@ -70,14 +73,6 @@ ROW_CAP = 512  # rows longer than this stay in the routed classes
 S1_CAP = 4  # S1 conflict layers (4 x 3-bit sub fields in the word)
 FANOUT_CAP = 1016  # per-(panel, x-window) edge cap (slack under 1024)
 
-# measured on the TPU (v5e), loop-slope over K in {64, 256, 512}: tile
-# kernel 44 ns/tile flat; gather 19-21 ns per stage window (2*P*K + T
-# windows incl. the transpose share); ~23 us fixed (5+ launches + glue).
-# Module globals read at each call of gathered_cost_ns and by the routed
-# planner's gate.
-GATH_TILE_NS = 44.0  # kernel per tile (products+prefix+2xClos+RMW)
-GATH_STAGE_NS = 20.0  # per gather-stage window incl. transpose share
-GATH_LAUNCH_NS = 23e3  # launches + XLA glue (measured intercept)
 
 
 def _distinct_rank_local(group: np.ndarray, val: np.ndarray) -> np.ndarray:
@@ -163,15 +158,18 @@ class GatheredPlan:
 
 
 def gathered_cost_ns(num_tiles: int, num_windows: int = 0,
-                     num_panels: int = 0) -> float:
-    """Modeled device cost of executing a gathered plan."""
+                     num_panels: int = 0,
+                     profile: DeviceProfile = V5E) -> float:
+    """Modeled device cost of executing a gathered plan under
+    ``profile``: a fixed cost for the chain's launches, one per tile (the
+    tile kernel) and one per gather-stage window (2*P*K + T)."""
     if num_tiles == 0:
         return 0.0
     if not num_panels:
         num_panels = 1
     nwin_stages = 2 * num_panels * max(num_windows, 1) + num_tiles
-    return GATH_LAUNCH_NS + num_tiles * GATH_TILE_NS \
-        + nwin_stages * GATH_STAGE_NS
+    return profile.gath_launch_ns + num_tiles * profile.gath_tile_ns \
+        + nwin_stages * profile.gath_stage_ns
 
 
 def build_gathered_plan(

@@ -48,6 +48,8 @@ from __future__ import annotations
 import dataclasses
 import numpy as np
 
+from hispmv_tpu_torch.profiles import V5E, DeviceProfile
+
 WINDOW = 1024
 
 
@@ -326,17 +328,11 @@ def panel_permute_numpy(plans: list, x: np.ndarray) -> np.ndarray:
     return out
 
 
-# measured v5e per-window stage cost model (calibrated after build):
-# within-window kernel = decode + exactly 3 gathers per window, plus two
-# 4 MiB-class transposes; see ops/permute.py for the kernel
-STAGE_WINDOW_NS = 18.0
-TRANSPOSE_NS_PER_MB = 2600.0  # ~400 GB/s effective r+w
-
-
-def estimate_permute_cost_ns(n: int) -> float:
-    """Rough device cost of applying a permutation of n elements: three
-    stage kernels (S2 fixed at 1024 windows) + two transposes."""
+def estimate_permute_cost_ns(n: int, profile: DeviceProfile = V5E) -> float:
+    """Rough device cost of applying a permutation of n elements under
+    ``profile`` (``tune/cost.py``; ``V5E`` by default): three stage
+    kernels (S2 fixed at 1024 windows) + two transposes + a fixed cost."""
     W = max(-(-n // WINDOW), 1)
-    t_stages = (2 * W + WINDOW) * STAGE_WINDOW_NS
-    t_transpose = 2 * (WINDOW * W * 4 / 1e6) * TRANSPOSE_NS_PER_MB
-    return t_stages + t_transpose + 3000.0
+    t_stages = (2 * W + WINDOW) * profile.permute_window_ns
+    t_transpose = 2 * (WINDOW * W * 4 / 1e6) * profile.transpose_ns_per_mb
+    return t_stages + t_transpose + profile.permute_fixed_ns

@@ -1,15 +1,17 @@
 """Routed-stream planner: per-nnz vectorized SpMV with plan-time routing.
 
-Carried over unchanged from ``hispmv_tpu/plan/routed.py`` (numpy, the
-standard library and the port's native planning routines), TPU cost
-constants included, so that both packages build identical plans.  The
+Carried over from ``hispmv_tpu/plan/routed.py`` (numpy, the standard
+library and the port's native planning routines).  Every cost the planner
+weighs comes from the ``DeviceProfile`` it is given (``tune/cost.py``):
+under ``V5E``, the JAX package's values, both packages build identical
+plans; the handle passes ``H100`` on the card.  The
 native routines (``hispmv_tpu_torch/native``) raise when they cannot be
 built; their numpy versions stay here as ``_greedy_merge_py``,
 ``_distinct_rank_py``, ``_tile_stats_py`` and ``np.lexsort``.  The
 stream kernel is B9 (``ops/spmv_routed.py``, ``csrc/spmv_routed.cu``).
 The gathered side-plan is ``plan/gathered.py`` (executor
 ``ops/spmv_gathered.py``: kernels B12, B11 and B13).  Original notes
-follow; every time quoted in them is the TPU's.
+follow; every time quoted in them is the TPU's, not the card's.
 
 THE load-balance/crossbar answer for scattered matrices (v4 layout, round
 3).  Every other format pays either ~4 KiB of payload per touched
@@ -85,39 +87,22 @@ import numpy as np
 
 from hispmv_tpu_torch import native
 from hispmv_tpu_torch.formats.matrix import COOMatrix
+from hispmv_tpu_torch.profiles import V5E, DeviceProfile
 
 WINDOW = 1024  # columns per window = one (8,128) x tile
 TILE = 1024  # nnz slots per tile (8 sublanes x 128 lanes)
 
-# Measured per-tile cost constants (v5e, loop-slope, 2026-08-20 v5
-# calibration over controlled (W, l1, lmax) synthetic streams through the
-# real pack_stream — the bf16x3 prefix and the lmax=1 merged-boundary-
-# word path are both in the measurement).  These are EFFECTIVE linear
-# constants: each dimension's share of stream DMA is folded into its
-# coefficient (the kernel measured COMPUTE-bound at tchunk=32 — the
-# lmax=1->2 step adds a whole stream word yet costs the same ~13 ns as
-# every further boundary layer, i.e. DMA fully overlaps).  Every
-# class-cap boundary layer executes (padded layers add exact zeros), so
-# a tile is charged its CLASS's lmax; the select tree is unrolled to the
-# CLASS's W.
-TILE_BASE_NS = 26.0
-TILE_W_NS = 1.0  # per window of the tile's span beyond the first
-TILE_OV_NS = 2.2  # per extra pass-1 slab layer (window loads are
-# shared with layer 0, so extra layers do NOT pay the span tree again
-# at SMALL spans; see TILE_WL_NS)
-TILE_WL_NS = 0.4  # cross term: per (extra layer x window of span).  At
-# W >= ~16 the compiler can no longer keep the whole span in vregs, so
-# each extra pass-1 layer re-pays part of the select tree (measured on
-# soc-Pokec cells: W=32 l1=5 classes ran ~50 ns/tile over the additive
-# model, ~= 0.4 * (l1-1) * W)
-TILE_BND_NS = 13.3  # per boundary layer (two-sided, validity-free;
-# includes the tchunk shrink heavy-lmax classes pay for VMEM fit)
-RESIDUAL_NS = 16.0  # element scatter-add cost per nnz
+# The per-tile costs (tile_*_ns), the residual's (residual_ns) and the
+# per-stream launch (launch_ns) are fields of the DeviceProfile each
+# planner takes (tune/cost.py; V5E holds the JAX package's values).  They
+# are EFFECTIVE linear constants: each dimension's share of stream traffic
+# is folded into its coefficient.  Every class-cap boundary layer executes
+# (padded layers add exact zeros), so a tile is charged its CLASS's lmax;
+# the select tree is unrolled to the CLASS's W.
 W_CAP = 64  # max window span per tile (6 bits in the gsub field)
 L1_CAP = 5  # pass-1 slab layers: three 9-bit fields in gsub + two more
 # in the slot word's free bits (no extra stream DMA)
 L_CAP = 32  # boundary layers (band chains + conflict ranks)
-LAUNCH_NS = 3000.0  # per-stream kernel dispatch cost
 # the 8 lane-0 slots of every tile are reserved zero pads (see module
 # docstring: P'[0,0] == 0 is what removes all validity bits)
 PAYLOAD = TILE - 8  # 8 sublane rows x 127 payload lanes
@@ -343,6 +328,7 @@ def estimate_routed_cost_ns(
     l_cap: int = L_CAP,
     conflict_sample: bool = False,
     table: Optional[tuple] = None,
+    profile: DeviceProfile = V5E,
 ) -> dict:
     """Cheap estimate of a v4 routed plan's cost for the model-only DSE:
     mirrors the planner's macro-cell grouping + same-strip merging,
@@ -353,6 +339,7 @@ def estimate_routed_cost_ns(
     instead of re-scanning the nnz.  ``rows``/``cols`` may be None when
     a table is given and ``conflict_sample`` is False.
     Returns {tiles, est_ns, stream_bytes, fill}."""
+    p = profile
     R, C = shape
     if table is None:
         if len(rows) == 0:
@@ -395,15 +382,15 @@ def estimate_routed_cost_ns(
     L_g = np.clip(np.ceil(gb / np.maximum(tiles_g, 1)) + 1, 1, l_cap)
     W_g = np.clip(gw, 1, min(strip_windows, W_CAP))
     # +1 flat pass-1 conflict layer allowance (extra layers share the
-    # window loads with layer 0 — measured ~2.2 ns each, W-independent)
+    # window loads with layer 0; W-independent on the TPU)
     cost_g = tiles_g * (
-        TILE_BASE_NS
-        + TILE_W_NS * (W_g - 1)
-        + TILE_OV_NS + TILE_WL_NS * W_g
-        + TILE_BND_NS * L_g
+        p.tile_base_ns
+        + p.tile_w_ns * (W_g - 1)
+        + p.tile_ov_ns + p.tile_wl_ns * W_g
+        + p.tile_bnd_ns * L_g
     )
     # demotion: groups whose per-nnz cost exceeds the element residual
-    demote = cost_g > RESIDUAL_NS * gsz
+    demote = cost_g > p.residual_ns * gsz
     # pass-1 conflict eviction: rank >= L1_CAP entries fall to the
     # residual (the clustered-column failure mode that makes unranked
     # R-MAT plans terrible).  Measured EXACTLY on a subsample of whole
@@ -445,8 +432,8 @@ def estimate_routed_cost_ns(
             rk = _distinct_rank(cellk, gsk, width=8 * nwin)
             evict_frac = float((rk >= L1_CAP).mean())
     est = float(cost_g[~demote].sum()) \
-        + RESIDUAL_NS * float(gsz[demote].sum()) + 2 * LAUNCH_NS \
-        + RESIDUAL_NS * evict_frac * float(gsz[~demote].sum())
+        + p.residual_ns * float(gsz[demote].sum()) + 2 * p.launch_ns \
+        + p.residual_ns * evict_frac * float(gsz[~demote].sum())
     tiles = int(tiles_g[~demote].sum())
     lbar = float((tiles_g[~demote] * L_g[~demote]).sum()) / max(tiles, 1)
     # per-slot words: vals + slot + gsub + bl (2 layers/word) + bs (4)
@@ -462,10 +449,11 @@ def estimate_routed_cost_ns(
     }
 
 
-def routed_vmem_ok(shape: tuple, budget_bytes: int = 8 << 20) -> bool:
-    """The routed kernel keeps x AND y fully VMEM-resident (pow-2
-    bucketed); million-row matrices (soc-Pokec scale) exceed VMEM and
-    must use the banded cell grid instead."""
+def routed_vmem_ok(shape: tuple, profile: DeviceProfile = V5E) -> bool:
+    """Whether one routed plan serves ``shape``: its pow-2 padded x and y
+    fit ``profile.routed_band_budget_bytes``.  The TPU kernel keeps both
+    VMEM-resident, so under ``V5E`` million-row matrices (soc-Pokec
+    scale) take the banded cell grid instead."""
     nwin = max(-(-shape[1] // WINDOW), 1)
     nyt = max(-(-shape[0] // WINDOW), 1)
 
@@ -475,11 +463,13 @@ def routed_vmem_ok(shape: tuple, budget_bytes: int = 8 << 20) -> bool:
             k *= 2
         return k
 
-    return (b(nwin) + b(nyt)) * 8 * 128 * 4 <= budget_bytes
+    return (b(nwin) + b(nyt)) * 8 * 128 * 4 \
+        <= profile.routed_band_budget_bytes
 
 
 def best_routed_estimate(
-    rows: np.ndarray, cols: np.ndarray, shape: tuple, l_cap: int = L_CAP
+    rows: np.ndarray, cols: np.ndarray, shape: tuple, l_cap: int = L_CAP,
+    profile: DeviceProfile = V5E,
 ) -> dict:
     """Cheapest ``estimate_routed_cost_ns`` over the auto strip widths —
     the estimate the DSE should use, mirroring build_routed_plan's auto
@@ -491,7 +481,7 @@ def best_routed_estimate(
         (
             estimate_routed_cost_ns(
                 rows, cols, shape, strip_windows=sw, l_cap=l_cap,
-                table=table,
+                table=table, profile=profile,
             )["est_ns"],
             sw,
         )
@@ -501,7 +491,7 @@ def best_routed_estimate(
         (
             estimate_routed_cost_ns(
                 rows, cols, shape, strip_windows=sw, l_cap=l_cap,
-                conflict_sample=True, table=table,
+                conflict_sample=True, table=table, profile=profile,
             )
             for _, sw in ests[:2]
         ),
@@ -509,27 +499,28 @@ def best_routed_estimate(
     )
 
 
-def plan_cost_ns(plan: RoutedPlan) -> float:
-    """Modeled execution cost of a plan (measured v5e constants): every
-    tile pays its class's full caps (the unconditional kernel runs all
-    lmax layers and the full W select tree; padding adds exact zeros)."""
+def plan_cost_ns(plan: RoutedPlan, profile: DeviceProfile = V5E) -> float:
+    """Modeled execution cost of a plan under ``profile``: every tile pays
+    its class's full caps (the unconditional kernel runs all lmax layers
+    and the full W select tree; padding adds exact zeros)."""
+    p = profile
     t = 0.0
     for s in plan.streams:
         # extra slab layers share the window loads with layer 0
-        # (measured: W=16 l1 2->4 costs ~1.5 ns, not another tree)
-        t += LAUNCH_NS + s.num_tiles * (
-            TILE_BASE_NS
-            + TILE_W_NS * (s.wmax - 1)
-            + (TILE_OV_NS + TILE_WL_NS * s.wmax) * (s.l1 - 1)
-            + TILE_BND_NS * s.lmax
+        # (on the TPU, W=16 l1 2->4 did not pay another tree)
+        t += p.launch_ns + s.num_tiles * (
+            p.tile_base_ns
+            + p.tile_w_ns * (s.wmax - 1)
+            + (p.tile_ov_ns + p.tile_wl_ns * s.wmax) * (s.l1 - 1)
+            + p.tile_bnd_ns * s.lmax
         )
-    t += RESIDUAL_NS * len(plan.residual_vals)
+    t += p.residual_ns * len(plan.residual_vals)
     if plan.gathered is not None:
         from hispmv_tpu_torch.plan.gathered import gathered_cost_ns
 
         t += gathered_cost_ns(
             plan.gathered.num_tiles, plan.gathered.num_windows,
-            plan.gathered.num_panels,
+            plan.gathered.num_panels, profile=profile,
         )
     return t
 
@@ -540,11 +531,13 @@ def build_routed_plan(
     l1_cap: int = L1_CAP,
     l_cap: int = L_CAP,
     max_streams: int = 6,
+    profile: DeviceProfile = V5E,
 ) -> RoutedPlan:
-    """Build a routed plan; ``strip_windows=0`` (auto) ranks strip widths
-    {2, 4, 8, 16, 32} by the cheap macro-cell estimate (wider strips raise
-    nnz per band cell — fewer boundary layers per tile — at a ~0.9 ns/
-    window select-tree cost), builds the best, and retries at the
+    """Build a routed plan under ``profile``'s costs; ``strip_windows=0``
+    (auto) ranks strip widths {2, 4, 8, 16, 32} by the cheap macro-cell
+    estimate (wider strips raise nnz per band cell — fewer boundary layers
+    per tile — at a per-window select-tree cost), builds the best, and
+    retries at the
     runner-up when demotion made the residual heavy, keeping the plan
     with the lower modeled cost."""
     if strip_windows == 0:
@@ -554,27 +547,31 @@ def build_routed_plan(
                 estimate_routed_cost_ns(
                     None, None, coo.shape,
                     strip_windows=sw, l_cap=l_cap, table=table,
+                    profile=profile,
                 )["est_ns"],
                 sw,
             )
             for sw in (2, 4, 8, 16, 32)
         )
         sw0, sw1 = ests[0][1], ests[1][1]
-        plan = _build_routed_plan(coo, sw0, l1_cap, l_cap, max_streams)
-        res_cost = RESIDUAL_NS * len(plan.residual_vals)
-        if res_cost > 0.10 * plan_cost_ns(plan):
-            alt = _build_routed_plan(coo, sw1, l1_cap, l_cap, max_streams)
-            if plan_cost_ns(alt) < plan_cost_ns(plan):
+        plan = _build_routed_plan(coo, sw0, l1_cap, l_cap, max_streams,
+                                  profile=profile)
+        res_cost = profile.residual_ns * len(plan.residual_vals)
+        if res_cost > 0.10 * plan_cost_ns(plan, profile):
+            alt = _build_routed_plan(coo, sw1, l1_cap, l_cap, max_streams,
+                                     profile=profile)
+            if plan_cost_ns(alt, profile) < plan_cost_ns(plan, profile):
                 plan, sw0 = alt, sw1
-        return _repack_residual(plan, sw0, l1_cap, l_cap)
+        return _repack_residual(plan, sw0, l1_cap, l_cap, profile)
     plan = _build_routed_plan(
-        coo, strip_windows, l1_cap, l_cap, max_streams
+        coo, strip_windows, l1_cap, l_cap, max_streams, profile=profile
     )
-    return _repack_residual(plan, strip_windows, l1_cap, l_cap)
+    return _repack_residual(plan, strip_windows, l1_cap, l_cap, profile)
 
 
 def _repack_residual(
-    plan: RoutedPlan, strip_windows: int, l1_cap: int, l_cap: int
+    plan: RoutedPlan, strip_windows: int, l1_cap: int, l_cap: int,
+    profile: DeviceProfile = V5E,
 ) -> RoutedPlan:
     """Re-plan the demoted/evicted entries into their own tiles (one
     recursion level, iterated).  Entries evicted for exceeding a layer
@@ -582,16 +579,18 @@ def _repack_residual(
     the residual packs back at vector rate.  Wider strips are also tried:
     scattered leftovers that were hopeless at the main plan's strip width
     often pack at high fill when strips are wide (the select tree is
-    cheap, ~0.9 ns/window)."""
+    cheap: ``tile_w_ns`` a window)."""
     while True:
-        nxt = _repack_residual_once(plan, strip_windows, l1_cap, l_cap)
+        nxt = _repack_residual_once(plan, strip_windows, l1_cap, l_cap,
+                                    profile)
         if nxt is plan:
             return plan
         plan = nxt
 
 
 def _repack_residual_once(
-    plan: RoutedPlan, strip_windows: int, l1_cap: int, l_cap: int
+    plan: RoutedPlan, strip_windows: int, l1_cap: int, l_cap: int,
+    profile: DeviceProfile = V5E,
 ) -> RoutedPlan:
     nres = len(plan.residual_vals)
     free = RoutedPlan.MAX_STREAMS - len(plan.streams)
@@ -607,7 +606,7 @@ def _repack_residual_once(
     # construction), unless the caller pinned a width
     rplan = _build_routed_plan(
         rcoo, max(strip_windows, 32), l1_cap, l_cap, max_streams=free,
-        allow_gathered=plan.gathered is None,
+        allow_gathered=plan.gathered is None, profile=profile,
     )
     if not rplan.streams and rplan.gathered is None:
         return plan
@@ -617,8 +616,9 @@ def _repack_residual_once(
     # side-plan and in plan.residual_* (executed twice).  plan_cost_ns
     # includes the gathered side-plan's modeled cost, so diverted nnz are
     # charged what they cost rather than counted as pure residual savings.
-    gain = RESIDUAL_NS * (nres - len(rplan.residual_vals))
-    cost = plan_cost_ns(rplan) - RESIDUAL_NS * len(rplan.residual_vals)
+    gain = profile.residual_ns * (nres - len(rplan.residual_vals))
+    cost = plan_cost_ns(rplan, profile) \
+        - profile.residual_ns * len(rplan.residual_vals)
     if cost >= gain:
         return plan
     slots = plan.streams + rplan.streams
@@ -682,7 +682,9 @@ def _build_routed_plan(
     max_streams: int = 6,
     w_cap: int = W_CAP,
     allow_gathered: bool = True,
+    profile: DeviceProfile = V5E,
 ) -> RoutedPlan:
+    p = profile
     l1_cap = min(l1_cap, L1_CAP)  # the rank field is 3 bits
     R, C = coo.shape
     nwin = max(-(-C // WINDOW), 1)
@@ -815,13 +817,13 @@ def _build_routed_plan(
     L_pre = np.zeros(T0, np.int64)
     np.add.at(L_pre, (ukb0 // nyt).astype(np.int64), need0)
     cost_t = (
-        TILE_BASE_NS
-        + TILE_W_NS * np.maximum(span_t - 1, 0)
-        + TILE_WL_NS * span_t
-        + TILE_BND_NS * np.maximum(np.maximum(band_t, L_pre), 1)
+        p.tile_base_ns
+        + p.tile_w_ns * np.maximum(span_t - 1, 0)
+        + p.tile_wl_ns * span_t
+        + p.tile_bnd_ns * np.maximum(np.maximum(band_t, L_pre), 1)
     )
     demote = (
-        (cost_t > RESIDUAL_NS * nnz_t)
+        (cost_t > p.residual_ns * nnz_t)
         | (band_t > l_cap)
         | (span_t > w_cap)
     )
@@ -834,10 +836,7 @@ def _build_routed_plan(
         # gathered path removes span/l1/boundary terms entirely for
         # scattered short rows (its own spill rules return what it
         # cannot take).
-        from hispmv_tpu_torch.plan.gathered import (
-            GATH_STAGE_NS, GATH_TILE_NS)
-
-        gath_per_nnz = (GATH_TILE_NS + 3 * GATH_STAGE_NS) / 1000.0
+        gath_per_nnz = (p.gath_tile_ns + 3 * p.gath_stage_ns) / 1000.0
         # what the tile will ACTUALLY be charged: its class buckets lmax
         # to a power of two and the merge charges group maxima, and the
         # kernel runs ~l1 extra pass-1 layers — cost_t (used for the
@@ -846,10 +845,10 @@ def _build_routed_plan(
         Lb2 = np.int64(1) << np.int64(
             np.ceil(np.log2(np.maximum(Lb, 1))))
         cost_cls = (
-            TILE_BASE_NS
-            + TILE_W_NS * np.maximum(span_t - 1, 0)
-            + (TILE_OV_NS + TILE_WL_NS * span_t) * 2.0
-            + TILE_BND_NS * Lb2
+            p.tile_base_ns
+            + p.tile_w_ns * np.maximum(span_t - 1, 0)
+            + (p.tile_ov_ns + p.tile_wl_ns * span_t) * 2.0
+            + p.tile_bnd_ns * Lb2
         )
         to_gather = (
             ~demote
@@ -880,8 +879,8 @@ def _build_routed_plan(
                 float(Kp), FANOUT_CAP / max(e_max_per_tile, 1.0)))
             p_est = int(np.ceil(tg / pw_est))
             # gcost already includes the measured launch+glue intercept
-            # (GATH_LAUNCH_NS); the margin only guards model noise
-            gcost = gathered_cost_ns(tg, Kp, p_est)
+            # (gath_launch_ns); the margin only guards model noise
+            gcost = gathered_cost_ns(tg, Kp, p_est, profile=p)
             if gross - gcost < 10e3:
                 to_gather[:] = False
         if to_gather.any():
@@ -1057,9 +1056,9 @@ def _build_routed_plan(
 
     def _cls_cost(wv, l1v, lv):
         return (
-            wv * TILE_W_NS
-            + (l1v - 1) * (TILE_OV_NS + TILE_WL_NS * wv)
-            + lv * TILE_BND_NS
+            wv * p.tile_w_ns
+            + (l1v - 1) * (p.tile_ov_ns + p.tile_wl_ns * wv)
+            + lv * p.tile_bnd_ns
         )
 
     ucls, cls_inv, cls_cnt = np.unique(
@@ -1085,7 +1084,7 @@ def _build_routed_plan(
             )
             if bcost is None or added < bcost:
                 best, bcost = gi, added
-        if len(groups) > max_streams or bcost < LAUNCH_NS:
+        if len(groups) > max_streams or bcost < p.launch_ns:
             groups[best] = groups[best] + groups.pop(best + 1)
         else:
             break
@@ -1281,12 +1280,13 @@ def build_ranked_routed_plan(
     l1_cap: int = L1_CAP,
     l_cap: int = L_CAP,
     max_streams: int = 6,
+    profile: DeviceProfile = V5E,
 ) -> RoutedPlan:
     """Routed plan in RANK SPACE: rows and columns degree-sorted (stable,
     panel-local) before planning, so power-law nonzeros concentrate into
     dense tiles with small window spans and few band layers.  x/y are
     moved between original and rank space by the fast 3-stage permutation
-    kernels (plan/permute.py; ~0.1 ns/element).
+    kernels (plan/permute.py).
 
     This is the planner's answer to the reference's HI crossbar + shared
     row balancing for scale-free matrices (base_functions.cpp:356-436,
@@ -1305,7 +1305,7 @@ def build_ranked_routed_plan(
         coo.values,
     )
     plan = build_routed_plan(
-        ranked, strip_windows, l1_cap, l_cap, max_streams
+        ranked, strip_windows, l1_cap, l_cap, max_streams, profile=profile
     )
     plan.col_perms = col_perms
     plan.row_perms = row_perms
@@ -1496,6 +1496,7 @@ def build_banded_routed_plan(
     panel_cols: int = PANEL_COLS,
     strip_windows: int = 0,
     max_streams: int = 4,
+    profile: DeviceProfile = V5E,
 ) -> BandedRoutedPlan:
     """Partition ``coo`` into (band, panel) cells and build one RoutedPlan
     per non-empty cell.  ``rank_sort`` degree-sorts rows/cols FIRST
@@ -1539,7 +1540,8 @@ def build_banded_routed_plan(
         cells.append(RoutedCell(
             r0=r0, c0=c0, nrows=nrows, ncols=ncols,
             plan=build_routed_plan(
-                sub, strip_windows=strip_windows, max_streams=max_streams
+                sub, strip_windows=strip_windows, max_streams=max_streams,
+                profile=profile,
             ),
         ))
     return BandedRoutedPlan(
@@ -1556,6 +1558,7 @@ def estimate_banded_routed_ns(
     rank_sort: bool = True,
     band_rows: int = BAND_ROWS,
     panel_cols: int = PANEL_COLS,
+    profile: DeviceProfile = V5E,
 ) -> dict:
     """Model-only cost estimate of a banded routed plan: per-cell
     ``estimate_routed_cost_ns`` (strip widths 4 and 32) summed + one
@@ -1603,10 +1606,11 @@ def estimate_banded_routed_ns(
         e = min(
             (estimate_routed_cost_ns(
                 None, None, (nrows, ncols), strip_windows=sw, table=local,
+                profile=profile,
             ) for sw in (4, 8, 16, 32)),
             key=lambda d: d["est_ns"],
         )
-        est_ns += e["est_ns"] + 2 * LAUNCH_NS
+        est_ns += e["est_ns"] + 2 * profile.launch_ns
         tiles += e["tiles"]
         sbytes += e["stream_bytes"]
         residual += int(e.get("residual", 0))

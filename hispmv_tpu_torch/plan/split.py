@@ -1,9 +1,10 @@
 """Split planner: hub columns and hub rows as dense panels, the rest as a
 routed or ELLX body.
 
-Carried over unchanged from ``hispmv_tpu/plan/split.py`` (numpy only),
-its TPU-calibrated constants included, so that both packages build
-identical plans and pick the same body.  The port runs the parts as the
+Carried over from ``hispmv_tpu/plan/split.py`` (numpy only).  The hub
+thresholds and the body's format weigh the costs of a ``DeviceProfile``
+(``tune/cost.py``); under ``V5E``, the JAX package's values, both
+packages build identical plans and pick the same body.  The port runs the parts as the
 JAX handle does: the hub panels as fp32 matmuls with TF32 off, the body
 through the routed stream kernel (B9) or the ELLX base product plus the
 block stream (B1, B2 against a batch).
@@ -40,11 +41,8 @@ from hispmv_tpu_torch.plan.routed import (
     routed_matvec_numpy,
     routed_vmem_ok,
 )
+from hispmv_tpu_torch.profiles import V5E, DeviceProfile
 
-# modelled cost of one body nonzero in bytes (the JAX package's TPU
-# figure: ELLX unit amortization plus overflow time as bytes at the fused
-# rate); used only to pick hub thresholds
-_BODY_BYTES_PER_NNZ = 740.0
 _MAX_HUBS = 2048
 
 
@@ -95,15 +93,18 @@ def _pad(n: int, m: int) -> int:
     return -(-n // m) * m
 
 
-def _pick_body_format(body: COOMatrix) -> str:
-    """Routed when the macro-cell estimate beats the ELLX base pass (the
-    JAX package's TPU cost figures)."""
+def _pick_body_format(body: COOMatrix,
+                      profile: DeviceProfile = V5E) -> str:
+    """Routed when the macro-cell estimate beats the ELLX base pass, both
+    under ``profile``."""
+    p = profile
     R, C = body.shape
-    if not routed_vmem_ok(body.shape):
+    if not routed_vmem_ok(body.shape, p):
         return "ellx"
-    est = best_routed_estimate(body.rows, body.cols, body.shape)
+    est = best_routed_estimate(body.rows, body.cols, body.shape, profile=p)
     t_routed = est["est_ns"] * 1e-9 + min(
-        est["residual"] * 1.6e-8, R * 516 / 450e9
+        est["residual"] * p.residual_ns * 1e-9,
+        R * 516 / p.ellx_choose_bytes_per_s
     )
     uk = np.unique(
         body.rows.astype(np.int64) * (C // 128 + 1) + body.cols // 128
@@ -111,9 +112,9 @@ def _pick_body_format(body: COOMatrix) -> str:
     counts = np.bincount(
         (uk // (C // 128 + 1)).astype(np.int64), minlength=R
     )
-    k = choose_k_base(counts, 1)
+    k = choose_k_base(counts, 1, p)
     ov = int(np.maximum(counts - k, 0).sum())
-    t_ellx = R * k * 516 / 450e9 + ov * 4.5e-8
+    t_ellx = R * k * 516 / p.ellx_choose_bytes_per_s + ov * p.overflow_block_s
     return "routed" if est["tiles"] and t_routed < t_ellx else "ellx"
 
 
@@ -121,16 +122,19 @@ def build_split_plan(
     coo: COOMatrix,
     block_h: int = 1,
     body_format: str = "auto",  # "auto" | "ellx" | "routed"
+    profile: DeviceProfile = V5E,
 ) -> SplitPlan:
     """Split A by degree thresholds, then plan the body (routed when its
-    (band, window) group structure is tile-friendly, else ELLX)."""
+    (band, window) group structure is tile-friendly, else ELLX), all
+    under ``profile``."""
+    bpn = profile.body_bytes_per_nnz
     R, C = coo.shape
     rows, cols, vals = coo.rows, coo.cols, coo.values
 
     # hub columns: a dense column costs R_pad*4 B, a sparse one deg *
-    # _BODY_BYTES_PER_NNZ; densify when sparse would cost more
+    # body_bytes_per_nnz; densify when sparse would cost more
     col_deg = np.bincount(cols, minlength=C)
-    thresh_c = max(_pad(R, 8) * 4.0 / _BODY_BYTES_PER_NNZ, 4.0)
+    thresh_c = max(_pad(R, 8) * 4.0 / bpn, 4.0)
     hub_c = np.nonzero(col_deg > thresh_c)[0]
     if len(hub_c) > _MAX_HUBS:
         hub_c = hub_c[np.argsort(-col_deg[hub_c], kind="stable")[:_MAX_HUBS]]
@@ -142,7 +146,7 @@ def build_split_plan(
     # hub rows among the remaining nonzeros
     rest = ~nnz_hc
     row_deg = np.bincount(rows[rest], minlength=R)
-    thresh_r = max(_pad(C, LANES) * 4.0 / _BODY_BYTES_PER_NNZ, 4.0)
+    thresh_r = max(_pad(C, LANES) * 4.0 / bpn, 4.0)
     hub_r = np.nonzero(row_deg > thresh_r)[0]
     if len(hub_r) > _MAX_HUBS:
         hub_r = hub_r[np.argsort(-row_deg[hub_r], kind="stable")[:_MAX_HUBS]]
@@ -176,12 +180,12 @@ def build_split_plan(
         )
         fmt = body_format
         if fmt == "auto":
-            fmt = _pick_body_format(body_coo)
+            fmt = _pick_body_format(body_coo, profile)
         if fmt == "routed":
-            body = build_routed_plan(body_coo)
+            body = build_routed_plan(body_coo, profile=profile)
         else:
             body = build_ellx_plan(
-                build_block_plan(body_coo, block_h=block_h)
+                build_block_plan(body_coo, block_h=block_h), profile=profile
             )
 
     return SplitPlan(

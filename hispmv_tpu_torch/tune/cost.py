@@ -1,12 +1,10 @@
-"""Analytic cost model for the TPU SpMV formats.
+"""Analytic cost model for the SpMV formats.
 
 Carried over unchanged from ``hispmv_tpu/tune/cost.py`` (the standard
-library only), so that the port's model-only pick equals the JAX tuner's.
-Every constant here is the TPU v5e's, and every figure this model gives
-is a TPU estimate, never a time on the card; an H100 profile waits for
-calibration runs (ROADMAP.md, queue A).  Measured tuning
-(``tune(measure=N)``) times its shortlist on the card instead.  Original
-notes follow.
+library only).  Its rates and per-call costs are a :class:`DeviceProfile`'s
+(``hispmv_tpu_torch/profiles.py``, whose names this module re-exports):
+under ``V5E`` every figure is the JAX package's TPU estimate, under
+``H100`` an estimate of the card.  Original notes follow.
 
 Re-creation of the reference's estimator pair for a TPU target:
 
@@ -15,54 +13,21 @@ Re-creation of the reference's estimator pair for a TPU target:
   residency checks.
 - ``CycleCountEstimator`` (automation_tool/src/cyclecount_est.py:51-55:
   ``CC = streamA + tiles_r*loadB + updateC``) asked "how long will it run?";
-  on a TPU every format is HBM-bandwidth-bound, so cost = bytes moved /
-  effective bandwidth + a fixed launch overhead, with per-format effective
+  every format is bandwidth-bound, so cost = bytes moved / effective
+  bandwidth + a fixed launch overhead, with per-format effective
   bandwidths calibrated on hardware (the DATA_CLK analog).
 """
 
 from __future__ import annotations
 
-import dataclasses
-
-
-@dataclasses.dataclass(frozen=True)
-class DeviceProfile:
-    """Calibrated per-chip constants (fpgas.py device catalog analog).
-
-    All defaults are MEASURED on the TPU v5e via the loop-slope method
-    (2026-08, see tests/test_tune.py and the bench logs):
-
-    - ``hbm_gbps`` 794 from a 512 MiB reduction (spec 819).
-    - ``block_step_overhead_s`` 28 ns: the chunked kernel's per-block cost
-      is ~constant in block_h (scalar reads + dynamic slices + predicate
-      dominate; the FMA vregs are hidden underneath) — measured 26.6/26.8/
-      28.7 ns at block_h 8/16/32 on nd6k-class streams.
-    - ``stream_efficiency`` 0.002: XLA's per-element gather on this chip is
-      catastrophic (~0.07-0.13 Gnnz/s end to end), so the gather-stream
-      format essentially never wins; it is kept for CPU/debug paths.
-    """
-
-    name: str = "tpu-v5e"
-    hbm_gbps: float = 794.0
-    stream_efficiency: float = 0.001
-    block_dma_efficiency: float = 0.88  # contiguous chunk streaming
-    block_step_overhead_s: float = 2.8e-8
-    dense_efficiency: float = 0.90  # plain matmul row streaming
-    launch_overhead_s: float = 3e-6  # on-device dispatch per kernel
-    vmem_bytes: int = 64 * 2**20  # usable VMEM ceiling (conservative)
-    hbm_bytes: int = 14 * 2**30  # usable HBM for resident plans
-    # fused XLA ELL executor (gather+multiply+reduce in one HBM pass):
-    # measured 437-684 GB/s on the v5e (2026-08 round-2 microbench)
-    ellx_gbps: float = 500.0
-    # per-row cost of jnp.take(axis=0) row gathers (0.55 G rows/s measured)
-    row_gather_s: float = 1.8e-9
-    # routed-stream per-tile/per-layer costs live in plan/routed.py
-    # (TILE_BASE_NS/TILE_L1_NS/TILE_BND_NS, loop-slope measured); the
-    # cost model consumes the resulting compute-ns estimate directly.
-
-
-# Default profile used when no calibration file exists.
-V5E = DeviceProfile()
+from hispmv_tpu_torch.profiles import (  # noqa: F401
+    H100,
+    PROFILES,
+    V5E,
+    DeviceProfile,
+    device_profile,
+    profile_key,
+)
 
 
 class CostModel:
@@ -88,8 +53,8 @@ class CostModel:
         self, num_blocks: int, block_h: int, rows: int, cols: int
     ) -> float:
         """Chunked block-ELL path: max(DMA stream time, per-block fixed
-        overhead) — the kernel is compute(overhead)-bound below block_h~44
-        and DMA-bound above (measured, see DeviceProfile)."""
+        overhead) — on the TPU the kernel is compute(overhead)-bound below
+        block_h~44 and DMA-bound above."""
         a_bytes = num_blocks * block_h * 128 * 4
         xy_bytes = cols * 4 + rows * 4
         t_dma = (a_bytes + xy_bytes) / (
@@ -106,9 +71,10 @@ class CostModel:
         a_bytes = num_blocks * (block_h * 128 + 128) * 4
         xy_bytes = cols * 4 + rows * 4
         t_dma = (a_bytes + xy_bytes) / (
-            self.p.hbm_gbps * 1e9 * self.p.block_dma_efficiency
+            self.p.hbm_gbps * 1e9 * self.p.window_dma_efficiency
         )
-        t_step = num_blocks * (self.p.block_step_overhead_s + 4e-9)
+        t_step = num_blocks * (
+            self.p.block_step_overhead_s + self.p.window_step_extra_s)
         return max(t_dma, t_step) + self.p.launch_overhead_s
 
     def block_seconds_bf16(
@@ -129,9 +95,10 @@ class CostModel:
         a_bytes = num_blocks * (block_h * 128 * 2 + 128 * 4)
         xy_bytes = cols * 4 + rows * 4
         t_dma = (a_bytes + xy_bytes) / (
-            self.p.hbm_gbps * 1e9 * self.p.block_dma_efficiency
+            self.p.hbm_gbps * 1e9 * self.p.window_dma_efficiency
         )
-        t_step = num_blocks * (self.p.block_step_overhead_s + 4e-9)
+        t_step = num_blocks * (
+            self.p.block_step_overhead_s + self.p.window_step_extra_s)
         return max(t_dma, t_step) + self.p.launch_overhead_s
 
     def window_resident_bytes(self, num_blocks: int, block_h: int) -> int:
@@ -145,7 +112,7 @@ class CostModel:
         cols: int,
         value_bytes: int = 4,
     ) -> float:
-        """Pure-XLA base-K ELL pass + optional Pallas overflow stream."""
+        """Base-K ELL product + optional overflow block stream (B1)."""
         scale = value_bytes / 4.0
         t = (
             base_bytes * scale + cols * 4 + rows * 4
@@ -174,12 +141,12 @@ class CostModel:
             stream_bytes / (self.p.hbm_gbps * 1e9 * self.p.block_dma_efficiency),
         ) + self.p.launch_overhead_s
         if residual_nnz:
-            # small residual -> element scatter (~16 ns/nnz); large ->
+            # small residual -> element scatter (residual_ns); large ->
             # row-granular ELLX (base over the full row space + overflow
             # for rows with multiple residual units)
             t_ellx = rows * (128 * 4 + 4) / (self.p.ellx_gbps * 1e9)
             t_ellx += max(residual_nnz - rows, 0) * self.p.block_step_overhead_s
-            t += min(residual_nnz * 1.6e-8, t_ellx)
+            t += min(residual_nnz * self.p.residual_ns * 1e-9, t_ellx)
         return t
 
     def split_seconds(

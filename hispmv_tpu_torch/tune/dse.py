@@ -2,12 +2,14 @@
 
 Port of ``hispmv_tpu/tune/dse.py`` (numpy only).  The model-only search
 (``DSE.explore``) is carried over unchanged over the port's own copies of
-the planners' estimators, so that its format, config and candidate ranking
-equal the JAX tuner's under the same profile (``V5E`` by default: its
-estimates are TPU figures, not times on the card).  ``tune(measure=N)``
-builds the shortlisted candidates as port handles on ``device`` and times
-each with ``utils/timing.bench_spmv``: on the card, the measured winner is
-the card's.  The JAX package's source-hash generations of its caches
+the planners' estimators, each given the search's profile: under ``V5E``
+(``DSE``'s default) its format, config and candidate ranking equal the
+JAX tuner's, and its estimates are TPU figures; ``tune`` takes the
+profile of its device, ``H100`` on the card, whose estimates are the
+card's model.  ``tune(measure=N)`` builds the shortlisted candidates as
+port handles on ``device`` under the same profile and times each with
+``utils/timing.bench_spmv``: on the card, the measured winner is the
+card's.  The JAX package's source-hash generations of its caches
 (``family_gen``) are left out: a cache entry is keyed by the matrix
 fingerprint and the profile's name and values only.
 
@@ -44,9 +46,15 @@ from hispmv_tpu_torch.plan.routed import (
     estimate_banded_routed_ns,
     routed_vmem_ok,
 )
-from hispmv_tpu_torch.plan.split import _BODY_BYTES_PER_NNZ, _MAX_HUBS
+from hispmv_tpu_torch.plan.split import _MAX_HUBS
 from hispmv_tpu_torch.plan.windows import SEGS, WINDOW
-from hispmv_tpu_torch.tune.cost import V5E, CostModel, DeviceProfile
+from hispmv_tpu_torch.tune.cost import (
+    V5E,
+    CostModel,
+    DeviceProfile,
+    device_profile,
+    profile_key,
+)
 from hispmv_tpu_torch.utils.timing import bench_spmv
 
 
@@ -188,6 +196,7 @@ class DSE:
 
     def explore(self, coo: COOMatrix, base: Optional[SpmvConfig] = None) -> TuneResult:
         base = base or SpmvConfig()
+        p = self.model.p
         R, C = coo.shape
         nnz = coo.nnz
         flops = 2 * (nnz + R)
@@ -310,7 +319,7 @@ class DSE:
             counts = np.bincount(
                 uk_rb.astype(np.int64), minlength=nrb
             )
-            k = choose_k_base(counts, bh)
+            k = choose_k_base(counts, bh, p)
             base_b = nrb * k * (bh * LANES * 4 + 4)
             ov = int(np.maximum(counts - k, 0).sum())
             resident = base_b + ov * (bh * LANES * 4 + 16)
@@ -327,7 +336,7 @@ class DSE:
                 cnt_cr = np.bincount(
                     (uk8_cr // ncb).astype(np.int64), minlength=nrb
                 )
-                k_cr = choose_k_base(cnt_cr, bh)
+                k_cr = choose_k_base(cnt_cr, bh, p)
                 ov_cr = int(np.maximum(cnt_cr - k_cr, 0).sum())
                 base_cr = nrb * k_cr * (bh * LANES * 4 + 4)
                 if self.model.fits(base_cr):
@@ -343,13 +352,13 @@ class DSE:
         # (HI crossbar) analog for power-law/arrowhead matrices.
         col_deg = np.bincount(coo.cols, minlength=C)
         r_pad8, c_pad = -(-R // 8) * 8, ncb * LANES
-        thr_c = max(r_pad8 * 4.0 / _BODY_BYTES_PER_NNZ, 4.0)
+        thr_c = max(r_pad8 * 4.0 / p.body_bytes_per_nnz, 4.0)
         hub_c = np.nonzero(col_deg > thr_c)[0][:_MAX_HUBS]
         in_hc = np.zeros(C, bool)
         in_hc[hub_c] = True
         sel_hc = in_hc[coo.cols]
         row_deg = np.bincount(coo.rows[~sel_hc], minlength=R)
-        thr_r = max(c_pad * 4.0 / _BODY_BYTES_PER_NNZ, 4.0)
+        thr_r = max(c_pad * 4.0 / p.body_bytes_per_nnz, 4.0)
         hub_r = np.nonzero(row_deg > thr_r)[0][:_MAX_HUBS]
         if len(hub_c) or len(hub_r):
             in_hr = np.zeros(R, bool)
@@ -367,14 +376,15 @@ class DSE:
                 )
                 ukb = np.unique(kb)
                 counts = np.bincount(ukb // ncb, minlength=R)
-                k = choose_k_base(counts, 1)
+                k = choose_k_base(counts, 1, p)
                 base_b = R * k * (LANES * 4 + 4)
                 ov = int(np.maximum(counts - k, 0).sum())
                 # routed body alternative (build_split_plan body="auto"
                 # makes the same choice at plan time)
-                if routed_vmem_ok(coo.shape):
+                if routed_vmem_ok(coo.shape, p):
                     bst = best_routed_estimate(
-                        coo.rows[body_sel], coo.cols[body_sel], coo.shape
+                        coo.rows[body_sel], coo.cols[body_sel], coo.shape,
+                        profile=p,
                     )
                 else:
                     bst = {"tiles": 0}
@@ -386,10 +396,8 @@ class DSE:
                 base_b, ov, t_rb = 0, 0, float("inf")
             if self.model.fits(hub_b + base_b):
                 t_eb = self.model.split_seconds(hub_b, base_b, ov, R, C)
-                hub_t = hub_b / (
-                    self.model.p.hbm_gbps * 1e9 * self.model.p.dense_efficiency
-                )
-                t = min(t_eb, hub_t + t_rb + self.model.p.launch_overhead_s)
+                hub_t = hub_b / (p.hbm_gbps * 1e9 * p.dense_efficiency)
+                t = min(t_eb, hub_t + t_rb + p.launch_overhead_s)
                 cands.append(
                     ("split", t, dataclasses.replace(base, block_h=1))
                 )
@@ -400,8 +408,8 @@ class DSE:
         # ~1.4x of the built plan's modeled cost on structured classes,
         # ~2-4x optimistic on heavily scattered ones (conflict layers are
         # not modeled) — measure_candidates() resolves close calls.
-        routed_fits_vmem = routed_vmem_ok(coo.shape)
-        rst = best_routed_estimate(coo.rows, coo.cols, coo.shape)
+        routed_fits_vmem = routed_vmem_ok(coo.shape, p)
+        rst = best_routed_estimate(coo.rows, coo.cols, coo.shape, profile=p)
         if rst["tiles"] and routed_fits_vmem \
                 and self.model.fits(rst["stream_bytes"]):
             t = self.model.routed_seconds(
@@ -425,15 +433,15 @@ class DSE:
             rstr = best_routed_estimate(
                 rrank[coo.rows.astype(np.int64)],
                 crank[coo.cols.astype(np.int64)],
-                coo.shape,
+                coo.shape, profile=p,
             )
             if rstr["tiles"] and self.model.fits(rstr["stream_bytes"]):
                 t = self.model.routed_seconds(
                     rstr["est_ns"], rstr["stream_bytes"],
                     rstr["residual"], R, C,
                 ) + (
-                    estimate_permute_cost_ns(C)
-                    + estimate_permute_cost_ns(R)
+                    estimate_permute_cost_ns(C, p)
+                    + estimate_permute_cost_ns(R, p)
                 ) / 1e9
                 cands.append((
                     "routed-rank", t,
@@ -446,15 +454,15 @@ class DSE:
         # y row-tiling answer (spmv-helper.cpp:139-263).
         if not routed_fits_vmem:
             rbd = estimate_banded_routed_ns(
-                coo.rows, coo.cols, coo.shape, rank_sort=True
+                coo.rows, coo.cols, coo.shape, rank_sort=True, profile=p
             )
             if rbd["tiles"] and self.model.fits(rbd["stream_bytes"]):
                 t = self.model.routed_seconds(
                     rbd["est_ns"], rbd["stream_bytes"],
                     rbd["residual"], R, C,
                 ) + (
-                    estimate_permute_cost_ns(C)
-                    + estimate_permute_cost_ns(R)
+                    estimate_permute_cost_ns(C, p)
+                    + estimate_permute_cost_ns(R, p)
                 ) / 1e9
                 cands.append((
                     "routed-rank", t,
@@ -577,11 +585,13 @@ def measured_shortlist(result: TuneResult, top: int) -> list:
 def measure_candidates(
     coo: COOMatrix, result: TuneResult, top: int = 2,
     cache_path: Optional[str] = None, device="cuda",
+    profile: Optional[DeviceProfile] = None,
 ) -> TuneResult:
     """Refine the model's choice by timing the shortlisted candidates on
     ``device``.
 
-    Each candidate is prepared as a port ``SpmvHandle`` on ``device`` and
+    Each candidate is prepared as a port ``SpmvHandle`` on ``device``
+    under ``profile`` (None: the device's, as the model's pick was) and
     timed with ``utils/timing.bench_spmv``; the fastest that passes the
     accuracy guard replaces the model's pick.  Each measurement is written
     through to ``cache_path + '.measured'`` as it completes, so a tune cut
@@ -591,6 +601,8 @@ def measure_candidates(
     """
     from hispmv_tpu_torch.api.handle import SpmvHandle
 
+    if profile is None:
+        profile = device_profile(device)
     mpath = (cache_path + ".measured") if cache_path else None
     mfp = matrix_fingerprint(coo)
     mcache = _measured_cache_load(mpath)
@@ -602,7 +614,7 @@ def measure_candidates(
     golden = coo.matvec(x0.astype(np.float64))
     measured = []
     for label, est, fmt, cfg in measured_shortlist(result, top):
-        mkey = f"{mfp}:{label}"
+        mkey = f"{mfp}:{profile.name}:{label}"
         hit = mcache.get(mkey)
         if hit is not None:
             if hit.get("t") is not None:
@@ -614,7 +626,8 @@ def measure_candidates(
             ):
                 continue
         try:
-            h = SpmvHandle(coo, config=cfg, format=fmt, device=device)
+            h = SpmvHandle(coo, config=cfg, format=fmt, device=device,
+                           profile=profile)
             t, y = bench_spmv(h, x0)
             del h
             # accuracy guard: f32 formats may miss rtol 1e-3 on at most
@@ -677,24 +690,26 @@ def measure_candidates(
 def tune(
     coo: COOMatrix,
     cache_path: Optional[str] = None,
-    profile: DeviceProfile = V5E,
+    profile: Optional[DeviceProfile] = None,
     measure: int = 0,
     device="cuda",
 ) -> TuneResult:
     """DSE with a persistent JSON cache keyed by matrix fingerprint and
-    the profile's name and values.
+    the profile's name and values (``tune.cost.profile_key``).
 
+    ``profile`` None takes ``device``'s (``device_profile``: ``H100`` on
+    the card, ``V5E`` on the CPU).
     ``measure > 1`` also times the shortlist (``measure`` cheapest and the
     close families) on ``device`` and picks the measured winner; measured
     entries serve every later call, model-only ones are re-run when a
     caller asks for measurement.  The model-only search touches no
     device."""
+    if profile is None:
+        profile = device_profile(device)
     key = None
     if cache_path:
-        pfp = hashlib.sha256(
-            repr(dataclasses.astuple(profile)).encode()
-        ).hexdigest()[:8]
-        key = f"{matrix_fingerprint(coo)}:{profile.name}:{pfp}"
+        key = (f"{matrix_fingerprint(coo)}:{profile.name}:"
+               f"{profile_key(profile)}")
         if os.path.exists(cache_path):
             with open(cache_path) as f:
                 entry = json.load(f).get(key)
@@ -705,7 +720,8 @@ def tune(
     result = DSE(profile).explore(coo)
     if measure > 1:
         result = measure_candidates(
-            coo, result, top=measure, cache_path=cache_path, device=device
+            coo, result, top=measure, cache_path=cache_path, device=device,
+            profile=profile,
         )
     if key:
         cache = {}

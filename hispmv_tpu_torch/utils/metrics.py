@@ -2,8 +2,9 @@
 
 Carried over unchanged from ``hispmv_tpu/utils/metrics.py`` (the standard
 library only), with the same CSV columns.  ``predicted_s`` is the tuner's
-figure: a model estimate of its device profile (the TPU v5e's by
-default), or the measured time when the tuner timed its candidates;
+figure: a model estimate under its device profile (the device's by
+default: H100 on the card), or the measured time when the tuner timed
+its candidates;
 ``kernel_s`` is the time taken on the handle's device.
 
 Schema mirrors the reference's metrics CSVs (builds/U280_metrics.csv:1):

@@ -9,6 +9,16 @@ checkout and run it there, the trees in turns (parent, change, change,
 parent).
 
     python3 kernel_compare.py LABEL [GROUP ...]
+    python3 kernel_compare.py calibrate
+
+``calibrate`` measures the card's device profile
+(``hispmv_tpu_torch/profiles.py``): per-unit costs as device-time slopes,
+per-call costs on the wall clock, the layout, B2/B6 and banding budgets
+from wall medians taken in turns (section "calibrate" below); it prints
+the ``H100 = DeviceProfile(...)`` literal beside the card's name and power
+limit, writes its readings to ``chiprun_out/calibrate.json``, and then
+runs ``chip_smoke.py``'s phase 3k under V5E and the measured profile (~10
+min on one card).
 
 GROUPs (all when none is named): b1b7, b3, b2, b8, b6, b4, b9, b12, b11,
 b13, dist.
@@ -105,29 +115,47 @@ process holds a context on it; with two or more cards, also phase 3j of
 ``chip_smoke.py`` at one NCCL rank a card (``dist_report``).
 Exits 1 when a case disagrees, 2 without a CUDA card."""
 
+import dataclasses
 import importlib
 import inspect
+import json
 import os
 import re
 import shutil
 import subprocess
 import sys
 import tempfile
+import time
 
 import numpy as np
 import torch
 
 import chip_smoke as cs
-from hispmv_tpu_torch import Accelerator, SpmvConfig, prepare
+from hispmv_tpu_torch import Accelerator, SpmvConfig, SpmvHandle, prepare
 from hispmv_tpu_torch.dist import make_mesh, spmv_sharded_chunked, to_device
-from hispmv_tpu_torch.formats.synth import blocked_coo, suite_matrix
+from hispmv_tpu_torch.formats.synth import blocked_coo, random_coo, suite_matrix
 from hispmv_tpu_torch.models import AcceleratorLayerManager, ThreeLayerFCModel
 from hispmv_tpu_torch.ops import cuda_build
 from hispmv_tpu_torch.ops import spmv_chunked as sc
 from hispmv_tpu_torch.ops import spmv_routed as sr
 from hispmv_tpu_torch.ops import spmv_windowed as sw
-from hispmv_tpu_torch.ops.permute import panel_permute_apply_from
-from hispmv_tpu_torch.plan import gathered as gp
+from hispmv_tpu_torch.ops.permute import (
+    panel_permute_apply_from,
+    permute_stage,
+)
+from hispmv_tpu_torch.ops.spmv_chunked import chunk_for
+from hispmv_tpu_torch.ops.spmv_ellx import build_ellx_plan
+from hispmv_tpu_torch.ops.spmv_gathered import (
+    gathered_gather_apply,
+    spmv_gathered_tiles,
+)
+from hispmv_tpu_torch.ops.spmv_routed import (
+    spmv_routed_stream,
+    spmv_routed_streams,
+)
+from hispmv_tpu_torch.plan.blocks import BlockPlan, build_block_plan
+from hispmv_tpu_torch.tune.cost import V5E, DeviceProfile
+from hispmv_tpu_torch.utils.timing import bench_spmv
 
 # the module: the ops package's function spmv_block shadows its name
 sb = importlib.import_module("hispmv_tpu_torch.ops.spmv_block")
@@ -138,6 +166,12 @@ def _takes_vpt(fn):
 
 
 _HANDLES = {}
+
+
+def _panel_ncb(h):
+    """The handle's x panel width in col blocks (its profile's, or the
+    class constant of a checkout from before the profiles)."""
+    return h.profile.panel_ncb if hasattr(h, "profile") else h._PANEL_NCB
 
 
 def handle(name, block_h, fmt):
@@ -266,7 +300,7 @@ def b3_cases(rng):
         tag(label, d["data"].shape[0], h._chunk, h.plan.block_h),
         "spmv_chunked_paneled",
         (d["data"], d["meta"], d["panels"], h._pad_x(x).reshape(-1, 128),
-         h.plan.num_row_blocks, h.plan.block_h, h._chunk, h._PANEL_NCB),
+         h.plan.num_row_blocks, h.plan.block_h, h._chunk, _panel_ncb(h)),
         lambda: h.run(x, y_in, 1.5, -0.5)))
     return cases, calls
 
@@ -383,7 +417,7 @@ def b4_cases(rng):
     pnrb = h._panel_nrb(p.block_h)
     args = (d["data"], d["meta"], d["xpanels"], d["ypanels"],
             h._pad_x(x).reshape(-1, 128), -(-p.num_row_blocks // pnrb),
-            pnrb, p.block_h, h._chunk, h._PANEL_NCB)
+            pnrb, p.block_h, h._chunk, _panel_ncb(h))
     runs = [(label, args + ((h._sector_mask,) if mask else ()),
              lambda: h.run(x, y_in, 1.5, -0.5))]
     th = handle("TSOPF_RS_b2383", 8, "block")
@@ -530,22 +564,17 @@ B9_RUNS = [("trans5", "trans5", False, False),
 
 def routed_handle(name, rank, gathered):
     """A routed handle of suite stand-in ``name`` (scale 1.0, seed 0); with
-    ``gathered``, planned under ``chip_smoke.py``'s lowered gathered
-    costs, so that it diverts tiles to the side-plan as phase 3g does.
+    ``gathered``, planned as ``chip_smoke.py``'s phase 3g plans it
+    (``gathered_prepare``), so that it diverts tiles to the side-plan.
     Planned once a run."""
     key = ("routed", name, rank, gathered)
     if key in _HANDLES:
         return _HANDLES[key]
-    saved = {k: getattr(gp, k) for k in cs.GATHERED_COSTS}
-    try:
-        if gathered:
-            for k, v in cs.GATHERED_COSTS.items():
-                setattr(gp, k, v)
-        h = prepare(suite_matrix(name, 1.0, seed=cs.SEED),
-                    SpmvConfig(rank_sort=rank), "routed")
-    finally:
-        for k, v in saved.items():
-            setattr(gp, k, v)
+    coo = suite_matrix(name, 1.0, seed=cs.SEED)
+    if gathered:
+        h = cs.gathered_prepare(coo)[0]
+    else:
+        h = prepare(coo, SpmvConfig(rank_sort=rank), "routed")
     _HANDLES[key] = h
     return h
 
@@ -1104,6 +1133,816 @@ def dist_report(label, rng):
     return ok
 
 
+# ---------------------------------------------------------------------------
+# calibrate: the H100 profile's values, measured on the card
+# ---------------------------------------------------------------------------
+#
+# Two clocks.  A per-unit cost (a block, a byte, a tile, a window) is the
+# slope of a least-squares fit of DEVICE time (torch.profiler, every
+# kernel, copy and fill of the call: chip_smoke.device_ms) on the units'
+# counts, non-negative, each reading weighted by its inverse; B9's tiles
+# and the gathered chain are fitted over synthetic inputs built to vary
+# each term apart, so that no two columns of a fit move together, each
+# reading the median of three profiler windows.
+# hbm_gbps is the fastest streaming read measured (the 512 MiB sum, B1
+# and B7 at bh 64, the dense GEMV), each efficiency a rate's share of it.
+# A per-call cost (a launch, a fixed cost) is taken against the clock
+# the measured tune compares with, utils/timing (CUDA events around each
+# call, host gaps included; bench_spmv where a handle runs): the median,
+# over the readings, of the wall time less the fitted device work.  On the card a
+# call is mostly host time (PERF.md section 5), which the device clock
+# cannot see and which would drown a per-unit slope on the wall clock.
+# Sizes: CAL_SIZES, or CAL_SMALL for a CPU rehearsal of the flow
+# (calibrate(device="cpu", sizes=CAL_SMALL); the CPU has no device clock,
+# so its readings are wall times twice).
+
+CAL_SIZES = {
+    "hbm_floats": 2**27,  # a 512 MiB read
+    # (block_h, row blocks, blocks a row block): B1 on synthetic streams
+    "block": [(1, 250_000, k) for k in (1, 2, 4, 8)]
+    + [(8, 31_250, k) for k in (1, 4, 16)]
+    + [(64, 3_907, k) for k in (1, 4, 8)],
+    "block_ncb": 1024,
+    # (block_h, rows): B7 on blocked_coo(rows, rows, 30*rows), past L2
+    "window": [(bh, r) for bh in (8, 64) for r in (150_000, 450_000, 900_000)],
+    "dense": (8192, 12288, 16384),  # 256 MiB and up: past L2
+    "stream": (50_000, 200_000, 800_000),
+    "ellx_ks": (1, 2, 4, 8, 16, 32),
+    "ellx_synth": [(500_000, 4), (250_000, 16)],  # (row blocks, k), bh 1
+    "row_gather": (1 << 20, 1 << 22, 1 << 24),
+    "routed": ["trans5", "ford2", "analytics", "crystk03", "TSOPF_RS_b2383",
+               "language", "poli_large"],
+    "routed_strips": (0, 32),
+    # B9's synthetic streams: (rows, nonzeros a row, strip windows, l1
+    # cap, lmax cap) on random_coo, so that W, l1 and lmax vary apart
+    "routed_synth": [(131_072, f, sw, l1, lc)
+                     for f, sws in ((4, (8, 32)), (16, (2, 8)))
+                     for sw in sws for l1 in (1, 3, 5) for lc in (4, 32)],
+    "scatter": (100_000, 1_000_000, 8_000_000),
+    "res_ellx": [(r, f) for r in (300_000, 1_200_000) for f in (0.5, 2.0)],
+    # (K, nonzeros a row, column span divisor): the divisor packs the
+    # columns into fewer windows, more panels for the same tiles
+    "gathered": [(k, f, div) for k in (128, 256, 512) for f in (2, 5)
+                 for div in (1, 8)],
+    "permute": (1 << 17, 1 << 19, 1 << 20),
+    "layouts": True,
+    "batches": (8, 16, 64),
+    "band": "soc-Pokec",
+    "suite_scale": 1.0,
+}
+CAL_SMALL = {
+    "hbm_floats": 2**20,
+    "block": [(1, 2_000, k) for k in (1, 2, 4)]
+    + [(8, 500, k) for k in (1, 4)] + [(64, 60, k) for k in (1, 4)],
+    "block_ncb": 64,
+    "window": [(bh, r) for bh in (8, 64) for r in (2_000, 6_000)],
+    "dense": (256, 512),
+    "stream": (2_000, 8_000),
+    "ellx_ks": (1, 2, 4),
+    "ellx_synth": [(4_000, 2), (2_000, 4)],
+    "row_gather": (1 << 12, 1 << 14),
+    "routed": ["trans5", "analytics"],
+    "routed_strips": (0,),
+    "routed_synth": [(16_384, 4, sw, l1, 32) for sw in (8, 32)
+                     for l1 in (1, 5)],
+    "scatter": (1_000, 10_000),
+    "res_ellx": [(r, f) for r in (3_000, 12_000) for f in (0.5, 2.0)],
+    "gathered": [(k, f, div) for k in (4, 8) for f in (2, 5)
+                 for div in (1, 2)],
+    "permute": (1 << 12, 1 << 14),
+    "layouts": False,
+    "batches": (8, 64),
+    "band": None,
+    "suite_scale": 0.02,
+}
+
+
+def _nnls_fit(X, t, relative=True):
+    """Non-negative least squares of ``t`` on the columns of ``X``, each
+    row weighted by 1/t (``relative``) or not; returns the
+    coefficients."""
+    from scipy.optimize import nnls
+
+    X = np.asarray(X, np.float64)
+    t = np.asarray(t, np.float64)
+    w = 1.0 / t if relative else np.ones_like(t)
+    coef, _ = nnls(X * w[:, None], t * w)
+    return coef
+
+
+def _fixed(wall, work):
+    """The per-call cost on the wall clock: median of wall - work."""
+    return float(np.median(np.asarray(wall) - np.asarray(work)))
+
+
+class _Cal:
+    """Readings and fitted values of one calibration run."""
+
+    def __init__(self, device, sizes):
+        self.dev = torch.device(device)
+        self.sizes = sizes
+        self.rng = np.random.default_rng(cs.SEED)
+        self.raw = {}
+        self.val = {}
+        self.rate = {}  # streaming rates, bytes a second
+
+    def log(self, msg):
+        print(f"calibrate {msg}", flush=True)
+
+    def both(self, fn, windows=1):
+        """(wall seconds, device seconds) of one call of ``fn``; the
+        device time the median of ``windows`` profiler windows that saw
+        device time, out of ``windows + 2`` at most (a window can miss
+        most or all of a short kernel's time)."""
+        wall = cs.median_ms(fn, device=self.dev) * 1e-3
+        if self.dev.type != "cuda":
+            return wall, wall
+        busy = []
+        for _ in range(windows + 2):
+            b = cs.device_ms(fn)
+            busy += [] if b is None else [b]
+            if len(busy) == windows:
+                break
+        if not busy:
+            raise SystemExit("calibrate: the profiler saw no device time")
+        return wall, float(np.median(busy)) * 1e-3
+
+    def run(self, h):
+        """(wall, device) seconds of the handle's ``run`` as bench_spmv
+        times it: x padded once, the product alone."""
+        x = torch.from_numpy(self.rng.standard_normal(h.shape[1]).astype(
+            np.float32)).to(self.dev)
+        xp = h._pad_x(x)
+        return self.both(lambda: h._matvec(xp))
+
+    def x(self, n):
+        return torch.from_numpy(
+            self.rng.standard_normal(n).astype(np.float32)).to(self.dev)
+
+
+def _open_profile():
+    """V5E with every layout budget open: chunked, B2."""
+    return dataclasses.replace(V5E, chunked_budget_bytes=1 << 50,
+                               batched_budget_bytes=1 << 50)
+
+
+def _block_plan(bh, nrb, k, ncb, rng):
+    """A synthetic block plan: ``nrb`` row blocks of ``k`` distinct col
+    blocks each (spread over ``ncb``), every payload slot 0.5."""
+    start = rng.integers(0, ncb, nrb)
+    step = max(ncb // k, 1)
+    cols = (start[:, None] + np.arange(k)[None, :] * step) % ncb
+    cols.sort(axis=1)
+    nb = nrb * k
+    firsts = np.zeros(nb, np.int32)
+    firsts[::k] = 1
+    lasts = np.zeros(nb, np.int32)
+    lasts[k - 1::k] = 1
+    return BlockPlan(
+        shape=(nrb * bh, ncb * 128), nnz=nb * bh * 128, block_h=bh,
+        data=np.full((nb, bh, 128), 0.5, np.float32),
+        block_rows=np.repeat(np.arange(nrb, dtype=np.int32), k),
+        block_cols=cols.reshape(-1).astype(np.int32),
+        block_firsts=firsts, block_lasts=lasts,
+        num_row_blocks=nrb, num_col_blocks=ncb)
+
+
+def _slope_fit(pts):
+    """pts (count, wall, device): the device slope a unit."""
+    n, _, dev = np.array(pts, np.float64).T
+    return _nnls_fit(np.stack([np.ones_like(n), n], 1), dev)[1]
+
+
+def cal_hbm_and_blocks(c):
+    """The 512 MiB read's rate; B1's device slope a block at bh 1, 8 and
+    64: block_step_overhead_s (bh 1) and the streaming rate at bh 64."""
+    a = torch.rand(c.sizes["hbm_floats"], device=c.dev)
+    wall, dev = c.both(lambda: a.sum())
+    c.rate["sum"] = a.numel() * 4 / dev
+    c.raw["hbm_read_s"] = [wall, dev]
+    del a
+    c.log(f"hbm: {c.sizes['hbm_floats'] * 4 / 2**20:.0f} MiB read in "
+          f"{dev * 1e3:.4f} ms of device time: {c.rate['sum'] / 1e9:.1f} "
+          "GB/s")
+    per_bh = {}
+    for bh, nrb, k in c.sizes["block"]:
+        plan = _block_plan(bh, nrb, k, c.sizes["block_ncb"], c.rng)
+        h = SpmvHandle.from_plan(plan, device=c.dev, profile=_open_profile())
+        assert h._chunked
+        wall, dev = c.run(h)
+        per_bh.setdefault(bh, []).append((plan.num_blocks, wall, dev))
+        c.log(f"B1 bh {bh}: {plan.num_blocks} blocks, wall "
+              f"{wall * 1e6:.2f} us, device {dev * 1e6:.2f} us")
+        del h, plan
+    c.raw["block"] = {str(k): v for k, v in per_bh.items()}
+    s = {bh: _slope_fit(pts) for bh, pts in per_bh.items()}
+    for bh in s:
+        c.log(f"B1 bh {bh}: {s[bh] * 1e9:.4f} ns a block (device)")
+    c.val["block_step_overhead_s"] = s[1]
+    c.rate["block"] = 64 * 128 * 4 / s[64]
+
+
+def cal_windows(c):
+    """B7's device slope a block at bh 8 (window_step_extra_s, over
+    block_step_overhead_s) and 64 (the streaming rate)."""
+    per_bh = {}
+    for bh, r in c.sizes["window"]:
+        coo = blocked_coo(r, r, 30 * r, seed=cs.SEED, group=8, density=0.3,
+                          spread_frac=0.2)
+        h = prepare(coo, SpmvConfig(block_h=bh), "window", device=c.dev,
+                    profile=V5E)
+        nb = h.plan.num_blocks
+        wall, dev = c.run(h)
+        per_bh.setdefault(bh, []).append((nb, wall, dev))
+        c.log(f"B7 bh {bh}: {nb} blocks, wall {wall * 1e6:.2f} us, device "
+              f"{dev * 1e6:.2f} us")
+        del h, coo
+    c.raw["window"] = {str(k): v for k, v in per_bh.items()}
+    s = {bh: _slope_fit(pts) for bh, pts in per_bh.items()}
+    for bh in s:
+        c.log(f"B7 bh {bh}: {s[bh] * 1e9:.4f} ns a block (device)")
+    c.val["window_step_extra_s"] = s[8] - c.val["block_step_overhead_s"]
+    c.rate["window"] = (64 * 128 + 128) * 4 / s[64]
+
+
+def cal_dense_stream_gather(c):
+    """The streaming rates of the dense handle's GEMV and the stream
+    format's run, row_gather_s (index_select of rows): device slopes on
+    bytes or rows."""
+    pts = []
+    for n in c.sizes["dense"]:
+        w = c.rng.random((n, n), np.float32)
+        h = SpmvHandle(w, device=c.dev)
+        pts.append((n * n * 4 + 2 * n * 4, *c.run(h)))
+        c.log(f"dense {n}x{n}: wall {pts[-1][1] * 1e6:.2f} us, device "
+              f"{pts[-1][2] * 1e6:.2f} us")
+        del h, w
+    c.raw["dense"] = pts
+    c.rate["dense"] = 1.0 / _slope_fit(pts)
+    pts = []
+    for r in c.sizes["stream"]:
+        coo = random_coo(r, r, 10 * r, seed=cs.SEED)
+        h = prepare(coo, SpmvConfig(), "stream", device=c.dev, profile=V5E)
+        plan = h._stream_plan_meta
+        b = plan.num_steps * h.config.num_pes * 8 + 8 * r
+        pts.append((b, *c.run(h)))
+        c.log(f"stream {r} rows: {b} bytes, wall {pts[-1][1] * 1e6:.2f} us, "
+              f"device {pts[-1][2] * 1e6:.2f} us")
+        del h
+    c.raw["stream"] = pts
+    c.rate["stream"] = 1.0 / _slope_fit(pts)
+    pts = []
+    for n in c.sizes["row_gather"]:
+        a = torch.rand((n, 8), device=c.dev)
+        idx = torch.from_numpy(
+            c.rng.integers(0, n, n).astype(np.int64)).to(c.dev)
+        pts.append((n, *c.both(lambda: a.index_select(0, idx))))
+        del a, idx
+    c.raw["row_gather"] = pts
+    c.val["row_gather_s"] = _slope_fit(pts)
+
+
+def cal_rates(c):
+    """hbm_gbps: the fastest streaming read measured (the sum, B1 and B7
+    at bh 64, the dense GEMV); each family's efficiency is its rate over
+    that.  An efficiency above 1, or a rate a zero slope made infinite,
+    fails the calibration on the card (a CPU rehearsal's noisy slopes
+    take the sum's rate)."""
+    c.raw["rates_gbps"] = {k: v / 1e9 for k, v in c.rate.items()}
+    bad = sorted(k for k, v in c.rate.items() if not np.isfinite(v))
+    if bad and c.dev.type == "cuda":
+        raise SystemExit(f"calibrate: zero slopes, infinite rates: {bad}")
+    rate = {k: c.rate["sum"] if k in bad else v for k, v in c.rate.items()}
+    hbm = max(v for k, v in rate.items() if k != "stream")
+    c.val["hbm_gbps"] = hbm / 1e9
+    for field, key in (("block_dma_efficiency", "block"),
+                       ("window_dma_efficiency", "window"),
+                       ("dense_efficiency", "dense"),
+                       ("stream_efficiency", "stream")):
+        c.val[field] = rate[key] / hbm
+    c.log("streaming rates (GB/s): " + ", ".join(
+        f"{k} {v / 1e9:.1f}" for k, v in c.rate.items())
+        + f": hbm_gbps {hbm / 1e9:.1f}")
+    over = {k: v for k, v in c.val.items()
+            if k.endswith("_efficiency") and v > 1.0}
+    if over:
+        raise SystemExit(f"calibrate: efficiencies above 1: {over}")
+
+
+def _ellx_handle(c, eplan):
+    return SpmvHandle.from_plan(eplan, device=c.dev, profile=V5E)
+
+
+def cal_ellx(c):
+    """The ELLX run on trans5 at k_base 1..32 and on two synthetic plans
+    without overflow.  Device time = base bytes / rate + overflow blocks
+    * a block (ellx_gbps, ellx_choose_bytes_per_s, overflow_block_s); the
+    wall time less that = fixed + [overflow] * its launch
+    (overflow_launch_s)."""
+    coo = suite_matrix("trans5", c.sizes["suite_scale"], seed=cs.SEED)
+    bp = build_block_plan(coo, block_h=1)
+    rows = []
+    for k in c.sizes["ellx_ks"]:
+        ep = build_ellx_plan(bp, k_base=k)
+        wall, dev = c.run(_ellx_handle(c, ep))
+        rows.append((ep.base_bytes, ep.overflow_blocks, wall, dev))
+        c.log(f"ELLX trans5 k {k}: base {ep.base_bytes} B, overflow "
+              f"{ep.overflow_blocks} blocks, wall {wall * 1e6:.2f} us, "
+              f"device {dev * 1e6:.2f} us")
+    for nrb, k in c.sizes["ellx_synth"]:
+        ep = build_ellx_plan(_block_plan(1, nrb, k, c.sizes["block_ncb"],
+                                         c.rng), k_base=k)
+        wall, dev = c.run(_ellx_handle(c, ep))
+        rows.append((ep.base_bytes, ep.overflow_blocks, wall, dev))
+        c.log(f"ELLX synthetic {nrb} x k {k}: base {ep.base_bytes} B, wall "
+              f"{wall * 1e6:.2f} us, device {dev * 1e6:.2f} us")
+    c.raw["ellx"] = rows
+    base, ov, wall, dev = np.array(rows, np.float64).T
+    has = (ov > 0) * 1.0
+    _, inv_rate, _, per_block = _nnls_fit(
+        np.stack([np.ones_like(base), base, has, ov], 1), dev)
+    rate = 1.0 / inv_rate
+    rest = wall - base * inv_rate - ov * per_block
+    f0, launch = _nnls_fit(np.stack([np.ones_like(base), has], 1), rest)
+    c.val["ellx_gbps"] = rate / 1e9
+    c.val["ellx_choose_bytes_per_s"] = rate
+    c.val["overflow_launch_s"] = launch
+    c.val["overflow_block_s"] = per_block
+    c.log(f"ELLX fit: {rate / 1e9:.1f} GB/s, {per_block * 1e9:.4f} ns an "
+          f"overflow block (device); wall {f0 * 1e6:.2f} us fixed + "
+          f"{launch * 1e6:.2f} us with an overflow")
+    return coo
+
+
+def _routed_points(c, label, plan, feats, devs, parts):
+    """B9 on each stream of ``plan`` alone (device time, the fit's
+    features) and on the whole part in one launch."""
+    from hispmv_tpu_torch.api.handle import _stream_packed
+
+    h = SpmvHandle.from_plan(plan, device=c.dev, profile=V5E)
+    meta, d = h._routed_meta, h._d
+    x2d = c.x(meta["nwin"] * 1024).reshape(-1, 128)
+    alone = []
+    for i, (s, dims) in enumerate(zip(plan.streams, meta["streams"])):
+        packed = _stream_packed(d, "", i, dims)
+        _, dev = c.both(lambda: spmv_routed_stream(packed, dims, x2d,
+                                                   meta["nyt"]), windows=3)
+        T, W, l1, L = s.num_tiles, s.wmax, s.l1, s.lmax
+        feats.append([1.0, T, T * (W - 1), T * (l1 - 1), T * W * (l1 - 1),
+                      T * L])
+        devs.append(dev)
+        alone.append(dev)
+    wall, dev = c.both(lambda: spmv_routed_streams(meta["table"], x2d),
+                       windows=3)
+    parts.append((len(alone), alone, wall, dev))
+    c.log(f"B9 {label}: "
+          f"{[(s.num_tiles, s.wmax, s.l1, s.lmax) for s in plan.streams]}"
+          f" alone device {[round(t * 1e6, 2) for t in alone]} us; one "
+          f"launch wall {wall * 1e6:.2f} us, device {dev * 1e6:.2f} us")
+
+
+def cal_routed(c):
+    """B9: each stream alone over the routed plans of CAL_SIZES['routed']
+    (strip widths auto and 32) and of the synthetic matrices of
+    CAL_SIZES['routed_synth'] (strip width, l1 and lmax caps set apart):
+    device time = c0 + T*(base + w*(W-1) + (ov + wl*W)*(l1-1) + bnd*lmax),
+    each stream weighted by its inverse time.  Each part in one launch
+    beside its streams alone gives what a stream costs inside one launch
+    (launch_ns).  residual_ns: the element scatter's wall time a nonzero
+    at the smallest size (its per-call cost folded in); res_ellx_*: the
+    row-granular ELLX residual's device slopes a row and a nonzero."""
+    from hispmv_tpu_torch.plan.routed import (
+        build_ranked_routed_plan, build_routed_plan)
+
+    feats, devs, parts = [], [], []
+    for name in c.sizes["routed"]:
+        coo = suite_matrix(name, c.sizes["suite_scale"], seed=cs.SEED)
+        for sw in c.sizes["routed_strips"]:
+            build = (build_ranked_routed_plan if name == "language"
+                     else build_routed_plan)
+            plan = build(coo, strip_windows=sw)
+            if plan.streams:
+                _routed_points(c, f"{name} strips {sw or 'auto'}", plan,
+                               feats, devs, parts)
+    n_suite = len(devs)
+    for R, f, sw, l1, lc in c.sizes["routed_synth"]:
+        coo = random_coo(R, R, f * R, seed=cs.SEED)
+        plan = build_routed_plan(coo, strip_windows=sw, l1_cap=l1,
+                                 l_cap=lc)
+        if plan.streams:
+            _routed_points(c, f"random {R} x {f} a row, strips {sw}, l1 "
+                           f"cap {l1}, lmax cap {lc}", plan, feats, devs,
+                           parts)
+    c.raw["routed_streams"] = [f + [d] for f, d in zip(feats, devs)]
+    c.raw["routed_parts"] = parts
+    coef = _nnls_fit(feats, devs)
+    c0, base, w, ov, wl, bnd = coef
+    for k, v in zip(("tile_base_ns", "tile_w_ns", "tile_ov_ns",
+                     "tile_wl_ns", "tile_bnd_ns"), (base, w, ov, wl, bnd)):
+        c.val[k] = v * 1e9
+    err = np.abs(np.log2(np.asarray(feats) @ coef / np.asarray(devs)))
+    c.raw["routed_fit_abs_log2"] = err.tolist()
+    # inside one launch a stream adds its tiles and this
+    per_stream = [(dev - sum(t - c0 for t in alone)) / n
+                  for n, alone, _, dev in parts]
+    c.val["launch_ns"] = max(float(np.median(per_stream)), 0.0) * 1e9
+    c.log(f"B9 fit (device, {len(devs)} streams, {n_suite} of suite "
+          f"plans): {c0 * 1e6:.2f} us a launch; tile {base * 1e9:.3f} + "
+          f"{w * 1e9:.4f}*(W-1) + ({ov * 1e9:.4f} + {wl * 1e9:.4f}*W)*"
+          f"(l1-1) + {bnd * 1e9:.3f}*lmax ns; a stream inside one launch "
+          f"{c.val['launch_ns']:.1f} ns; |log2(fit / time)| median "
+          f"{np.median(err):.3f}, 90th {np.quantile(err, 0.9):.3f}, max "
+          f"{err.max():.3f} (suite streams median "
+          f"{np.median(err[:n_suite]):.3f}, synthetic "
+          f"{np.median(err[n_suite:]) if len(err) > n_suite else 0:.3f})")
+    # the residual executors
+    pts = []
+    R = max(c.sizes["scatter"])
+    x = c.x(R)
+    for n in c.sizes["scatter"]:
+        rows = torch.from_numpy(c.rng.integers(0, R, n)).to(c.dev)
+        cols = torch.from_numpy(c.rng.integers(0, R, n)).to(c.dev)
+        vals = c.x(n)
+        y = torch.zeros(R, device=c.dev)
+        pts.append((n, *c.both(lambda: y.index_add(
+            0, rows, vals * x.index_select(0, cols)))))
+    c.raw["scatter"] = pts
+    n0, wall0, _ = min(pts)
+    c.val["residual_ns"] = wall0 / n0 * 1e9
+    c.log(f"scatter residual: {[(n, round(w * 1e6, 2), round(d * 1e6, 2)) for n, w, d in pts]}"
+          f" (n, wall us, device us): {c.val['residual_ns']:.4f} ns a "
+          f"nonzero at {n0}")
+    pts = []
+    for r, f in c.sizes["res_ellx"]:
+        coo = random_coo(r, r, int(f * r), seed=cs.SEED)
+        ep = build_ellx_plan(build_block_plan(coo, block_h=1),
+                             max_base_bytes=2 << 30)
+        pts.append((r, coo.nnz, *c.run(_ellx_handle(c, ep))))
+    c.raw["res_ellx"] = pts
+    r, n, wall, dev = np.array(pts, np.float64).T
+    _, row, nz = _nnls_fit(np.stack([np.ones_like(r), r, n], 1), dev)
+    c.val["res_ellx_row_ns"] = row * 1e9
+    c.val["res_ellx_nnz_ns"] = nz * 1e9
+
+
+def cal_gathered(c):
+    """The gathered chain (B12, B11 twice, B13) on scattered short rows at
+    three K, the columns spread over all K windows or packed into K/div
+    (more panels for the same tiles, so that T and 2*P*K + T vary apart):
+    device time = c0 + T*tile + (2*P*K + T)*stage, each reading weighted
+    by its inverse; the wall time less T*tile + (2*P*K + T)*stage,
+    gath_launch_ns."""
+    from hispmv_tpu_torch.ops.spmv_gathered import pack_gathered
+    from hispmv_tpu_torch.plan.gathered import build_gathered_plan
+
+    rows_out = []
+    for K, f, div in c.sizes["gathered"]:
+        n = K * 1024
+        nnz = f * n
+        r = c.rng.integers(1, n, nnz)
+        cc = c.rng.integers(0, n // div, nnz)
+        key = np.unique(r.astype(np.int64) * n + cc)
+        r, cc = key // n, key % n
+        v = c.rng.standard_normal(len(r)).astype(np.float32)
+        plan, *_ = build_gathered_plan(r, cc, v, (n, n), K)
+        arrays, gm = pack_gathered(plan)
+        d = {"g_" + k: torch.from_numpy(a).to(c.dev)
+             for k, a in arrays.items()}
+        x2d = c.x(K * 1024).reshape(-1, 128)
+        nyt = -(-n // 1024)
+
+        def chain():
+            xg = gathered_gather_apply(d, gm, "g_", x2d)
+            return spmv_gathered_tiles(d["g_vals"], d["g_word"], d["g_byt"],
+                                       xg, nyt, gm["nch"], gm["tchunk"])
+
+        wall, dev = c.both(chain, windows=3)
+        T, P = plan.num_tiles, plan.num_panels
+        rows_out.append((T, 2 * P * K + T, wall, dev))
+        c.log(f"gathered K {K}, columns over K/{div}: {T} tiles, P {P}, "
+              f"wall {wall * 1e6:.2f} us, device {dev * 1e6:.2f} us")
+    c.raw["gathered"] = rows_out
+    T, st, wall, dev = np.array(rows_out, np.float64).T
+    X = np.stack([np.ones_like(T), T, st], 1)
+    coef = _nnls_fit(X, dev)
+    _, tile, stage = coef
+    c.val["gath_tile_ns"] = tile * 1e9
+    c.val["gath_stage_ns"] = stage * 1e9
+    c.val["gath_launch_ns"] = _fixed(wall, T * tile + st * stage) * 1e9
+    err = np.abs(np.log2(X @ coef / dev))
+    c.log(f"gathered fit (device): {coef[0] * 1e6:.2f} us + "
+          f"{tile * 1e9:.3f} ns a tile + {stage * 1e9:.3f} ns a stage "
+          f"window, |log2(fit / time)| max {err.max():.3f}; "
+          f"{c.val['gath_launch_ns'] / 1e3:.2f} us a chain on the wall")
+
+
+def cal_permute(c):
+    """B11 on a random permutation: S1 alone (permute_window_ns, device
+    slope a window) and the whole apply (its device slope less two stages
+    a window is the two transposes; the wall time less the device work
+    the fixed cost)."""
+    from hispmv_tpu_torch.ops.permute import pack_permute_plan, permute_apply
+    from hispmv_tpu_torch.plan.permute import build_permute_plan
+
+    st, ap = [], []
+    for n in c.sizes["permute"]:
+        meta = pack_permute_plan(build_permute_plan(c.rng.permutation(n)),
+                                 c.dev)
+        arrs, dims = meta["arrays"], meta["dims"]
+        x = c.x(n)
+        W = dims[0][0] * dims[0][1]
+        x2 = torch.nn.functional.pad(x, (0, W * 1024 - n)).reshape(-1, 128)
+        st.append((W, *c.both(lambda: permute_stage(arrs[0], dims[0], x2))))
+        ap.append((W, *c.both(lambda: permute_apply(meta, arrs, x))))
+        c.log(f"permute n {n}: W {W}, S1 wall/device {st[-1][1] * 1e6:.2f} / "
+              f"{st[-1][2] * 1e6:.2f} us, apply {ap[-1][1] * 1e6:.2f} / "
+              f"{ap[-1][2] * 1e6:.2f} us")
+    c.raw["permute"] = {"stage": st, "apply": ap}
+    W, _, dev = np.array(st).T
+    s = _nnls_fit(np.stack([np.ones_like(W), W], 1), dev)[1]
+    W, wall, dev = np.array(ap).T
+    a, b = _nnls_fit(np.stack([np.ones_like(W), W], 1), dev)
+    c.val["permute_window_ns"] = s * 1e9
+    # two transposes of W*4 KiB: 2 * 1024 * W * 4 / 1e6 MB
+    mb_a_window = 2 * 1024 * 4 / 1e6
+    c.val["transpose_ns_per_mb"] = max(b - 2 * s, 0.0) * 1e9 / mb_a_window
+    work = (2 * W + 1024) * s + W * max(b - 2 * s, 0.0)
+    c.val["permute_fixed_ns"] = max(_fixed(wall, work), 0.0) * 1e9
+
+
+def _layout_needs(h, plan):
+    """(chunked need, paneled need) of the handle's budget rule for
+    ``plan`` under ``h.profile``'s panel sizes."""
+    xy = (plan.num_col_blocks * 128 + plan.num_row_blocks * plan.block_h) * 4
+    ch = 2 * chunk_for(plan.block_h) * plan.block_h * 128 * 4
+    pan = (plan.num_row_blocks * plan.block_h * 4
+           + h.profile.panel_ncb * 128 * 8 + ch)
+    return xy + ch, pan
+
+
+def _pick_budget(cases, pick, top):
+    """The budget among the cases' needs (and 0, and ``top``, the card's
+    memory for plans) whose rule ``pick(budget, case)`` gives the least
+    total time, each case's time over its best; ties to the larger
+    budget."""
+    cands = sorted({0, top} | {n for case in cases for n in case[0]
+                               if n <= top})
+    best = None
+    for b in cands:
+        cost = sum(case[1][pick(b, case)] / min(case[1].values())
+                   for case in cases)
+        if best is None or cost <= best[0] + 1e-9:
+            best = (cost, b)
+    return best[1]
+
+
+LAYOUT_ROUNDS = 5  # layouts and kernels timed in turns, order reversed
+
+
+def _turns(c, calls):
+    """Median wall seconds of each call of ``calls`` (name -> fn), each
+    reading a ``median_ms``, taken in turns over LAYOUT_ROUNDS rounds."""
+    names = list(calls)
+    got = {n: [] for n in names}
+    for r in range(LAYOUT_ROUNDS):
+        for n in (names if r % 2 == 0 else names[::-1]):
+            got[n].append(cs.median_ms(calls[n], device=c.dev) * 1e-3)
+    return {n: float(np.median(v)) for n, v in got.items()}
+
+
+def cal_layouts(c):
+    """B1, B3 and B4 on TSOPF_RS_b2383 and chip_smoke.py's two large
+    block matrices; B2 and B6 at each batch on TSOPF_RS_b2383 and the
+    Flan-sized matrix, both chunked.  Wall time of a call, the median of
+    LAYOUT_ROUNDS readings taken in turns (the host's share of a call
+    spreads 2x between readings); device time beside it.  The budgets are
+    those whose rule gives the least wall time over these cases."""
+    mats = [("TSOPF_RS_b2383", lambda: suite_matrix(
+        "TSOPF_RS_b2383", c.sizes["suite_scale"], seed=cs.SEED))]
+    if c.sizes["layouts"]:
+        for label, R, C, nnz, *_ in cs.LARGE_BLOCK_RUNS:
+            mats.append((label, lambda R=R, C=C, nnz=nnz: blocked_coo(
+                R, C, nnz, seed=cs.SEED, spread_frac=0.4)))
+    lay_cases, b_cases = [], []
+    c.raw["layouts"], c.raw["batches"] = {}, {}
+    for label, make in mats:
+        coo = make()
+        plan = build_block_plan(coo, block_h=8)
+        probe = SpmvHandle.__new__(SpmvHandle)
+        probe.profile = V5E
+        needs = _layout_needs(probe, plan)
+        xp = c.x(coo.num_cols)
+        hs = {}
+        for layout in ("chunked", "paneled", "tiled"):
+            budget = {"chunked": 1 << 50, "paneled": needs[1], "tiled": 0}
+            prof = dataclasses.replace(
+                V5E, chunked_budget_bytes=budget[layout],
+                batched_budget_bytes=1 << 50)
+            h = SpmvHandle.from_plan(plan, device=c.dev, profile=prof)
+            if cs._layout(h) == [layout]:
+                hs[layout] = (h, h._pad_x(xp))
+            else:
+                c.log(f"layouts {label}: {layout} not reachable "
+                      f"({cs._layout(h)})")
+        times = _turns(c, {k: (lambda h=h, x=x: h._matvec(x))
+                           for k, (h, x) in hs.items()})
+        for k, (h, x) in hs.items():
+            dev = c.both(lambda: h._matvec(x))[1]
+            c.log(f"layouts {label}: {k} wall {times[k] * 1e3:.4f} ms "
+                  f"(median of {LAYOUT_ROUNDS} in turns), device "
+                  f"{dev * 1e3:.4f} ms")
+        if "chunked" in hs and label != cs.LARGE_BLOCK_RUNS[-1][0]:
+            h = hs["chunked"][0]
+            for B in c.sizes["batches"]:
+                xb = torch.from_numpy(c.rng.standard_normal(
+                    (B, coo.num_cols)).astype(np.float32)).to(c.dev)
+                profs = {rule: dataclasses.replace(
+                    h.profile, batched_budget_bytes=bud)
+                    for rule, bud in (("B2", 1 << 50), ("B6", 0))}
+
+                def call(rule, h=h, xb=xb, profs=profs):
+                    h.profile = profs[rule]
+                    return h.linear(xb)
+
+                bt = _turns(c, {rule: (lambda rule=rule: call(rule))
+                                for rule in profs})
+                need_b = ((plan.num_col_blocks * 128
+                           + plan.num_row_blocks * 8) * B * 4
+                          + 2 * h._chunk * 8 * 128 * 4)
+                b_cases.append(((need_b,), bt, need_b))
+                c.raw["batches"][f"{label} B {B}"] = [need_b, bt]
+                c.log(f"linear {label} B {B}: B2 {bt['B2'] * 1e3:.4f} ms, "
+                      f"B6 {bt['B6'] * 1e3:.4f} ms (medians in turns)")
+                del xb
+            h._batch_d = None
+        del hs
+        lay_cases.append((needs, times))
+        c.raw["layouts"][label] = [needs, times]
+        del coo, plan
+
+    def layout_of(b, case):
+        (need_c, need_p), times = case
+        want = ("chunked" if need_c <= b else "paneled" if need_p <= b
+                else "tiled")
+        return want if want in times else min(times, key=times.get)
+
+    top = c.val["hbm_bytes"]
+    c.val["chunked_budget_bytes"] = _pick_budget(lay_cases, layout_of, top)
+    c.val["batched_budget_bytes"] = _pick_budget(
+        b_cases, lambda b, case: "B2" if case[2] <= b else "B6", top)
+
+
+def cal_band(c):
+    """B9 on the soc-Pokec stand-in in rank space, one plan against the
+    banded cell grid (wall and device time of a run each): the banding
+    budget is the card's memory for plans when the one plan is faster on
+    both clocks, else the JAX package's."""
+    name = c.sizes["band"]
+    if not name:
+        return
+    from hispmv_tpu_torch.plan.routed import (
+        build_banded_routed_plan, build_ranked_routed_plan)
+
+    coo = suite_matrix(name, 1.0, seed=cs.SEED)
+    t = {}
+    for kind, build in (("one plan", build_ranked_routed_plan),
+                        ("banded", lambda m: build_banded_routed_plan(
+                            m, rank_sort=True))):
+        t0 = time.perf_counter()
+        plan = build(coo)
+        plan_s = time.perf_counter() - t0
+        h = SpmvHandle.from_plan(plan, device=c.dev, profile=V5E)
+        x = c.rng.standard_normal(coo.num_cols).astype(np.float32)
+        wall, y = bench_spmv(h, x)
+        t[kind] = [wall, c.run(h)[1]]
+        err = float(np.abs(y - coo.matvec(x.astype(np.float64))).max())
+        c.log(f"band {name}: {kind} planned in {plan_s:.1f} s, wall "
+              f"{wall * 1e3:.4f} ms, device {t[kind][1] * 1e3:.4f} ms a "
+              f"run, max abs err {err:.3e}")
+        del h, plan
+    c.raw["band"] = t
+    c.val["routed_band_budget_bytes"] = (
+        c.val["hbm_bytes"] if t["one plan"][0] <= t["banded"][0]
+        and t["one plan"][1] <= t["banded"][1]
+        else V5E.routed_band_budget_bytes)
+
+
+PER_CALL_FORMATS = ("block", "window", "ellx", "routed", "stream", "split",
+                    "dense")
+
+
+def cal_per_call(c):
+    """launch_overhead_s: what one call of a handle costs on the wall
+    clock beyond its device work, where the device work is too small to
+    hide it (a 4096 x 4096 matrix of 20,000 nonzeros): the median over the
+    formats of PER_CALL_FORMATS of bench-clock time less device time."""
+    coo = random_coo(4096, 4096, 20_000, seed=cs.SEED)
+    per = {}
+    for fmt in PER_CALL_FORMATS:
+        h = SpmvHandle(coo, format=fmt, device=c.dev, profile=V5E)
+        wall, dev = c.run(h)
+        per[fmt] = (wall, dev)
+        del h
+    c.raw["per_call"] = per
+    c.val["launch_overhead_s"] = float(np.median(
+        [w - d for w, d in per.values()]))
+    c.log("a call beyond its device work, 4096^2 with 20,000 nonzeros "
+          "(wall / device us): " + ", ".join(
+              f"{k} {w * 1e6:.2f} / {d * 1e6:.2f}" for k, (w, d) in
+              per.items())
+          + f": {c.val['launch_overhead_s'] * 1e6:.2f} us")
+
+
+def cal_body_bytes(c, trans5):
+    """split's body_bytes_per_nnz, derived as the JAX package derived its
+    own: trans5's ELLX body cost a nonzero (base bytes, plus the overflow's
+    time as bytes at the ELLX rate), k_base chosen under the fitted
+    costs."""
+    from hispmv_tpu_torch.ops.spmv_ellx import choose_k_base
+
+    prof = dataclasses.replace(V5E, **{
+        k: c.val[k] for k in ("ellx_choose_bytes_per_s", "overflow_block_s",
+                              "overflow_launch_s")})
+    bp = build_block_plan(trans5, block_h=1)
+    counts = np.bincount(bp.block_rows, minlength=bp.num_row_blocks)
+    k = choose_k_base(counts, 1, prof)
+    base = bp.num_row_blocks * k * (128 * 4 + 4)
+    ov = int(np.maximum(counts - k, 0).sum())
+    rate = c.val["ellx_choose_bytes_per_s"]
+    c.val["body_bytes_per_nnz"] = (
+        base + ov * c.val["overflow_block_s"] * rate) / trans5.nnz
+    c.log(f"split: trans5 ELLX k_base {k} under the fit, {ov} overflow "
+          f"blocks: {c.val['body_bytes_per_nnz']:.1f} B a body nonzero")
+
+
+def calibrate(device="cuda", sizes=None, picks=True) -> int:
+    """Measure every field of the H100 profile on ``device``; print the
+    ``H100 = DeviceProfile(...)`` literal and the card's name and power
+    limit, then the picks of chip_smoke.py's phase 3k under V5E and the
+    calibrated profile.  Readings and values go to
+    chiprun_out/calibrate.json (calibrate_cpu.json for a CPU
+    rehearsal)."""
+    c = _Cal(device, sizes or CAL_SIZES)
+    t0 = time.perf_counter()
+    total = (torch.cuda.mem_get_info(c.dev)[1] if c.dev.type == "cuda"
+             else 80 * 10**9)
+    # read by nothing in the port: the field stays so that the profile's
+    # first fields are the JAX tuner's
+    c.val["vmem_bytes"] = 0
+    # what a resident plan may take: 4/5 of the card, the rest for x, y
+    # and the prepare's copies
+    c.val["hbm_bytes"] = int(total * 4 // 5)
+    cal_hbm_and_blocks(c)
+    cal_windows(c)
+    cal_dense_stream_gather(c)
+    cal_rates(c)
+    trans5 = cal_ellx(c)
+    cal_body_bytes(c, trans5)
+    cal_routed(c)
+    cal_gathered(c)
+    cal_permute(c)
+    cal_layouts(c)
+    c.val.setdefault("routed_band_budget_bytes",
+                     V5E.routed_band_budget_bytes)
+    cal_band(c)
+    cal_per_call(c)
+    gpu = cs.gpu_line() if c.dev.type == "cuda" else "cpu rehearsal"
+    name = "nvidia-h100-80gb-hbm3"
+    fields = [f.name for f in dataclasses.fields(DeviceProfile)]
+    vals = {k: c.val[k] for k in fields if k in c.val}
+    for k in ("panel_ncb", "panel_y_bytes"):
+        vals.setdefault(k, getattr(V5E, k))
+    missing = [k for k in fields if k != "name" and k not in vals]
+    if missing:
+        raise SystemExit(f"calibrate: no value for {missing}")
+    ints = {f.name for f in dataclasses.fields(DeviceProfile)
+            if f.type in ("int", int)}
+    vals = {k: int(v) if k in ints else float(f"{v:.4g}")
+            for k, v in vals.items()}
+    lines = [f"# {gpu}; python3 kernel_compare.py calibrate",
+             "H100 = DeviceProfile(", f'    name="{name}",']
+    lines += [f"    {k}={vals[k]!r}," for k in fields[1:]]
+    lines.append(")")
+    print("\n".join(lines), flush=True)
+    os.makedirs("chiprun_out", exist_ok=True)
+    out = "calibrate.json" if c.dev.type == "cuda" else "calibrate_cpu.json"
+    with open(os.path.join("chiprun_out", out), "w") as f:
+        json.dump({"gpu": gpu, "values": vals,
+                   "raw": c.raw, "seconds": time.perf_counter() - t0}, f,
+                  indent=1, default=float)
+    c.log(f"took {time.perf_counter() - t0:.1f} s")
+    rc = 0
+    if picks:
+        prof = DeviceProfile(name=name, **{k: vals[k] for k in fields[1:]})
+        failures = []
+        cs.profile_picks(cs.profile_fixtures(), [V5E, prof], failures)
+        for f in failures:
+            print(f"calibrate picks FAIL {f}", flush=True)
+        rc = 1 if failures else 0
+    print(gpu, flush=True)
+    return rc
+
+
 # the case groups, in the order they run (and draw from the generator)
 GROUPS = {"b1b7": b1_b7_cases, "b3": b3_cases, "b2": b2_cases,
           "b8": b8_cases, "b6": b6_cases, "b4": b4_cases}
@@ -1169,5 +2008,10 @@ def main(label: str, groups=()) -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["calibrate"]:
+        if not torch.cuda.is_available():
+            print("kernel_compare: needs a CUDA card", file=sys.stderr)
+            sys.exit(2)
+        sys.exit(calibrate())
     sys.exit(main(sys.argv[1] if len(sys.argv) > 1 else "tree",
                   sys.argv[2:]))

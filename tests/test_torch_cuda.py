@@ -17,6 +17,7 @@ atol=1e-5*max(1, max|y|).  B11 does no arithmetic and is held
 to its plain version and to ``x[perm]`` exactly, B12 and the full gathered
 x gather likewise.  Handles are held to the float64 golden at rtol=1e-3."""
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -121,6 +122,7 @@ from hispmv_tpu_torch.ops.spmv_routed import (
     spmv_routed_streams_plain,
 )
 from hispmv_tpu_torch.plan import gathered as G
+from hispmv_tpu_torch.profiles import H100, V5E
 from hispmv_tpu_torch.plan.blocks import build_block_plan, degree_column_perm
 from hispmv_tpu_torch.plan.permute import build_permute_plan
 from hispmv_tpu_torch.plan.routed import build_routed_plan
@@ -668,7 +670,8 @@ def test_b11_permute_apply_takes_unaligned_views(dev):
 
 def _stretched_rmat():
     """An R-MAT scattered along the diagonal of a 1.1M x 1.1M index space:
-    fails routed_vmem_ok, so the handle builds the banded cell grid."""
+    fails routed_vmem_ok under V5E, so a V5E handle builds the banded cell
+    grid."""
     coo = rmat_coo(2048, 2048, 12_000, seed=23)
     rows = coo.rows.astype(np.int64) + (coo.cols.astype(np.int64) % 7) \
         * 150_000
@@ -689,7 +692,9 @@ def test_routed_handle_runs_on_card(dev, name, rank_sort):
         cols = np.arange(60) * 16384 + rng.integers(0, 1024, 60)
         coo = COOMatrix((64, int(cols.max()) + 1), rng.integers(0, 64, 60),
                         cols, rng.standard_normal(60).astype(np.float32))
-    h = SpmvHandle(coo, SpmvConfig(rank_sort=rank_sort), "routed")
+    # V5E bands the grid case (the card's H100 profile never bands)
+    h = SpmvHandle(coo, SpmvConfig(rank_sort=rank_sort), "routed",
+                   profile=V5E if name == "banded_grid" else None)
     assert h.format == "routed"
     assert all(t.device.type == "cuda" for t in h._d.values())
     rng = np.random.default_rng(4)
@@ -1007,7 +1012,12 @@ def test_linear_on_card(dev, fmt, cfg, B):
     bias = np.linspace(-1, 1, coo.num_rows).astype(np.float32)
     y = h.linear(torch.from_numpy(xb).to(dev), torch.from_numpy(bias).to(dev))
     assert y.device.type == "cuda" and y.shape == (B, coo.num_rows)
-    want = _golden_linear(coo, xb, bias, cfg.value_dtype)
+    # B6 reads the plan's f32 values, as the JAX handle uploads them; B2
+    # and the other formats read the payload in the handle's value dtype
+    dtype = cfg.value_dtype
+    if h.format == "block" and not h._block_uses_b2(B):
+        dtype = "float32"
+    want = _golden_linear(coo, xb, bias, dtype)
     assert error_stats(y.cpu().numpy(), want, rtol=1e-3).ok
 
 
@@ -1635,24 +1645,25 @@ def test_b4_launch_shape(dev):
         chunked_tiled_grid(8, 16, 3)
 
 
-# class constants that give each layout on banded_coo(5000, 20000, 60000)
+# V5E's budgets replaced to give each layout on banded_coo(5000, 20000,
+# 60000); B2 takes a batch of 8 on the chunked handle
 BLOCK_LAYOUTS = {
     "chunked": ({}, spmv_chunked),
-    "paneled": ({"_CHUNKED_VMEM_BUDGET": 2 * 2**20 + 48 * 1024,
-                 "_PANEL_NCB": 8}, spmv_chunked_paneled),
-    "tiled": ({"_CHUNKED_VMEM_BUDGET": 64 * 1024, "_PANEL_NCB": 16,
-               "_PANEL_Y_BYTES": 8 * 1024}, spmv_chunked_tiled),
+    "paneled": ({"chunked_budget_bytes": 2 * 2**20 + 48 * 1024,
+                 "panel_ncb": 8}, spmv_chunked_paneled),
+    "tiled": ({"chunked_budget_bytes": 64 * 1024, "panel_ncb": 16,
+               "panel_y_bytes": 8 * 1024}, spmv_chunked_tiled),
 }
 
 
 @pytest.mark.parametrize("col_reorder", [False, True])
 @pytest.mark.parametrize("layout", list(BLOCK_LAYOUTS))
-def test_block_handle_layouts_on_card(dev, layout, col_reorder, monkeypatch):
+def test_block_handle_layouts_on_card(dev, layout, col_reorder):
     consts, kernel = BLOCK_LAYOUTS[layout]
-    for k, v in consts.items():
-        monkeypatch.setattr(SpmvHandle, k, v)
+    profile = dataclasses.replace(V5E, **consts)
     coo = banded_coo(5000, 20_000, 60_000, seed=52)
-    h = SpmvHandle(coo, SpmvConfig(col_reorder=col_reorder), "block")
+    h = SpmvHandle(coo, SpmvConfig(col_reorder=col_reorder), "block",
+                   profile=profile)
     assert getattr(h, "_" + layout)
     rng = np.random.default_rng(53)
     x = rng.standard_normal(coo.num_cols).astype(np.float32)
@@ -1742,12 +1753,12 @@ def test_b12_kernel_equals_plain_on_random_words(dev, P, K):
     assert torch.equal(got, s1_gather_plain(wd, x2d, P, K))
 
 
-def test_b12_kernel_equals_plain_on_analytics(dev, monkeypatch):
-    """The side-plan of analytics as the smoke run plans it (P 8 x K 512
-    windows), through the routed handle."""
-    for k, v in {"GATH_TILE_NS": 1.0, "GATH_STAGE_NS": 1.0}.items():
-        monkeypatch.setattr(G, k, v)
-    h = SpmvHandle(suite_matrix("analytics", 1.0, seed=0), format="routed")
+def test_b12_kernel_equals_plain_on_analytics(dev):
+    """The side-plan of analytics under V5E with the gathered costs
+    lowered (P 8 x K 512 windows), through the routed handle."""
+    h = SpmvHandle(suite_matrix("analytics", 1.0, seed=0), format="routed",
+                   profile=dataclasses.replace(V5E, gath_tile_ns=1.0,
+                                               gath_stage_ns=1.0))
     gm = h._routed_meta["gathered"]
     assert (gm["P"], gm["K"]) == (8, 512)
     x2d = torch.from_numpy(np.random.default_rng(6).standard_normal(
@@ -1897,14 +1908,12 @@ def test_b13_launch_shape(dev, T):
     assert spmv_gathered_grid(T) == (256, T, 8)
 
 
-def test_gathered_routed_handle_on_card(dev, monkeypatch):
-    """Cheap gathered constants divert this matrix's tiles to the side-plan:
+def test_gathered_routed_handle_on_card(dev):
+    """Cheap gathered costs divert this matrix's tiles to the side-plan:
     one run is B12, B11 twice, B13 and one B9 launch for every stream."""
-    monkeypatch.setattr(G, "GATH_TILE_NS", 1.0)
-    monkeypatch.setattr(G, "GATH_STAGE_NS", 1.0)
-    monkeypatch.setattr(G, "GATH_LAUNCH_NS", 0.0)
     coo = _unique_coo(16384, 16384, 150_000, 3)
-    h = SpmvHandle(coo, format="routed")
+    h = SpmvHandle(coo, format="routed", profile=dataclasses.replace(
+        V5E, gath_tile_ns=1.0, gath_stage_ns=1.0, gath_launch_ns=0.0))
     assert h.plan.gathered is not None
     rng = np.random.default_rng(5)
     x = rng.standard_normal(coo.num_cols).astype(np.float32)
@@ -2058,3 +2067,41 @@ def test_power_monitor_reads_finite_watts_on_card(dev):
     assert all(np.isfinite(s.watts) and s.watts > 0 for s in pm.samples)
     assert pm.max_watts >= pm.avg_watts > 0
     assert pm.avg_bytes_in_use > 0
+
+
+# --- the card's device profile -------------------------------------------------
+
+H100_FORMATS = ["block", "window", "ellx", "routed", "split", "stream",
+                "dense"]
+
+
+def test_cuda_entry_points_plan_under_h100(dev):
+    from hispmv_tpu_torch.tune import DSE, tune
+
+    coo = suite_matrix("trans5", 0.2, seed=0)
+    assert SpmvHandle(coo, format="ellx").profile is H100
+    assert Accelerator().profile is H100
+    assert AcceleratorLayerManager().accel.profile is H100
+    assert tune(coo).candidates == DSE(H100).explore(coo).candidates
+    assert SpmvHandle(coo, format="ellx", profile=V5E).profile is V5E
+
+
+@pytest.mark.parametrize("fmt", H100_FORMATS)
+def test_h100_plans_on_card_match_plain_and_golden(dev, fmt):
+    """Each format's H100 plan of a trans5-like matrix: run and linear on
+    the card against the same plan's plain versions on the CPU and the
+    float64 golden."""
+    coo = suite_matrix("trans5", 0.2, seed=0)
+    h = SpmvHandle(coo, format=fmt)
+    hc = SpmvHandle(coo, format=fmt, device="cpu", profile=H100)
+    rng = np.random.default_rng(21)
+    x = rng.standard_normal(coo.num_cols).astype(np.float32)
+    y = h.run(torch.from_numpy(x).to(dev))
+    assert_close(y, hc.run(x))
+    assert error_stats(y.cpu().numpy(), coo.matvec(x.astype(np.float64)),
+                       rtol=1e-3).ok
+    xb = rng.standard_normal((8, coo.num_cols)).astype(np.float32)
+    yb = h.linear(torch.from_numpy(xb).to(dev))
+    assert_close(yb, hc.linear(xb))
+    assert error_stats(yb.cpu().numpy(), _golden_linear(coo, xb, 0.0),
+                       rtol=1e-3).ok

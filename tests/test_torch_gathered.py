@@ -17,7 +17,8 @@ package.
   other orders), on planned tiles and on random 26-bit words with shared
   y tiles and a short xg, and the float64 golden at rtol=1e-3.
 - With cheap gathered constants (``GATH_TILE_NS``, ``GATH_STAGE_NS`` and
-  ``GATH_LAUNCH_NS`` lowered on both packages' ``plan.gathered``), the
+  ``GATH_LAUNCH_NS`` lowered on the JAX package's ``plan.gathered``, and
+  the same values in the port's profile, ``gath_*_ns``), the
   routed planner diverts tiles to a side-plan equal to the JAX planner's,
   and the routed handle gives the JAX handle's y (same tolerance) and the
   golden's (rtol 1e-3), in ``run``, ``linear`` and from a plan carried
@@ -57,6 +58,7 @@ from hispmv_tpu_torch.ops.spmv_gathered import (
 )
 from hispmv_tpu_torch.plan import routed as R
 from hispmv_tpu_torch.plan.convert import plan_from_reference
+from hispmv_tpu_torch.tune.cost import V5E
 
 
 def _rand_coo(R, C, n, seed):
@@ -405,11 +407,13 @@ ROUTED_N = (16384, 150_000)  # rows = cols, nonzeros before dedup
 @pytest.fixture
 def cheap_gathered(monkeypatch):
     """The gathered executor's modelled cost lowered on both packages, so
-    that the routed planner's gate diverts this small matrix's tiles."""
-    for mod in (G, JG):
-        monkeypatch.setattr(mod, "GATH_TILE_NS", 1.0)
-        monkeypatch.setattr(mod, "GATH_STAGE_NS", 1.0)
-        monkeypatch.setattr(mod, "GATH_LAUNCH_NS", 0.0)
+    that the routed planner's gate diverts this small matrix's tiles: the
+    JAX package's module constants, and the port's profile (returned)."""
+    monkeypatch.setattr(JG, "GATH_TILE_NS", 1.0)
+    monkeypatch.setattr(JG, "GATH_STAGE_NS", 1.0)
+    monkeypatch.setattr(JG, "GATH_LAUNCH_NS", 0.0)
+    return dataclasses.replace(V5E, gath_tile_ns=1.0, gath_stage_ns=1.0,
+                               gath_launch_ns=0.0)
 
 
 def _routed_coo():
@@ -420,7 +424,8 @@ def _routed_coo():
 
 def test_routed_plan_with_gathered_side_plan_equals_jax(cheap_gathered):
     coo = _routed_coo()
-    p, jp = R.build_routed_plan(coo), JR.build_routed_plan(coo)
+    p = R.build_routed_plan(coo, profile=cheap_gathered)
+    jp = JR.build_routed_plan(coo)
     assert p.gathered is not None and p.gathered.num_tiles > 100
     assert_same_gathered_plan(p.gathered, jp.gathered)
     assert len(p.streams) == len(jp.streams)
@@ -440,7 +445,8 @@ def test_routed_plan_with_gathered_side_plan_equals_jax(cheap_gathered):
 
 def test_routed_handle_with_gathered_side_plan(cheap_gathered):
     coo = _routed_coo()
-    h = SpmvHandle(coo, format="routed", device="cpu")
+    h = SpmvHandle(coo, format="routed", device="cpu",
+                   profile=cheap_gathered)
     assert h.plan.gathered is not None
     assert h._routed_meta["gathered"]["T"] == h.plan.gathered.num_tiles
     jh = JSpmvHandle(coo, format="routed", interpret=True)
@@ -462,5 +468,5 @@ def test_routed_handle_with_gathered_side_plan(cheap_gathered):
                  rtol=1e-3)
     # the JAX package's plan, carried over, runs the same
     h2 = SpmvHandle.from_plan(plan_from_reference(jh._routed_plan_meta),
-                              device="cpu")
+                              device="cpu", profile=cheap_gathered)
     assert_close(h2.run(x).numpy(), y)

@@ -33,7 +33,6 @@ from conftest import small_matrix_cases
 
 import hispmv_tpu.plan.gathered as JG
 import hispmv_tpu.plan.serialize as JS
-import hispmv_tpu_torch.plan.gathered as G
 from hispmv_tpu.api.handle import SpmvHandle as JSpmvHandle
 from hispmv_tpu.ops.spmv_ellx import build_ellx_plan as jbuild_ellx_plan
 from hispmv_tpu.plan import blocks as JB
@@ -52,6 +51,7 @@ from hispmv_tpu_torch.plan import routed as R
 from hispmv_tpu_torch.plan import split as SP
 from hispmv_tpu_torch.plan import windows as W
 from hispmv_tpu_torch.plan.serialize import _PLAN_TYPES
+from hispmv_tpu_torch.tune.cost import V5E
 
 MATRICES = list(small_matrix_cases())
 
@@ -147,17 +147,20 @@ def _matrix(name):
 def cheap_gathered(monkeypatch):
     """The gathered executor's modelled cost lowered on both packages (as
     tests/test_torch_gathered.py does), so that the routed planner diverts
-    tiles to a gathered side-plan."""
-    for mod in (G, JG):
-        monkeypatch.setattr(mod, "GATH_TILE_NS", 1.0)
-        monkeypatch.setattr(mod, "GATH_STAGE_NS", 1.0)
-        monkeypatch.setattr(mod, "GATH_LAUNCH_NS", 0.0)
+    tiles to a gathered side-plan: the JAX package's module constants, and
+    the port's profile (returned)."""
+    monkeypatch.setattr(JG, "GATH_TILE_NS", 1.0)
+    monkeypatch.setattr(JG, "GATH_STAGE_NS", 1.0)
+    monkeypatch.setattr(JG, "GATH_LAUNCH_NS", 0.0)
+    return dataclasses.replace(V5E, gath_tile_ns=1.0, gath_stage_ns=1.0,
+                               gath_launch_ns=0.0)
 
 
 def _large_plans(name, request, jax=False):
     coo, build, jbuild, cheap = LARGE[name]
     if cheap:
-        request.getfixturevalue("cheap_gathered")
+        profile = request.getfixturevalue("cheap_gathered")
+        build = functools.partial(build, profile=profile)
     plan = (jbuild if jax else build)(_matrix(name))
     return _matrix(name), plan
 
@@ -402,12 +405,11 @@ def test_routed_plan_diversion_and_serialize(tmp_path, monkeypatch):
     serialize: with cheap gathered constants the routed planner diverts
     its expensive tiles; the combined plan reproduces the golden matvec
     and survives serialization."""
-    monkeypatch.setattr(G, "GATH_TILE_NS", 1.0)
-    monkeypatch.setattr(G, "GATH_STAGE_NS", 1.0)
     rng = np.random.default_rng(3)
     n = 65536
     coo = _rand_coo(n, 600000, 3)
-    plan = R.build_routed_plan(coo)
+    plan = R.build_routed_plan(coo, profile=dataclasses.replace(
+        V5E, gath_tile_ns=1.0, gath_stage_ns=1.0))
     assert plan.gathered is not None
     x = rng.standard_normal(n).astype(np.float32)
     y = R.routed_matvec_numpy(plan, x)

@@ -4,9 +4,10 @@ dispatch in the port against the JAX package.
 ``pack_chunks_tiled`` gives identical arrays; the plain PyTorch version of
 the kernel matches ``spmv_chunked_tiled_pallas`` in interpret mode on the
 same arrays, with small panels so that a matrix has several of each, for
-f32 and bf16 payloads.  With the same (patched) class constants the port's
-``SpmvHandle`` picks the JAX handle's layout (chunked, x-paneled or tiled)
-and ``linear`` kernel (B2 or B6), and gives its y.
+f32 and bf16 payloads.  With the JAX handle's class constants patched and
+the same values in the port's profile (``V5E`` with its budgets replaced),
+the port's ``SpmvHandle`` picks the JAX handle's layout (chunked,
+x-paneled or tiled) and ``linear`` kernel (B2 or B6), and gives its y.
 
 Port against JAX: rtol=1e-5, atol=1e-5*max(1, max|y|) (fp32 accumulation on
 both sides, only the order of summation differs).  Against the float64
@@ -39,6 +40,7 @@ from hispmv_tpu_torch.ops.spmv_chunked import (
     tiled_sector_mask,
 )
 from hispmv_tpu_torch.plan.blocks import build_block_plan
+from hispmv_tpu_torch.tune.cost import V5E
 
 CHUNK = 16
 CASES = list(small_matrix_cases())
@@ -224,10 +226,21 @@ def _handle_coo():
     return banded_coo(5000, 20_000, 60_000, seed=52)
 
 
+# the port's profile field of each JAX class constant; the JAX handle's
+# one budget also rules its B2/B6 choice, the port's batched_budget_bytes
+PROFILE_FIELDS = {"_CHUNKED_VMEM_BUDGET": ("chunked_budget_bytes",
+                                           "batched_budget_bytes"),
+                  "_PANEL_NCB": ("panel_ncb",),
+                  "_PANEL_Y_BYTES": ("panel_y_bytes",)}
+
+
 def _patch(monkeypatch, consts):
-    for cls in (SpmvHandle, JSpmvHandle):
-        for k, v in consts.items():
-            monkeypatch.setattr(cls, k, v)
+    """Set ``consts`` on the JAX handle's class; returns ``V5E`` with the
+    same values, the port handle's profile."""
+    for k, v in consts.items():
+        monkeypatch.setattr(JSpmvHandle, k, v)
+    return dataclasses.replace(V5E, **{
+        f: v for k, v in consts.items() for f in PROFILE_FIELDS[k]})
 
 
 def _layout(h):
@@ -249,9 +262,9 @@ def _record(monkeypatch, module, names, seen):
 @pytest.mark.parametrize("layout", list(LAYOUTS))
 def test_handle_layout_and_run_match_jax(layout, col_reorder, monkeypatch):
     coo = _handle_coo()
-    _patch(monkeypatch, LAYOUTS[layout])
+    profile = _patch(monkeypatch, LAYOUTS[layout])
     h = SpmvHandle(coo, SpmvConfig(col_reorder=col_reorder), "block",
-                   device="cpu")
+                   device="cpu", profile=profile)
     jh = JSpmvHandle(coo, JSpmvConfig(col_reorder=col_reorder), "block",
                      interpret=True)
     assert _layout(h) == _layout(jh) == [layout]
@@ -276,13 +289,13 @@ def test_handle_layout_and_run_match_jax(layout, col_reorder, monkeypatch):
 def test_handle_linear_kernel_matches_jax(layout, batch_budget, want,
                                           col_reorder, monkeypatch):
     coo = _handle_coo()
-    _patch(monkeypatch, LAYOUTS[layout])
+    profile = _patch(monkeypatch, LAYOUTS[layout])
     h = SpmvHandle(coo, SpmvConfig(col_reorder=col_reorder), "block",
-                   device="cpu")
+                   device="cpu", profile=profile)
     jh = JSpmvHandle(coo, JSpmvConfig(col_reorder=col_reorder), "block",
                      interpret=True)
     if batch_budget is not None:
-        _patch(monkeypatch, {"_CHUNKED_VMEM_BUDGET": batch_budget})
+        h.profile = _patch(monkeypatch, {"_CHUNKED_VMEM_BUDGET": batch_budget})
     seen, jseen = [], []
     _record(monkeypatch, handle_mod,
             ["spmv_chunked_batched", "spmv_block_batched"], seen)
@@ -306,11 +319,42 @@ def test_handle_linear_kernel_matches_jax(layout, batch_budget, want,
     assert_close(y, golden, rtol=1e-3)
 
 
+@pytest.mark.parametrize("block_h", [8, 64])
+@pytest.mark.parametrize("batch_budget,want", [(None, "B2"), (0, "B6")])
+def test_bf16_block_linear_matches_jax(block_h, batch_budget, want,
+                                       monkeypatch):
+    """A bf16 block handle's ``linear``: B2 reads the bf16 payload, B6 the
+    plan's f32 values (as the JAX handle uploads them), in both packages."""
+    coo = _handle_coo()
+    cfg = dict(block_h=block_h, value_dtype="bfloat16")
+    h = SpmvHandle(coo, SpmvConfig(**cfg), "block", device="cpu",
+                   profile=V5E)
+    jh = JSpmvHandle(coo, JSpmvConfig(**cfg), "block", interpret=True)
+    if batch_budget is not None:
+        h.profile = _patch(monkeypatch,
+                           {"_CHUNKED_VMEM_BUDGET": batch_budget})
+    seen = []
+    _record(monkeypatch, handle_mod,
+            ["spmv_chunked_batched", "spmv_block_batched"], seen)
+    xb = np.random.default_rng(56).standard_normal(
+        (3, coo.num_cols)).astype(np.float32)
+    y = h.linear(xb).numpy()
+    assert seen == [{"B2": "spmv_chunked_batched",
+                     "B6": "spmv_block_batched"}[want]]
+    assert_close(y, np.asarray(jh.linear(xb)))
+    vals = coo.values
+    if want == "B2":
+        vals = torch.from_numpy(vals).to(torch.bfloat16).float().numpy()
+    a = COOMatrix(coo.shape, coo.rows, coo.cols, vals).to_scipy()
+    assert_close(y, (a @ xb.astype(np.float64).T).T, rtol=1e-3)
+
+
 def test_paneled_path_satisfiable_with_shipped_constants():
     """The port's mirror of the JAX handle's reachability check: the
     paneled layout fires without patching for a 200k x 5.1M matrix."""
     h = SpmvHandle.__new__(SpmvHandle)
     h.config = SpmvConfig()
+    h.profile = V5E
 
     class FakePlan:
         block_h = 8
@@ -325,6 +369,7 @@ def test_shipped_constants_tile_a_large_square_matrix():
     """With the JAX values, a square block matrix past ~1.05M rows is
     neither chunked nor paneled: it takes B4."""
     h = SpmvHandle.__new__(SpmvHandle)
+    h.profile = V5E
 
     class FakePlan:
         block_h = 8
@@ -341,8 +386,8 @@ def test_random_matrix_packs_alike_in_both_layouts(monkeypatch):
     coo = random_coo(700, 9000, 20_000, seed=56)
     x = np.random.default_rng(57).standard_normal(9000).astype(np.float32)
     y_chunked = SpmvHandle(coo, format="block", device="cpu").run(x)
-    _patch(monkeypatch, LAYOUTS["tiled"])
-    h = SpmvHandle(coo, format="block", device="cpu")
+    h = SpmvHandle(coo, format="block", device="cpu",
+                   profile=_patch(monkeypatch, LAYOUTS["tiled"]))
     assert h._tiled
     assert_close(h.run(x).numpy(), y_chunked.numpy())
 
@@ -498,9 +543,9 @@ def test_handle_holds_sector_mask_of_tiled_layout_only(layout, col_reorder,
     the JAX handle's, counts its bytes in ``device_bytes`` and passes it to
     B4 on every ``run``; the other layouts hold none."""
     coo = _handle_coo()
-    _patch(monkeypatch, LAYOUTS[layout])
+    profile = _patch(monkeypatch, LAYOUTS[layout])
     h = SpmvHandle(coo, SpmvConfig(col_reorder=col_reorder), "block",
-                   device="cpu")
+                   device="cpu", profile=profile)
     jh = JSpmvHandle(coo, JSpmvConfig(col_reorder=col_reorder), "block",
                      interpret=True)
     assert sorted(h._d) == sorted(jh._d)

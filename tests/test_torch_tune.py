@@ -84,11 +84,12 @@ def test_dse_explore_equals_jax(name):
 @pytest.mark.parametrize("name", ["powerlaw", "single_dense_row",
                                   "trans5:0.05"])
 def test_model_only_tune_equals_jax(name):
-    res = tune(_coo(name))
+    res = tune(_coo(name), profile=V5E)
     assert_same_result(res, jtune(_jcoo(name)))
     # the package-level name reaches the same tuner, loaded lazily
-    assert_same_result(hispmv_tpu_torch.__getattr__("tune")(_coo(name)),
-                       jtune(_jcoo(name)))
+    assert_same_result(
+        hispmv_tpu_torch.__getattr__("tune")(_coo(name), profile=V5E),
+        jtune(_jcoo(name)))
 
 
 def test_default_profile_is_the_tpu_v5e():
@@ -148,12 +149,12 @@ def test_dse_candidates_ranked():
 def test_tune_cache_roundtrip(tmp_path):
     coo = powerlaw_coo(1000, 1000, 20_000, seed=7)
     cache = str(tmp_path / "best_configs.json")
-    r1 = tune(coo, cache_path=cache)
-    r2 = tune(coo, cache_path=cache)  # a hit
+    r1 = tune(coo, cache_path=cache, profile=V5E)
+    r2 = tune(coo, cache_path=cache, profile=V5E)  # a hit
     assert (r1.format, r1.config) == (r2.format, r2.config)
     assert abs(r1.est_seconds - r2.est_seconds) < 1e-12
     assert r2.candidates == [tuple(c) for c in r1.candidates]
-    tune(random_coo(500, 500, 5000, seed=8), cache_path=cache)
+    tune(random_coo(500, 500, 5000, seed=8), cache_path=cache, profile=V5E)
     with open(cache) as f:
         entries = json.load(f)
     assert len(entries) == 2
