@@ -105,6 +105,7 @@ from hispmv_tpu_torch.plan.windows import SEGS, WindowPlan, build_window_plan
 from hispmv_tpu_torch.profiles import DeviceProfile, device_profile
 from hispmv_tpu_torch.utils.device import resolve_device
 from hispmv_tpu_torch.utils.errors import error_stats
+from hispmv_tpu_torch.utils.trace import recording, span, traced
 
 
 def _extend_perm(col_perm: np.ndarray, num_cols: int, target: int) -> np.ndarray:
@@ -165,15 +166,16 @@ def _run_routed_part(d, x, R, meta, prefix):
         y = x.new_zeros(R)
     else:
         y = y2d.reshape(-1)[:R]
-    if meta["res_coo"]:  # small residual: element scatter
-        contrib = d[prefix + "r_vals"] * x.index_select(
-            0, d[prefix + "r_cols"])
-        y = y.index_add(0, d[prefix + "r_rows"], contrib)
-    if meta["res"] is not None:  # large residual: row-granular ELLX (B1)
-        yr = ellx_matvec(_residual_dict(d, prefix), x2d,
-                         meta["res"].num_row_blocks, 1, meta["rchunk"],
-                         meta["res_ov"])
-        y = y + yr.reshape(-1)[:R]
+    with span("residual"):
+        if meta["res_coo"]:  # small residual: element scatter
+            contrib = d[prefix + "r_vals"] * x.index_select(
+                0, d[prefix + "r_cols"])
+            y = y.index_add(0, d[prefix + "r_rows"], contrib)
+        if meta["res"] is not None:  # large residual: row-granular ELLX (B1)
+            yr = ellx_matvec(_residual_dict(d, prefix), x2d,
+                             meta["res"].num_row_blocks, 1, meta["rchunk"],
+                             meta["res_ov"])
+            y = y + yr.reshape(-1)[:R]
     if meta["yperm"] is not None:
         y = panel_permute_apply_from(d, meta["yperm"], prefix + "yp", y)
     return y
@@ -195,7 +197,8 @@ def _run_routed_batched(d, xb, R, meta):
     need = meta["nwin"] * WINDOW
     if xb.shape[1] < need:
         xb = torch.nn.functional.pad(xb, (0, need - xb.shape[1]))
-    xt = xb.T.reshape(-1, LANES, B).contiguous()  # vector-minor, shared
+    with span("transpose"):
+        xt = xb.T.reshape(-1, LANES, B).contiguous()  # vector-minor, shared
     y2d = None
     for i, dims in enumerate(meta["streams"]):
         ys = spmv_routed_stream_batched(_stream_packed(d, "", i, dims), dims,
@@ -205,14 +208,15 @@ def _run_routed_batched(d, xb, R, meta):
         y = xb.new_zeros((B, R))
     else:
         y = y2d.reshape(B, -1)[:, :R]
-    if meta["res_coo"]:
-        contrib = d["r_vals"] * xb.index_select(1, d["r_cols"])
-        y = y.index_add(1, d["r_rows"], contrib)
-    if meta["res"] is not None:
-        yr = ellx_matvec_batched(_residual_dict(d, ""), xt,
-                                 meta["res"].num_row_blocks, 1,
-                                 meta["rchunk"], meta["res_ov"])
-        y = y + yr.reshape(-1, B)[:R].T
+    with span("residual"):
+        if meta["res_coo"]:
+            contrib = d["r_vals"] * xb.index_select(1, d["r_cols"])
+            y = y.index_add(1, d["r_rows"], contrib)
+        if meta["res"] is not None:
+            yr = ellx_matvec_batched(_residual_dict(d, ""), xt,
+                                     meta["res"].num_row_blocks, 1,
+                                     meta["rchunk"], meta["res_ov"])
+            y = y + yr.reshape(-1, B)[:R].T
     return y
 
 
@@ -251,6 +255,7 @@ class SpmvHandle:
     """One prepared matrix, resident on ``device``, planned under
     ``profile`` (None: the device's, ``device_profile``)."""
 
+    @traced("prepare", record=True)
     def __init__(
         self,
         matrix: Union[COOMatrix, np.ndarray],
@@ -264,7 +269,8 @@ class SpmvHandle:
         self.device = resolve_device(device)
         self.profile = profile or device_profile(self.device)
         if isinstance(matrix, np.ndarray):
-            self._from_dense_array(matrix)
+            with span("prepare.pack"):
+                self._from_dense_array(matrix)
             fmt = "dense"
         else:
             self.coo = matrix
@@ -274,7 +280,8 @@ class SpmvHandle:
             if fmt == "auto":
                 fmt = choose_format(matrix, self.config)
             if fmt == "dense":
-                self._from_dense_array(matrix.to_dense())
+                with span("prepare.pack"):
+                    self._from_dense_array(matrix.to_dense())
             elif fmt == "block":
                 self._prepare_block(matrix)
             elif fmt == "ellx":
@@ -356,9 +363,10 @@ class SpmvHandle:
     # -- preparation ------------------------------------------------------
 
     def _upload(self, arr: np.ndarray, dtype=None) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(arr)).to(
-            device=self.device, dtype=dtype
-        )
+        with span("upload"):
+            return torch.from_numpy(np.ascontiguousarray(arr)).to(
+                device=self.device, dtype=dtype
+            )
 
     def _value_dtype(self) -> torch.dtype:
         if self.config.value_dtype == "bfloat16":
@@ -386,12 +394,14 @@ class SpmvHandle:
         self.device_bytes = int(self._dense.nbytes)
 
     def _prepare_block(self, coo: COOMatrix):
-        perm = None
-        if self.config.col_reorder:
-            perm = degree_column_perm(coo)
-        plan = build_block_plan(coo, block_h=self.config.block_h,
-                                col_perm=perm)
-        self._build_block_arrays(plan, coo.num_cols)
+        with span("prepare.plan"):
+            perm = None
+            if self.config.col_reorder:
+                perm = degree_column_perm(coo)
+            plan = build_block_plan(coo, block_h=self.config.block_h,
+                                    col_perm=perm)
+        with span("prepare.pack"):
+            self._build_block_arrays(plan, coo.num_cols)
 
     # The JAX handle's layout dispatch, with the profile's budgets: the
     # chunked kernel's x + y (+ two chunk buffers) must fit
@@ -473,13 +483,15 @@ class SpmvHandle:
     def _prepare_ellx(self, coo: COOMatrix):
         """Base-K ELL (plain torch product) + B1 overflow for heavy rows;
         block_h=1 gives row-granular units."""
-        perm = None
-        if self.config.col_reorder:
-            perm = degree_column_perm(coo)
-        plan = build_block_plan(coo, block_h=self.config.block_h,
-                                col_perm=perm)
-        self._build_ellx_arrays(build_ellx_plan(plan, profile=self.profile),
-                                coo.num_cols)
+        with span("prepare.plan"):
+            perm = None
+            if self.config.col_reorder:
+                perm = degree_column_perm(coo)
+            plan = build_block_plan(coo, block_h=self.config.block_h,
+                                    col_perm=perm)
+            eplan = build_ellx_plan(plan, profile=self.profile)
+        with span("prepare.pack"):
+            self._build_ellx_arrays(eplan, coo.num_cols)
 
     def _ellx_pack_into(self, d, eplan: EllxPlan):
         """Upload an ELLX plan's base and B1 overflow into ``d`` under the
@@ -515,10 +527,11 @@ class SpmvHandle:
     def _prepare_split(self, coo: COOMatrix):
         """Hub split (plan/split.py): dense hub columns and rows, the body
         routed or ELLX as the planner picks it."""
-        self._build_split_arrays(
-            build_split_plan(coo, block_h=self.config.block_h,
-                             profile=self.profile)
-        )
+        with span("prepare.plan"):
+            plan = build_split_plan(coo, block_h=self.config.block_h,
+                                    profile=self.profile)
+        with span("prepare.pack"):
+            self._build_split_arrays(plan)
 
     def _build_split_arrays(self, plan: SplitPlan):
         """The JAX handle's keys: ``hc``/``hc_idx`` and ``hr``/``hr_idx``
@@ -549,9 +562,10 @@ class SpmvHandle:
             self.device_bytes += bmeta["table"].lt_nbytes
 
     def _prepare_window(self, coo: COOMatrix):
-        self._build_window_arrays(
-            build_window_plan(coo, block_h=self.config.block_h)
-        )
+        with span("prepare.plan"):
+            plan = build_window_plan(coo, block_h=self.config.block_h)
+        with span("prepare.pack"):
+            self._build_window_arrays(plan)
 
     def _build_window_arrays(self, plan: WindowPlan):
         self._window_plan_meta = plan
@@ -564,7 +578,10 @@ class SpmvHandle:
         }, plan.fill)
 
     def _prepare_stream(self, coo: COOMatrix):
-        self._build_stream_arrays(build_plan(coo, self.config))
+        with span("prepare.plan"):
+            plan = build_plan(coo, self.config)
+        with span("prepare.pack"):
+            self._build_stream_arrays(plan)
 
     def _build_stream_arrays(self, plan: StreamPlan):
         self._stream_plan_meta = plan
@@ -695,14 +712,16 @@ class SpmvHandle:
         of cells when x + y fail ``routed_vmem_ok`` (the JAX package's
         dispatch, under the handle's profile)."""
         p = self.profile
-        if not routed_vmem_ok(coo.shape, p):
-            plan = build_banded_routed_plan(
-                coo, rank_sort=self.config.rank_sort, profile=p)
-        elif self.config.rank_sort:
-            plan = build_ranked_routed_plan(coo, profile=p)
-        else:
-            plan = build_routed_plan(coo, profile=p)
-        self._build_routed_arrays(plan)
+        with span("prepare.plan"):
+            if not routed_vmem_ok(coo.shape, p):
+                plan = build_banded_routed_plan(
+                    coo, rank_sort=self.config.rank_sort, profile=p)
+            elif self.config.rank_sort:
+                plan = build_ranked_routed_plan(coo, profile=p)
+            else:
+                plan = build_routed_plan(coo, profile=p)
+        with span("prepare.pack"):
+            self._build_routed_arrays(plan)
 
     def _build_routed_arrays(self, plan):
         """The device dict and the metas, rebuilt together: each part's B9
@@ -778,7 +797,8 @@ class SpmvHandle:
         if self.format == "split":
             return self._split_matvec(x)
         if "perm" in d:
-            x = x.index_select(0, d["perm"])
+            with span("permute"):
+                x = x.index_select(0, d["perm"])
         x2d = x.reshape(-1, LANES)
         if self.format == "block":
             y = self._block_matvec(x2d)
@@ -852,7 +872,8 @@ class SpmvHandle:
         if bmeta is not None:
             y = _run_routed_vectors(d, xb, R, bmeta, "b_")
         elif "base_data" in d:
-            xt = xb.T.reshape(-1, LANES, B).contiguous()
+            with span("transpose"):
+                xt = xb.T.reshape(-1, LANES, B).contiguous()
             y = ellx_matvec_batched(
                 d, xt, *self._ellx_args(self._split_plan_meta.body))
             y = y.reshape(-1, B)[:R].T
@@ -876,37 +897,47 @@ class SpmvHandle:
         plan, B = self._block_plan_meta, xb.shape[0]
         if self._block_uses_b2(B):
             if "perm" in self._d:
-                xb = xb.index_select(1, self._d["perm"])
-            xt = xb.T.reshape(-1, LANES, B).contiguous()  # [ncb, 128, B]
+                with span("permute"):
+                    xb = xb.index_select(1, self._d["perm"])
+            with span("transpose"):
+                xt = xb.T.reshape(-1, LANES, B).contiguous()  # [ncb, 128, B]
             return spmv_chunked_batched(self._d["data"], self._d["meta"], xt,
                                         plan.num_row_blocks, plan.block_h,
                                         self._chunk)
         if self._batch_d is None:
             # per-block arrays (f32, as the JAX handle uploads them), once
-            self._batch_d = upload_block_plan(plan, self.device)
-            if plan.col_perm is not None:
-                self._batch_d["perm"] = self._upload(_extend_perm(
-                    plan.col_perm, self.shape[1],
-                    plan.num_col_blocks * LANES))
+            with recording(), span("upload"):  # set-up, recorded
+                self._batch_d = upload_block_plan(plan, self.device)
+                if plan.col_perm is not None:
+                    self._batch_d["perm"] = self._upload(_extend_perm(
+                        plan.col_perm, self.shape[1],
+                        plan.num_col_blocks * LANES))
         bd = self._batch_d
         if "perm" in bd:
-            xb = xb.index_select(1, bd["perm"])
-        xt = xb.T.reshape(-1, LANES, B).contiguous()
+            with span("permute"):
+                xb = xb.index_select(1, bd["perm"])
+        with span("transpose"):
+            xt = xb.T.reshape(-1, LANES, B).contiguous()
         return spmv_block_batched(bd["data"], bd["rows"], bd["cols"],
                                   bd["firsts"], bd["lasts"], xt,
                                   plan.num_row_blocks, starts=bd["starts"])
 
+    @traced("run")
     def run(self, x, y_in=None, alpha=1.0, beta=0.0) -> torch.Tensor:
         """``y = alpha * A @ x + beta * y_in`` (single vector), as a float32
         tensor on the handle's device."""
-        x = self._pad_x(
-            torch.as_tensor(x, dtype=torch.float32, device=self.device)
-        )
-        y = alpha * self._matvec(x)
-        if y_in is None:
-            return y
-        y_in = torch.as_tensor(y_in, dtype=torch.float32, device=self.device)
-        return y + beta * y_in
+        with span("pad"):
+            x = self._pad_x(
+                torch.as_tensor(x, dtype=torch.float32, device=self.device)
+            )
+        y = self._matvec(x)
+        with span("epilogue"):
+            y = alpha * y
+            if y_in is None:
+                return y
+            y_in = torch.as_tensor(y_in, dtype=torch.float32,
+                                   device=self.device)
+            return y + beta * y_in
 
     def _matmat(self, xb: torch.Tensor) -> torch.Tensor:
         """Unscaled x @ A.T [B, R] from the padded batch ``xb`` [B, Cp]."""
@@ -934,9 +965,11 @@ class SpmvHandle:
         if self.format == "block":
             return self._block_matmat(xb).reshape(-1, B)[:R].T
         if "perm" in d:
-            xb = xb.index_select(1, d["perm"])
+            with span("permute"):
+                xb = xb.index_select(1, d["perm"])
         # x vector-minor: [nwin*8, 128, B] (window), [ncb, 128, B] (ellx)
-        xt = xb.T.reshape(-1, LANES, B).contiguous()
+        with span("transpose"):
+            xt = xb.T.reshape(-1, LANES, B).contiguous()
         if self.format == "window":
             plan = self._window_plan_meta
             y = spmv_windowed_batched(d["data"], d["subidx"], d["meta"], xt,
@@ -946,6 +979,7 @@ class SpmvHandle:
         y = ellx_matvec_batched(d, xt, *self._ellx_args(self._ellx_plan_meta))
         return y.reshape(-1, B)[:R].T
 
+    @traced("linear")
     def linear(self, x_batch, bias=None) -> torch.Tensor:
         """Batched ``y[B, R] = x[B, C] @ A.T + bias``, the NN-layer entry
         point, as a float32 tensor on the handle's device.  ``x_batch``
@@ -957,15 +991,18 @@ class SpmvHandle:
         the whole batch), and vector by vector (B9, B11) in rank space and
         on the banded grid; split as its hub panels plus its body (B2 for
         an ELLX body, B9 vector by vector for a routed one)."""
-        xb = torch.as_tensor(x_batch, dtype=torch.float32,
-                             device=self.device)
-        squeeze = xb.ndim == 1
-        if squeeze:
-            xb = xb[None, :]
-        y = self._matmat(self._pad_x(xb).contiguous())
+        with span("pad"):
+            xb = torch.as_tensor(x_batch, dtype=torch.float32,
+                                 device=self.device)
+            squeeze = xb.ndim == 1
+            if squeeze:
+                xb = xb[None, :]
+            xb = self._pad_x(xb).contiguous()
+        y = self._matmat(xb)
         if bias is not None:
-            y = y + torch.as_tensor(bias, dtype=torch.float32,
-                                    device=self.device)[None, :]
+            with span("epilogue"):
+                y = y + torch.as_tensor(bias, dtype=torch.float32,
+                                        device=self.device)[None, :]
         return y[0] if squeeze else y
 
     def verify(self, x=None, rtol=1e-3, atol=1e-5):

@@ -26,6 +26,7 @@ from hispmv_tpu_torch.ops import cuda_build
 from hispmv_tpu_torch.ops.spmv_chunked import check_aligned, check_cuda_tensors
 from hispmv_tpu_torch.plan.permute import WINDOW, PermutePlan, WindowStage
 from hispmv_tpu_torch.utils.device import resolve_device
+from hispmv_tpu_torch.utils.trace import traced
 
 LANES = 128
 TCHUNK = 16
@@ -91,6 +92,7 @@ def permute_stage_plain(arrays, dims, a):
                        a.reshape(Wp, 8, LANES)).reshape(Wp * 8, LANES)
 
 
+@traced("kernel.B11")
 def permute_stage(arrays, dims, a):
     """Apply one within-window stage to ``a`` f32 [Wp*8, 128] (Wp from
     ``dims``); returns the permuted array of the same shape.  CPU tensors

@@ -24,6 +24,7 @@ from hispmv_tpu_torch.ops import cuda_build
 from hispmv_tpu_torch.ops.spmv_chunked import block_products, check_cuda_args
 from hispmv_tpu_torch.plan.blocks import LANES, BlockPlan
 from hispmv_tpu_torch.utils.device import resolve_device
+from hispmv_tpu_torch.utils.trace import traced
 
 
 def run_starts(firsts) -> torch.Tensor:
@@ -96,6 +97,7 @@ def spmv_block_stream_plain(data, rows, cols, firsts, lasts, x_blocks,
     return y.reshape(num_row_blocks, 1, bh)
 
 
+@traced("kernel.B5")
 def spmv_block_stream(data, rows, cols, firsts, lasts, x_blocks,
                       num_row_blocks, starts=None):
     """Run the per-block stream; returns y tiles f32 [num_row_blocks, 1,
@@ -146,6 +148,7 @@ def spmv_block_batched_plain(data, rows, cols, firsts, lasts, x_blocks,
                              num_row_blocks)
 
 
+@traced("kernel.B6")
 def spmv_block_batched(data, rows, cols, firsts, lasts, x_blocks,
                        num_row_blocks, starts=None):
     """Run the per-block stream against B vectors; returns y f32

@@ -22,6 +22,7 @@ import torch
 
 from hispmv_tpu_torch.ops import cuda_build
 from hispmv_tpu_torch.plan.blocks import LANES, BlockPlan
+from hispmv_tpu_torch.utils.trace import traced
 
 # Block heights the CUDA kernels are instantiated for (csrc/block_stream.cuh,
 # csrc/block_vec.cuh).
@@ -153,6 +154,7 @@ def spmv_chunked_plain(data3d, meta, x2d, num_row_blocks, block_h, chunk):
     return y.index_add_(0, rb, contrib)
 
 
+@traced("kernel.B1")
 def spmv_chunked(data3d, meta, x2d, num_row_blocks, block_h, chunk, vpt=0):
     """Run the chunked stream; returns y tiles f32 [num_row_blocks, block_h].
 
@@ -224,6 +226,7 @@ def spmv_chunked_batched_plain(data3d, meta, xb, num_row_blocks, block_h,
     return block_products(a, lambda sl: xb.index_select(0, cb[sl]), rb, y)
 
 
+@traced("kernel.B2")
 def spmv_chunked_batched(data3d, meta, xb, num_row_blocks, block_h, chunk,
                          vpt=0):
     """Run the chunked stream against B vectors; returns y f32
@@ -360,6 +363,7 @@ def spmv_chunked_paneled_plain(data3d, meta, panel_ids, x2d, num_row_blocks,
     return y.index_add_(0, rb, contrib)
 
 
+@traced("kernel.B3")
 def spmv_chunked_paneled(data3d, meta, panel_ids, x2d, num_row_blocks,
                          block_h, chunk, panel_ncb, out=None):
     """Run the x-paneled chunked stream; returns y tiles f32
@@ -547,6 +551,7 @@ def spmv_chunked_tiled_plain(data3d, meta, xpanel_ids, ypanel_ids, x2d,
     return y.index_add_(0, rb, contrib)
 
 
+@traced("kernel.B4")
 def spmv_chunked_tiled(data3d, meta, xpanel_ids, ypanel_ids, x2d,
                        num_row_panels, panel_nrb, block_h, chunk, panel_ncb,
                        sector_mask=None):

@@ -35,6 +35,7 @@ from hispmv_tpu_torch.ops import cuda_build
 from hispmv_tpu_torch.ops.permute import clos_gather, permute_stage
 from hispmv_tpu_torch.ops.spmv_chunked import check_aligned, check_cuda_tensors
 from hispmv_tpu_torch.plan.gathered import GatheredPlan
+from hispmv_tpu_torch.utils.trace import traced
 
 LANES = 128
 WINDOW = 1024
@@ -110,6 +111,7 @@ def s1_gather_plain(s1_words, x2d, P, K):
     return x2d.reshape(-1)[idx].reshape(P * K * 8, LANES)
 
 
+@traced("kernel.B12")
 def s1_gather(s1_words, x2d, P, K):
     """S1 of the gathered x gather: ``s1_words`` i32 [P*K*8, 128], ``x2d``
     f32 [K*8, 128] -> f32 [P*K*8, 128], panel p's window w gathered from x
@@ -212,6 +214,7 @@ def spmv_gathered_tiles_plain(vals3, word3, byt, xg, num_ytiles, nch,
     return y.reshape(num_ytiles * 8, LANES)
 
 
+@traced("kernel.B13")
 def spmv_gathered_tiles(vals3, word3, byt, xg, num_ytiles, nch, tchunk):
     """Run the gathered tile kernel; returns y f32 [num_ytiles*8, 128].
     ``vals3`` / ``word3`` f32 / i32 [nch, tchunk*8, 128] and ``byt`` i32

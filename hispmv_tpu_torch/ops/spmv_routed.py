@@ -57,6 +57,7 @@ from hispmv_tpu_torch.plan.routed import (
     RoutedStream,
 )
 from hispmv_tpu_torch.profiles import V5E
+from hispmv_tpu_torch.utils.trace import traced
 
 LANES = 128
 DEFAULT_TCHUNK = 16
@@ -465,6 +466,7 @@ def spmv_routed_streams_plain(table: RoutedTable, x2d, y=None):
     return y
 
 
+@traced("kernel.B9")
 def spmv_routed_streams(table: RoutedTable, x2d, y=None):
     """Run every stream of ``table`` (from :func:`routed_table`) against
     ``x2d`` f32 [nwin*8, 128] in one B9 launch, adding into ``y`` f32
@@ -515,6 +517,7 @@ def spmv_routed_stream(packed, dims, x2d, num_ytiles):
         routed_table([(packed, dims, None)], num_ytiles), x2d)
 
 
+@traced("kernel.B10")
 def spmv_routed_stream_batched(packed, dims, xt, num_ytiles, vpt=0):
     """Run one packed routed-stream segment against the B vectors of ``xt``
     f32 [nwin*8, 128, B] (vector-minor: xt[r, L, b] is vector b's x row r,

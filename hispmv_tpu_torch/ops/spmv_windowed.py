@@ -26,6 +26,7 @@ from hispmv_tpu_torch.ops.spmv_chunked import (
     check_vpt,
 )
 from hispmv_tpu_torch.plan.windows import LANES, SEGS, WindowPlan
+from hispmv_tpu_torch.utils.trace import traced
 
 
 def chunk_for_windowed(block_h: int, target_bytes: int = 1 << 20) -> int:
@@ -88,6 +89,7 @@ def spmv_windowed_plain(data3d, subidx3d, meta, x2d, num_row_blocks,
     return y.index_add_(0, rb, contrib)
 
 
+@traced("kernel.B7")
 def spmv_windowed(data3d, subidx3d, meta, x2d, num_row_blocks, block_h,
                   chunk, vpt=0):
     """Run the windowed stream; returns y tiles f32 [num_row_blocks,
@@ -140,6 +142,7 @@ def spmv_windowed_batched_plain(data3d, subidx3d, meta, xt, num_row_blocks,
     return block_products(a, lambda sl: xt[rows[sl], lanes], rb, y)
 
 
+@traced("kernel.B8")
 def spmv_windowed_batched(data3d, subidx3d, meta, xt, num_row_blocks,
                           block_h, chunk, vpt=0):
     """Run the windowed stream against B vectors; returns y f32

@@ -88,6 +88,7 @@ import numpy as np
 from hispmv_tpu_torch import native
 from hispmv_tpu_torch.formats.matrix import COOMatrix
 from hispmv_tpu_torch.profiles import V5E, DeviceProfile
+from hispmv_tpu_torch.utils.trace import span, traced
 
 WINDOW = 1024  # columns per window = one (8,128) x tile
 TILE = 1024  # nnz slots per tile (8 sublanes x 128 lanes)
@@ -541,18 +542,19 @@ def build_routed_plan(
     runner-up when demotion made the residual heavy, keeping the plan
     with the lower modeled cost."""
     if strip_windows == 0:
-        table = winband_table(coo.rows, coo.cols, coo.shape)
-        ests = sorted(
-            (
-                estimate_routed_cost_ns(
-                    None, None, coo.shape,
-                    strip_windows=sw, l_cap=l_cap, table=table,
-                    profile=profile,
-                )["est_ns"],
-                sw,
+        with span("plan.routed.estimate"):
+            table = winband_table(coo.rows, coo.cols, coo.shape)
+            ests = sorted(
+                (
+                    estimate_routed_cost_ns(
+                        None, None, coo.shape,
+                        strip_windows=sw, l_cap=l_cap, table=table,
+                        profile=profile,
+                    )["est_ns"],
+                    sw,
+                )
+                for sw in (2, 4, 8, 16, 32)
             )
-            for sw in (2, 4, 8, 16, 32)
-        )
         sw0, sw1 = ests[0][1], ests[1][1]
         plan = _build_routed_plan(coo, sw0, l1_cap, l_cap, max_streams,
                                   profile=profile)
@@ -569,6 +571,7 @@ def build_routed_plan(
     return _repack_residual(plan, strip_windows, l1_cap, l_cap, profile)
 
 
+@traced("plan.routed.repack")
 def _repack_residual(
     plan: RoutedPlan, strip_windows: int, l1_cap: int, l_cap: int,
     profile: DeviceProfile = V5E,
@@ -674,6 +677,7 @@ def _tile_stats_py(T0, tile_of, p_win, p_band, real, nyt):
     return nnz_t, wmin_t, span_t, band_t
 
 
+@traced("plan.routed.build")
 def _build_routed_plan(
     coo: COOMatrix,
     strip_windows: int,

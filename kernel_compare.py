@@ -21,7 +21,16 @@ runs ``chip_smoke.py``'s phase 3k under V5E and the measured profile (~10
 min on one card).
 
 GROUPs (all when none is named): b1b7, b3, b2, b8, b6, b4, b9, b12, b11,
-b13, dist.
+b13, dist, trace.
+
+``trace`` times the host side of ``run`` and ``linear`` (B 64) on
+TSOPF_RS_b2383's block handle and trans5's routed handle: host
+microseconds a call (the enqueue, each call timed alone, batches of 50
+synchronised between them, median of 21 batches), with the program's
+tracing off and, where the checkout has ``utils.trace.tracing``, on (in
+turns, batch by batch); the spans and kernel spans a call; and the
+off-path's own cost, a no-op ``span`` and a ``traced`` wrapper's extra
+frame, timed alone, times their number a call.
 
 B1's cases, at one vector: TSOPF_RS_b2383's block handle and trans5's ELLX
 overflow.  B7's: crystk03's window handle (format auto, bh 8), crystk03 as
@@ -115,6 +124,7 @@ process holds a context on it; with two or more cards, also phase 3j of
 ``chip_smoke.py`` at one NCCL rank a card (``dist_report``).
 Exits 1 when a case disagrees, 2 without a CUDA card."""
 
+import contextlib
 import dataclasses
 import importlib
 import inspect
@@ -1947,8 +1957,89 @@ def calibrate(device="cuda", sizes=None, picks=True) -> int:
 GROUPS = {"b1b7": b1_b7_cases, "b3": b3_cases, "b2": b2_cases,
           "b8": b8_cases, "b6": b6_cases, "b4": b4_cases}
 # groups that print their own lines, last
+def _host_us(call, contexts, n=50, batches=21):
+    """For each of ``contexts`` (context factories), the median over
+    ``batches`` of the host microseconds a ``call``, each call timed alone
+    inside the context, the contexts in turns batch by batch, the device
+    synchronised between batches."""
+    per = [[] for _ in contexts]
+    call()
+    torch.cuda.synchronize()
+    for _ in range(batches):
+        for i, context in enumerate(contexts):
+            t = 0
+            with context():
+                for _ in range(n):
+                    t0 = time.perf_counter_ns()
+                    call()
+                    t += time.perf_counter_ns() - t0
+            torch.cuda.synchronize()
+            per[i].append(t / n / 1e3)
+    return [float(np.median(p)) for p in per]
+
+
+def _off_path_ns(tmod, n=200_000):
+    """(ns of a no-op ``span`` with tracing off, ns a ``traced`` wrapper
+    adds to a call): each the median of 5 loops of ``n``."""
+    def loop(fn):
+        t0 = time.perf_counter_ns()
+        for _ in range(n):
+            fn()
+        return (time.perf_counter_ns() - t0) / n
+
+    def with_span():
+        with tmod.span("x"):
+            pass
+
+    def bare():
+        return None
+    wrapped = tmod.traced("x")(bare)
+    sp = [loop(with_span) - loop(bare) for _ in range(5)]
+    wr = [loop(wrapped) - loop(bare) for _ in range(5)]
+    return float(np.median(sp)), float(np.median(wr))
+
+
+def trace_report(label, rng):
+    """The program's tracing on the host: see the module's docstring."""
+    from hispmv_tpu_torch.utils import trace as tmod
+
+    tracing = getattr(tmod, "tracing", None)
+    if tracing is not None:
+        span_ns, wrap_ns = _off_path_ns(tmod)
+        print(f"{label} trace off-path: no-op span {span_ns:.1f} ns, traced "
+              f"wrapper {wrap_ns:.1f} ns", flush=True)
+    for tag, h in (("TSOPF_RS_b2383 block", handle("TSOPF_RS_b2383", 8,
+                                                   "block")),
+                   ("trans5 routed", routed_handle("trans5", False, False))):
+        R, C = h.shape
+        x = torch.from_numpy(rng.standard_normal(C).astype(np.float32)).cuda()
+        xb = torch.from_numpy(rng.standard_normal((64, C)).astype(
+            np.float32)).cuda()
+        y_in = torch.from_numpy(rng.standard_normal(R).astype(
+            np.float32)).cuda()
+        for call, fn in (("run", lambda: h.run(x, y_in=y_in, alpha=0.85,
+                                               beta=0.15)),
+                         ("linear", lambda: h.linear(xb))):
+            if tracing is None:
+                off, = _host_us(fn, [contextlib.nullcontext])
+                print(f"{label} trace [{tag} {call}]: host {off:.2f} us a "
+                      f"call, no tracing in this checkout", flush=True)
+                continue
+            off, traced_us = _host_us(fn, [contextlib.nullcontext, tracing])
+            with tracing() as tr:
+                fn()
+            spans = len(tr.spans)
+            kernels = sum(s.name.startswith("kernel.") for s in tr.spans)
+            est = ((spans - kernels) * span_ns + kernels * wrap_ns) / 1e3
+            print(f"{label} trace [{tag} {call}]: host {off:.2f} us a call "
+                  f"off, {traced_us:.2f} on; {spans} spans a call, "
+                  f"{kernels} of them kernels; off-path {est:.3f} us a "
+                  f"call", flush=True)
+    return True
+
+
 REPORTS = {"b9": b9_report, "b12": b12_report, "b11": b11_report,
-           "b13": b13_report, "dist": dist_report}
+           "b13": b13_report, "dist": dist_report, "trace": trace_report}
 
 
 def main(label: str, groups=()) -> int:

@@ -2049,6 +2049,53 @@ def test_profile_trace_sees_device_events_on_card(dev, tmp_path):
         assert "chunked_vec_kernel" in f.read()
 
 
+@pytest.mark.parametrize("fmt", ["block", "routed"])
+def test_kernel_spans_count_the_launches_on_card(dev, tmp_path, fmt):
+    """Under profile_trace the program's spans land in the Chrome trace,
+    one ``kernel.B<n>`` span a launch of the 13 wrappers, and the device
+    time is the union of the device's intervals."""
+    import importlib
+
+    from hispmv_tpu_torch.utils.trace import profile_trace
+
+    wrappers = [getattr(importlib.import_module("hispmv_tpu_torch.ops." + m),
+                        n) for m, names in (
+        ("spmv_chunked", ("spmv_chunked", "spmv_chunked_batched",
+                          "spmv_chunked_paneled", "spmv_chunked_tiled")),
+        ("spmv_block", ("spmv_block_stream", "spmv_block_batched")),
+        ("spmv_windowed", ("spmv_windowed", "spmv_windowed_batched")),
+        ("spmv_routed", ("spmv_routed_streams",
+                         "spmv_routed_stream_batched")),
+        ("permute", ("permute_stage",)),
+        ("spmv_gathered", ("s1_gather", "spmv_gathered_tiles")))
+        for n in names]
+    coo = MATRICES["blocked"]()
+    h = SpmvHandle(coo, format=fmt)
+    x = torch.ones(coo.num_cols, device=dev)
+    xb = torch.ones((16, coo.num_cols), device=dev)
+    h.run(x)
+    h.linear(xb)
+    before = [w.launches for w in wrappers]
+    with profile_trace(str(tmp_path), device=dev) as tr:
+        for _ in range(3):
+            h.run(x)
+            h.linear(xb)
+    launches = sum(w.launches for w in wrappers) - sum(before)
+    counts = tr.tracer.counts
+    assert counts["run"] == 3 and counts["linear"] == 3
+    kernels = sum(v for k, v in counts.items() if k.startswith("kernel."))
+    assert kernels == launches > 0
+    with open(tr.path) as f:
+        events = json.load(f)["traceEvents"]
+    names = {e.get("name") for e in events}
+    assert {"hispmv.run", "hispmv.linear", "hispmv.pad"} <= names
+    durs = [e.get("dur", 0) for e in events if e.get("ph") == "X"
+            and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    # the union is at most the sum, up to the rounding of ts + dur (1e-3
+    # us an interval: the trace's timestamps are large)
+    assert 0 < tr.device_us <= sum(durs) + 1e-3 * len(durs)
+
+
 def test_power_monitor_reads_finite_watts_on_card(dev):
     import time
 

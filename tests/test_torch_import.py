@@ -94,6 +94,8 @@ def test_public_names():
     ("hispmv_tpu_torch", ("ProcessMesh", "make_process_mesh",
                           "local_device")),
     ("hispmv_tpu_torch.dist.dryrun", ("main",)),
+    ("hispmv_tpu_torch.utils.trace", ("tracing", "span", "traced", "Span",
+                                      "recorded", "recording")),
 ])
 def test_package_exports(module, names):
     mod = importlib.import_module(module)
