@@ -92,10 +92,12 @@ space) and analytics (gathered), against the plain sum of its streams,
 beside its must-read bound (each tile's live boundary rows, by the plan's
 lt; its packed bound beside it) and a CSR product of exactly the nonzeros
 it covers (the matrix less its residual and its gathered side-plan, in
-the launch's coordinates).  B10 (the routed stream against a batch) is also timed at each V it is built for (vectors a
-thread: 4, 8), with x = 0 (no atomic issued) and beside the zeroing of
-its y, and each routed ``linear`` line carries the sum of B10's device
-time over the handle's streams beside cuSPARSE SpMM of the whole matrix.
+the launch's coordinates).  B10 (the routed stream against a batch,
+adding into a vector-minor y) is also timed with x = 0 (no atomic issued)
+and beside the zeroing of its y, and each routed ``linear`` line carries
+the sum of B10's device time over the handle's streams beside cuSPARSE
+SpMM of the whole matrix, and the runs B10 summed in the call beside its
+launches (``spmv_routed_stream_batched.runs``).
 B2 is also run directly on TSOPF_RS_b2383's arrays at B 64 and timed at V
 4 and 8 on each of its cases, and B8 (x vector-minor, as B2's and B10's)
 likewise on crystk03's window handle and the MLP's fc3 at B 64.  B1 and B7
@@ -117,6 +119,7 @@ no CUDA card or any check fails.  The last line of standard output is
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import os
 import shutil
@@ -201,7 +204,7 @@ from hispmv_tpu_torch.ops.spmv_routed import (
     spmv_routed_stream,
     spmv_routed_stream_batched,
     spmv_routed_stream_batched_plain,
-    routed_batched_v,
+    routed_batched_shape,
     spmv_routed_stream_plain,
     RoutedTable,
     routed_table,
@@ -405,8 +408,20 @@ KERNELS = {
 # point: B9 on one stream (a one-entry table, every layer) and on a whole
 # routed part
 CASE_KERNEL = {"spmv_routed_part": "spmv_routed"}
+
+
+def b10_call(packed, dims, xt, nyt, lt, runs, plain=False):
+    """B10 (or its plain version) on one stream into a fresh zero y
+    [nyt*1024, B]: the kernel adds into the y it is given."""
+    y = torch.zeros((nyt * 1024, xt.shape[2]), device=xt.device)
+    if plain:
+        return spmv_routed_stream_batched_plain(packed, dims, xt, y, lt)
+    return spmv_routed_stream_batched(packed, dims, xt, y, lt, runs)
+
+
 CALL = {"spmv_routed": spmv_routed_stream,
-        "spmv_routed_part": spmv_routed_streams}
+        "spmv_routed_part": spmv_routed_streams,
+        "spmv_routed_batched": b10_call}
 PLAIN = {"spmv_chunked": spmv_chunked_plain,
          "spmv_windowed": spmv_windowed_plain,
          "spmv_routed": spmv_routed_stream_plain,
@@ -414,7 +429,7 @@ PLAIN = {"spmv_chunked": spmv_chunked_plain,
          "permute_stage": permute_stage_plain,
          "spmv_chunked_batched": spmv_chunked_batched_plain,
          "spmv_windowed_batched": spmv_windowed_batched_plain,
-         "spmv_routed_batched": spmv_routed_stream_batched_plain,
+         "spmv_routed_batched": functools.partial(b10_call, plain=True),
          "spmv_chunked_paneled": spmv_chunked_paneled_plain,
          "spmv_block": spmv_block_stream_plain,
          "spmv_block_batched": spmv_block_batched_plain,
@@ -675,9 +690,15 @@ def linear_path(handles, fixtures, counts, failures):
         xd = torch.from_numpy(xb).cuda()
         bd = torch.from_numpy(bias).cuda()
         zero_launches()
+        runs0 = spmv_routed_stream_batched.runs
         y = call(xd, bd)
         torch.cuda.synchronize()
         once = launches()
+        once_runs = spmv_routed_stream_batched.runs - runs0
+        if h.format == "routed" and "spmv_routed_batched" in kernels \
+                and once_runs != sum(h._routed_meta["runs"]):
+            failures.append(f"{label}: B10 summed {once_runs} runs, the "
+                            f"pack counted {sum(h._routed_meta['runs'])}")
         want = (golden_a @ xb.astype(np.float64).T).T + bias
         got = y.cpu().numpy()
         atol = GOLDEN_ATOL * float(np.abs(want).max())
@@ -714,7 +735,8 @@ def linear_path(handles, fixtures, counts, failures):
                     f"{_ms(device_ms(lambda: call(xd, bd)))}")
         b10_ms = None
         if "spmv_routed_batched" in kernels:  # after `used`: not counted
-            b10 = [device_ms(lambda a=a: spmv_routed_stream_batched(*a))
+            lib += f"; B10 runs a call {once_runs}"
+            b10 = [device_ms(lambda a=a: b10_call(*a))
                    for a in routed_batched_args(h, xd)]
             b10_ms = None if None in b10 else sum(b10)
             lib += (f"; B10 device time summed over {len(b10)} streams "
@@ -2535,14 +2557,14 @@ def library_call(name, args):
         return routed_csr_call(routed_table([(packed, dims, None)], nyt), x2d)
     if name == "spmv_routed_part":
         return routed_csr_call(*args)
-    if name == "spmv_routed_batched":  # y vector-major [B*nyt*8, 128]
-        packed, dims, xt, nyt = args
-        table = routed_table([(packed, dims, None)], nyt)
+    if name == "spmv_routed_batched":  # y vector-minor [nyt*1024, B]
+        packed, dims, xt, nyt, lt, _ = args
+        table = routed_table([(packed, dims, lt)], nyt)
         rows, cols, v = routed_tile_coo(table, xt.shape[0])
         a = torch.sparse_coo_tensor(torch.stack([rows, cols]), v, (
             nyt * 1024, xt.shape[0] * 128)).coalesce().to_sparse_csr()
         xs = xt.reshape(-1, xt.shape[2])
-        return lambda: (a @ xs).T
+        return lambda: a @ xs
     if name == "spmv_gathered":
         vals3, word3, byt, xg, nyt, nch, tchunk = args
         rows, slots, v = gathered_tile_coo(vals3, word3, byt, nyt)
@@ -2732,15 +2754,17 @@ def batched_cases(handles, linear_x, accel):
     on the MLP's fc3 at batch 64."""
     cases = b2_cases(handles, linear_x) + b8_cases(handles, linear_x, accel)
     for label in ("trans5 routed", "ford2 routed"):
-        for i, (packed, dims, xt, nyt) in enumerate(
+        for i, args in enumerate(
                 routed_batched_args(handles[label][0], linear_x[label])):
+            packed, dims, xt, nyt, lt, runs = args
             B = xt.shape[2]
-            V = routed_batched_v(B, dims[0] * dims[1])
+            vw, lanes = routed_batched_shape(
+                B, xt, torch.empty((1, B), device=xt.device))
             cases.append(("spmv_routed_batched",
                           f"{label.split()[0]} stream {i}: {dims[0]} tiles, "
                           f"W {dims[2]}, l1 {dims[3]}, lmax {dims[4]}, B {B}, "
-                          f"V {V}, {dims[0] * dims[1] * -(-B // V)} CTAs",
-                          (packed, dims, xt, nyt)))
+                          f"{runs} runs, {vw} vectors a lane, {lanes} lanes "
+                          f"a run, {dims[0] * dims[1]} CTAs", args))
     return cases
 
 
@@ -2821,8 +2845,9 @@ def v_sweep(cases, name, tag, vpts=(4, 8)):
 
 def routed_batched_args(h, xd):
     """B10's arguments for each stream of a routed handle's ``linear`` on
-    the batch ``xd`` [B, C], as ``_run_routed_batched`` builds them: the
-    packed stream and x vector-minor, xt [nwin*8, 128, B]."""
+    the batch ``xd`` [B, C], as ``_run_routed_batched`` builds them, for
+    :func:`b10_call`: the packed stream, x vector-minor (xt [nwin*8, 128,
+    B]), the y tiles, the stream's lt and its run count."""
     meta = h._routed_meta
     xb = h._pad_x(xd)
     xt = xb.T.reshape(-1, 128, xb.shape[0]).contiguous()
@@ -2831,32 +2856,29 @@ def routed_batched_args(h, xd):
         p = f"s{i}_"
         packed = tuple(h._d[p + n] for n in stream_array_names(dims[4]))
         packed += (h._d[p + "base"], h._d[p + "byt"])
-        out.append((packed, dims, xt, meta["nyt"]))
+        out.append((packed, dims, xt, meta["nyt"], meta["lts"][i],
+                    meta["runs"][i]))
     return out
 
 
-def b10_v_sweep(handles, linear_x):
-    """B10's device time on each stream of the routed ``linear`` runs at
-    each V the kernel is built for; at the launcher's V with x = 0 (every
-    difference is zero, so no atomic is issued and the rest of the kernel
-    runs as before); and the zeroing of its y alone.  Launches here are
-    not counted."""
+def b10_zero_x(handles, linear_x):
+    """B10's device time on each stream of the routed ``linear`` runs, with
+    x = 0 (every sum is zero, so no atomic is issued and the rest of the
+    kernel runs as before), and the zeroing of its y alone.  Launches here
+    are not counted."""
     rows = []
     for label in ("trans5 routed", "ford2 routed"):
         args = routed_batched_args(handles[label][0], linear_x[label])
         row = {"run": label, "batch": args[0][2].shape[2]}
-        for vpt in (4, 8):
-            row[f"V{vpt}_ms"] = [device_ms(
-                lambda a=a: spmv_routed_stream_batched(*a, vpt=vpt))
-                for a in args]
+        row["ms"] = [device_ms(lambda a=a: b10_call(*a)) for a in args]
         x0 = torch.zeros_like(args[0][2])
-        row["x0_ms"] = [device_ms(lambda a=a: spmv_routed_stream_batched(
-            a[0], a[1], x0, a[3])) for a in args]
+        row["x0_ms"] = [device_ms(lambda a=a: b10_call(
+            a[0], a[1], x0, *a[3:])) for a in args]
         row["y_fill_ms"] = [device_ms(lambda a=a: torch.zeros(
-            (a[2].shape[2] * a[3] * 8, 128), device=a[2].device))
+            (a[3] * 1024, a[2].shape[2]), device=a[2].device))
             for a in args]
-        for key, what in (("V4_ms", "V 4"), ("V8_ms", "V 8"),
-                          ("x0_ms", "launcher's V, x = 0 (no atomics)"),
+        for key, what in (("ms", "as called (y fill included)"),
+                          ("x0_ms", "x = 0 (no atomics)"),
                           ("y_fill_ms", "zeroing y alone")):
             per = row[key]
             log(f"  B10 {label} B {row['batch']}, {what}: device ms per "
@@ -2985,7 +3007,7 @@ def main() -> int:
         extra += gathered_cases(gath)
     extra += routed_part_cases(handles, gath)
     results = kernel_checks(handles, linear_x, accel, extra, failures)
-    sweep = b10_v_sweep(handles, linear_x)
+    b10_x0 = b10_zero_x(handles, linear_x)
     b2_sweep = v_sweep(b2_cases(handles, linear_x), "spmv_chunked_batched",
                        "B2")
     b8_sweep = v_sweep(b8_cases(handles, linear_x, accel),
@@ -3016,7 +3038,7 @@ def main() -> int:
                     "tuned": tuned, "persistence": persisted,
                     "process_mesh": proc_runs, "profile_picks": picks,
                     "gathered_chain": chain, "permutation": perm_times,
-                    "b10_v_sweep": sweep, "b2_v_sweep": b2_sweep,
+                    "b10_zero_x": b10_x0, "b2_v_sweep": b2_sweep,
                     "b8_v_sweep": b8_sweep, "b1_v_sweep": b1_sweep,
                     "b7_v_sweep": b7_sweep}))
     log(f"total {time.perf_counter() - t_start:.1f} s")

@@ -76,6 +76,7 @@ from hispmv_tpu_torch.ops.spmv_routed import (
     spmv_routed_stream_batched,
     spmv_routed_streams,
     stream_array_names,
+    stream_runs,
 )
 from hispmv_tpu_torch.ops.spmv_windowed import (
     chunk_for_windowed,
@@ -189,35 +190,34 @@ def _run_routed_vectors(d, xb, R, meta, prefix):
 
 
 def _run_routed_batched(d, xb, R, meta):
-    """``linear`` of a routed plan in original space: each stream against
-    the whole batch in one B10 launch, the y tiles summed, then the COO
-    residual as one scatter and the ELLX residual through B2 at bh 1.
-    ``xb`` [B, C'] -> y [B, R]."""
-    B = xb.shape[0]
-    need = meta["nwin"] * WINDOW
-    if xb.shape[1] < need:
-        xb = torch.nn.functional.pad(xb, (0, need - xb.shape[1]))
-    with span("transpose"):
-        xt = xb.T.reshape(-1, LANES, B).contiguous()  # vector-minor, shared
-    y2d = None
+    """``linear`` of a routed plan in original space, vector-minor from x
+    to y: x padded and laid out as xt [nwin*8, 128, B] in one copy, every
+    stream added into one y [nyt*1024, B] by one B10 launch for the whole
+    batch, then the COO residual as one scatter of rows and the ELLX
+    residual through B2 at bh 1, both into that y.  ``xb`` [B, C] (any
+    strides; C up to nwin*1024) -> y [B, R], a transposed view."""
+    B, C = xb.shape
+    with span("transpose"):  # vector-minor and padded: one copy, shared
+        xt = xb.new_empty((meta["nwin"] * WINDOW, B))
+        xt[:C] = xb.T
+        xt[C:] = 0
+        xt = xt.view(-1, LANES, B)
+    y = xb.new_zeros((meta["nyt"] * WINDOW, B))
     for i, dims in enumerate(meta["streams"]):
-        ys = spmv_routed_stream_batched(_stream_packed(d, "", i, dims), dims,
-                                        xt, meta["nyt"])
-        y2d = ys if y2d is None else y2d + ys
-    if y2d is None:
-        y = xb.new_zeros((B, R))
-    else:
-        y = y2d.reshape(B, -1)[:, :R]
+        spmv_routed_stream_batched(_stream_packed(d, "", i, dims), dims, xt,
+                                   y, meta["lts"][i], meta["runs"][i])
+    y = y[:R]
     with span("residual"):
         if meta["res_coo"]:
-            contrib = d["r_vals"] * xb.index_select(1, d["r_cols"])
-            y = y.index_add(1, d["r_rows"], contrib)
+            contrib = d["r_vals"][:, None] * xt.view(-1, B).index_select(
+                0, d["r_cols"])
+            y.index_add_(0, d["r_rows"], contrib)
         if meta["res"] is not None:
             yr = ellx_matvec_batched(_residual_dict(d, ""), xt,
                                      meta["res"].num_row_blocks, 1,
                                      meta["rchunk"], meta["res_ov"])
-            y = y + yr.reshape(-1, B)[:R].T
-    return y
+            y += yr.reshape(-1, B)[:R]
+    return y.T
 
 
 def _run_routed_banded(d, x, R, meta, prefix):
@@ -599,7 +599,8 @@ class SpmvHandle:
         is padded to ``num_windows*1024`` and y to ``num_ytiles*1024``,
         not to powers of two.  The meta's ``table`` (None without tiles)
         holds B9's stream table over these arrays and each stream's ``lt``,
-        uploaded outside ``d`` (which keeps the JAX handle's keys)."""
+        uploaded outside ``d`` (which keeps the JAX handle's keys), and
+        ``lts`` the same ``lt`` arrays in stream order, for B10."""
         streams, parts = [], []
         for i, s in enumerate(plan.streams):
             ((packed, dims),) = pack_stream(s, tchunk=1, bucket=False)
@@ -613,6 +614,8 @@ class SpmvHandle:
             "streams": streams,
             "table": (routed_table(parts, plan.num_ytiles) if parts
                       else None),
+            "lts": [lt for _, _, lt in parts],
+            "runs": None,
             "nwin": plan.num_windows,
             "nyt": plan.num_ytiles,
             "res": None,
@@ -733,8 +736,15 @@ class SpmvHandle:
             self._routed_meta = self._routed_pack_banded_into(d, plan)
             parts = [c["meta"] for c in self._routed_meta["cells"]]
         else:
-            self._routed_meta = self._routed_pack_into(d, plan, plan.shape)
-            parts = [self._routed_meta]
+            meta = self._routed_pack_into(d, plan, plan.shape)
+            if meta["xperm"] is None and meta["gathered"] is None:
+                # linear runs B10: each stream's runs a call, for its count
+                meta["runs"] = [
+                    stream_runs(_stream_packed(d, "", i, dims), dims,
+                                meta["nyt"], meta["lts"][i])
+                    for i, dims in enumerate(meta["streams"])]
+            self._routed_meta = meta
+            parts = [meta]
         self._set_device_dict(d, plan.fill)
         self.device_bytes += sum(m["table"].lt_nbytes for m in parts
                                  if m["table"] is not None)
@@ -939,8 +949,17 @@ class SpmvHandle:
                                    device=self.device)
             return y + beta * y_in
 
+    @property
+    def _routed_batched(self) -> bool:
+        """``linear`` runs B10: a routed plan in original space, with no
+        cell grid and no gathered side-plan (the plans whose streams the
+        pack counted runs of)."""
+        return (self.format == "routed"
+                and self._routed_meta.get("runs") is not None)
+
     def _matmat(self, xb: torch.Tensor) -> torch.Tensor:
-        """Unscaled x @ A.T [B, R] from the padded batch ``xb`` [B, Cp]."""
+        """Unscaled x @ A.T [B, R] from the padded batch ``xb`` [B, Cp]
+        (B10's path pads itself: ``xb`` [B, C], any strides)."""
         R = self.shape[0]
         B = xb.shape[0]
         if self.format == "dense":
@@ -951,15 +970,12 @@ class SpmvHandle:
             return spmv_ref(d["vals"], d["cols"], d["round_ids"],
                             d["seg_rows"], plan.num_rounds, R, xb)
         if self.format == "routed":
-            meta = self._routed_meta
-            if (meta.get("cells") is not None or meta["xperm"] is not None
-                    or meta["gathered"] is not None):
-                # banded grids slice x per cell, rank space permutes each
-                # vector (B11) and a gathered side-plan gathers each
-                # vector (B12, B11): one vector at a time, as the JAX
-                # package does
-                return _run_routed_vectors(d, xb, R, meta, "")
-            return _run_routed_batched(d, xb, R, meta)
+            if self._routed_batched:
+                return _run_routed_batched(d, xb, R, self._routed_meta)
+            # banded grids slice x per cell, rank space permutes each
+            # vector (B11) and a gathered side-plan gathers each vector
+            # (B12, B11): one vector at a time, as the JAX package does
+            return _run_routed_vectors(d, xb, R, self._routed_meta, "")
         if self.format == "split":
             return self._split_matmat(xb)
         if self.format == "block":
@@ -988,7 +1004,8 @@ class SpmvHandle:
         ``_block_uses_b2``); ellx as the grouped base product plus
         B2 overflow; window through B8; stream as the batched reference;
         routed in original space through B10 (one launch per stream for
-        the whole batch), and vector by vector (B9, B11) in rank space and
+        the whole batch, all into one vector-minor y, returned as its
+        transposed view), and vector by vector (B9, B11) in rank space and
         on the banded grid; split as its hub panels plus its body (B2 for
         an ELLX body, B9 vector by vector for a routed one)."""
         with span("pad"):
@@ -997,7 +1014,11 @@ class SpmvHandle:
             squeeze = xb.ndim == 1
             if squeeze:
                 xb = xb[None, :]
-            xb = self._pad_x(xb).contiguous()
+            if self._routed_batched:
+                if xb.shape[-1] != self.shape[1]:  # _pad_x's check
+                    self._pad_x(xb)
+            else:
+                xb = self._pad_x(xb).contiguous()
         y = self._matmat(xb)
         if bias is not None:
             with span("epilogue"):

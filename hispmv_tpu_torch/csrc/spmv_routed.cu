@@ -11,8 +11,8 @@
 //   or, when lmax == 1, the merged word bm [Tp, 8, 128] in place of bl
 //   (bs unused), base [Tp] i32, byt [Tp, lmax] i32,
 //   x2d [x_rows, 128] f32, y [y_tiles*8, 128] f32 that the kernel adds
-//   into (B10: xt and y as below, y zeroed by the caller).
-// B9 also takes the plan's lt [Tp] i32 (RoutedStream.lt): the boundary
+//   into (B10: xt and y as below).
+// Both also take the plan's lt [Tp] i32 (RoutedStream.lt): the boundary
 // layers tile t uses; layers k >= lt[t] are padding (zero bl / bs words,
 // byt 0) and add P[0][0] - P[0][0] = 0, so skipping them changes nothing.
 //
@@ -24,8 +24,7 @@
 //      3, xg = x2d[(base[t] + vid)*8 + sub][L] (0 when vid >= W, the layer
 //      is >= l1, or the row lies past x).
 //   2. p = vals * xg; P = inclusive prefix over the 1024 slots in flat
-//      order s*128 + j (B9 in fp64, B10 in fp32).  The reserved lane-0
-//      slots make P[0][0] == 0.
+//      order s*128 + j.  The reserved lane-0 slots make P[0][0] == 0.
 //   3. For each boundary layer k: raw = bl[t, k/2] >> 14(k%2) and
 //      q = bs[t, k/4] >> 8(k%4) (both from bm when lmax == 1); a = raw &
 //      127, b = (raw >> 7) & 127; y[byt[t,k]][s][j] += P[q[s,a] & 7][a] -
@@ -79,44 +78,52 @@
 // their loads, x gather and prefix (ablations in PERF.md).
 //
 // B10 runs the same tile against B vectors.  x comes vector-minor, as
-// xt [x_rows, 128, B] (B2's convention): the B values of one (row, lane)
-// are contiguous.  y is [B*y_tiles*8, 128]: vector b adds into y tile
-// b*y_tiles + byt.
+// xt [x_rows, 128, B] (B2's convention), and so does y, [y_tiles*1024, B]:
+// the B values of one x row and lane, or of one y row, are contiguous.
+// Every launch adds into the y it is given, so the streams of a routed
+// plan add into one y.
 //
-// B10 design.  The grid is tiles x vector groups: CTA (t, g) runs tile t
-// against the V vectors b0 = g*V .. b0+V-1 (the last group masked when V
-// does not divide B), V a template parameter.  A CTA has 256 threads of
-// four slots each; thread i holds slots c*256 + i (c < 4), so each slot
-// word load and each vector's y atomics stay coalesced across a warp.
-// - Gather: a thread forms its four gather coordinates once and reads the
-//   V values of xt[row, L, b0:b0+V], contiguous: one 32-byte sector
-//   carries 8 vectors, where a vector-major x spread one warp's 32 loads
-//   over 18-24 sectors.  16-byte loads when B % 4 == 0 (and xt is
-//   16-byte aligned), else 4-byte loads, a template flag.
-// - Prefix: one block scan for all V: 4V values a shuffle step, the 32
-//   (slot quarter, warp) totals of each vector scanned by one warp, two
-//   barriers.  The prefix goes to shared memory as s_pf[slot][V] (4V KB,
-//   dynamic), read with 16-byte loads.
-// - Boundary layers: each group of four layers stages its bs word into a
-//   double-buffered s_q, one barrier a group; the tile's byt row is in
-//   shared memory, and the bl and bs words of the next group are loaded
-//   into registers while the current group runs.  A cell whose end and
-//   start name the same prefix entry (every padded layer) adds nothing and
-//   is skipped; otherwise each vector's nonzero difference is one atomic.
-// Registers: 4V products a thread; __launch_bounds__(256, 2) caps a thread
-// at 128 registers, so at least two CTAs share an SM (V 8 takes 76-80, so
-// three do).  V is chosen in the launcher (see pick_v): 8, or 4 at B <= 4
-// and when V 8 would leave SMs without a CTA.  V 16 (nearly all of its
-// 128 registers) was slower than V 8 on every stream measured.
-// Bound: the stream is read once for each vector group (ceil(B/V) times,
-// from L2 after the first), x moves 32 bytes a slot for 8 vectors, and
-// every layer costs one atomic per vector and nonzero difference.  The
-// byte bound is set by y (B*y_tiles*4 KB a launch, zeroed by the wrapper);
-// on an H100 SXM the kernel runs 1.4-5x above it at B 64 (chip_smoke.py).
-// Issuing no atomic (x = 0) saved at most a fifth there, and a scan
-// through shared memory (fewer shuffles, more registers), 512-thread CTAs,
-// a 64-register cap and a grid with the vector group fastest measured no
-// faster, so no single one of atomics, shuffles or occupancy holds it.
+// B10 design.  One CTA of 256 threads a tile, for the whole batch: the
+// tile's words are read once a call.  A boundary layer's difference
+// P[ea] - P[eb] is the sum of the products of the slots in (eb, ea] (its
+// *run*, one y row), so no prefix is formed: each run is summed directly.
+// - Prologue: as B9's, thread 0 stages the live bl/bs rows (k < lt) by
+//   cp.async.bulk on an mbarrier; every thread loads four slot, gsub and
+//   vals words, and forms its four slots' x offsets (row*128 + lane, or -1
+//   where the slot gathers nothing or holds the value 0, padding) into
+//   shared memory.
+// - Run list: each thread decodes its four cells in every live layer and
+//   counts the runs with ea != eb whose y tile is in range, the layers of
+//   one y tile in a row merged where two pairs chain through a shared entry
+//   (the planner spells a run across two layers so, +P[a] - P[0] - P[b] +
+//   P[0]: summed apart, both halves would read up to a tile of slots), cut
+//   into pieces of at most 32 slots; a block scan gives each thread its
+//   place, and the
+//   pieces (first slot, length, sign, y row) are listed in shared memory,
+//   over the slot words the gather no longer needs (1,024 a round; a tile
+//   with more takes more rounds).
+// - Sums: a group of G lanes takes two pieces at a time (their loads in
+//   flight together; one or four measured the same on pokec), each lane VW
+//   contiguous vectors (VW 4, 2 or 1: the widest that divides B and that xt
+//   and y are aligned to; G the power of two, at most 32, that covers B in
+//   one pass where it can: at B 64, VW 4 and half a warp a piece).  For each
+//   slot the group reads the slot's B x values, contiguous (256 B at B 64,
+//   two full lines), and sums value * x in fp32 registers; then it adds
+//   the B sums into the y row with VW-wide atomics (one row, 256 B at
+//   B 64); a lane skips its add where its VW sums are all zero.  One
+//   algorithm at every B: G and VW follow the batch and the pointers.
+// Bound: the stream's live words are read once a call, x moves B*4 bytes a
+// nonzero slot (mostly from L2: a column strip's windows stay resident),
+// and y moves B*4 bytes twice for each run (the atomics' read and write).
+// A pokec-sized stream adds into ~31% of y's rows a column strip, so y is
+// the largest term; vector-minor y moves only the rows a run adds into,
+// where a vector-major y (the design before) touched nearly every line of
+// each vector plane for every strip.
+// Rounding: a run sums its own products, one or a few in a graph's rows,
+// in fp32; there is no difference of two prefixes over 1,024 slots.  Many
+// tiles add into one y row, so the order of the additions varies from run
+// to run: results agree with the plain version to fp32 rounding, not bit
+// for bit.
 
 #include <cuda_runtime.h>
 
@@ -340,246 +347,285 @@ __global__ void __launch_bounds__(kTile, 2)
 // --- B10 ------------------------------------------------------------------
 
 constexpr int kThreads = 256;             // threads of a B10 CTA
-constexpr int kSlots = kTile / kThreads;  // slots a thread: c*256 + i
+constexpr int kSlots = kTile / kThreads;  // cells a thread decodes: c*256 + i
 constexpr int kWarps = kThreads / 32;
+constexpr int kPiece = 32;  // slots of a run one group sums before its add
+constexpr int kRuns = 1024;  // run pieces listed a round (the slot words' room)
+constexpr int kInFlight = 2;  // pieces a group sums at once, loads together
 
-// The boundary words of one group of four layers, for a thread's slots: the
-// group's bs word and the bl words of its two layer pairs (at lmax 1, the
-// merged bm word in l[0]).
-struct GroupWords {
-  unsigned q[kSlots];
-  unsigned l[2][kSlots];
-};
+// The run of cell `cell` in live layer k (< lt) of the staged boundary rows:
+// its end and start prefix entries ea, eb (flat slots sub*128 + lane).  The
+// run adds P[ea] - P[eb], the products of the slots in (eb, ea].
+__device__ __forceinline__ void run_ends(int lmax, int lt, int k, int cell,
+                                         const unsigned* s_rows, int* ea,
+                                         int* eb) {
+  const int s = cell >> 7;
+  unsigned raw;
+  int sub_a, sub_b;
+  if (lmax == 1) {
+    raw = s_rows[cell];
+  } else {
+    raw = s_rows[(k >> 1) * kTile + cell] >> (14 * (k & 1));
+  }
+  const int a = raw & 127;
+  const int b = (raw >> 7) & 127;
+  if (lmax == 1) {
+    sub_a = (s_rows[(s << 7) + a] >> 14) & 7;
+    sub_b = (s_rows[(s << 7) + b] >> 17) & 7;
+  } else {
+    const unsigned* q =
+        s_rows + (pair_rows(lmax, lt) + (k >> 2)) * kTile + (s << 7);
+    const int sh = 8 * (k & 3);
+    sub_a = (q[a] >> sh) & 7;
+    sub_b = (q[b] >> (sh + 4)) & 7;
+  }
+  *ea = (sub_a << 7) + a;
+  *eb = (sub_b << 7) + b;
+}
 
-__device__ __forceinline__ void load_group(GroupWords& w, size_t t, int g,
-                                           const int* __restrict__ bl,
-                                           const int* __restrict__ bs,
-                                           int lmax) {
-  const int npair = (lmax + 1) / 2;
-  const int nquad = (lmax + 3) / 4;
+// Sends out the run +P[a] - P[b] of cell `cell` into y tile yt as pieces
+// of at most kPiece slots; with list != null, the pieces whose index
+// (idx + *n on) falls in [lo, lo + kRuns) are written to list[index - lo]:
+// x = first slot | count << 10 | sign << 16, y = y row (yt*1024 + cell).
+__device__ __forceinline__ void emit_run(int a, int b, int yt, int cell,
+                                         int idx, int lo, int2* list,
+                                         int* n) {
+  const int neg = a < b;
+  const int first = (neg ? a : b) + 1;
+  const int len = neg ? b - a : a - b;
+  for (int p = 0; p < len; p += kPiece, ++*n) {
+    const int e = idx + *n - lo;
+    if (list != nullptr && e >= 0 && e < kRuns) {
+      list[e] = make_int2(
+          (first + p) | (min(kPiece, len - p) << 10) | (neg << 16),
+          yt * kTile + cell);
+    }
+  }
+}
+
+// The run pieces of a thread's four cells in the live layers (see
+// emit_run; returns their count).  A layer whose y tile is in range gives
+// each cell the pair (ea, eb), +P[ea] - P[eb]; the layers of one y tile in
+// a row are merged cell by cell, as ops/spmv_routed.py::decode_runs does: a
+// pair that starts where the pending one ends, or ends where it starts,
+// joins it (the planner spells one run across two layers through a shared
+// entry); any other pair sends the pending one out as it is.
+__device__ __forceinline__ int list_pieces(int lmax, int lt,
+                                           const unsigned* s_rows,
+                                           const int* s_byt, int y_tiles,
+                                           int idx, int lo, int2* list) {
+  int n = 0;
+  int pa[kSlots], pb[kSlots];  // the pending pair of each cell, or -1
+#pragma unroll
+  for (int c = 0; c < kSlots; ++c) pa[c] = pb[c] = -1;
+  int cur = -1;
+  for (int k = 0; k < lt; ++k) {
+    const int yt = s_byt[k];
+    if (yt < 0 || yt >= y_tiles) continue;
+#pragma unroll
+    for (int c = 0; c < kSlots; ++c) {
+      const int cell = c * kThreads + threadIdx.x;
+      if (yt != cur && pa[c] >= 0) {  // a new y tile: the pending run goes
+        emit_run(pa[c], pb[c], cur, cell, idx, lo, list, &n);
+        pa[c] = pb[c] = -1;
+      }
+      int ea, eb;
+      run_ends(lmax, lt, k, cell, s_rows, &ea, &eb);
+      if (ea == eb) continue;  // the same prefix entry: no slot
+      if (pa[c] >= 0 && pb[c] == ea) {
+        pb[c] = eb;
+      } else if (pa[c] >= 0 && pa[c] == eb) {
+        pa[c] = ea;
+      } else {
+        if (pa[c] >= 0) emit_run(pa[c], pb[c], yt, cell, idx, lo, list, &n);
+        pa[c] = ea;
+        pb[c] = eb;
+        continue;
+      }
+      if (pa[c] == pb[c]) pa[c] = pb[c] = -1;  // joined into nothing
+    }
+    cur = yt;
+  }
 #pragma unroll
   for (int c = 0; c < kSlots; ++c) {
-    const int cell = c * kThreads + threadIdx.x;
-    w.q[c] = static_cast<unsigned>(bs[(t * nquad + g) * kTile + cell]);
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int pair = 2 * g + h;
-      w.l[h][c] = pair < npair ? static_cast<unsigned>(
-                                     bl[(t * npair + pair) * kTile + cell])
-                               : 0u;
+    if (pa[c] >= 0) {
+      emit_run(pa[c], pb[c], cur, c * kThreads + threadIdx.x, idx, lo, list,
+               &n);
     }
   }
+  return n;
 }
 
-// The V values xt[row, L, b0:b0+V] (zeros past the batch or for row -1).
-template <int V, bool kVec4>
-__device__ __forceinline__ void load_x(const float* __restrict__ xt,
-                                       long long row, int L, int batch,
-                                       int b0, float (&xv)[V]) {
-#pragma unroll
-  for (int v = 0; v < V; ++v) xv[v] = 0.f;
-  if (row < 0) return;
-  const float* src = xt + (row * kLanes + L) * batch + b0;
-  if constexpr (kVec4) {
-#pragma unroll
-    for (int u = 0; u < V / 4; ++u) {
-      if (b0 + 4 * u < batch) {  // batch % 4 == 0: all four or none
-        const float4 f = __ldg(reinterpret_cast<const float4*>(src) + u);
-        xv[4 * u] = f.x;
-        xv[4 * u + 1] = f.y;
-        xv[4 * u + 2] = f.z;
-        xv[4 * u + 3] = f.w;
-      }
-    }
-  } else {
-#pragma unroll
-    for (int v = 0; v < V; ++v) {
-      if (b0 + v < batch) xv[v] = __ldg(src + v);
-    }
-  }
-}
-
-// Inclusive prefix of each vector's products over the tile's flat slot
-// order, into s_pf[slot*V + v].  Thread i holds slots c*256 + i, so the
-// order of the 32 (quarter c, warp) runs is c*8 + warp: a shuffle scan
-// inside each warp, then one warp scans the 32 run totals of each vector.
-template <int V>
-__device__ __forceinline__ void batched_prefix(float (&p)[kSlots][V],
-                                               float* s_tot, float* s_pf) {
-  const int i = threadIdx.x;
-  const int lane = i & 31;
-  const int warp = i >> 5;
+// Exclusive prefix of n over the CTA's threads; *total gets the sum.
+__device__ __forceinline__ int block_offset(int n, int* s_wsum, int* total) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  int v = n;
 #pragma unroll
   for (int d = 1; d < 32; d <<= 1) {
-#pragma unroll
-    for (int c = 0; c < kSlots; ++c) {
-#pragma unroll
-      for (int v = 0; v < V; ++v) {
-        const float n = __shfl_up_sync(0xffffffffu, p[c][v], d);
-        if (lane >= d) p[c][v] += n;
-      }
-    }
+    const int u = __shfl_up_sync(0xffffffffu, v, d);
+    if (lane >= d) v += u;
   }
-  if (lane == 31) {
-#pragma unroll
-    for (int c = 0; c < kSlots; ++c) {
-#pragma unroll
-      for (int v = 0; v < V; ++v) s_tot[(c * kWarps + warp) * V + v] = p[c][v];
-    }
-  }
+  if (lane == 31) s_wsum[warp] = v;
   __syncthreads();
-  if (warp == 0) {  // lane r holds run r's totals
-    float w[V];
+  int before = 0, sum = 0;
 #pragma unroll
-    for (int v = 0; v < V; ++v) w[v] = s_tot[lane * V + v];
-#pragma unroll
-    for (int d = 1; d < 32; d <<= 1) {
-#pragma unroll
-      for (int v = 0; v < V; ++v) {
-        const float n = __shfl_up_sync(0xffffffffu, w[v], d);
-        if (lane >= d) w[v] += n;
-      }
-    }
-#pragma unroll
-    for (int v = 0; v < V; ++v) s_tot[lane * V + v] = w[v];
+  for (int w = 0; w < kWarps; ++w) {
+    before += w < warp ? s_wsum[w] : 0;
+    sum += s_wsum[w];
   }
-  __syncthreads();
-#pragma unroll
-  for (int c = 0; c < kSlots; ++c) {
-    const int r = c * kWarps + warp;
-    float4* dst = reinterpret_cast<float4*>(s_pf + (c * kThreads + i) * V);
-#pragma unroll
-    for (int u = 0; u < V / 4; ++u) {
-      float e[4];
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        e[k] = p[c][4 * u + k] + (r > 0 ? s_tot[(r - 1) * V + 4 * u + k] : 0.f);
-      }
-      dst[u] = make_float4(e[0], e[1], e[2], e[3]);
-    }
+  *total = sum;
+  return before + v - n;
+}
+
+// VW contiguous floats of xt or y: one load or one vector atomic (sm_90
+// adds float2 and float4 atomically since CUDA 12.1).
+template <int VW>
+__device__ __forceinline__ void load_vec(const float* __restrict__ p,
+                                         float (&v)[VW]) {
+  if constexpr (VW == 4) {
+    const float4 f = __ldg(reinterpret_cast<const float4*>(p));
+    v[0] = f.x;
+    v[1] = f.y;
+    v[2] = f.z;
+    v[3] = f.w;
+  } else if constexpr (VW == 2) {
+    const float2 f = __ldg(reinterpret_cast<const float2*>(p));
+    v[0] = f.x;
+    v[1] = f.y;
+  } else {
+    v[0] = __ldg(p);
   }
 }
 
-// B10: CTA (t, g) runs tile t against vectors g*V .. g*V+V-1; see the file
-// comment.  256 threads, four slots and V vectors a thread.
-template <int V, bool kVec4>
-__global__ void __launch_bounds__(kThreads, 2)
-    routed_tile_batched_kernel(const float* __restrict__ vals,
-                               const int* __restrict__ slot,
-                               const int* __restrict__ gsub,
-                               const int* __restrict__ bl,
-                               const int* __restrict__ bs,
-                               const int* __restrict__ base,
-                               const int* __restrict__ byt,
+template <int VW>
+__device__ __forceinline__ void add_vec(float* p, const float (&v)[VW]) {
+#if __CUDACC_VER_MAJOR__ > 12 || \
+    (__CUDACC_VER_MAJOR__ == 12 && __CUDACC_VER_MINOR__ >= 1)
+  if constexpr (VW == 4) {
+    atomicAdd(reinterpret_cast<float4*>(p), make_float4(v[0], v[1], v[2], v[3]));
+  } else if constexpr (VW == 2) {
+    atomicAdd(reinterpret_cast<float2*>(p), make_float2(v[0], v[1]));
+  } else {
+    atomicAdd(p, v[0]);
+  }
+#else
+#pragma unroll
+  for (int u = 0; u < VW; ++u) atomicAdd(p + u, v[u]);
+#endif
+}
+
+// B10: CTA t runs tile t of the stream against the whole batch; see the
+// file comment.  256 threads; a group of G lanes (G a power of two, VW
+// vectors a lane) takes kInFlight run pieces at a time.
+template <int VW>
+__global__ void __launch_bounds__(kThreads, 4)
+    routed_runs_batched_kernel(const __grid_constant__ RoutedStream st,
                                const float* __restrict__ xt,
-                               long long x_rows, int batch,
-                               float* __restrict__ y, int y_tiles, int W,
-                               int l1, int lmax) {
-  static_assert(V % 4 == 0, "V is a multiple of 4");
-  extern __shared__ float4 s_pf4[];  // [kTile][V/4]: the prefix
-  float* s_pf = reinterpret_cast<float*>(s_pf4);
-  __shared__ unsigned s_slot[kTile];
-  __shared__ unsigned s_gsub[kTile];
-  __shared__ unsigned s_q[2][kTile];  // boundary subs, a group of 4 layers
-  __shared__ float s_tot[kSlots * kWarps * V];
-  __shared__ int s_byt[32];
+                               long long x_rows, int batch, int group,
+                               float* __restrict__ y, int y_tiles) {
+  extern __shared__ __align__(128) unsigned s_rows[];  // staged bl/bm, bs
+  // the slot and gsub words, then (once the gather has read them) the
+  // list of run pieces
+  __shared__ __align__(16) unsigned s_words[2 * kTile];
+  __shared__ int s_xo[kTile];  // row*128 + lane of a slot's x, or -1
+  __shared__ float s_v[kTile];
+  __shared__ int s_byt[kLmax];
+  __shared__ int s_wsum[kWarps];
+  __shared__ int s_lt;
+  __shared__ __align__(8) unsigned long long s_bar;
+  unsigned* s_slot = s_words;
+  unsigned* s_gsub = s_words + kTile;
+  int2* s_list = reinterpret_cast<int2*>(s_words);
 
   const int i = threadIdx.x;
   const size_t t = blockIdx.x;
-  const int b0 = blockIdx.y * V;
-  const size_t off = t * kTile;
-  float v[kSlots];
-  GroupWords w;
+  const unsigned bar = smem_addr(&s_bar);
+  if (i == 0) s_lt = stage_rows(st, t, s_rows, bar);
 #pragma unroll
   for (int c = 0; c < kSlots; ++c) {
     const int cell = c * kThreads + i;
-    s_slot[cell] = static_cast<unsigned>(slot[off + cell]);
-    s_gsub[cell] = static_cast<unsigned>(gsub[off + cell]);
-    v[c] = vals[off + cell];
+    const size_t off = t * kTile + cell;
+    s_slot[cell] = static_cast<unsigned>(st.slot[off]);
+    s_gsub[cell] = static_cast<unsigned>(st.gsub[off]);
+    s_v[cell] = st.vals[off];
   }
-  if (lmax == 1) {
-#pragma unroll
-    for (int c = 0; c < kSlots; ++c) {
-      const int cell = c * kThreads + i;
-      w.l[0][c] = static_cast<unsigned>(bl[off + cell]);
-      s_q[0][cell] = w.l[0][c];
-    }
-  } else {
-    load_group(w, t, 0, bl, bs, lmax);
-  }
-  if (i < lmax) s_byt[i] = byt[t * lmax + i];
+  if (i < st.lmax) s_byt[i] = st.byt[t * st.lmax + i];
   __syncthreads();
+  const int lt = s_lt;
+  if (lt == 0) return;  // a padding tile: no layer adds anything
 
-  // 1. x gather: V contiguous values of each slot's (row, lane), times vals
-  float p[kSlots][V];
-  const int tb = base[t];
+  // 1. where each slot gathers from
+  const int tb = st.base[t];
 #pragma unroll
   for (int c = 0; c < kSlots; ++c) {
+    const int cell = c * kThreads + i;
     int L;
     const long long row =
-        gather_row(c * kThreads + i, s_slot, s_gsub, tb, W, l1, x_rows, &L);
-    load_x<V, kVec4>(xt, row, L, batch, b0, p[c]);
-#pragma unroll
-    for (int u = 0; u < V; ++u) p[c][u] *= v[c];
+        gather_row(cell, s_slot, s_gsub, tb, st.W, st.l1, x_rows, &L);
+    s_xo[cell] = row >= 0 && s_v[cell] != 0.f
+                     ? static_cast<int>(row * kLanes + L)
+                     : -1;
   }
-  // 2. the prefix of every vector, one scan
-  batched_prefix<V>(p, s_tot, s_pf);
-
-  // 3. boundary layers, a group of four at a time
-  const int nquad = (lmax + 3) / 4;
-  const size_t ystride = static_cast<size_t>(y_tiles) * kTile;
-  float* yb = y + static_cast<size_t>(b0) * ystride;
-  for (int g = 0; g < nquad; ++g) {
-    unsigned* q = s_q[g & 1];
-    if (lmax > 1) {
-#pragma unroll
-      for (int c = 0; c < kSlots; ++c) q[c * kThreads + i] = w.q[c];
-    }
-    // q complete (and s_pf, at g == 0); every read of this buffer, two
-    // groups back, was done before the previous group's barrier
+  // 2. the run pieces: counted, then listed a round of kRuns at a time
+  wait_rows(bar);
+  const int mine =
+      list_pieces(st.lmax, lt, s_rows, s_byt, y_tiles, 0, 0, nullptr);
+  int total;
+  const int idx = block_offset(mine, s_wsum, &total);  // syncs: gather done
+  const int g = i / group;
+  const int li = i % group;
+  const int ngroups = kThreads / group;
+  for (int lo = 0; lo < total; lo += kRuns) {
+    if (lo > 0) __syncthreads();  // the last round's list read
+    list_pieces(st.lmax, lt, s_rows, s_byt, y_tiles, idx, lo, s_list);
     __syncthreads();
-    const GroupWords cur = w;
-    if (g + 1 < nquad) load_group(w, t, g + 1, bl, bs, lmax);
+    // 3. each group sums kInFlight pieces at a time over the batch, VW
+    // vectors a lane: piece q of a step is entry e + q*ngroups
+    const int n = min(kRuns, total - lo);
+    for (int e = g; e < n; e += kInFlight * ngroups) {
+      int first[kInFlight], len[kInFlight], row[kInFlight];
+      bool neg[kInFlight];
+      int most = 0;
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      const int k = 4 * g + kk;
-      if (k >= lmax) break;
-      const int yt = s_byt[k];
-      if (yt < 0 || yt >= y_tiles) continue;
+      for (int q = 0; q < kInFlight; ++q) {
+        const int eq = e + q * ngroups;
+        const int2 w = eq < n ? s_list[eq] : make_int2(0, 0);
+        first[q] = w.x & 1023;
+        len[q] = (w.x >> 10) & 63;
+        neg[q] = (w.x >> 16) & 1;
+        row[q] = w.y;
+        most = max(most, len[q]);
+      }
+      for (int v0 = li * VW; v0 < batch; v0 += group * VW) {
+        float acc[kInFlight][VW];
 #pragma unroll
-      for (int c = 0; c < kSlots; ++c) {
-        const int cell = c * kThreads + i;
-        const int s = cell >> 7;
-        const unsigned raw =
-            lmax == 1 ? cur.l[0][c] : cur.l[kk >> 1][c] >> (14 * (kk & 1));
-        const int a = raw & 127;
-        const int b = (raw >> 7) & 127;
-        const unsigned qa = q[(s << 7) + a];
-        const unsigned qb = q[(s << 7) + b];
-        int sub_a, sub_b;
-        if (lmax == 1) {
-          sub_a = (qa >> 14) & 7;
-          sub_b = (qb >> 17) & 7;
-        } else {
-          sub_a = (qa >> (8 * kk)) & 7;
-          sub_b = (qb >> (8 * kk + 4)) & 7;
+        for (int q = 0; q < kInFlight; ++q) {
+#pragma unroll
+          for (int u = 0; u < VW; ++u) acc[q][u] = 0.f;
         }
-        const int ea = (sub_a << 7) + a;
-        const int eb = (sub_b << 7) + b;
-        if (ea == eb) continue;  // the same prefix entry: adds nothing
-        float* yc = yb + static_cast<size_t>(yt) * kTile + cell;
+        for (int m = 0; m < most; ++m) {
 #pragma unroll
-        for (int u = 0; u < V / 4; ++u) {
-          const float4 fa = s_pf4[ea * (V / 4) + u];
-          const float4 fb = s_pf4[eb * (V / 4) + u];
-          const float d[4] = {fa.x - fb.x, fa.y - fb.y, fa.z - fb.z,
-                              fa.w - fb.w};
+          for (int q = 0; q < kInFlight; ++q) {
+            const int xo = m < len[q] ? s_xo[first[q] + m] : -1;
+            if (xo < 0) continue;
+            const float v = s_v[first[q] + m];
+            float xv[VW];
+            load_vec<VW>(xt + static_cast<size_t>(xo) * batch + v0, xv);
 #pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int vec = 4 * u + e;
-            if (b0 + vec < batch && d[e] != 0.f) {
-              atomicAdd(yc + vec * ystride, d[e]);
-            }
+            for (int u = 0; u < VW; ++u) acc[q][u] = fmaf(v, xv[u], acc[q][u]);
+          }
+        }
+#pragma unroll
+        for (int q = 0; q < kInFlight; ++q) {
+          bool any = false;
+#pragma unroll
+          for (int u = 0; u < VW; ++u) {
+            if (neg[q]) acc[q][u] = -acc[q][u];
+            any |= acc[q][u] != 0.f;
+          }
+          if (any) {
+            add_vec<VW>(y + static_cast<size_t>(row[q]) * batch + v0, acc[q]);
           }
         }
       }
@@ -587,43 +633,34 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
 }
 
-// V for a batch: vpt when it is given (4 or 8); else 8, or 4 when the
-// batch is at most 4 or when V 8 would launch fewer CTAs than the card has
-// SMs (asked of the current device, as the block-stream launchers do).  0
-// when vpt is neither or the device cannot be asked.
-int pick_v(int batch, int num_tiles, int vpt) {
-  if (vpt != 0) return (vpt == 4 || vpt == 8) ? vpt : 0;
-  int dev = 0, sms = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
-          cudaSuccess) {
-    return 0;
-  }
-  const long long ctas8 = static_cast<long long>(num_tiles) * ((batch + 7) / 8);
-  return (batch <= 4 || ctas8 < sms) ? 4 : 8;
+// The shape of a B10 launch for a batch and the alignment of xt and y:
+// vectors a lane (4, 2 or 1: the widest that divides the batch and that
+// both pointers are aligned to) and lanes a run piece (a power of two, up
+// to a warp, enough to cover the batch in one pass when it can).
+void batched_shape(int batch, uintptr_t xt, uintptr_t y, int* vw, int* group) {
+  const uintptr_t a = xt | y;
+  *vw = (batch % 4 == 0 && a % 16 == 0) ? 4
+        : (batch % 2 == 0 && a % 8 == 0) ? 2
+                                         : 1;
+  const int lanes = (batch + *vw - 1) / *vw;
+  int gsz = 1;
+  while (gsz < lanes && gsz < 32) gsz *= 2;
+  *group = gsz;
 }
 
-template <int V>
-int launch_batched(const float* vals, const int* slot, const int* gsub,
-                   const int* bl, const int* bs, const int* base,
-                   const int* byt, const float* xt, long long x_rows,
-                   int batch, float* y, int y_tiles, int num_tiles, int W,
-                   int l1, int lmax, cudaStream_t stream) {
-  const bool vec4 =
-      batch % 4 == 0 && reinterpret_cast<uintptr_t>(xt) % 16 == 0;
-  void (*kern)(const float*, const int*, const int*, const int*, const int*,
-               const int*, const int*, const float*, long long, int, float*,
-               int, int, int, int) =
-      vec4 ? routed_tile_batched_kernel<V, true>
-           : routed_tile_batched_kernel<V, false>;
-  const int smem = static_cast<int>(sizeof(float)) * kTile * V;
+template <int VW>
+int launch_batched(const RoutedStream& st, const float* xt, long long x_rows,
+                   int batch, int group, float* y, int y_tiles,
+                   int num_tiles, cudaStream_t stream) {
+  const int lmax = st.lmax;
+  const int rows = lmax == 1 ? 1 : (lmax + 1) / 2 + (lmax + 3) / 4;
+  const int smem = rows * kTile * static_cast<int>(sizeof(unsigned));
   const cudaError_t e = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      routed_runs_batched_kernel<VW>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid(num_tiles, (batch + V - 1) / V);
-  kern<<<grid, kThreads, smem, stream>>>(vals, slot, gsub, bl, bs, base, byt,
-                                         xt, x_rows, batch, y, y_tiles, W, l1,
-                                         lmax);
+  routed_runs_batched_kernel<VW><<<num_tiles, kThreads, smem, stream>>>(
+      st, xt, x_rows, batch, group, y, y_tiles);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -689,33 +726,44 @@ int hispmv_spmv_routed_streams(const long long* table, int num_streams,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The V that hispmv_spmv_routed_batched launches for this batch, tile
-// count and vpt (0 when it would refuse vpt).
-int hispmv_spmv_routed_batched_v(int batch, int num_tiles, int vpt) {
-  return pick_v(batch, num_tiles, vpt);
+// B10's launch shape for this batch and these xt and y pointers: out[0]
+// vectors a lane, out[1] lanes a run piece.
+void hispmv_spmv_routed_batched_shape(int batch, const void* xt,
+                                      const void* y, int* out) {
+  batched_shape(batch, reinterpret_cast<uintptr_t>(xt),
+                reinterpret_cast<uintptr_t>(y), &out[0], &out[1]);
 }
 
-// B10: xt [x_rows, 128, batch], y [batch*y_tiles*8, 128] zeroed; vpt 0
-// lets the launcher pick V (see pick_v).  Returns a cudaError_t code.
+// B10: xt [x_rows, 128, batch], y [y_tiles*1024, batch] that every run adds
+// into; lt [num_tiles] or null (every tile runs all lmax layers).  bl and bs
+// must be 16-byte aligned (the bulk copies).  Returns a cudaError_t code.
 int hispmv_spmv_routed_batched(const float* vals, const int* slot,
                                const int* gsub, const int* bl, const int* bs,
-                               const int* base, const int* byt,
+                               const int* base, const int* byt, const int* lt,
                                const float* xt, long long x_rows, int batch,
                                float* y, int y_tiles, int num_tiles, int W,
-                               int l1, int lmax, int vpt,
-                               cudaStream_t stream) {
-  const int V = pick_v(batch, num_tiles, vpt);
-  if (!dims_ok(num_tiles, W, l1, lmax, bs) || batch < 1 || V == 0 ||
-      (batch + V - 1) / V > 65535) {
+                               int l1, int lmax, cudaStream_t stream) {
+  if (!dims_ok(num_tiles, W, l1, lmax, bs) || batch < 1 || y_tiles < 1 ||
+      x_rows * kLanes > 0x7fffffffLL ||
+      static_cast<long long>(y_tiles) * kTile > 0x7fffffffLL ||
+      (reinterpret_cast<uintptr_t>(bl) | reinterpret_cast<uintptr_t>(bs)) %
+              16 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (V == 4) {
-    return launch_batched<4>(vals, slot, gsub, bl, bs, base, byt, xt, x_rows,
-                             batch, y, y_tiles, num_tiles, W, l1, lmax,
-                             stream);
+  RoutedStream st{vals, slot, gsub, bl, bs, base, byt, lt, W, l1, lmax, 0};
+  int vw, group;
+  batched_shape(batch, reinterpret_cast<uintptr_t>(xt),
+                reinterpret_cast<uintptr_t>(y), &vw, &group);
+  if (vw == 4) {
+    return launch_batched<4>(st, xt, x_rows, batch, group, y, y_tiles,
+                             num_tiles, stream);
   }
-  return launch_batched<8>(vals, slot, gsub, bl, bs, base, byt, xt, x_rows,
-                           batch, y, y_tiles, num_tiles, W, l1, lmax, stream);
+  if (vw == 2) {
+    return launch_batched<2>(st, xt, x_rows, batch, group, y, y_tiles,
+                             num_tiles, stream);
+  }
+  return launch_batched<1>(st, xt, x_rows, batch, group, y, y_tiles,
+                           num_tiles, stream);
 }
 
 }  // extern "C"

@@ -1,6 +1,6 @@
 // Shared device code of the tile kernels that take run sums as prefix
-// differences (spmv_routed.cu: B9 in fp64, B10 in fp32; B13 in
-// spmv_gathered.cu scans four slots a thread with its own code): the
+// differences (spmv_routed.cu: B9, in fp64; B13 in spmv_gathered.cu scans
+// four slots a thread with its own code; B10 sums each run directly): the
 // inclusive prefix of one value per thread over a CTA of 1024 threads, in
 // thread order (the tile's flat slot order s*128 + j).
 //

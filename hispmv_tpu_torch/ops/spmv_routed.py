@@ -11,8 +11,11 @@ the TPU kernels, so both packages can be fed identical inputs.  B9 runs
 every stream of a routed plan in one launch: :func:`routed_table` checks
 the streams' arrays once and lays them out for the kernel, and
 :func:`spmv_routed_streams` adds their product into one y.  B10 runs B9's
-tile against B vectors given vector-minor, as xt [nwin*8, 128, B], on a
-grid of tiles x groups of V vectors, one launch a stream.
+tile against B vectors given vector-minor, as xt [nwin*8, 128, B], and
+adds into a vector-minor y [nyt*1024, B]: one CTA a tile for the whole
+batch, one launch a stream, every stream into the same y.  It sums each
+boundary layer's run of slots directly (:func:`decode_runs`) instead of
+differencing a tile prefix.
 
 Per (8,128) tile of 1024 slots, cell (s, j) being sublane s and lane j:
 
@@ -25,13 +28,17 @@ Per (8,128) tile of 1024 slots, cell (s, j) being sublane s and lane j:
 2. p = vals * xg; P = inclusive prefix over the tile's 1024 slots in flat
    order s*128 + j (the reserved lane-0 slots make P[0, 0] == 0): fp64 in
    B9, so that a small row's difference of two large prefixes keeps its
-   digits (as B13's), fp32 in B10.
+   digits (as B13's).
 3. Per boundary layer k < lmax: raw (bl word, or the merged bm word when
    lmax == 1) gives end lane a and start lane b, the sub fields are read at
    the gathered lanes, and P[sub_a, a] - P[sub_b, b] is added into y tile
    byt[t, k] at (s, j).  Layers k >= lt[t] (the plan's ``RoutedStream.lt``)
-   are padding that adds P[0, 0] - P[0, 0] = 0: B9 on the card skips them,
-   the plain versions run every layer.
+   are padding that adds P[0, 0] - P[0, 0] = 0: B9 and B10 on the card
+   skip them, B9's plain version runs every layer.
+
+B10 adds the same differences as run sums: with ea = sub_a*128 + a and
+eb = sub_b*128 + b, P[ea] - P[eb] is the sum of p over the flat slots
+(eb, ea] (negated where ea < eb), taken in fp32 in slot order.
 
 Left out of the port on purpose: the TPU's bf16x3 prefix split (the port's
 prefix is a plain scan).  The pow-2 bucketing of W, lmax and the
@@ -42,6 +49,7 @@ can feed both packages identical arrays; the handle packs with
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 
 import numpy as np
@@ -57,10 +65,11 @@ from hispmv_tpu_torch.plan.routed import (
     RoutedStream,
 )
 from hispmv_tpu_torch.profiles import V5E
-from hispmv_tpu_torch.utils.trace import traced
+from hispmv_tpu_torch.utils.trace import tally, traced
 
 LANES = 128
 DEFAULT_TCHUNK = 16
+PIECE = 32  # slots of a run that B10 sums before its add (csrc kPiece)
 
 
 def _bucket(n: int) -> int:
@@ -358,41 +367,28 @@ def segment_lts(s: RoutedStream, segments) -> list:
     return out
 
 
-def _routed_plain(packed, dims, x3, num_ytiles, acc=torch.float32):
-    """B9's arithmetic on a batch: ``x3`` f32 [B, x_rows, 128] -> y f32
-    [B, num_ytiles*1024].  Gathers and advanced indexing for the x gather,
-    ``cumsum`` over the 1024 flat slots of each tile in ``acc`` (float64
-    for B9, float32 for B10), ``index_add_`` over ``byt`` in ``acc``, one
-    rounding to f32 at the end.  Every shift is masked, so torch's arithmetic ``>>`` on int32
-    reads the same bits as the kernel's logical one (no field reaches bit
-    31)."""
+def _routed_plain(packed, dims, x3, num_ytiles, acc=torch.float64):
+    """B9's arithmetic on a batch, the prefix form: ``x3`` f32 [B, x_rows,
+    128] -> y f32 [B, num_ytiles*1024].  Gathers and advanced indexing for
+    the x gather, ``cumsum`` over the 1024 flat slots of each tile in
+    ``acc`` (float64 for B9; the tests also take it in float32, the JAX
+    package's prefix), ``index_add_`` over ``byt`` in ``acc``, one rounding
+    to f32 at the end."""
     nch, tchunk, W, l1, lmax = dims
     vals, slot, gsub, bl, bs, base, byt = _unpack(packed, dims)
     dev = x3.device
     B, x_rows = x3.shape[0], x3.shape[1]
     Tp = nch * tchunk
     vals = vals.reshape(Tp, 8, LANES)
-    slot = slot.reshape(Tp, 8, LANES)
-    gsub = gsub.reshape(Tp, 8, LANES)
-    t_idx = torch.arange(Tp, device=dev).view(Tp, 1, 1)
+    t_idx = torch.arange(Tp, device=dev).view(Tp, 1)
     s_idx = torch.arange(8, device=dev).view(1, 8, 1)
     j_idx = torch.arange(LANES, device=dev).view(1, 1, LANES)
 
-    # 1. x gather: the slot's layer field at cell (s, lane)
-    lane = (slot & 127).long()
-    rank = (slot >> 7) & 7
-    xflat = x3.reshape(B, -1)
-    xg = torch.zeros((B, Tp, 8, LANES), dtype=torch.float32, device=dev)
-    for layer in range(l1):
-        word = gsub if layer < 3 else slot
-        shift = 9 * layer if layer < 3 else 10 + 9 * (layer - 3)
-        field = torch.gather((word >> shift) & 511, 2, lane)
-        vid = (field >> 3).long()
-        row = (base.long().view(Tp, 1, 1) + vid) * 8 + (field & 7).long()
-        ok = (vid < W) & (row < x_rows)
-        g = xflat[:, torch.where(ok, row * LANES + lane, 0)]
-        g = torch.where(ok, g, torch.zeros((), device=dev))
-        xg = g if l1 == 1 else torch.where(rank == layer, g, xg)
+    # 1. x gather
+    xo = _gather_offsets(packed, dims, x_rows).reshape(Tp, 8, LANES)
+    ok = xo >= 0
+    xg = x3.reshape(B, -1)[:, xo.clamp_min(0)]
+    xg = torch.where(ok, xg, torch.zeros((), device=dev))
 
     # 2. products and the flat inclusive prefix of each tile
     p = vals.to(acc) * xg.to(acc)
@@ -401,27 +397,130 @@ def _routed_plain(packed, dims, x3, num_ytiles, acc=torch.float32):
     # 3. boundary layers into the y tiles
     y = torch.zeros((B, num_ytiles * TILE), dtype=acc, device=dev)
     byt = byt.reshape(Tp, lmax).long()
-    if lmax == 1:
-        bm = bl.reshape(Tp, 8, LANES)
-    else:
-        bl = bl.reshape(Tp, -(-lmax // 2), 8, LANES)
-        bs = bs.reshape(Tp, -(-lmax // 4), 8, LANES)
     for k in range(lmax):
-        if lmax == 1:
-            raw = bm
-            q = (((bm >> 14) & 7) | (((bm >> 17) & 7) << 4))
-        else:
-            raw = bl[:, k // 2] >> (14 * (k % 2))
-            q = bs[:, k // 4] >> (8 * (k % 4))
-        a = (raw & 127).long()
-        b = ((raw >> 7) & 127).long()
-        sub_a = (torch.gather(q, 2, a) & 7).long()
-        sub_b = ((torch.gather(q, 2, b) >> 4) & 7).long()
-        diff = pf[:, t_idx, sub_a, a] - pf[:, t_idx, sub_b, b]
+        ea, eb = _run_ends(bl, bs, lmax, Tp, k)
+        pflat = pf.reshape(B, Tp, TILE)
+        diff = pflat[:, t_idx, ea] - pflat[:, t_idx, eb]
         ok = byt[:, k] < num_ytiles
         dest = (byt[:, k].view(Tp, 1, 1) * TILE + s_idx * LANES + j_idx)
         y.index_add_(1, dest[ok].reshape(-1), diff[:, ok].reshape(B, -1))
     return y.float()
+
+
+def _gather_offsets(packed, dims, x_rows):
+    """Where each slot gathers from: i64 [Tp*1024], row*128 + lane within
+    one vector's x (x_rows rows of 128), or -1 where the slot gathers
+    nothing (step 1 of the module docstring).  Every shift is masked, so
+    torch's arithmetic ``>>`` on int32 reads the kernel's bits."""
+    nch, tchunk, W, l1, lmax = dims
+    vals, slot, gsub, bl, bs, base, byt = _unpack(packed, dims)
+    Tp = nch * tchunk
+    slot = slot.reshape(Tp, 8, LANES)
+    gsub = gsub.reshape(Tp, 8, LANES)
+    lane = (slot & 127).long()
+    rank = (slot >> 7) & 7
+    xo = torch.full((Tp, 8, LANES), -1, dtype=torch.long, device=slot.device)
+    for layer in range(l1):
+        word = gsub if layer < 3 else slot
+        shift = 9 * layer if layer < 3 else 10 + 9 * (layer - 3)
+        field = torch.gather((word >> shift) & 511, 2, lane)
+        vid = (field >> 3).long()
+        row = (base.long().view(Tp, 1, 1) + vid) * 8 + (field & 7).long()
+        got = torch.where((vid < W) & (row < x_rows), row * LANES + lane, -1)
+        xo = got if l1 == 1 else torch.where(rank == layer, got, xo)
+    return xo.reshape(-1)
+
+
+def _run_ends(bl, bs, lmax, Tp, k):
+    """The prefix entries (ea, eb), i64 [Tp, 1024] flat slots sub*128 +
+    lane, of every cell of boundary layer k: the layer adds P[ea] - P[eb]
+    (step 3 of the module docstring)."""
+    if lmax == 1:
+        raw = bl.reshape(Tp, 8, LANES)
+        q = ((raw >> 14) & 7) | (((raw >> 17) & 7) << 4)
+    else:
+        raw = bl.reshape(Tp, -(-lmax // 2), 8, LANES)[:, k // 2] \
+            >> (14 * (k % 2))
+        q = bs.reshape(Tp, -(-lmax // 4), 8, LANES)[:, k // 4] \
+            >> (8 * (k % 4))
+    a = (raw & 127).long()
+    b = ((raw >> 7) & 127).long()
+    ea = (torch.gather(q, 2, a) & 7).long() * LANES + a
+    eb = ((torch.gather(q, 2, b) >> 4) & 7).long() * LANES + b
+    return ea.reshape(Tp, TILE), eb.reshape(Tp, TILE)
+
+
+def decode_runs(packed, dims, num_ytiles, lt=None, tiles=None):
+    """B10's runs of one packed stream, as i64 tensors ``(tile, yrow,
+    first, length)``: y row yrow = byt*1024 + cell gets the sum of the
+    products of the tile's flat slots first .. first + |length| - 1,
+    negated where length < 0.  A live layer k (k < lt[t], its y tile in
+    [0, num_ytiles)) gives cell c the pair (ea, eb), +P[ea] - P[eb].  The
+    layers of one y tile in a row are merged cell by cell: a pair that
+    starts where the pending one ends (+P[a] - P[b] + P[b] - P[e]) or ends
+    where it starts (+P[a] - P[b] + P[e] - P[a]) joins it, as the planner
+    spells a run across two layers through a shared entry; any other pair
+    sends the pending one out as it is.  A pair with equal ends is no
+    run.  ``lt`` i32 [Tp] (None: every layer); ``tiles`` (start, stop)
+    decodes a range of tiles only."""
+    nch, tchunk, W, l1, lmax = dims
+    vals, slot, gsub, bl, bs, base, byt = _unpack(packed, dims)
+    Tp = nch * tchunk
+    t0, t1 = tiles if tiles is not None else (0, Tp)
+    n = t1 - t0
+    npair = 1 if lmax == 1 else -(-lmax // 2)
+    bl = bl.reshape(Tp, npair * TILE)[t0:t1]
+    if bs is not None:
+        bs = bs.reshape(Tp, -(-lmax // 4) * TILE)[t0:t1]
+    byt = byt.reshape(Tp, lmax)[t0:t1].long()
+    live_layers = (torch.full((n,), lmax, device=bl.device) if lt is None
+                   else lt[t0:t1].long())
+    dev = bl.device
+    none = torch.full((n, TILE), -1, dtype=torch.long, device=dev)
+    pa, pb, cur = none.clone(), none.clone(), torch.full(
+        (n,), -1, dtype=torch.long, device=dev)
+    out = []
+
+    def flush(mask):  # send out the pending pairs of the masked cells
+        t, c = (mask & (pa != pb)).nonzero(as_tuple=True)
+        out.append((t, cur[t] * TILE + c, pa[t, c], pb[t, c]))
+        pa[mask] = -1
+        pb[mask] = -1
+
+    for k in range(lmax):
+        ea, eb = _run_ends(bl, bs, lmax, n, k)
+        yt = byt[:, k]
+        on = (k < live_layers) & (yt >= 0) & (yt < num_ytiles)
+        new = on & (yt != cur)
+        flush(new[:, None] & (pa >= 0))
+        cur = torch.where(new, yt, cur)
+        live = on[:, None] & (ea != eb)
+        held = live & (pa >= 0)
+        join_b = held & (pb == ea)  # +P[pa] - P[eb]
+        join_a = held & ~join_b & (pa == eb)  # +P[ea] - P[pb]
+        flush(held & ~join_b & ~join_a)
+        pb = torch.where(join_b, eb, pb)
+        pa = torch.where(join_a, ea, pa)
+        fresh = live & ~join_b & ~join_a
+        pa = torch.where(fresh, ea, pa)
+        pb = torch.where(fresh, eb, pb)
+        # a pair joined into equal ends adds nothing: drop it
+        gone = (join_a | join_b) & (pa == pb)
+        pa = torch.where(gone, -1, pa)
+        pb = torch.where(gone, -1, pb)
+    flush(pa >= 0)
+    tile, yrow, a, b = (torch.cat(o) for o in zip(*out))
+    lo = torch.minimum(a, b)
+    return tile + t0, yrow, lo + 1, a - b
+
+
+def stream_runs(packed, dims, num_ytiles, lt=None, tiles_a_pass=2048):
+    """The number of runs B10 adds for one packed stream a call (see
+    :func:`decode_runs`), decoded ``tiles_a_pass`` tiles at a time."""
+    Tp = dims[0] * dims[1]
+    return sum(int(decode_runs(packed, dims, num_ytiles, lt,
+                               (t, min(t + tiles_a_pass, Tp)))[0].numel())
+               for t in range(0, Tp, tiles_a_pass))
 
 
 def spmv_routed_stream_plain(packed, dims, x2d, num_ytiles):
@@ -432,12 +531,40 @@ def spmv_routed_stream_plain(packed, dims, x2d, num_ytiles):
     return y.reshape(num_ytiles * 8, LANES)
 
 
-def spmv_routed_stream_batched_plain(packed, dims, xt, num_ytiles):
-    """Plain PyTorch version of B10: B9's plain version with the batch as a
-    leading dimension and an fp32 prefix.  ``xt`` f32 [nwin*8, 128, B] (vector-minor) -> y f32
-    [B*num_ytiles*8, 128]."""
-    y = _routed_plain(packed, dims, xt.permute(2, 0, 1), num_ytiles)
-    return y.reshape(-1, LANES)
+def spmv_routed_stream_batched_plain(packed, dims, xt, y, lt=None):
+    """Plain PyTorch version of B10: each run of :func:`decode_runs` summed
+    as the kernel sums it (fp32 products of value and x, added in slot
+    order a piece of at most ``PIECE`` slots at a time, slots of value 0
+    and slots that gather nothing left out, negated where the run
+    subtracts) and added into its row of ``y`` f32 [nyt*1024, B]
+    (vector-minor) in place; returns y.  ``xt`` f32 [nwin*8, 128, B]."""
+    nyt, B = y.shape[0] // TILE, xt.shape[2]
+    dev = xt.device
+    tile, yrow, first, length = decode_runs(packed, dims, nyt, lt)
+    n = length.abs()
+    # the runs' pieces, and the slots of each piece
+    npieces = (n + PIECE - 1) // PIECE
+    run = torch.repeat_interleave(torch.arange(n.numel(), device=dev),
+                                  npieces)
+    k = torch.arange(run.numel(), device=dev) - torch.repeat_interleave(
+        torch.cumsum(npieces, 0) - npieces, npieces)
+    plen = torch.clamp(n[run] - k * PIECE, max=PIECE)
+    piece = torch.repeat_interleave(torch.arange(run.numel(), device=dev),
+                                    plen)
+    j = torch.arange(piece.numel(), device=dev) - torch.repeat_interleave(
+        torch.cumsum(plen, 0) - plen, plen)
+    flat = (tile[run] * TILE + first[run] + k * PIECE)[piece] + j
+    xo = _gather_offsets(packed, dims, xt.shape[0])[flat]
+    v = packed[0].reshape(-1)[flat]
+    xv = xt.reshape(-1, B)[xo.clamp_min(0)]
+    xv = torch.where(((xo >= 0) & (v != 0))[:, None], xv,
+                     torch.zeros((), device=dev))
+    prod = v[:, None] * xv
+    sums = torch.zeros((run.numel(), B), dtype=torch.float32, device=dev)
+    sums.index_add_(0, piece, prod)
+    sums = torch.where((length[run] < 0)[:, None], -sums, sums)
+    y.index_add_(0, yrow[run], sums)
+    return y
 
 
 def _check_x(name, x2d, device):
@@ -518,49 +645,73 @@ def spmv_routed_stream(packed, dims, x2d, num_ytiles):
 
 
 @traced("kernel.B10")
-def spmv_routed_stream_batched(packed, dims, xt, num_ytiles, vpt=0):
+def spmv_routed_stream_batched(packed, dims, xt, y, lt=None, runs=None):
     """Run one packed routed-stream segment against the B vectors of ``xt``
     f32 [nwin*8, 128, B] (vector-minor: xt[r, L, b] is vector b's x row r,
-    lane L); returns y f32 [B*num_ytiles*8, 128], vector b in rows
-    b*num_ytiles*8 onward.  One launch covers the whole batch: its grid is
-    tiles x groups of V vectors, V picked by the launcher unless ``vpt``
-    (4 or 8) names it.  CPU tensors take the plain PyTorch version;
-    CUDA tensors launch the CUDA kernel (csrc/spmv_routed.cu) or raise."""
-    check_stream_args(packed, dims, xt, num_ytiles)
+    lane L), adding into ``y`` f32 [nyt*1024, B] (vector-minor: y[r, b] is
+    row r of vector b's product) in place; returns y.  One launch covers
+    the whole batch, one CTA a tile.  ``lt`` i32 [Tp] (the plan's live
+    layers a tile; None: every layer) and ``runs`` (the stream's run count,
+    :func:`stream_runs`; None: decoded now) come from the pack.  Counts the
+    runs in ``.runs`` beside ``.launches`` on the card, and in the
+    program's tracer (``kernel.B10.runs``).  CPU tensors take the plain
+    PyTorch version; CUDA tensors launch the CUDA kernel
+    (csrc/spmv_routed.cu) or raise."""
+    check_stream_args(packed, dims, xt, 1)
     if (xt.ndim != 3 or xt.shape[1] != LANES or xt.shape[0] % 8
             or xt.shape[2] < 1):
         raise ValueError(f"spmv_routed_batched: x must be [nwin*8, {LANES}, "
                          f"B], got {tuple(xt.shape)}")
-    if vpt not in (0, 4, 8):
-        raise ValueError(f"spmv_routed_batched: vpt={vpt}, want 0, 4 or 8")
-    if xt.device.type == "cpu":
-        return spmv_routed_stream_batched_plain(packed, dims, xt, num_ytiles)
-    nch, tchunk, W, l1, lmax = dims
-    vals, slot, gsub, bl, bs, base, byt = _unpack(packed, dims)
-    check_cuda_tensors("spmv_routed_batched", xt, *(a for a in packed))
-    lib = cuda_build.get_lib()
     B = xt.shape[2]
-    y = torch.zeros((B * num_ytiles * 8, LANES), dtype=torch.float32,
-                    device=xt.device)
+    if (y.ndim != 2 or y.shape[1] != B or y.shape[0] % TILE
+            or y.shape[0] == 0 or y.dtype != torch.float32
+            or y.device != xt.device or not y.is_contiguous()):
+        raise ValueError(f"spmv_routed_batched: y must be a contiguous "
+                         f"float32 [nyt*{TILE}, {B}] on {xt.device}, got "
+                         f"{y.dtype} {tuple(y.shape)} on {y.device}")
+    nch, tchunk, W, l1, lmax = dims
+    if lt is not None and (lt.dtype != torch.int32
+                           or tuple(lt.shape) != (nch * tchunk,)):
+        raise ValueError(f"spmv_routed_batched: lt must be int32 "
+                         f"[{nch * tchunk}]")
+    nyt = y.shape[0] // TILE
+    if xt.device.type == "cpu":
+        tally("kernel.B10.runs", stream_runs(packed, dims, nyt, lt)
+              if runs is None else runs)
+        return spmv_routed_stream_batched_plain(packed, dims, xt, y, lt)
+    vals, slot, gsub, bl, bs, base, byt = _unpack(packed, dims)
+    check_cuda_tensors("spmv_routed_batched", xt, y, *packed,
+                       *(() if lt is None else (lt,)))
+    if any(t.data_ptr() % 16 for t in (bl, bs) if t is not None):
+        raise ValueError("spmv_routed_batched: bl and bs must be 16-byte "
+                         "aligned")
+    n = stream_runs(packed, dims, nyt, lt) if runs is None else runs
+    lib = cuda_build.get_lib()
     with torch.cuda.device(xt.device):
         rc = lib.hispmv_spmv_routed_batched(
             vals.data_ptr(), slot.data_ptr(), gsub.data_ptr(),
             bl.data_ptr(), 0 if bs is None else bs.data_ptr(),
-            base.data_ptr(), byt.data_ptr(), xt.data_ptr(), xt.shape[0], B,
-            y.data_ptr(), num_ytiles, nch * tchunk, W, l1, lmax, vpt,
+            base.data_ptr(), byt.data_ptr(),
+            0 if lt is None else lt.data_ptr(), xt.data_ptr(), xt.shape[0],
+            B, y.data_ptr(), nyt, nch * tchunk, W, l1, lmax,
             torch.cuda.current_stream().cuda_stream,
         )
     cuda_build.check(rc, "spmv_routed_batched")
     spmv_routed_stream_batched.launches += 1
+    spmv_routed_stream_batched.runs += n
+    tally("kernel.B10.runs", n)
     return y
 
 
 spmv_routed_stream_batched.launches = 0  # kernel launches, for the smoke run
+spmv_routed_stream_batched.runs = 0  # runs those launches added
 
 
-def routed_batched_v(B, num_tiles, vpt=0):
-    """The V (vectors a thread) that B10's launcher takes for a batch of
-    ``B``, ``num_tiles`` tiles and ``vpt``: its grid is num_tiles x
-    ceil(B/V).  Needs the built library."""
-    return cuda_build.get_lib().hispmv_spmv_routed_batched_v(B, num_tiles,
-                                                             vpt)
+def routed_batched_shape(B, xt, y):
+    """(vectors a lane, lanes a run piece) of B10's launch for a batch of
+    ``B`` on these ``xt`` and ``y`` (their alignment picks the vector
+    width).  Needs the built library."""
+    out = (ctypes.c_int * 2)()
+    cuda_build.get_lib().hispmv_spmv_routed_batched_shape(
+        B, xt.data_ptr(), y.data_ptr(), ctypes.addressof(out))
+    return out[0], out[1]

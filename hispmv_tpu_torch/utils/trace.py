@@ -6,8 +6,9 @@ around preprocessing and kernel runs, and samples platform power):
 
 - :class:`Tracer` — the program's span recorder: a list of spans (name,
   start and end on ``time.perf_counter_ns``, parent, call), with the
-  named wall-clock totals ``segments`` / ``counts`` and a report (the
-  std::chrono segments analog, spmv-helper.cpp:659-714).  It does not
+  named wall-clock totals ``segments`` / ``counts``, the program's counts
+  of work (``tallies``, :func:`tally`) and a report (the std::chrono
+  segments analog, spmv-helper.cpp:659-714).  It does not
   synchronize the device: a span around asynchronous launches measures
   the host's time unless the caller synchronizes inside it.
 - :func:`tracing` / :func:`span` — the program's switch: inside
@@ -84,13 +85,16 @@ class Span:
 class Tracer:
     """The program's spans, in the order they opened:
     ``with tracer.span("prepare"): ...``.  ``segments`` and ``counts``
-    total the closed spans by name.  With a ``limit``, a span that opens
-    with none open and ``limit`` spans kept clears the list first."""
+    total the closed spans by name; ``tallies`` the counts the program
+    adds by :func:`tally` (``kernel.B10.runs``: the row runs B10 summed).
+    With a ``limit``, a span that opens with none open and ``limit`` spans
+    kept clears the list first."""
 
     def __init__(self, limit: Optional[int] = None):
         self.spans: List[Span] = []
         self._open: List[int] = []
         self.limit = limit
+        self.tallies: Dict[str, int] = {}
 
     @contextlib.contextmanager
     def span(self, name: str):
@@ -134,6 +138,8 @@ class Tracer:
             self.segments.items(), key=lambda kv: -kv[1]
         ):
             lines.append(f"{name:20} {total:8.3f} {counts[name]:7d}")
+        for name, n in sorted(self.tallies.items()):
+            lines.append(f"{name:20} {n:16d}")
         return "\n".join(lines)
 
 
@@ -181,6 +187,17 @@ def span(name: str):
             return _OFF
         tracer = _own
     return tracer.span(name)
+
+
+def tally(name: str, n: int) -> None:
+    """Add ``n`` to the count ``name`` of the tracer a :func:`span` would
+    record into (none: nothing is counted)."""
+    tracer = _active
+    if tracer is None:
+        if not _PROFILER._is_profiler_enabled:
+            return
+        tracer = _own
+    tracer.tallies[name] = tracer.tallies.get(name, 0) + int(n)
 
 
 def traced(name: str, record: bool = False):

@@ -21,7 +21,15 @@ runs ``chip_smoke.py``'s phase 3k under V5E and the measured profile (~10
 min on one card).
 
 GROUPs (all when none is named): b1b7, b3, b2, b8, b6, b4, b9, b12, b11,
-b13, dist, trace.
+b13, dist, trace, b10.
+
+``b10`` runs B10 on the benchmark's ``pokec`` matrix at B 64 (its
+generator at seed 1; the plan made once and kept at $KC_B10_PLAN, default
+``b10_pokec_plan.npz``, for the other checkouts of the call): each of its
+streams' kernel device time, with x = 0 (no atomic: what is left when y
+moves nothing) and, for a vector-major B10 (the parent's), at B 8 (one
+vector group), beside the byte bound and cuSPARSE's ``A_s @ X``; then the
+whole ``linear`` against a float64 CSR product.
 
 ``trace`` times the host side of ``run`` and ``linear`` (B 64) on
 TSOPF_RS_b2383's block handle and trans5's routed handle: host
@@ -2038,8 +2046,128 @@ def trace_report(label, rng):
     return True
 
 
+B10_BATCH = 64
+B10_SEED = 1  # the pokec matrix of the benchmark's generator at this seed
+
+
+def b10_pokec_handle():
+    """The routed handle of the benchmark's ``pokec`` matrix (its
+    generator at ``B10_SEED``, on the card): loaded from the plan file at
+    $KC_B10_PLAN (default ``b10_pokec_plan.npz`` here) where it exists,
+    else planned (~100 s) and saved there, so that two checkouts in one
+    call time the same plan.  Returns (handle, the matrix as a float64 CSR
+    tensor on the card, seconds to make the handle)."""
+    from hispmv_tpu_torch.plan import load_plan, save_plan
+    from spmvbench.core import Matrix
+
+    with open(os.path.join("spmvbench", "configs", "pokec.json")) as f:
+        config = json.load(f)
+    m = Matrix(config, B10_SEED, "cuda")
+    rows, cols, vals = m.ref
+    csr = torch.sparse_coo_tensor(
+        torch.from_numpy(np.stack([rows, cols]).astype(np.int64)),
+        torch.from_numpy(vals.astype(np.float64)), m.shape,
+    ).coalesce().to_sparse_csr().cuda()
+    path = os.environ.get("KC_B10_PLAN", "b10_pokec_plan.npz")
+    t0 = time.perf_counter()
+    if os.path.exists(path):
+        h = SpmvHandle.from_plan(load_plan(path), device="cuda")
+    else:
+        h = prepare(m.coo(), format="routed", device="cuda")
+        save_plan(path, h.plan, compress=False)
+    torch.cuda.synchronize()
+    return h, csr, time.perf_counter() - t0
+
+
+def b10_report(label, rng):
+    """B10 on the benchmark's pokec matrix at B 64 (``pokec.ppr64``'s
+    batch), stream by stream, in the checkout's own contract: the kernel's
+    device time alone (the profiler's events whose name holds
+    ``batched_kernel``), with x = 0 (every sum zero: no atomic, no y
+    traffic; the rest of the kernel as before), and, for a kernel that runs
+    one CTA a group of 8 vectors (a vector-major y), at B 8 (one group: the
+    stream words read once), beside its byte bound (the stream's arrays,
+    x and y each once) and cuSPARSE's CSR product of the stream's nonzeros
+    against the batch; then the handle's whole ``linear`` at B 64 (wall,
+    device busy, B10's share) against a float64 CSR product.  Returns
+    False when the linear misses the golden."""
+    h, csr, made_s = b10_pokec_handle()
+    meta = h._routed_meta
+    R, C = h.shape
+    wrapper = sr.spmv_routed_stream_batched
+    adds = "y" in inspect.signature(wrapper).parameters
+    # the checkout's chip_smoke.py call of B10: into a fresh y, or the
+    # parent's wrapper, which makes its own
+    call = cs.CALL.get("spmv_routed_batched", wrapper)
+    print(f"{label} B10 pokec: {R} x {C}, {h.nnz} nonzeros, "
+          f"{len(meta['streams'])} streams, {meta['nyt']} y tiles, handle "
+          f"in {made_s:.1f} s; B10 {'adds into a vector-minor y' if adds else 'vector-major y, V groups'}",
+          flush=True)
+    gen = np.random.default_rng(B10_SEED)
+    xd = torch.from_numpy(gen.random((B10_BATCH, C), dtype=np.float32)).cuda()
+    xt = h._pad_x(xd).T.reshape(-1, 128, B10_BATCH).contiguous()
+    nyt = meta["nyt"]
+    key = "batched_kernel"
+    tot = {"ms": 0.0, "x0": 0.0, "b8": 0.0, "bound": 0.0, "csr": 0.0}
+    for i, dims in enumerate(meta["streams"]):
+        p = f"s{i}_"
+        packed = tuple(h._d[p + n] for n in sr.stream_array_names(dims[4]))
+        packed += (h._d[p + "base"], h._d[p + "byt"])
+
+        def args_for(x):
+            if adds:
+                return (packed, dims, x, nyt, meta["lts"][i],
+                        meta["runs"][i])
+            return (packed, dims, x, nyt)
+        a64 = args_for(xt)
+        ms = kernel_ms(lambda a=a64: call(*a), key=key)
+        x0 = torch.zeros_like(xt)
+        ms0 = kernel_ms(lambda a=args_for(x0): call(*a), key=key)
+        line = (f"{label} B10 pokec s{i} [{dims[0]} tiles, W {dims[2]}, l1 "
+                f"{dims[3]}, lmax {dims[4]}"
+                + (f", {meta['runs'][i]} runs" if adds else "")
+                + f"]: kernel {cs._ms(ms)}, x = 0 {cs._ms(ms0)}")
+        tot["ms"] += ms or 0.0
+        tot["x0"] += ms0 or 0.0
+        if not adds:
+            x8 = xt[:, :, :8].contiguous()
+            ms8 = kernel_ms(lambda a=args_for(x8): call(*a), key=key)
+            line += f", B 8 (one vector group) {cs._ms(ms8)}"
+            tot["b8"] += ms8 or 0.0
+        nbytes = sum(t.nbytes for t in packed) + xt.nbytes \
+            + nyt * 1024 * B10_BATCH * 4
+        bound = 1e3 * nbytes / cs.HBM_BYTES_PER_S
+        tot["bound"] += bound
+        lib = cs.library_call("spmv_routed_batched", a64)
+        lib_ms = cs.device_ms(lib) if lib is not None else None
+        tot["csr"] += lib_ms or 0.0
+        print(f"{line}, bound {bound:.4f} ms ({nbytes / 1e6:.1f} MB), CSR "
+              f"A_s @ X device busy {cs._ms(lib_ms)}", flush=True)
+        del lib
+        torch.cuda.empty_cache()
+    print(f"{label} B10 pokec all streams: kernel {tot['ms']:.4f} ms, x = 0 "
+          f"{tot['x0']:.4f} ms" + ("" if adds else
+                                   f", B 8 {tot['b8']:.4f} ms")
+          + f", bound {tot['bound']:.4f} ms, CSR {tot['csr']:.4f} ms",
+          flush=True)
+    # the whole linear at B 64, held to a float64 CSR product
+    wall = cs.median_ms(lambda: h.linear(xd))
+    busy = cs.device_ms(lambda: h.linear(xd))
+    own = kernel_ms(lambda: h.linear(xd), key=key)
+    want = (csr @ xd.double().T).T
+    got = h.linear(xd).double()
+    err = float((got - want).abs().sum() / want.abs().sum())
+    worst = float((got - want).abs().max() / want.abs().max())
+    print(f"{label} B10 pokec linear B {B10_BATCH}: wall {wall:.4f} ms, "
+          f"device busy {cs._ms(busy)}, B10 {cs._ms(own)}; against float64 "
+          f"CSR: l1 rel err {err:.3e}, max err / max |y| {worst:.3e}",
+          flush=True)
+    return err < 1e-5
+
+
 REPORTS = {"b9": b9_report, "b12": b12_report, "b11": b11_report,
-           "b13": b13_report, "dist": dist_report, "trace": trace_report}
+           "b13": b13_report, "dist": dist_report, "trace": trace_report,
+           "b10": b10_report}
 
 
 def main(label: str, groups=()) -> int:

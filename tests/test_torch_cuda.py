@@ -110,8 +110,9 @@ from hispmv_tpu_torch.ops.spmv_windowed import (
 )
 from hispmv_tpu_torch.ops.spmv_routed import (
     MAX_STREAMS,
+    decode_runs,
     pack_stream,
-    routed_batched_v,
+    routed_batched_shape,
     routed_table,
     segment_lts,
     spmv_routed_stream,
@@ -120,6 +121,7 @@ from hispmv_tpu_torch.ops.spmv_routed import (
     spmv_routed_stream_plain,
     spmv_routed_streams,
     spmv_routed_streams_plain,
+    stream_array_names,
 )
 from hispmv_tpu_torch.plan import gathered as G
 from hispmv_tpu_torch.profiles import H100, V5E
@@ -902,13 +904,16 @@ def test_b8_launcher_picks_v(dev):
 
 def _b10_stream_cases(name):
     """The streams of ROUTED[name] packed three tiles a chunk, so a stream
-    whose tile count is not a multiple of 3 ends in padded tiles."""
+    whose tile count is not a multiple of 3 ends in padded tiles (lt 0):
+    (packed arrays, dims, lt) each."""
     coo = ROUTED[name][0]()
     plan = build_routed_plan(coo)
-    segs = [seg for s in plan.streams
-            for seg in pack_stream(s, 3, bucket=False)]
-    padded = any(d[0] * d[1] > s.num_tiles
-                 for s, (_, d) in zip(plan.streams, segs))
+    segs, padded = [], False
+    for s in plan.streams:
+        ss = pack_stream(s, 3, bucket=False)
+        for (arrays, dims), lt in zip(ss, segment_lts(s, ss)):
+            segs.append((arrays, dims, lt))
+            padded |= dims[0] * dims[1] > s.num_tiles
     return plan, segs, padded
 
 
@@ -917,40 +922,60 @@ def _vector_minor(xb):
     return xb.T.reshape(-1, 128, xb.shape[0]).contiguous()
 
 
-@pytest.mark.parametrize("vpt", [0, 4, 8])
+def _b10_y(plan, B, dev, values):
+    """B10's y [nyt*1024, B]: zeros, or values to add into."""
+    shape = (plan.num_ytiles * 1024, B)
+    if not values:
+        return torch.zeros(shape, device=dev)
+    return torch.from_numpy(np.random.default_rng(B).standard_normal(
+        shape).astype(np.float32)).to(dev)
+
+
+@pytest.mark.parametrize("mode", ["zeros", "values", "every_layer"])
 @pytest.mark.parametrize("B", [1, 3, 8, 9, 64])
 @pytest.mark.parametrize("name", list(ROUTED))
-def test_b10_kernel_matches_plain(dev, name, B, vpt):
-    """Every V against the plain version: B below, at and past V (a masked
-    last vector group), 4-byte x loads at odd B, lmax 1 to 32, padded last
-    tiles."""
+def test_b10_kernel_matches_plain(dev, name, B, mode):
+    """The kernel against its plain version: B from 1 to 64 (vector widths
+    1, 2 and 4 and groups of 1 to 16 lanes), lmax 1 to 32, padded last
+    tiles; adding into zeros or into a y that holds values, with the
+    plan's live layers or every layer (lt None)."""
     plan, segs, _ = _b10_stream_cases(name)
     C = plan.num_windows * 1024
     xb = _batch(B, C, dev, seed=B)
     xt = _vector_minor(xb)
-    for packed_np, dims in segs:
+    for packed_np, dims, lt_np in segs:
         packed = tuple(torch.from_numpy(a).to(dev) for a in packed_np)
-        before = spmv_routed_stream_batched.launches
-        y = spmv_routed_stream_batched(packed, dims, xt, plan.num_ytiles,
-                                       vpt=vpt)
+        lt = None if mode == "every_layer" else torch.from_numpy(
+            lt_np).to(dev)
+        y0 = _b10_y(plan, B, dev, mode == "values")
+        before = (spmv_routed_stream_batched.launches,
+                  spmv_routed_stream_batched.runs)
+        y = spmv_routed_stream_batched(packed, dims, xt, y0.clone(), lt)
         torch.cuda.synchronize()
-        assert spmv_routed_stream_batched.launches == before + 1
-        assert y.shape == (B * plan.num_ytiles * 8, 128)
+        runs = decode_runs(packed, dims, plan.num_ytiles, lt)[0].numel()
+        assert (spmv_routed_stream_batched.launches,
+                spmv_routed_stream_batched.runs) == (before[0] + 1,
+                                                    before[1] + runs)
         assert_close(y, spmv_routed_stream_batched_plain(
-            packed, dims, xt, plan.num_ytiles))
+            packed, dims, xt, y0.clone(), lt))
         # vector b of the batch is B9 on vector b
         y9 = spmv_routed_stream(packed, dims, xb[-1].reshape(-1, 128),
                                 plan.num_ytiles)
-        assert_close(y.reshape(B, -1)[-1], y9.reshape(-1))
+        assert_close(y[:, -1] - y0[:, -1], y9.reshape(-1))
 
 
-def test_b10_launcher_picks_v(dev):
-    """V 8, or 4 at B <= 4 and when V 8 would leave SMs (132) idle; vpt
-    names 4 or 8 and nothing else."""
-    assert [routed_batched_v(B, 1000) for B in (1, 4, 5, 64)] == [4, 4, 8, 8]
-    assert routed_batched_v(64, 16) == 4  # 128 CTAs at V 8
-    assert routed_batched_v(64, 17) == 8  # 136
-    assert [routed_batched_v(64, 4, v) for v in (4, 8, 16)] == [4, 8, 0]
+@pytest.mark.parametrize("B,want", [
+    (1, (1, 1)), (3, (1, 4)), (4, (4, 1)), (6, (2, 4)), (8, (4, 2)),
+    (9, (1, 16)), (64, (4, 16)), (128, (4, 32)), (256, (4, 32))])
+def test_b10_launch_shape(dev, B, want):
+    """Vectors a lane: 4, 2 or 1, the widest that divides B with xt and y
+    aligned to it; lanes a run piece: the power of two up to 32 that
+    covers B.  A 4-byte offset of xt takes single vectors."""
+    xt = torch.zeros(B + 4, device=dev)
+    y = torch.zeros(B + 4, device=dev)
+    assert routed_batched_shape(B, xt, y) == want
+    lanes = min(32, 1 << (B - 1).bit_length())
+    assert routed_batched_shape(B, xt[1:], y) == (1, lanes)
 
 
 def test_b10_streams_end_in_padded_tiles():
@@ -959,27 +984,32 @@ def test_b10_streams_end_in_padded_tiles():
     seen = set()
     for name in ROUTED:
         plan, segs, padded = _b10_stream_cases(name)
-        seen |= {("padded", padded)} | {("lmax>4", d[4] > 4) for _, d in segs}
-        seen |= {("lmax1", d[4] == 1) for _, d in segs}
+        seen |= {("padded", padded)}
+        seen |= {("lmax>4", d[4] > 4) for _, d, _ in segs}
+        seen |= {("lmax1", d[4] == 1) for _, d, _ in segs}
     assert {("padded", True), ("lmax>4", True), ("lmax1", True)} <= seen
 
 
-@pytest.mark.parametrize("B", [4, 8])
+@pytest.mark.parametrize("B", [4, 8, 64])
 def test_b10_kernel_unaligned_x(dev, B):
-    """An xt that is contiguous but not 16-byte aligned takes the 4-byte
-    loads at a batch that is a multiple of 4."""
+    """An xt that is contiguous but not 16-byte aligned takes single-vector
+    loads at a batch that is a multiple of 4 (at B 64 two passes of 32
+    lanes a run)."""
     plan, segs, _ = _b10_stream_cases("tall_l1_5_lmax16")
     C = plan.num_windows * 1024
     flat = torch.zeros(C * B + 1, device=dev)
     xt = flat[1:].view(C // 128, 128, B)
     xt.copy_(_vector_minor(_batch(B, C, dev, seed=3)))
     assert xt.data_ptr() % 16 != 0 and xt.is_contiguous()
-    for packed_np, dims in segs:
+    y0 = _b10_y(plan, B, dev, True)
+    assert routed_batched_shape(B, xt, y0)[0] == 1
+    for packed_np, dims, lt_np in segs:
         packed = tuple(torch.from_numpy(a).to(dev) for a in packed_np)
-        assert_close(spmv_routed_stream_batched(packed, dims, xt,
-                                                plan.num_ytiles),
+        lt = torch.from_numpy(lt_np).to(dev)
+        assert_close(spmv_routed_stream_batched(packed, dims, xt, y0.clone(),
+                                                lt),
                      spmv_routed_stream_batched_plain(packed, dims, xt,
-                                                      plan.num_ytiles))
+                                                      y0.clone(), lt))
 
 
 def _golden_linear(coo, xb, bias, value_dtype="float32"):
@@ -1045,11 +1075,19 @@ def test_routed_linear_one_b10_launch_per_stream(dev, B):
     h = SpmvHandle(coo, format="routed")
     xb = np.random.default_rng(5).standard_normal((B, 4000)).astype(
         np.float32)
-    before = spmv_routed_stream_batched.launches
+    before = (spmv_routed_stream_batched.launches,
+              spmv_routed_stream_batched.runs)
     y = h.linear(torch.from_numpy(xb).to(dev))
     torch.cuda.synchronize()
-    assert (spmv_routed_stream_batched.launches - before
+    assert (spmv_routed_stream_batched.launches - before[0]
             == len(h.plan.streams))
+    # the runs counter: the decode's count of every stream
+    meta = h._routed_meta
+    runs = sum(decode_runs(tuple(h._d[f"s{i}_" + n] for n in (
+        stream_array_names(dims[4]) + ("base", "byt"))), dims, meta["nyt"],
+        meta["lts"][i])[0].numel() for i, dims in enumerate(meta["streams"]))
+    assert spmv_routed_stream_batched.runs - before[1] == runs \
+        == sum(meta["runs"])
     assert error_stats(y.cpu().numpy(), _golden_linear(coo, xb, 0.0),
                        rtol=1e-3).ok
 

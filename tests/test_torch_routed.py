@@ -44,6 +44,7 @@ from hispmv_tpu_torch.formats.synth import (
 )
 from hispmv_tpu_torch.ops.spmv_routed import (
     MAX_STREAMS,
+    _routed_plain,
     pack_stream,
     routed_table,
     segment_lts,
@@ -363,7 +364,8 @@ def test_plain_b9_small_rows_keep_their_digits():
     """B9's plain version sums each tile's prefix in fp64: a small row's
     run, the difference of two prefixes ~1e4 times larger, errs by a few
     fp32 roundings of its own terms.  The same arithmetic with an fp32
-    prefix (B10's plain version at one vector) misses by orders more."""
+    prefix misses by orders more; B10's plain version, which sums each run
+    directly in fp32, keeps the digits as B9's does."""
     case = _small_rows_case()
     plan = R.build_routed_plan(case[0])
     x, x2d = _x2d(plan, case[0].num_cols)
@@ -372,9 +374,14 @@ def test_plain_b9_small_rows_keep_their_digits():
     assert rel.max() < 1e-6
 
     def fp32_prefix(packed, dims, x2d, nyt):
-        return spmv_routed_stream_batched_plain(packed, dims,
-                                                x2d[:, :, None], nyt)
+        return _routed_plain(packed, dims, x2d[None], nyt, torch.float32)
     assert small_row_errors(plan, case, x, xt, fp32_prefix).max() > 1e-3
+
+    def b10(packed, dims, x2d, nyt):
+        y = torch.zeros((nyt * R.WINDOW, 1))
+        return spmv_routed_stream_batched_plain(packed, dims,
+                                                x2d[:, :, None], y)
+    assert small_row_errors(plan, case, x, xt, b10).max() < 1e-6
 
 
 def _b9_args(name="random900"):

@@ -308,6 +308,20 @@ def test_routed_linear_spans():
     assert names.count("kernel.B10") == len(h._routed_meta["streams"])
 
 
+def test_tally_counts_into_the_active_tracer_only():
+    """``tally`` adds to the tracer a span would record into, shows in its
+    report, and counts nothing with tracing off."""
+    before = dict(trace.recorded().tallies)
+    trace.tally("kernel.B10.runs", 5)
+    assert trace.recorded().tallies == before
+    with tracing() as tr:
+        trace.tally("kernel.B10.runs", 5)
+        trace.tally("kernel.B10.runs", 7)
+    assert tr.tallies == {"kernel.B10.runs": 12}
+    assert "kernel.B10.runs" in tr.report()
+    assert trace.recorded().tallies == before
+
+
 def test_kernel_span_keeps_the_wrapper_and_its_counter():
     fn = chunked_ops.spmv_chunked_tiled
     assert "sector_mask" in inspect.signature(fn).parameters
