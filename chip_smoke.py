@@ -96,8 +96,9 @@ the launch's coordinates).  B10 (the routed stream against a batch,
 adding into a vector-minor y) is also timed with x = 0 (no atomic issued)
 and beside the zeroing of its y, and each routed ``linear`` line carries
 the sum of B10's device time over the handle's streams beside cuSPARSE
-SpMM of the whole matrix, and the runs B10 summed in the call beside its
-launches (``spmv_routed_stream_batched.runs``).
+SpMM of the whole matrix, and the runs B10's kernel decoded over one
+launch a stream (counted on the device), held to the pack's count, the
+one ``spmv_routed_stream_batched.runs`` adds up beside its launches.
 B2 is also run directly on TSOPF_RS_b2383's arrays at B 64 and timed at V
 4 and 8 on each of its cases, and B8 (x vector-minor, as B2's and B10's)
 likewise on crystk03's window handle and the MLP's fc3 at B 64.  B1 and B7
@@ -410,13 +411,14 @@ KERNELS = {
 CASE_KERNEL = {"spmv_routed_part": "spmv_routed"}
 
 
-def b10_call(packed, dims, xt, nyt, lt, runs, plain=False):
+def b10_call(packed, dims, xt, nyt, lt, runs, plain=False, counted=None):
     """B10 (or its plain version) on one stream into a fresh zero y
-    [nyt*1024, B]: the kernel adds into the y it is given."""
+    [nyt*1024, B]: the kernel adds into the y it is given (and the runs it
+    decodes into ``counted``, where given)."""
     y = torch.zeros((nyt * 1024, xt.shape[2]), device=xt.device)
     if plain:
         return spmv_routed_stream_batched_plain(packed, dims, xt, y, lt)
-    return spmv_routed_stream_batched(packed, dims, xt, y, lt, runs)
+    return spmv_routed_stream_batched(packed, dims, xt, y, lt, runs, counted)
 
 
 CALL = {"spmv_routed": spmv_routed_stream,
@@ -690,15 +692,9 @@ def linear_path(handles, fixtures, counts, failures):
         xd = torch.from_numpy(xb).cuda()
         bd = torch.from_numpy(bias).cuda()
         zero_launches()
-        runs0 = spmv_routed_stream_batched.runs
         y = call(xd, bd)
         torch.cuda.synchronize()
         once = launches()
-        once_runs = spmv_routed_stream_batched.runs - runs0
-        if h.format == "routed" and "spmv_routed_batched" in kernels \
-                and once_runs != sum(h._routed_meta["runs"]):
-            failures.append(f"{label}: B10 summed {once_runs} runs, the "
-                            f"pack counted {sum(h._routed_meta['runs'])}")
         want = (golden_a @ xb.astype(np.float64).T).T + bias
         got = y.cpu().numpy()
         atol = GOLDEN_ATOL * float(np.abs(want).max())
@@ -735,9 +731,15 @@ def linear_path(handles, fixtures, counts, failures):
                     f"{_ms(device_ms(lambda: call(xd, bd)))}")
         b10_ms = None
         if "spmv_routed_batched" in kernels:  # after `used`: not counted
-            lib += f"; B10 runs a call {once_runs}"
-            b10 = [device_ms(lambda a=a: b10_call(*a))
-                   for a in routed_batched_args(h, xd)]
+            b10_args = routed_batched_args(h, xd)
+            decoded = b10_decoded_runs(b10_args)
+            packed_runs = sum(h._routed_meta["runs"])
+            if decoded != packed_runs:
+                failures.append(f"{label}: B10 decoded {decoded} runs on "
+                                f"the card, the pack counted {packed_runs}")
+            lib += (f"; B10 runs a call: {decoded} decoded on the card, "
+                    f"{packed_runs} counted by the pack")
+            b10 = [device_ms(lambda a=a: b10_call(*a)) for a in b10_args]
             b10_ms = None if None in b10 else sum(b10)
             lib += (f"; B10 device time summed over {len(b10)} streams "
                     f"{_ms(b10_ms)} beside CSR A @ X; the whole linear's "
@@ -2758,13 +2760,15 @@ def batched_cases(handles, linear_x, accel):
                 routed_batched_args(handles[label][0], linear_x[label])):
             packed, dims, xt, nyt, lt, runs = args
             B = xt.shape[2]
-            vw, lanes = routed_batched_shape(
-                B, xt, torch.empty((1, B), device=xt.device))
+            tiles = dims[0] * dims[1]
+            vw, lanes, slices, _ = routed_batched_shape(
+                B, tiles, xt, torch.empty((1, B), device=xt.device))
             cases.append(("spmv_routed_batched",
                           f"{label.split()[0]} stream {i}: {dims[0]} tiles, "
                           f"W {dims[2]}, l1 {dims[3]}, lmax {dims[4]}, B {B}, "
                           f"{runs} runs, {vw} vectors a lane, {lanes} lanes "
-                          f"a run, {dims[0] * dims[1]} CTAs", args))
+                          f"a run, {slices} slices of the batch, "
+                          f"{tiles * slices} CTAs", args))
     return cases
 
 
@@ -2859,6 +2863,16 @@ def routed_batched_args(h, xd):
         out.append((packed, dims, xt, meta["nyt"], meta["lts"][i],
                     meta["runs"][i]))
     return out
+
+
+def b10_decoded_runs(args):
+    """The runs B10's kernel decodes over one launch on each stream's
+    arguments ``args`` (from :func:`routed_batched_args`), counted on the
+    device."""
+    counted = torch.zeros(1, dtype=torch.int64, device=args[0][2].device)
+    for a in args:
+        b10_call(*a, counted=counted)
+    return int(counted.item())
 
 
 def b10_zero_x(handles, linear_x):

@@ -189,6 +189,16 @@ def _run_routed_vectors(d, xb, R, meta, prefix):
                         for b in range(xb.shape[0])])
 
 
+def _routed_runs_b10(meta) -> bool:
+    """Whether ``linear`` of a routed part runs B10: original space, with
+    no cell grid and no gathered side-plan.  Banded grids slice x per
+    cell, rank space permutes each vector (B11) and a gathered side-plan
+    gathers each vector (B12, B11): those go one vector at a time, as the
+    JAX package does."""
+    return (meta.get("cells") is None and meta["xperm"] is None
+            and meta["gathered"] is None)
+
+
 def _run_routed_batched(d, xb, R, meta):
     """``linear`` of a routed plan in original space, vector-minor from x
     to y: x padded and laid out as xt [nwin*8, 128, B] in one copy, every
@@ -737,8 +747,8 @@ class SpmvHandle:
             parts = [c["meta"] for c in self._routed_meta["cells"]]
         else:
             meta = self._routed_pack_into(d, plan, plan.shape)
-            if meta["xperm"] is None and meta["gathered"] is None:
-                # linear runs B10: each stream's runs a call, for its count
+            if _routed_runs_b10(meta):
+                # each stream's runs a call, for B10's count
                 meta["runs"] = [
                     stream_runs(_stream_packed(d, "", i, dims), dims,
                                 meta["nyt"], meta["lts"][i])
@@ -781,12 +791,15 @@ class SpmvHandle:
             return self._routed_meta["nwin"] * WINDOW
         return self.shape[1]
 
-    def _pad_x(self, x: torch.Tensor) -> torch.Tensor:
+    def _check_cols(self, x: torch.Tensor) -> None:
         if x.shape[-1] != self.shape[1]:
             raise ValueError(
                 f"x has {x.shape[-1]} entries, matrix has {self.shape[1]} "
                 "columns"
             )
+
+    def _pad_x(self, x: torch.Tensor) -> torch.Tensor:
+        self._check_cols(x)
         pad = self.padded_cols - x.shape[-1]
         if pad > 0:
             x = torch.nn.functional.pad(x, (0, pad))
@@ -951,11 +964,8 @@ class SpmvHandle:
 
     @property
     def _routed_batched(self) -> bool:
-        """``linear`` runs B10: a routed plan in original space, with no
-        cell grid and no gathered side-plan (the plans whose streams the
-        pack counted runs of)."""
-        return (self.format == "routed"
-                and self._routed_meta.get("runs") is not None)
+        """``linear`` runs B10 (see :func:`_routed_runs_b10`)."""
+        return self.format == "routed" and _routed_runs_b10(self._routed_meta)
 
     def _matmat(self, xb: torch.Tensor) -> torch.Tensor:
         """Unscaled x @ A.T [B, R] from the padded batch ``xb`` [B, Cp]
@@ -972,9 +982,6 @@ class SpmvHandle:
         if self.format == "routed":
             if self._routed_batched:
                 return _run_routed_batched(d, xb, R, self._routed_meta)
-            # banded grids slice x per cell, rank space permutes each
-            # vector (B11) and a gathered side-plan gathers each vector
-            # (B12, B11): one vector at a time, as the JAX package does
             return _run_routed_vectors(d, xb, R, self._routed_meta, "")
         if self.format == "split":
             return self._split_matmat(xb)
@@ -1014,9 +1021,8 @@ class SpmvHandle:
             squeeze = xb.ndim == 1
             if squeeze:
                 xb = xb[None, :]
-            if self._routed_batched:
-                if xb.shape[-1] != self.shape[1]:  # _pad_x's check
-                    self._pad_x(xb)
+            if self._routed_batched:  # B10's path pads as it lays x out
+                self._check_cols(xb)
             else:
                 xb = self._pad_x(xb).contiguous()
         y = self._matmat(xb)

@@ -103,15 +103,21 @@
 //   over the slot words the gather no longer needs (1,024 a round; a tile
 //   with more takes more rounds).
 // - Sums: a group of G lanes takes two pieces at a time (their loads in
-//   flight together; one or four measured the same on pokec), each lane VW
-//   contiguous vectors (VW 4, 2 or 1: the widest that divides B and that xt
-//   and y are aligned to; G the power of two, at most 32, that covers B in
-//   one pass where it can: at B 64, VW 4 and half a warp a piece).  For each
+//   flight together; other counts were not compared on the card), each
+//   lane VW contiguous vectors (VW 4, 2 or 1: the widest that divides B and
+//   that xt and y are aligned to; G the power of two, at most 32, that
+//   covers the CTA's vectors in one pass where it can: at B 64, VW 4 and
+//   half a warp a piece).  For each
 //   slot the group reads the slot's B x values, contiguous (256 B at B 64,
 //   two full lines), and sums value * x in fp32 registers; then it adds
 //   the B sums into the y row with VW-wide atomics (one row, 256 B at
 //   B 64); a lane skips its add where its VW sums are all zero.  One
 //   algorithm at every B: G and VW follow the batch and the pointers.
+// - Grid: a stream whose tiles fill the card (four CTAs an SM, the launch
+//   bound) runs one CTA a tile for the whole batch.  A smaller stream
+//   splits the batch into up to B/VW slices of whole VW-vector lanes, one
+//   CTA a tile and slice, so that it still fills the SMs; each slice reads
+//   the tile's words and lists its runs again.
 // Bound: the stream's live words are read once a call, x moves B*4 bytes a
 // nonzero slot (mostly from L2: a column strip's windows stay resident),
 // and y moves B*4 bytes twice for each run (the atomics' read and write).
@@ -352,6 +358,7 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kPiece = 32;  // slots of a run one group sums before its add
 constexpr int kRuns = 1024;  // run pieces listed a round (the slot words' room)
 constexpr int kInFlight = 2;  // pieces a group sums at once, loads together
+constexpr int kMinCtas = 4;   // CTAs an SM at least (the launch bound)
 
 // The run of cell `cell` in live layer k (< lt) of the staged boundary rows:
 // its end and start prefix entries ea, eb (flat slots sub*128 + lane).  The
@@ -404,7 +411,8 @@ __device__ __forceinline__ void emit_run(int a, int b, int yt, int cell,
 }
 
 // The run pieces of a thread's four cells in the live layers (see
-// emit_run; returns their count).  A layer whose y tile is in range gives
+// emit_run; returns their count, and adds the runs to *runs).  A layer
+// whose y tile is in range gives
 // each cell the pair (ea, eb), +P[ea] - P[eb]; the layers of one y tile in
 // a row are merged cell by cell, as ops/spmv_routed.py::decode_runs does: a
 // pair that starts where the pending one ends, or ends where it starts,
@@ -413,7 +421,8 @@ __device__ __forceinline__ void emit_run(int a, int b, int yt, int cell,
 __device__ __forceinline__ int list_pieces(int lmax, int lt,
                                            const unsigned* s_rows,
                                            const int* s_byt, int y_tiles,
-                                           int idx, int lo, int2* list) {
+                                           int idx, int lo, int2* list,
+                                           int* runs) {
   int n = 0;
   int pa[kSlots], pb[kSlots];  // the pending pair of each cell, or -1
 #pragma unroll
@@ -427,6 +436,7 @@ __device__ __forceinline__ int list_pieces(int lmax, int lt,
       const int cell = c * kThreads + threadIdx.x;
       if (yt != cur && pa[c] >= 0) {  // a new y tile: the pending run goes
         emit_run(pa[c], pb[c], cur, cell, idx, lo, list, &n);
+        ++*runs;
         pa[c] = pb[c] = -1;
       }
       int ea, eb;
@@ -437,7 +447,10 @@ __device__ __forceinline__ int list_pieces(int lmax, int lt,
       } else if (pa[c] >= 0 && pa[c] == eb) {
         pa[c] = ea;
       } else {
-        if (pa[c] >= 0) emit_run(pa[c], pb[c], yt, cell, idx, lo, list, &n);
+        if (pa[c] >= 0) {
+          emit_run(pa[c], pb[c], yt, cell, idx, lo, list, &n);
+          ++*runs;
+        }
         pa[c] = ea;
         pb[c] = eb;
         continue;
@@ -451,6 +464,7 @@ __device__ __forceinline__ int list_pieces(int lmax, int lt,
     if (pa[c] >= 0) {
       emit_run(pa[c], pb[c], cur, c * kThreads + threadIdx.x, idx, lo, list,
                &n);
+      ++*runs;
     }
   }
   return n;
@@ -515,15 +529,18 @@ __device__ __forceinline__ void add_vec(float* p, const float (&v)[VW]) {
 #endif
 }
 
-// B10: CTA t runs tile t of the stream against the whole batch; see the
-// file comment.  256 threads; a group of G lanes (G a power of two, VW
-// vectors a lane) takes kInFlight run pieces at a time.
+// B10: CTA (t, j) runs tile t of the stream against vectors [j*slice,
+// (j+1)*slice) of the batch; see the file comment.  256 threads; a group of
+// G lanes (G a power of two, VW vectors a lane) takes kInFlight run pieces
+// at a time.  With counted != null, the CTAs of slice 0 add the runs they
+// listed to *counted (the check of the decode against the pack's count).
 template <int VW>
-__global__ void __launch_bounds__(kThreads, 4)
+__global__ void __launch_bounds__(kThreads, kMinCtas)
     routed_runs_batched_kernel(const __grid_constant__ RoutedStream st,
                                const float* __restrict__ xt,
-                               long long x_rows, int batch, int group,
-                               float* __restrict__ y, int y_tiles) {
+                               long long x_rows, int batch, int slice,
+                               int group, float* __restrict__ y, int y_tiles,
+                               unsigned long long* counted) {
   extern __shared__ __align__(128) unsigned s_rows[];  // staged bl/bm, bs
   // the slot and gsub words, then (once the gather has read them) the
   // list of run pieces
@@ -569,16 +586,23 @@ __global__ void __launch_bounds__(kThreads, 4)
   }
   // 2. the run pieces: counted, then listed a round of kRuns at a time
   wait_rows(bar);
-  const int mine =
-      list_pieces(st.lmax, lt, s_rows, s_byt, y_tiles, 0, 0, nullptr);
+  int nruns = 0;
+  const int mine = list_pieces(st.lmax, lt, s_rows, s_byt, y_tiles, 0, 0,
+                               nullptr, &nruns);
+  if (counted != nullptr && blockIdx.y == 0 && nruns > 0) {
+    atomicAdd(counted, static_cast<unsigned long long>(nruns));
+  }
   int total;
   const int idx = block_offset(mine, s_wsum, &total);  // syncs: gather done
   const int g = i / group;
   const int li = i % group;
   const int ngroups = kThreads / group;
+  const int v_lo = blockIdx.y * slice;
+  const int v_hi = min(batch, v_lo + slice);
   for (int lo = 0; lo < total; lo += kRuns) {
     if (lo > 0) __syncthreads();  // the last round's list read
-    list_pieces(st.lmax, lt, s_rows, s_byt, y_tiles, idx, lo, s_list);
+    list_pieces(st.lmax, lt, s_rows, s_byt, y_tiles, idx, lo, s_list,
+                &nruns);
     __syncthreads();
     // 3. each group sums kInFlight pieces at a time over the batch, VW
     // vectors a lane: piece q of a step is entry e + q*ngroups
@@ -597,7 +621,7 @@ __global__ void __launch_bounds__(kThreads, 4)
         row[q] = w.y;
         most = max(most, len[q]);
       }
-      for (int v0 = li * VW; v0 < batch; v0 += group * VW) {
+      for (int v0 = v_lo + li * VW; v0 < v_hi; v0 += group * VW) {
         float acc[kInFlight][VW];
 #pragma unroll
         for (int q = 0; q < kInFlight; ++q) {
@@ -633,25 +657,43 @@ __global__ void __launch_bounds__(kThreads, 4)
   }
 }
 
-// The shape of a B10 launch for a batch and the alignment of xt and y:
-// vectors a lane (4, 2 or 1: the widest that divides the batch and that
-// both pointers are aligned to) and lanes a run piece (a power of two, up
-// to a warp, enough to cover the batch in one pass when it can).
-void batched_shape(int batch, uintptr_t xt, uintptr_t y, int* vw, int* group) {
+// The shape of a B10 launch for a batch, a stream's tiles and the
+// alignment of xt and y: vectors a lane (4, 2 or 1: the widest that divides
+// the batch and that both pointers are aligned to); slices of the batch
+// (the fewest that give the current device's SMs kMinCtas CTAs each, at
+// most one a lane of VW vectors) and vectors a slice; lanes a run piece (a
+// power of two, up to a warp, enough to cover a slice in one pass when it
+// can).  Returns a cudaError_t code.
+int batched_shape(int batch, int num_tiles, uintptr_t xt, uintptr_t y,
+                  int* vw, int* slices, int* slice, int* group) {
   const uintptr_t a = xt | y;
   *vw = (batch % 4 == 0 && a % 16 == 0) ? 4
         : (batch % 2 == 0 && a % 8 == 0) ? 2
                                          : 1;
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) {
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  if (e != cudaSuccess) return static_cast<int>(e);
   const int lanes = (batch + *vw - 1) / *vw;
+  const long long want = static_cast<long long>(sms) * kMinCtas;
+  const long long ask = (want + num_tiles - 1) / num_tiles;
+  const int n = static_cast<int>(ask < lanes ? ask : lanes);
+  const int per = (lanes + n - 1) / n;  // lanes a slice
+  *slices = (lanes + per - 1) / per;
+  *slice = per * *vw;
   int gsz = 1;
-  while (gsz < lanes && gsz < 32) gsz *= 2;
+  while (gsz < per && gsz < 32) gsz *= 2;
   *group = gsz;
+  return 0;
 }
 
 template <int VW>
 int launch_batched(const RoutedStream& st, const float* xt, long long x_rows,
-                   int batch, int group, float* y, int y_tiles,
-                   int num_tiles, cudaStream_t stream) {
+                   int batch, int slices, int slice, int group, float* y,
+                   int y_tiles, int num_tiles, unsigned long long* counted,
+                   cudaStream_t stream) {
   const int lmax = st.lmax;
   const int rows = lmax == 1 ? 1 : (lmax + 1) / 2 + (lmax + 3) / 4;
   const int smem = rows * kTile * static_cast<int>(sizeof(unsigned));
@@ -659,8 +701,9 @@ int launch_batched(const RoutedStream& st, const float* xt, long long x_rows,
       routed_runs_batched_kernel<VW>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  routed_runs_batched_kernel<VW><<<num_tiles, kThreads, smem, stream>>>(
-      st, xt, x_rows, batch, group, y, y_tiles);
+  const dim3 grid(num_tiles, slices);
+  routed_runs_batched_kernel<VW><<<grid, kThreads, smem, stream>>>(
+      st, xt, x_rows, batch, slice, group, y, y_tiles, counted);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -726,23 +769,32 @@ int hispmv_spmv_routed_streams(const long long* table, int num_streams,
   return static_cast<int>(cudaGetLastError());
 }
 
-// B10's launch shape for this batch and these xt and y pointers: out[0]
-// vectors a lane, out[1] lanes a run piece.
-void hispmv_spmv_routed_batched_shape(int batch, const void* xt,
-                                      const void* y, int* out) {
-  batched_shape(batch, reinterpret_cast<uintptr_t>(xt),
-                reinterpret_cast<uintptr_t>(y), &out[0], &out[1]);
+// B10's launch shape for this batch, a stream of num_tiles tiles and these
+// xt and y pointers on the current device: out[0] vectors a lane, out[1]
+// lanes a run piece, out[2] slices of the batch (CTAs a tile), out[3]
+// vectors a slice.  Returns a cudaError_t code.
+int hispmv_spmv_routed_batched_shape(int batch, int num_tiles,
+                                     const void* xt, const void* y,
+                                     int* out) {
+  if (batch < 1 || num_tiles < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return batched_shape(batch, num_tiles, reinterpret_cast<uintptr_t>(xt),
+                       reinterpret_cast<uintptr_t>(y), &out[0], &out[2],
+                       &out[3], &out[1]);
 }
 
 // B10: xt [x_rows, 128, batch], y [y_tiles*1024, batch] that every run adds
-// into; lt [num_tiles] or null (every tile runs all lmax layers).  bl and bs
+// into; lt [num_tiles] or null (every tile runs all lmax layers); counted
+// null, or a counter the runs the kernel lists are added to.  bl and bs
 // must be 16-byte aligned (the bulk copies).  Returns a cudaError_t code.
 int hispmv_spmv_routed_batched(const float* vals, const int* slot,
                                const int* gsub, const int* bl, const int* bs,
                                const int* base, const int* byt, const int* lt,
                                const float* xt, long long x_rows, int batch,
                                float* y, int y_tiles, int num_tiles, int W,
-                               int l1, int lmax, cudaStream_t stream) {
+                               int l1, int lmax, unsigned long long* counted,
+                               cudaStream_t stream) {
   if (!dims_ok(num_tiles, W, l1, lmax, bs) || batch < 1 || y_tiles < 1 ||
       x_rows * kLanes > 0x7fffffffLL ||
       static_cast<long long>(y_tiles) * kTile > 0x7fffffffLL ||
@@ -751,19 +803,21 @@ int hispmv_spmv_routed_batched(const float* vals, const int* slot,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   RoutedStream st{vals, slot, gsub, bl, bs, base, byt, lt, W, l1, lmax, 0};
-  int vw, group;
-  batched_shape(batch, reinterpret_cast<uintptr_t>(xt),
-                reinterpret_cast<uintptr_t>(y), &vw, &group);
+  int vw, slices, slice, group;
+  const int e = batched_shape(batch, num_tiles, reinterpret_cast<uintptr_t>(xt),
+                              reinterpret_cast<uintptr_t>(y), &vw, &slices,
+                              &slice, &group);
+  if (e != 0) return e;
   if (vw == 4) {
-    return launch_batched<4>(st, xt, x_rows, batch, group, y, y_tiles,
-                             num_tiles, stream);
+    return launch_batched<4>(st, xt, x_rows, batch, slices, slice, group, y,
+                             y_tiles, num_tiles, counted, stream);
   }
   if (vw == 2) {
-    return launch_batched<2>(st, xt, x_rows, batch, group, y, y_tiles,
-                             num_tiles, stream);
+    return launch_batched<2>(st, xt, x_rows, batch, slices, slice, group, y,
+                             y_tiles, num_tiles, counted, stream);
   }
-  return launch_batched<1>(st, xt, x_rows, batch, group, y, y_tiles,
-                           num_tiles, stream);
+  return launch_batched<1>(st, xt, x_rows, batch, slices, slice, group, y,
+                           y_tiles, num_tiles, counted, stream);
 }
 
 }  // extern "C"

@@ -172,10 +172,11 @@ def get_lib() -> ctypes.CDLL:
             lib.hispmv_spmv_routed_batched.argtypes = [
                 ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
                 ctypes.c_longlong, i32, ptr, i32, i32, i32, i32, i32, ptr,
+                ptr,
             ]
-            lib.hispmv_spmv_routed_batched_shape.restype = None
+            lib.hispmv_spmv_routed_batched_shape.restype = i32
             lib.hispmv_spmv_routed_batched_shape.argtypes = [
-                i32, ptr, ptr, ptr,
+                i32, i32, ptr, ptr, ptr,
             ]
             lib.hispmv_spmv_chunked_paneled.restype = i32
             lib.hispmv_spmv_chunked_paneled.argtypes = [

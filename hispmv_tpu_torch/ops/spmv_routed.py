@@ -645,18 +645,21 @@ def spmv_routed_stream(packed, dims, x2d, num_ytiles):
 
 
 @traced("kernel.B10")
-def spmv_routed_stream_batched(packed, dims, xt, y, lt=None, runs=None):
+def spmv_routed_stream_batched(packed, dims, xt, y, lt, runs, counted=None):
     """Run one packed routed-stream segment against the B vectors of ``xt``
     f32 [nwin*8, 128, B] (vector-minor: xt[r, L, b] is vector b's x row r,
     lane L), adding into ``y`` f32 [nyt*1024, B] (vector-minor: y[r, b] is
     row r of vector b's product) in place; returns y.  One launch covers
-    the whole batch, one CTA a tile.  ``lt`` i32 [Tp] (the plan's live
-    layers a tile; None: every layer) and ``runs`` (the stream's run count,
-    :func:`stream_runs`; None: decoded now) come from the pack.  Counts the
-    runs in ``.runs`` beside ``.launches`` on the card, and in the
-    program's tracer (``kernel.B10.runs``).  CPU tensors take the plain
-    PyTorch version; CUDA tensors launch the CUDA kernel
-    (csrc/spmv_routed.cu) or raise."""
+    the whole batch: one CTA a tile, or a tile and a slice of the batch
+    where the stream's tiles alone would leave SMs idle.  ``lt`` i32 [Tp]
+    (the plan's live layers a tile; None: every layer) and ``runs`` (the
+    stream's run count, :func:`stream_runs`) come from the pack; ``runs``
+    is added to ``.runs`` beside ``.launches`` on the card, and to the
+    program's tracer (``kernel.B10.runs``).  ``counted``: None, or an
+    int64 [1] tensor on the device to which the launch adds the runs it
+    decoded itself (the check of the kernel's decode against ``runs``).
+    CPU tensors take the plain PyTorch version; CUDA tensors launch the
+    CUDA kernel (csrc/spmv_routed.cu) or raise."""
     check_stream_args(packed, dims, xt, 1)
     if (xt.ndim != 3 or xt.shape[1] != LANES or xt.shape[0] % 8
             or xt.shape[2] < 1):
@@ -674,18 +677,24 @@ def spmv_routed_stream_batched(packed, dims, xt, y, lt=None, runs=None):
                            or tuple(lt.shape) != (nch * tchunk,)):
         raise ValueError(f"spmv_routed_batched: lt must be int32 "
                          f"[{nch * tchunk}]")
+    if counted is not None and (counted.dtype != torch.int64
+                                or counted.numel() != 1
+                                or counted.device != xt.device):
+        raise ValueError(f"spmv_routed_batched: counted must be one int64 "
+                         f"on {xt.device}")
     nyt = y.shape[0] // TILE
     if xt.device.type == "cpu":
-        tally("kernel.B10.runs", stream_runs(packed, dims, nyt, lt)
-              if runs is None else runs)
+        if counted is not None:
+            counted += stream_runs(packed, dims, nyt, lt)
+        tally("kernel.B10.runs", runs)
         return spmv_routed_stream_batched_plain(packed, dims, xt, y, lt)
     vals, slot, gsub, bl, bs, base, byt = _unpack(packed, dims)
     check_cuda_tensors("spmv_routed_batched", xt, y, *packed,
-                       *(() if lt is None else (lt,)))
+                       *(() if lt is None else (lt,)),
+                       *(() if counted is None else (counted,)))
     if any(t.data_ptr() % 16 for t in (bl, bs) if t is not None):
         raise ValueError("spmv_routed_batched: bl and bs must be 16-byte "
                          "aligned")
-    n = stream_runs(packed, dims, nyt, lt) if runs is None else runs
     lib = cuda_build.get_lib()
     with torch.cuda.device(xt.device):
         rc = lib.hispmv_spmv_routed_batched(
@@ -694,24 +703,30 @@ def spmv_routed_stream_batched(packed, dims, xt, y, lt=None, runs=None):
             base.data_ptr(), byt.data_ptr(),
             0 if lt is None else lt.data_ptr(), xt.data_ptr(), xt.shape[0],
             B, y.data_ptr(), nyt, nch * tchunk, W, l1, lmax,
+            0 if counted is None else counted.data_ptr(),
             torch.cuda.current_stream().cuda_stream,
         )
     cuda_build.check(rc, "spmv_routed_batched")
     spmv_routed_stream_batched.launches += 1
-    spmv_routed_stream_batched.runs += n
-    tally("kernel.B10.runs", n)
+    spmv_routed_stream_batched.runs += runs
+    tally("kernel.B10.runs", runs)
     return y
 
 
 spmv_routed_stream_batched.launches = 0  # kernel launches, for the smoke run
-spmv_routed_stream_batched.runs = 0  # runs those launches added
+spmv_routed_stream_batched.runs = 0  # the pack's runs of those launches
 
 
-def routed_batched_shape(B, xt, y):
-    """(vectors a lane, lanes a run piece) of B10's launch for a batch of
-    ``B`` on these ``xt`` and ``y`` (their alignment picks the vector
-    width).  Needs the built library."""
-    out = (ctypes.c_int * 2)()
-    cuda_build.get_lib().hispmv_spmv_routed_batched_shape(
-        B, xt.data_ptr(), y.data_ptr(), ctypes.addressof(out))
-    return out[0], out[1]
+def routed_batched_shape(B, num_tiles, xt, y):
+    """(vectors a lane, lanes a run piece, slices of the batch, vectors a
+    slice) of B10's launch for a batch of ``B`` on a stream of
+    ``num_tiles`` tiles, on these ``xt`` and ``y`` (their alignment picks
+    the vector width) and their device (its SMs pick the slices).  Needs
+    the built library."""
+    out = (ctypes.c_int * 4)()
+    with torch.cuda.device(xt.device):
+        rc = cuda_build.get_lib().hispmv_spmv_routed_batched_shape(
+            B, num_tiles, xt.data_ptr(), y.data_ptr(),
+            ctypes.addressof(out))
+    cuda_build.check(rc, "spmv_routed_batched_shape")
+    return tuple(out)

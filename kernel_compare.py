@@ -29,7 +29,10 @@ generator at seed 1; the plan made once and kept at $KC_B10_PLAN, default
 streams' kernel device time, with x = 0 (no atomic: what is left when y
 moves nothing) and, for a vector-major B10 (the parent's), at B 8 (one
 vector group), beside the byte bound and cuSPARSE's ``A_s @ X``; then the
-whole ``linear`` against a float64 CSR product.
+whole ``linear`` against a float64 CSR product.  Then the routed handles
+of trans5 and ford2 (``chip_smoke.py``'s, scale 1.0) at B 1, 3, 8 and 64:
+each stream's kernel device time and the whole ``linear``'s device busy
+and wall, held to a float64 CSR product.
 
 ``trace`` times the host side of ``run`` and ``linear`` (B 64) on
 TSOPF_RS_b2383's block handle and trans5's routed handle: host
@@ -2048,6 +2051,62 @@ def trace_report(label, rng):
 
 B10_BATCH = 64
 B10_SEED = 1  # the pokec matrix of the benchmark's generator at this seed
+B10_SMALL = ("trans5", "ford2")  # chip_smoke.py's routed linear handles
+B10_SMALL_BATCHES = (1, 3, 8, 64)
+
+
+def b10_stream_args(h, xt, adds):
+    """(dims, arguments of the checkout's B10 call) for each stream of a
+    routed handle on x ``xt`` [nwin*8, 128, B]: with ``adds`` (a kernel
+    that adds into the y it is given) chip_smoke.py's ``b10_call`` form,
+    else the parent's wrapper form."""
+    meta = h._routed_meta
+    out = []
+    for i, dims in enumerate(meta["streams"]):
+        p = f"s{i}_"
+        packed = tuple(h._d[p + n] for n in sr.stream_array_names(dims[4]))
+        packed += (h._d[p + "base"], h._d[p + "byt"])
+        if adds:
+            out.append((dims, (packed, dims, xt, meta["nyt"],
+                               meta["lts"][i], meta["runs"][i])))
+        else:
+            out.append((dims, (packed, dims, xt, meta["nyt"])))
+    return out
+
+
+def b10_small_report(label, name, call, adds):
+    """B10 on trans5's or ford2's routed handle at each batch of
+    ``B10_SMALL_BATCHES``: each stream's kernel device time, the whole
+    ``linear``'s device busy and wall, and its l1 error against a float64
+    CSR product.  Returns False when the linear misses it."""
+    h = routed_handle(name, False, False)
+    coo = suite_matrix(name, 1.0, seed=cs.SEED)
+    csr = torch.sparse_coo_tensor(
+        torch.from_numpy(np.stack([coo.rows, coo.cols]).astype(np.int64)),
+        torch.from_numpy(coo.values.astype(np.float64)), coo.shape,
+    ).coalesce().to_sparse_csr().cuda()
+    R, C = h.shape
+    gen = np.random.default_rng(B10_SEED)
+    ok = True
+    for B in B10_SMALL_BATCHES:
+        xd = torch.from_numpy(gen.standard_normal((B, C)).astype(
+            np.float32)).cuda()
+        xt = h._pad_x(xd).T.reshape(-1, 128, B).contiguous()
+        per = [kernel_ms(lambda a=a: call(*a), key="batched_kernel")
+               for _, a in b10_stream_args(h, xt, adds)]
+        tiles = [d[0] * d[1] for d in h._routed_meta["streams"]]
+        wall = cs.median_ms(lambda: h.linear(xd))
+        busy = cs.device_ms(lambda: h.linear(xd))
+        want = (csr @ xd.double().T).T
+        err = float((h.linear(xd).double() - want).abs().sum()
+                    / want.abs().sum())
+        ok &= err < 1e-5
+        print(f"{label} B10 {name} B {B}: streams of {tiles} tiles, kernel "
+              f"{', '.join(cs._ms(m) for m in per)}, summed "
+              f"{sum(m or 0.0 for m in per):.4f} ms; linear device busy "
+              f"{cs._ms(busy)}, wall {wall:.4f} ms; l1 rel err {err:.3e}",
+              flush=True)
+    return ok
 
 
 def b10_pokec_handle():
@@ -2109,20 +2168,13 @@ def b10_report(label, rng):
     nyt = meta["nyt"]
     key = "batched_kernel"
     tot = {"ms": 0.0, "x0": 0.0, "b8": 0.0, "bound": 0.0, "csr": 0.0}
-    for i, dims in enumerate(meta["streams"]):
-        p = f"s{i}_"
-        packed = tuple(h._d[p + n] for n in sr.stream_array_names(dims[4]))
-        packed += (h._d[p + "base"], h._d[p + "byt"])
-
-        def args_for(x):
-            if adds:
-                return (packed, dims, x, nyt, meta["lts"][i],
-                        meta["runs"][i])
-            return (packed, dims, x, nyt)
-        a64 = args_for(xt)
+    x0 = torch.zeros_like(xt)
+    x8 = xt[:, :, :8].contiguous()
+    for i, ((dims, a64), (_, a0), (_, a8)) in enumerate(zip(
+            *(b10_stream_args(h, x, adds) for x in (xt, x0, x8)))):
+        packed = a64[0]
         ms = kernel_ms(lambda a=a64: call(*a), key=key)
-        x0 = torch.zeros_like(xt)
-        ms0 = kernel_ms(lambda a=args_for(x0): call(*a), key=key)
+        ms0 = kernel_ms(lambda a=a0: call(*a), key=key)
         line = (f"{label} B10 pokec s{i} [{dims[0]} tiles, W {dims[2]}, l1 "
                 f"{dims[3]}, lmax {dims[4]}"
                 + (f", {meta['runs'][i]} runs" if adds else "")
@@ -2130,8 +2182,7 @@ def b10_report(label, rng):
         tot["ms"] += ms or 0.0
         tot["x0"] += ms0 or 0.0
         if not adds:
-            x8 = xt[:, :, :8].contiguous()
-            ms8 = kernel_ms(lambda a=args_for(x8): call(*a), key=key)
+            ms8 = kernel_ms(lambda a=a8: call(*a), key=key)
             line += f", B 8 (one vector group) {cs._ms(ms8)}"
             tot["b8"] += ms8 or 0.0
         nbytes = sum(t.nbytes for t in packed) + xt.nbytes \
@@ -2162,7 +2213,12 @@ def b10_report(label, rng):
           f"device busy {cs._ms(busy)}, B10 {cs._ms(own)}; against float64 "
           f"CSR: l1 rel err {err:.3e}, max err / max |y| {worst:.3e}",
           flush=True)
-    return err < 1e-5
+    ok = err < 1e-5
+    del h, csr
+    torch.cuda.empty_cache()
+    for name in B10_SMALL:
+        ok &= b10_small_report(label, name, call, adds)
+    return ok
 
 
 REPORTS = {"b9": b9_report, "b12": b12_report, "b11": b11_report,

@@ -936,9 +936,11 @@ def _b10_y(plan, B, dev, values):
 @pytest.mark.parametrize("name", list(ROUTED))
 def test_b10_kernel_matches_plain(dev, name, B, mode):
     """The kernel against its plain version: B from 1 to 64 (vector widths
-    1, 2 and 4 and groups of 1 to 16 lanes), lmax 1 to 32, padded last
-    tiles; adding into zeros or into a y that holds values, with the
-    plan's live layers or every layer (lt None)."""
+    1, 2 and 4; these streams' few tiles split the batch into slices),
+    lmax 1 to 32, padded last tiles; adding into zeros or into a y that
+    holds values, with the plan's live layers or every layer (lt None).
+    The runs the kernel decodes, counted on the device, equal the pack's
+    decode."""
     plan, segs, _ = _b10_stream_cases(name)
     C = plan.num_windows * 1024
     xb = _batch(B, C, dev, seed=B)
@@ -950,9 +952,12 @@ def test_b10_kernel_matches_plain(dev, name, B, mode):
         y0 = _b10_y(plan, B, dev, mode == "values")
         before = (spmv_routed_stream_batched.launches,
                   spmv_routed_stream_batched.runs)
-        y = spmv_routed_stream_batched(packed, dims, xt, y0.clone(), lt)
-        torch.cuda.synchronize()
         runs = decode_runs(packed, dims, plan.num_ytiles, lt)[0].numel()
+        counted = torch.zeros(1, dtype=torch.int64, device=dev)
+        y = spmv_routed_stream_batched(packed, dims, xt, y0.clone(), lt,
+                                       runs, counted)
+        torch.cuda.synchronize()
+        assert int(counted) == runs
         assert (spmv_routed_stream_batched.launches,
                 spmv_routed_stream_batched.runs) == (before[0] + 1,
                                                     before[1] + runs)
@@ -970,12 +975,25 @@ def test_b10_kernel_matches_plain(dev, name, B, mode):
 def test_b10_launch_shape(dev, B, want):
     """Vectors a lane: 4, 2 or 1, the widest that divides B with xt and y
     aligned to it; lanes a run piece: the power of two up to 32 that
-    covers B.  A 4-byte offset of xt takes single vectors."""
+    covers a slice.  A stream that gives every SM four CTAs takes the
+    whole batch in one slice; one of fewer tiles the fewest slices that
+    do, at most one a lane; a stream of one tile one slice a lane.  A
+    4-byte offset of xt takes single vectors."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     xt = torch.zeros(B + 4, device=dev)
     y = torch.zeros(B + 4, device=dev)
-    assert routed_batched_shape(B, xt, y) == want
-    lanes = min(32, 1 << (B - 1).bit_length())
-    assert routed_batched_shape(B, xt[1:], y) == (1, lanes)
+    vw, group = want
+    assert routed_batched_shape(B, 4 * sms, xt, y) == (vw, group, 1, B)
+    lanes = -(-B // vw)
+    if lanes >= 2:  # two slices of half the lanes
+        per = -(-lanes // 2)
+        assert routed_batched_shape(B, 2 * sms, xt, y) == (
+            vw, min(32, 1 << (per - 1).bit_length()), -(-lanes // per),
+            per * vw)
+    assert routed_batched_shape(B, 1, xt, y) == (
+        vw, 1, min(lanes, 4 * sms), -(-lanes // min(lanes, 4 * sms)) * vw)
+    one = min(32, 1 << (B - 1).bit_length())
+    assert routed_batched_shape(B, 4 * sms, xt[1:], y) == (1, one, 1, B)
 
 
 def test_b10_streams_end_in_padded_tiles():
@@ -1002,14 +1020,42 @@ def test_b10_kernel_unaligned_x(dev, B):
     xt.copy_(_vector_minor(_batch(B, C, dev, seed=3)))
     assert xt.data_ptr() % 16 != 0 and xt.is_contiguous()
     y0 = _b10_y(plan, B, dev, True)
-    assert routed_batched_shape(B, xt, y0)[0] == 1
+    assert routed_batched_shape(B, 1, xt, y0)[0] == 1
     for packed_np, dims, lt_np in segs:
         packed = tuple(torch.from_numpy(a).to(dev) for a in packed_np)
         lt = torch.from_numpy(lt_np).to(dev)
+        runs = decode_runs(packed, dims, plan.num_ytiles, lt)[0].numel()
         assert_close(spmv_routed_stream_batched(packed, dims, xt, y0.clone(),
-                                                lt),
+                                                lt, runs),
                      spmv_routed_stream_batched_plain(packed, dims, xt,
                                                       y0.clone(), lt))
+
+
+@pytest.mark.parametrize("B", [8, 64])
+@pytest.mark.parametrize("name", ["banded", "tall_l1_5_lmax16"])
+def test_b10_kernel_one_slice_matches_plain(dev, name, B):
+    """A stream with the tiles to give every SM four CTAs runs the whole
+    batch in one CTA a tile (one slice; groups of 2 and 16 lanes): a
+    case's first stream with its tiles repeated that often, so that each
+    run adds into its y row once a repeat, against its plain version."""
+    plan, segs, _ = _b10_stream_cases(name)
+    packed_np, dims, lt_np = segs[0]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    rep = -(-4 * sms // (dims[0] * dims[1]))
+    packed = tuple(torch.from_numpy(a).to(dev).repeat(rep, *[1] * (
+        a.ndim - 1)) for a in packed_np)
+    dims = (dims[0] * rep,) + tuple(dims[1:])
+    lt = torch.from_numpy(lt_np).to(dev).repeat(rep)
+    xt = _vector_minor(_batch(B, plan.num_windows * 1024, dev, seed=B))
+    y0 = _b10_y(plan, B, dev, True)
+    assert routed_batched_shape(B, dims[0] * dims[1], xt, y0)[2:] == (1, B)
+    runs = decode_runs(packed, dims, plan.num_ytiles, lt)[0].numel()
+    counted = torch.zeros(1, dtype=torch.int64, device=dev)
+    y = spmv_routed_stream_batched(packed, dims, xt, y0.clone(), lt, runs,
+                                   counted)
+    assert int(counted) == runs > 0
+    assert_close(y, spmv_routed_stream_batched_plain(packed, dims, xt,
+                                                     y0.clone(), lt))
 
 
 def _golden_linear(coo, xb, bias, value_dtype="float32"):

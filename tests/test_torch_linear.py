@@ -287,8 +287,11 @@ def test_linear_batch_size_alternation():
             assert_close(y.numpy(), np.asarray(jh.linear(xb)))
 
 
-def test_linear_rejects_wrong_width():
-    h = SpmvHandle(_case("random"), format="block", device="cpu")
+@pytest.mark.parametrize("fmt", ["block", "routed"])
+def test_linear_rejects_wrong_width(fmt):
+    """Both the padded paths and B10's, which pads as it lays x out."""
+    h = SpmvHandle(_case("random"), format=fmt, device="cpu")
+    assert h._routed_batched == (fmt == "routed")
     with pytest.raises(ValueError, match="columns"):
         h.linear(np.ones((2, h.shape[1] + 1), np.float32))
 

@@ -295,7 +295,8 @@ def test_b10_streams_add_into_one_y():
         ((arrays, dims),) = pack_stream(s, tchunk=1, bucket=False)
         packed = tuple(map(torch.from_numpy, arrays))
         lt = torch.from_numpy(s.lt.astype(np.int32))
-        assert spmv_routed_stream_batched(packed, dims, xt, y, lt) is y
+        runs = stream_runs(packed, dims, nyt, lt)
+        assert spmv_routed_stream_batched(packed, dims, xt, y, lt, runs) is y
         want += spmv_routed_stream_batched_plain(packed, dims, xt,
                                                  _b10_zero_y(nyt, B), lt)
     assert_close(y.numpy(), want.numpy())
@@ -310,35 +311,46 @@ def test_b10_wrapper_on_cpu_takes_plain_version_and_checks_arguments():
     packed = tuple(map(torch.from_numpy, arrays))
     lt = torch.from_numpy(plan.streams[0].lt.astype(np.int32))
     nyt = plan.num_ytiles
+    runs = stream_runs(packed, dims, nyt, lt)
     before = (spmv_routed_stream_batched.launches,
               spmv_routed_stream_batched.runs)
+    counted = torch.full((1,), 5, dtype=torch.int64)
     with tracing() as tr:
         y = spmv_routed_stream_batched(packed, dims, xt, _b10_zero_y(nyt, 2),
-                                       lt)
+                                       lt, runs, counted)
     torch.testing.assert_close(y, spmv_routed_stream_batched_plain(
         packed, dims, xt, _b10_zero_y(nyt, 2), lt), rtol=0, atol=0)
-    # the card's counters stay; the tracer counts the runs
+    # the card's counters stay; the tracer counts the pack's runs, and
+    # counted gets the plain version's own decode
     assert (spmv_routed_stream_batched.launches,
             spmv_routed_stream_batched.runs) == before
-    assert tr.tallies == {"kernel.B10.runs": stream_runs(packed, dims, nyt,
-                                                         lt)}
+    assert tr.tallies == {"kernel.B10.runs": runs}
+    assert runs > 0 and int(counted) == 5 + runs
     # rows that are not whole (8, 128) windows of the stream's x, the
     # vector-major layout, a y of another batch, shape, dtype or layout, an
-    # lt of another length, and a device with no kernel
+    # lt of another length, a counter of another dtype, size or device, and
+    # a device with no kernel
     y = _b10_zero_y(nyt, 2)
     with pytest.raises(ValueError, match=r"\[nwin\*8, 128, B\]"):
-        spmv_routed_stream_batched(packed, dims, xt[:-1], y)
+        spmv_routed_stream_batched(packed, dims, xt[:-1], y, lt, runs)
     with pytest.raises(ValueError, match=r"\[nwin\*8, 128, B\]"):
-        spmv_routed_stream_batched(packed, dims, torch.from_numpy(xb2d), y)
+        spmv_routed_stream_batched(packed, dims, torch.from_numpy(xb2d), y,
+                                   lt, runs)
     for bad in (_b10_zero_y(nyt, 3), y[:-1], y.double(), y.T.contiguous().T,
                 torch.zeros(nyt * R.WINDOW * 2)):
         with pytest.raises(ValueError, match="y must be"):
-            spmv_routed_stream_batched(packed, dims, xt, bad)
+            spmv_routed_stream_batched(packed, dims, xt, bad, lt, runs)
     with pytest.raises(ValueError, match="lt must be"):
-        spmv_routed_stream_batched(packed, dims, xt, y, lt[:-1])
+        spmv_routed_stream_batched(packed, dims, xt, y, lt[:-1], runs)
+    for bad in (torch.zeros(1, dtype=torch.int32),
+                torch.zeros(2, dtype=torch.int64),
+                torch.zeros(1, dtype=torch.int64, device="meta")):
+        with pytest.raises(ValueError, match="counted must be"):
+            spmv_routed_stream_batched(packed, dims, xt, y, lt, runs, bad)
     with pytest.raises(ValueError, match="no kernel"):
         spmv_routed_stream_batched(tuple(a.to("meta") for a in packed),
-                                   dims, xt.to("meta"), y.to("meta"))
+                                   dims, xt.to("meta"), y.to("meta"),
+                                   lt.to("meta"), runs)
 
 
 # ---------------------------------------------------------------------------
